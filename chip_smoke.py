@@ -13,12 +13,27 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    shapes (extraction bit-identical on real sampled rows; fused tail within
    1e-5 relative); time both per call with CUDA events, and the kernel
    alone on the device with the profiler;
-4. serve   — the main path: the port's ``InferenceEngine`` at the paper's
-   width (d_hidden 256, 3 layers, seeded random weights) serves a Zipf(1.3)
-   stream of single-vertex requests with both kernels on; every kernel's
-   launch count is zeroed just before the stream and read just after, and
-   every served logit row is recomputed by a second engine on the same card
-   with the plain ``"torch"`` implementations and must match (atol 1e-4).
+   The block-ELL SpMM is held against its plain version on a real sampled
+   training batch (8192 vertices, 128 x 128 tiles) within 1e-4 of the
+   largest output, at the reference's sweep shapes with a ragged d, and in
+   bf16 at 5e-2; beside its times stand its bound and two yardsticks the
+   port never calls: ``torch.sparse.mm`` on the same tiles as a BSR tensor
+   (``library_ms``) and a dense ``torch.matmul``;
+4. serve   — the serving path: the port's ``InferenceEngine`` at the
+   paper's width (d_hidden 256, 3 layers, seeded random weights) serves a
+   Zipf(1.3) stream of single-vertex requests with both of its kernels on;
+   every kernel's launch count is zeroed just before the stream and read
+   just after, and every served logit row is recomputed by a second engine
+   on the same card with the plain ``"torch"`` implementations and must
+   match (atol 1e-4);
+5. train   — the training path: ``Trainer`` trains ``paper_model
+   ("ogbn-products")`` on the same graph with the block-ELL SpMM, the fused
+   tail and the fused extraction (batch 8192, AdamW with warm-up and
+   cosine decay, dropout 0.3) for 48 steps, launch counts zeroed just
+   before and read just after; the first step's loss and gradients and an
+   eight-step loss trajectory are held against the plain versions on the
+   card; the loss must fall; then one full-graph evaluation and one
+   profiled chunk.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``. Without a
@@ -34,6 +49,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -45,6 +61,15 @@ F32_OPS_PER_S = 67e12
 
 TAIL_RTOL = 1e-5         # f32 sum of squares in another order
 SERVE_ATOL = 1e-4        # two GCN forwards: fused vs plain tail and extraction
+SPMM_RTOL = 1e-4         # f32 sums of up to S * bn products in another order
+BF16_TOL = 5e-2          # the reference's bf16 tolerance (test_kernels.py)
+LOSS_RTOL = 1e-5         # first step: one loss, kernels vs plain versions
+GRAD_RTOL = 1e-4         # first step: every gradient leaf, of its max |.|
+TRAJ_RTOL = 1e-3         # eight AdamW steps, kernels vs plain versions
+
+TRAIN_BATCH = 8192
+TRAIN_STEPS = 48
+CHUNK = 8
 
 
 def log(msg: str) -> None:
@@ -74,7 +99,9 @@ def time_ms(torch, fn, reps: int = 25, inner: int = 10,
 def device_ms(torch, fn, kernel: str, n: int = 50) -> float:
     """Mean device time of the CUDA kernel named ``kernel`` over ``n`` calls,
     from the profiler's CUPTI trace: the kernel alone, without the host
-    time between launches that the event windows include."""
+    time between launches that the event windows include. The trace can
+    miss a launch at its edges (one of 50 was missing in a full-size run),
+    so the mean is over the launches it holds, which must be nearly all."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -83,10 +110,10 @@ def device_ms(torch, fn, kernel: str, n: int = 50) -> float:
             fn()
         torch.cuda.synchronize()
     hits = [e for e in prof.key_averages() if kernel in e.key]
-    if len(hits) != 1 or hits[0].count != n:
+    if len(hits) != 1 or not n - 2 <= hits[0].count <= n:
         raise AssertionError(f"profiler found {[(e.key, e.count) for e in hits]}"
                              f" for {kernel} x {n}")
-    return hits[0].device_time_total / n / 1e3
+    return hits[0].device_time_total / hits[0].count / 1e3
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> float:
@@ -238,6 +265,142 @@ def check_fused_tail(torch, d_hidden: int, rows: int, dev) -> dict:
             "library_ms": None}
 
 
+def train_setup(torch, ds, dev):
+    """The training plan on the full graph: ``paper_model("ogbn-products")``
+    with the block-ELL SpMM, the fused tail and the fused extraction at
+    batch 8192, and ``ell_slots`` set from the first 8 sampled batches: the
+    next power of two at or above the most non-empty column tiles any
+    row-block holds, so those batches drop no tile."""
+    from repro_torch.configs.gcn_paper import paper_model
+    from repro_torch.core import fourd
+    from repro_torch.core.minibatch import BlockFormat
+    from repro_torch.graphs import build_partitioned_graph
+    from repro_torch.kernels.spmm_ell import dense_to_block_ell_ranked
+
+    t0 = time.monotonic()
+    pg = build_partitioned_graph(ds, g=1)
+    cfg = paper_model("ogbn-products")
+    opts = fourd.TrainOptions(spmm_impl="ell", fused_elementwise=True,
+                              extract_impl="cuda", dropout=0.3, ell_tile=128)
+    mesh = fourd.make_mesh_4d(1, 1, dev)
+    plan = fourd.build_plan(pg, cfg, mesh, batch=TRAIN_BATCH, opts=opts)
+    graph = plan.shard_graph(pg)
+    log(f"[train] graph partitioned (g = 1) and on the card in "
+        f"{time.monotonic() - t0:.2f} s: n_pad {pg.n_pad}, e_pad "
+        f"{pg.e_pad}, max_block_row_nnz {pg.max_block_row_nnz}, e_cap "
+        f"{plan.scfg.e_cap}")
+
+    b, tile = plan.builder, opts.ell_tile
+    n_rb = TRAIN_BATCH // tile
+    blocks, most = [], 0
+    for step in range(8):
+        ids = b.sample_ids(step, None, 0, device=dev)[0]
+        dense = b.extract_block(graph["rp"], graph["ci"], graph["val"], ids,
+                                ids, col_scale=b.rescale_constants()[0],
+                                diag=True, fmt=BlockFormat.DENSE)
+        per_rb = (dense.reshape(n_rb, tile, n_rb, tile).abs().sum((1, 3))
+                  > 0).sum(1)
+        most = max(most, int(per_rb.max()))
+        blocks.append(dense)
+    slots = 1 << (most - 1).bit_length()
+    for dense in blocks:
+        tiles, _ = dense_to_block_ell_ranked(dense, tile, tile, slots)
+        kept, want = int(torch.count_nonzero(tiles)), \
+            int(torch.count_nonzero(dense))
+        if kept != want:
+            raise AssertionError(f"ell_slots={slots} drops entries: ELL "
+                                 f"nnz {kept} != dense nnz {want}")
+    log(f"[train] non-empty column tiles per row-block over 8 batches: at "
+        f"most {most}; ell_slots = {slots} (no tile dropped)")
+    plan = fourd.build_plan(pg, cfg, mesh, batch=TRAIN_BATCH,
+                            opts=dataclasses.replace(opts, ell_slots=slots))
+    return plan, graph
+
+
+def check_spmm_ell(torch, plan, graph, dev) -> dict:
+    """The block-ELL SpMM kernel against its plain version: on a real
+    sampled training batch's tiles with a random h, at the reference's
+    sweep shapes with a ragged d, and in bf16; then timed at the training
+    shape beside its bound and two yardsticks."""
+    from repro_torch.kernels import spmm_ell as sp
+    gen = torch.Generator(device=dev).manual_seed(1)
+    mb = plan.builder.build(graph["rp"], graph["ci"], graph["val"],
+                            graph["features"], graph["labels"], 0)
+    tiles, colidx = mb.adj[0]
+    d = plan.cfg.d_hidden
+    h = torch.randn((TRAIN_BATCH, d), generator=gen, device=dev)
+
+    def compare(name, t, c, x, rtol):
+        got = sp.spmm_ell(t, c, x)
+        torch.cuda.synchronize()
+        ref = sp.spmm_ell_plain(t, c, x)
+        err = (got.float() - ref.float()).abs().max().item()
+        limit = rtol * max(1.0, ref.float().abs().max().item())
+        log(f"[kernels] spmm_ell {name}: tiles {tuple(t.shape)} {t.dtype}, "
+            f"d {x.shape[1]}: max |kernel - plain| {err:.3e} (limit "
+            f"{limit:.3e})")
+        if not err <= limit or got.dtype != x.dtype:
+            raise AssertionError(f"spmm_ell {name}: error {err} above "
+                                 f"{limit} (or dtype {got.dtype})")
+        return err
+
+    err = compare("training batch", tiles, colidx, h, SPMM_RTOL)
+    for bm, bn in ((8, 8), (16, 32), (32, 16), (8, 128)):
+        n_rb, n_cb, dd = 6, 5, 37
+        keep = torch.rand((n_rb, 1, n_cb, 1), generator=gen,
+                          device=dev) < 0.5
+        dense = (torch.randn((n_rb, bm, n_cb, bn), generator=gen,
+                             device=dev) * keep).reshape(n_rb * bm, n_cb * bn)
+        t, c = sp.dense_to_block_ell(dense, bm, bn, n_cb - 1)
+        x = torch.randn((n_cb * bn, dd), generator=gen, device=dev)
+        err = max(err, compare(f"sweep ({bm}, {bn})", t, c, x, SPMM_RTOL))
+    compare("bf16 training batch", tiles.bfloat16(), colidx, h.bfloat16(),
+            BF16_TOL)
+
+    n_rb, n_slots, bm, bn = tiles.shape
+    ms = time_ms(torch, lambda: sp.spmm_ell(tiles, colidx, h))
+    plain_ms = time_ms(torch, lambda: sp.spmm_ell_plain(tiles, colidx, h))
+    dev_ms = device_ms(torch, lambda: sp.spmm_ell(tiles, colidx, h),
+                       "spmm_ell_kernel")
+    # yardsticks: the same product as one library call on a BSR tensor of
+    # the non-empty tiles, and densified
+    keep = tiles.abs().sum((2, 3)) > 0
+    crow = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                      torch.cumsum(keep.sum(1), 0)])
+    with warnings.catch_warnings():      # "sparse BSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        bsr = torch.sparse_bsr_tensor(crow, colidx[keep].long(),
+                                      tiles[keep],
+                                      size=(n_rb * bm, TRAIN_BATCH),
+                                      check_invariants=True)
+    lib_err = (torch.sparse.mm(bsr, h)
+               - sp.spmm_ell_plain(tiles, colidx, h)).abs().max().item()
+    library_ms = time_ms(torch, lambda: torch.sparse.mm(bsr, h))
+    dense_adj = sp.ell_to_dense(tiles, colidx, TRAIN_BATCH)
+    dense_ms = time_ms(torch, lambda: torch.matmul(dense_adj, h))
+    n_bytes = 4 * tiles.numel() + 4 * colidx.numel() + 4 * h.numel() \
+        + 4 * n_rb * bm * d
+    n_ops = 2 * n_rb * n_slots * bm * bn * d
+    bound = bound_ms(n_bytes, n_ops)
+    nz_tiles = int(keep.sum())
+    log(f"[kernels] spmm_ell training shape: {n_rb} row-blocks x {n_slots} "
+        f"slots of ({bm}, {bn}) ({nz_tiles} non-empty tiles), d {d}, "
+        f"{n_bytes} B, {n_ops} ops: kernel {ms:.5f} ms per call "
+        f"({dev_ms:.5f} ms on the device), plain {plain_ms:.5f} ms, bound "
+        f"{bound:.6f} ms (non-empty tiles only: "
+        f"{bound_ms(n_bytes, 2 * nz_tiles * bm * bn * d):.6f} ms); "
+        f"torch.sparse.mm on BSR {library_ms:.5f} ms (max |diff| "
+        f"{lib_err:.3e}), dense torch.matmul {dense_ms:.5f} ms")
+    return {"name": "spmm_ell", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/spmm_ell.cu",
+            "replaces": "src/repro/kernels/spmm_ell.py:69",
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops /
+                         F32_OPS_PER_S else "operations"),
+            "library_ms": library_ms, "dense_matmul_ms": dense_ms}
+
+
 def phase_serve(torch, np, ds, cfg, n_requests: int) -> dict:
     """The main path: live serving through both kernels, then every served
     row recomputed on the plain path. Returns the launch counts."""
@@ -324,7 +487,6 @@ def phase_serve(torch, np, ds, cfg, n_requests: int) -> dict:
 def profile_stream(torch, eng, zipf) -> None:
     """Where the time goes: the same stream again under the profiler (which
     slows the host), as the device's busy share and its top operations."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     eng.reset_stats()
     with profile(activities=[ProfilerActivity.CPU,
@@ -336,18 +498,176 @@ def profile_stream(torch, eng, zipf) -> None:
         eng.drain()
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
+    device_profile(prof, wall_us,
+                   f"stream of {len(zipf)} requests, "
+                   f"{eng.stats()['device_calls']} device calls")
+
+
+def device_profile(prof, wall_us: float, what: str) -> None:
+    """The device's busy share of ``wall_us`` and its top six operations,
+    from a profiler trace. The phase annotations (``record_function``
+    ranges, mirrored on the device's timeline) span kernels already counted
+    and are left out."""
+    from torch.autograd import DeviceType
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log(f"[profile] stream of {len(zipf)} requests: wall {wall_us:.1f} us, "
-        f"device busy {busy_us:.1f} us ({100 * busy_us / wall_us:.2f} %), "
-        f"{eng.stats()['device_calls']} device calls")
-    for name, us in top:
+    log(f"[profile] {what}: wall {wall_us:.1f} us, device busy "
+        f"{busy_us:.1f} us ({100 * busy_us / wall_us:.2f} %)")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         log(f"[profile]   {us:10.1f} us  {name[:90]}")
+
+
+def plain_loss(params, mb, cfg, masks):
+    """The training loss through the kernels' plain versions (autograd
+    through plain PyTorch ops): the yardstick of phase 5."""
+    from repro_torch.core.gcn_model import cross_entropy_loss
+    from repro_torch.kernels.fused_layer import fused_layer_plain
+    from repro_torch.kernels.spmm_ell import spmm_ell_plain
+    tiles, colidx = mb.adj[0]
+    h = mb.feats @ params["w_in"]
+    for layer, mask in zip(params["layers"], masks):
+        conv = spmm_ell_plain(tiles, colidx, h) @ layer["w"]
+        h = fused_layer_plain(conv, layer["rms_scale"], mask, h,
+                              dropout_rate=cfg.dropout, eps=cfg.rms_eps,
+                              use_rmsnorm=cfg.use_rmsnorm,
+                              use_relu=cfg.use_relu)
+    return cross_entropy_loss(h @ params["w_out"], mb.labels)
+
+
+def phase_train(torch, np, plan, graph) -> dict:
+    """The main path of training: ``Trainer.run`` for 48 steps through the
+    three kernels, held against the plain versions first. Returns the
+    launch counts of the 48 steps."""
+    from repro_torch.core import fourd
+    from repro_torch.core import gcn_model as M
+    from repro_torch.core.forward import dropout_masks
+    from repro_torch.kernels import extract_gather as eg
+    from repro_torch.kernels import fused_layer as fl
+    from repro_torch.kernels import spmm_ell as sp
+    from repro_torch.optim import AdamW, linear_warmup_cosine
+    from repro_torch.train import Trainer, TrainLoopConfig
+    from repro_torch.tree import leaves, tree_map, unflatten
+
+    dev, cfg, opts = plan.device, plan.cfg, plan.opts
+    params0 = M.init_params(cfg, torch.Generator().manual_seed(0),
+                            device=dev)
+    fresh = lambda: tree_map(lambda t: t.detach().clone(), params0)
+    make_opt = lambda: AdamW(lr=linear_warmup_cosine(5e-3, 20, TRAIN_STEPS),
+                             weight_decay=1e-4, grad_clip=1.0)
+    plain_builder = dataclasses.replace(plan.builder, impl="torch")
+    mcfg = fourd.model_config(cfg, opts)
+
+    def plain_step(params, step):
+        mb = plain_builder.build(graph["rp"], graph["ci"], graph["val"],
+                                 graph["features"], graph["labels"], step)
+        masks = dropout_masks(opts, step, cfg.num_layers,
+                              (TRAIN_BATCH, cfg.d_hidden), dev)
+        for t in leaves(params):
+            t.requires_grad_(True)
+        loss = plain_loss(params, mb, mcfg, masks)
+        grads = torch.autograd.grad(loss, leaves(params))
+        return loss.detach(), unflatten(params, list(grads))
+
+    # 1. the first step, kernels against plain versions, same params,
+    #    batch and masks
+    kb = plan.builder.build(graph["rp"], graph["ci"], graph["val"],
+                            graph["features"], graph["labels"], 0)
+    pb = plain_builder.build(graph["rp"], graph["ci"], graph["val"],
+                             graph["features"], graph["labels"], 0)
+    same_batch = all(torch.equal(a, b) for a, b in zip(kb.adj[0], pb.adj[0]))
+    lk, gk = fourd.value_and_grad(fourd.make_loss_fn(plan), fresh(), graph, 0)
+    lp, gp = plain_step(fresh(), 0)
+    rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    worst = max((a - b).abs().max().item() / max(b.abs().max().item(),
+                                                   1e-30)
+                for a, b in zip(leaves(gk), leaves(gp)))
+    log(f"[train] first step, kernels vs plain versions: ELL batch "
+        f"bit-identical {same_batch}, loss {lk.item():.7f} vs "
+        f"{lp.item():.7f} (rel {rel:.3e}, limit {LOSS_RTOL}), worst "
+        f"gradient leaf {worst:.3e} of its max |.| (limit {GRAD_RTOL})")
+    if not (same_batch and rel <= LOSS_RTOL and worst <= GRAD_RTOL):
+        raise AssertionError("first step: kernel path and plain path "
+                             "disagree")
+
+    # 2. eight steps on each path from the same init
+    tr8 = Trainer(plan, make_opt(), TrainLoopConfig(total_steps=CHUNK,
+                                                    chunk_size=CHUNK),
+                  eval_fn=lambda p, g: 0.0)
+    _, log8 = tr8.run(tr8.init_state(fresh()), graph)
+    opt, params = make_opt(), fresh()
+    opt_state, plain_losses = opt.init(params), []
+    for step in range(CHUNK):
+        loss, grads = plain_step(params, step)
+        opt.update(params, grads, opt_state)
+        plain_losses.append(loss.item())
+    traj = max(abs(a - b) / abs(b) for a, b in zip(log8.losses,
+                                                   plain_losses))
+    log(f"[train] 8 steps, kernels: {[round(x, 5) for x in log8.losses]}")
+    log(f"[train] 8 steps, plain:   {[round(x, 5) for x in plain_losses]} "
+        f"(worst rel diff {traj:.3e}, limit {TRAJ_RTOL})")
+    if not traj <= TRAJ_RTOL:
+        raise AssertionError(f"8-step losses differ by {traj}")
+
+    # 3. the main path: 48 steps through the Trainer, counts zeroed first
+    trainer = Trainer(plan, make_opt(),
+                      TrainLoopConfig(total_steps=TRAIN_STEPS,
+                                      chunk_size=CHUNK))
+    state = trainer.init_state(fresh())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eg.LAUNCHES = fl.LAUNCHES = sp.LAUNCHES = 0
+    state, run_log = trainer.run(state, graph)
+    launches = {"extract_dense_fused": eg.LAUNCHES, "fused_layer": fl.LAUNCHES,
+                "spmm_ell": sp.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    # per step: one fused extraction (the one block of g = 1), one SpMM and
+    # one tail per layer
+    expect = {"extract_dense_fused": TRAIN_STEPS,
+              "fused_layer": cfg.num_layers * TRAIN_STEPS,
+              "spmm_ell": cfg.num_layers * TRAIN_STEPS}
+    losses = run_log.losses
+    first, last = np.mean(losses[:CHUNK]), np.mean(losses[-CHUNK:])
+    log(f"[train] {len(losses)} steps in chunks of {CHUNK}: "
+        f"{run_log.ms_per_step:.4f} ms/step, loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f} (mean of first 8 {first:.5f}, last 8 "
+        f"{last:.5f}), launches {launches}, peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    if launches != expect:
+        raise AssertionError(f"kernel launches {launches} on the training "
+                             f"path, expected {expect}")
+    if not (np.all(np.isfinite(losses)) and last < first):
+        raise AssertionError(f"the loss did not fall: {losses}")
+
+    t0 = time.monotonic()
+    acc = float(trainer.eval_fn(state.params, graph))
+    torch.cuda.synchronize()
+    log(f"[train] full-graph accuracy after {TRAIN_STEPS} steps: {acc:.6f} "
+        f"({graph['labels'].shape[0]} vertices, "
+        f"{time.monotonic() - t0:.3f} s)")
+    if not 0.0 <= acc <= 1.0:
+        raise AssertionError(f"accuracy {acc}")
+
+    # where the time goes: one more chunk under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    more = Trainer(plan, trainer.optimizer,
+                   TrainLoopConfig(total_steps=TRAIN_STEPS + CHUNK,
+                                   chunk_size=CHUNK),
+                   eval_fn=lambda p, g: 0.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        more.run(state, graph)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    device_profile(prof, wall_us, f"one chunk of {CHUNK} training "
+                   "steps")
+    return launches
 
 
 def main() -> int:
@@ -397,10 +717,16 @@ def main() -> int:
     dev = torch.device("cuda")
     kernels = [check_extraction(torch, A, plan, plan_b, dev),
                check_fused_tail(torch, cfg.d_hidden, spec.total, dev)]
+    train_plan, train_graph = train_setup(torch, ds, dev)
+    kernels.append(check_spmm_ell(torch, train_plan, train_graph, dev))
 
-    launches = phase_serve(torch, np, ds, cfg, args.requests)
+    serve_launches = phase_serve(torch, np, ds, cfg, args.requests)
+    train_launches = phase_train(torch, np, train_plan, train_graph)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = train_launches[k["name"]]
+        k["launches_by_path"] = {
+            "serve": serve_launches.get(k["name"], 0),
+            "train": train_launches[k["name"]]}
     log(f"[done] {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))

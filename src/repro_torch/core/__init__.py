@@ -1,2 +1,4 @@
-"""Model and mini-batch core: the GCN (``gcn_model``), Alg.-2 extraction
-(``sampling``, ``minibatch``) and the cache quantizers (``precision``)."""
+"""Model and mini-batch core: the GCN (``gcn_model``), Alg.-1 sampling and
+Alg.-2 extraction (``sampling``, ``minibatch``), the training options and
+steps at g = 1 (``forward``, ``fourd``, ``pmm3d``) and the cache quantizers
+(``precision``)."""

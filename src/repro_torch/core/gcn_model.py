@@ -7,9 +7,14 @@ JAX layout — weights are ``(fan_in, fan_out)`` and used as ``x @ w`` — so
 carrying weights across from the JAX package is a copy
 (:func:`params_from_numpy`), not a transpose.
 
-The products (``x @ w_in``, ``adj @ h``, ``agg @ w``, ``h @ w_out``) are
-plain ``torch.matmul``, as the JAX package leaves them to XLA; the layer
-tail is the fused CUDA kernel when ``elementwise_impl="cuda"``.
+The dense products (``x @ w_in``, ``agg @ w``, ``h @ w_out`` and a dense
+``adj @ h``) are plain ``torch.matmul``, as the JAX package leaves them to
+XLA. The aggregation follows ``spmm_impl``: a dense ``(B, B)`` block, a
+block-ELL ``(tiles, colidx)`` pair through the SpMM kernel (``"ell"``), or
+a ``(rp, ci, val)`` CSR triple over the whole graph (``"csr"``, full-graph
+eval — the reference's ``ForwardEngine`` backend of that name). The layer
+tail is the fused CUDA kernel when ``elementwise_impl="cuda"``. Both
+kernels carry autograd rules (``kernels/ops.py``), so the model trains.
 
 Every architectural component can be toggled (paper §III-A).
 """
@@ -37,18 +42,15 @@ class GCNConfig:
     rms_eps: float = 1e-6
     # kernel selection: "torch" (plain ops) or "cuda" (fused tail kernel)
     elementwise_impl: str = "torch"
-    spmm_impl: str = "dense"      # "dense"; "ell" comes with training
+    spmm_impl: str = "dense"      # "dense" | "ell" (block-ELL kernel) | "csr"
 
     def __post_init__(self):
         if self.elementwise_impl not in ("torch", "cuda"):
             raise ValueError(
                 f"elementwise_impl={self.elementwise_impl!r}: 'torch' | 'cuda'")
-        if self.spmm_impl == "ell":
-            raise NotImplementedError(
-                "spmm_impl='ell' (the block-ELL SpMM kernel) is not ported "
-                "yet: ROADMAP queue 1, item 2 (single-device training)")
-        if self.spmm_impl != "dense":
-            raise ValueError(f"spmm_impl={self.spmm_impl!r}")
+        if self.spmm_impl not in ("dense", "ell", "csr"):
+            raise ValueError(
+                f"spmm_impl={self.spmm_impl!r}: 'dense' | 'ell' | 'csr'")
 
 
 Params = Dict[str, Any]
@@ -128,13 +130,27 @@ def _elementwise_tail(x: torch.Tensor, residual: torch.Tensor,
     return h
 
 
-def forward(params: Params, adj: torch.Tensor, x: torch.Tensor,
+def _spmm(adj, x: torch.Tensor, cfg: GCNConfig) -> torch.Tensor:
+    """Eq. 5 — neighborhood aggregation in the ``cfg.spmm_impl`` format."""
+    if cfg.spmm_impl == "ell":
+        from repro_torch.kernels import ops as kops
+        return kops.spmm_ell(*adj, x)
+    if cfg.spmm_impl == "csr":
+        from repro_torch.core.pmm3d import csr_spmm_local
+        rp, ci, val = adj
+        return csr_spmm_local(rp, ci, val, x, rp.shape[0] - 1)
+    return adj @ x
+
+
+def forward(params: Params, adj, x: torch.Tensor,
             cfg: GCNConfig, *, train: bool = False,
             keep_masks: Optional[Sequence[torch.Tensor]] = None
             ) -> torch.Tensor:
-    """Forward pass §III-B over a dense ``(B, B)`` adjacency. Returns logits
-    (B, num_classes). ``keep_masks`` holds one (B, d_hidden) bool dropout
-    keep-mask per layer; without it no dropout is applied."""
+    """Forward pass §III-B. ``adj`` is a dense ``(B, B)`` block, a
+    block-ELL ``(tiles, colidx)`` pair or a CSR triple, as
+    ``cfg.spmm_impl`` says. Returns logits (B, num_classes).
+    ``keep_masks`` holds one (B, d_hidden) bool dropout keep-mask per
+    layer; without it no dropout is applied."""
     h = x @ params["w_in"]                                         # Eq. 4
     masks = (keep_masks if keep_masks is not None
              else [None] * cfg.num_layers)
@@ -142,7 +158,7 @@ def forward(params: Params, adj: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"{len(masks)} keep-masks for {cfg.num_layers} "
                          "layers")
     for layer, mask in zip(params["layers"], masks):
-        agg = adj @ h                                              # Eq. 5
+        agg = _spmm(adj, h, cfg)                                   # Eq. 5
         conv = agg @ layer["w"]                                    # Eq. 6
         h = _elementwise_tail(conv, h, layer["rms_scale"], cfg, mask, train)
     return h @ params["w_out"]                                     # Eq. 11

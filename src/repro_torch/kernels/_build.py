@@ -36,6 +36,8 @@ SIGNATURES = {
     # x, scale, mask|null, res|null, out, rows, d, eps, keep_prob,
     # use_rmsnorm, use_relu, stream
     "repro_fused_layer": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P],
+    # tiles, colidx, x, out, n_rb, n_slots, bm, bn, n_cb, d, bf16, stream
+    "repro_spmm_ell": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -9,7 +9,7 @@ applies
 in float32 and writes the row once (``csrc/fused_layer.cu``).
 :func:`fused_layer` launches the kernel for CUDA tensors and runs
 :func:`fused_layer_plain`, the same function in plain PyTorch, for CPU
-tensors. Forward only: the backward comes with the training slice.
+tensors. Its autograd rule is ``kernels.ops.fused_layer_tail``.
 """
 from __future__ import annotations
 

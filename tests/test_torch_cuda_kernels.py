@@ -14,6 +14,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.graphs import make_synthetic_dataset  # noqa: E402
 from repro_torch.kernels import extract_gather as teg  # noqa: E402
 from repro_torch.kernels import fused_layer as tfl  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import spmm_ell as tspmm  # noqa: E402
 
 
 @pytest.fixture
@@ -121,3 +123,79 @@ def test_cuda_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="rp"):
         teg.extract_dense_fused(i, i, torch.zeros(4, device=cuda), i, i,
                                 col_scale=1.0, diag=True, max_deg=2)
+
+
+def _ell_case(bm, bn, n_rb, n_cb, d, density, seed=0, extra_slots=1):
+    """A random block matrix as block-ELL (one padding slot or more) and a
+    feature matrix with n_cb * bn rows."""
+    rng = np.random.default_rng(seed)
+    keep = rng.random((n_rb, 1, n_cb, 1)) < density
+    dense = (rng.normal(size=(n_rb, bm, n_cb, bn)) * keep).astype(np.float32)
+    dense = dense.reshape(n_rb * bm, n_cb * bn)
+    n_slots = min(int(keep.sum((1, 2, 3)).max()) + extra_slots, n_cb)
+    tiles, colidx = tspmm.dense_to_block_ell(torch.from_numpy(dense), bm, bn,
+                                             max(n_slots, 1))
+    x = rng.normal(size=(n_cb * bn, d)).astype(np.float32)
+    return tiles, colidx, torch.from_numpy(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm,bn,n_rb,n_cb,d", [
+    (8, 8, 4, 4, 16), (16, 32, 2, 4, 64), (32, 16, 4, 2, 8),
+    (8, 128, 2, 2, 128), (128, 128, 4, 8, 256), (8, 8, 4, 4, 37)])
+@pytest.mark.parametrize("density", [0.2, 0.7])
+def test_cuda_spmm_ell_matches_plain(cuda, bm, bn, n_rb, n_cb, d, density):
+    """f32 sums in another order: 1e-4 relative to the largest output; the
+    reference's sweep, the training tile and a ragged d."""
+    tiles, colidx, x = (t.to(cuda) for t in _ell_case(bm, bn, n_rb, n_cb, d,
+                                                      density))
+    n0 = tspmm.LAUNCHES
+    got = tspmm.spmm_ell(tiles, colidx, x)
+    torch.cuda.synchronize()
+    assert tspmm.LAUNCHES == n0 + 1
+    ref = tspmm.spmm_ell_plain(tiles, colidx, x)
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-4 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_cuda_spmm_ell_bf16_matches_plain(cuda):
+    """bf16 in and out, f32 accumulation: 5e-2, the reference's bf16
+    tolerance."""
+    tiles, colidx, x = _ell_case(16, 16, 2, 2, 40, 0.8, seed=1)
+    tiles, colidx = tiles.to(cuda, torch.bfloat16), colidx.to(cuda)
+    x = x.to(cuda, torch.bfloat16)
+    got = tspmm.spmm_ell(tiles, colidx, x)
+    ref = tspmm.spmm_ell_plain(tiles, colidx, x)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), ref.float(), atol=5e-2,
+                               rtol=5e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_spmm_ell_autograd_matches_plain(cuda):
+    """The autograd rule around the kernel against autograd through the
+    plain version: dX and dTiles within 1e-4 relative."""
+    tiles, colidx, x = (t.to(cuda) for t in _ell_case(32, 32, 3, 4, 24, 0.5,
+                                                      seed=2))
+    w = torch.randn((96, 24), device=cuda)
+    grads = []
+    for fn in (tops.spmm_ell, tspmm.spmm_ell_plain):
+        t = tiles.clone().requires_grad_(True)
+        xx = x.clone().requires_grad_(True)
+        (fn(t, colidx, xx) * w).sum().backward()
+        grads.append((t.grad, xx.grad))
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0,
+                                                         b.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_cuda_spmm_ell_rejects_bad_inputs(cuda):
+    tiles, colidx, x = (t.to(cuda) for t in _ell_case(8, 8, 2, 2, 4, 0.7))
+    with pytest.raises(ValueError, match="colidx"):
+        tspmm.spmm_ell(tiles, colidx.long(), x)
+    with pytest.raises(ValueError, match="tiles"):
+        tspmm.spmm_ell(tiles.double(), colidx, x)
+    with pytest.raises(ValueError, match="multiple of bn"):
+        tspmm.spmm_ell(tiles, colidx, x[:-1])

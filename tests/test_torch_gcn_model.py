@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 
 from repro.core import gcn_model as JM  # noqa: E402
 from repro_torch.core import gcn_model as TM  # noqa: E402
+from repro_torch.kernels import spmm_ell  # noqa: E402
 
 B, D_IN, D_H, LAYERS, CLASSES = 48, 12, 32, 3, 5
 # f32 GEMM chains on both sides, summed in different orders
@@ -114,6 +115,13 @@ def test_params_carry_is_a_copy_and_init_is_seeded():
                        for layer in a["layers"]]}
     c = TM.params_from_numpy(tree, device="cpu")
     assert torch.equal(c["layers"][1]["w"], a["layers"][1]["w"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.GCNConfig(d_in=1, d_hidden=1, num_layers=1, num_classes=1,
-                     spmm_impl="ell")
+    # the block-ELL aggregation gives the dense forward on the same block
+    rng = np.random.default_rng(2)
+    adj = rng.random((B, B)).astype(np.float32) * (rng.random((B, B)) < 0.1)
+    x = torch.from_numpy(rng.normal(size=(B, D_IN)).astype(np.float32))
+    ell = spmm_ell.dense_to_block_ell(torch.from_numpy(adj), 16, 16, B // 16)
+    dense_out = TM.forward(c, torch.from_numpy(adj), x, cfg)
+    ell_out = TM.forward(c, ell, x,
+                         dataclasses.replace(cfg, spmm_impl="ell"))
+    np.testing.assert_allclose(ell_out.numpy(), dense_out.numpy(),
+                               rtol=RTOL, atol=ATOL)
