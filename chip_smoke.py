@@ -19,6 +19,12 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    bf16 at 5e-2; beside its times stand its bound and two yardsticks the
    port never calls: ``torch.sparse.mm`` on the same tiles as a BSR tensor
    (``library_ms``) and a dense ``torch.matmul``;
+   The flash-attention kernel is held against its plain version (out and
+   lse) at the reference's five sweep shapes in f32 (1e-4 absolute) and
+   bf16 (5e-2), and at the LLM serving shape (q (1, 512, 32, 64), 4 kv
+   heads, bf16, causal); at that shape and at (8, 2048, 32, 64) it is
+   timed beside its bound and ``scaled_dot_product_attention`` on the
+   same tensors (``library_ms``, a yardstick the port never calls);
 4. serve   — the serving path: the port's ``InferenceEngine`` at the
    paper's width (d_hidden 256, 3 layers, seeded random weights) serves a
    Zipf(1.3) stream of single-vertex requests with both of its kernels on;
@@ -33,11 +39,21 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    before and read just after; the first step's loss and gradients and an
    eight-step loss trajectory are held against the plain versions on the
    card; the loss must fall; then one full-graph evaluation and one
-   profiled chunk.
+   profiled chunk;
+6. llm     — LLM serving: tinyllama-1.1b at its published width (22
+   layers, d_model 2048, 32/4 heads, vocab 32000, bf16, seeded random
+   weights) behind the port's ``LLMEngine`` (8 slots, prompts padded to
+   512, 32 new tokens, continuous batching) serves 32 prompts of 32-512
+   random tokens; the counts are zeroed just before the stream and the
+   flash kernel must run once per layer of every prefill; then on 4 of
+   the prompts a prefill and 8 decode steps through the kernel and
+   through the plain attention, fed the same tokens, must give logits
+   within 5e-2 of the largest |logit|; then one profiled wave.
 
 The last two lines of standard output are one JSON object per kernel
-(``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``. Without a
-card, the script exits non-zero before printing either.
+(``{"kernels": [...]}``, each with its launches on every path) and
+``{"ok": true, "device": {...}}``. Without a card, the script exits
+non-zero before printing either.
 """
 from __future__ import annotations
 
@@ -54,10 +70,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and the float32 rate outside the
-# tensor cores, at the full 700 W power limit
+# NVIDIA H100 SXM data sheet: HBM3 rate, the float32 rate outside the
+# tensor cores and the dense bf16 tensor-core rate, at the full 700 W power
+# limit
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 
 TAIL_RTOL = 1e-5         # f32 sum of squares in another order
 SERVE_ATOL = 1e-4        # two GCN forwards: fused vs plain tail and extraction
@@ -66,6 +84,13 @@ BF16_TOL = 5e-2          # the reference's bf16 tolerance (test_kernels.py)
 LOSS_RTOL = 1e-5         # first step: one loss, kernels vs plain versions
 GRAD_RTOL = 1e-4         # first step: every gradient leaf, of its max |.|
 TRAJ_RTOL = 1e-3         # eight AdamW steps, kernels vs plain versions
+FLASH_ATOL = 1e-4        # f32 attention, sums in another order
+LLM_RTOL = 5e-2          # bf16 logits, kernel vs plain path, of max |logit|
+
+# the kernels of the port, by the module that counts their launches
+KERNEL_MODULES = {"extract_dense_fused": "extract_gather",
+                  "fused_layer": "fused_layer", "spmm_ell": "spmm_ell",
+                  "flash_attention": "flash_attention"}
 
 TRAIN_BATCH = 8192
 TRAIN_STEPS = 48
@@ -100,8 +125,9 @@ def device_ms(torch, fn, kernel: str, n: int = 50) -> float:
     """Mean device time of the CUDA kernel named ``kernel`` over ``n`` calls,
     from the profiler's CUPTI trace: the kernel alone, without the host
     time between launches that the event windows include. The trace can
-    miss a launch at its edges (one of 50 was missing in a full-size run),
-    so the mean is over the launches it holds, which must be nearly all."""
+    miss launches at its edges (4 of 50, and 4 of 10, flash-attention
+    launches were missing in full-size runs), so the mean is over the
+    launches it holds, which must be at least half of them."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -110,16 +136,34 @@ def device_ms(torch, fn, kernel: str, n: int = 50) -> float:
             fn()
         torch.cuda.synchronize()
     hits = [e for e in prof.key_averages() if kernel in e.key]
-    if len(hits) != 1 or not n - 2 <= hits[0].count <= n:
+    if len(hits) != 1 or not n / 2 <= hits[0].count <= n:
         raise AssertionError(f"profiler found {[(e.key, e.count) for e in hits]}"
                              f" for {kernel} x {n}")
     return hits[0].device_time_total / hits[0].count / 1e3
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> float:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = F32_OPS_PER_S) -> float:
     """Least time the card could take: bytes over the memory rate or
-    operations over the float32 rate, whichever is larger."""
-    return max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S) * 1e3
+    operations over the peak rate of their type, whichever is larger."""
+    return max(n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s) * 1e3
+
+
+def _kernel_module(name: str):
+    import importlib
+    return importlib.import_module(
+        f"repro_torch.kernels.{KERNEL_MODULES[name]}")
+
+
+def zero_launches() -> None:
+    """Set every kernel's launch count to 0 (just before a path runs)."""
+    for name in KERNEL_MODULES:
+        _kernel_module(name).LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    """Every kernel's launch count (just after a path ran)."""
+    return {name: _kernel_module(name).LAUNCHES for name in KERNEL_MODULES}
 
 
 def phase_device(torch) -> dict:
@@ -401,12 +445,119 @@ def check_spmm_ell(torch, plan, graph, dev) -> dict:
             "library_ms": library_ms, "dense_matmul_ms": dense_ms}
 
 
+# the reference's sweep (tests/test_kernels_flash.py), B = 2:
+# (sq, t, h, kv, hd, causal, window)
+FLASH_SWEEP = [(64, 64, 4, 2, 32, True, None),
+               (32, 96, 4, 4, 16, False, None),
+               (128, 128, 8, 2, 16, True, 32),
+               (64, 100, 2, 1, 32, False, None),
+               (256, 256, 2, 2, 64, True, None)]
+
+
+def _flash_costs(q, k, causal, window):
+    """Bytes (q, k, v read once, out and lse written once) and operations
+    (2 * hd for q.k and 2 * hd for p.v over the (query, key) pairs that
+    this mask lets through) of one attention call."""
+    from repro_torch.kernels.flash_attention import attention_mask
+    b, sq, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    elt = q.element_size()
+    n_bytes = elt * (2 * b * sq * h * hd + 2 * b * t * kv * hd) \
+        + 4 * b * h * sq
+    pairs = int(attention_mask(sq, t, causal, window, q.device).sum())
+    return n_bytes, 4 * hd * pairs * b * h
+
+
+def check_flash_attention(torch, np, dev) -> dict:
+    """The flash-attention kernel against its plain version on the card:
+    out and lse at the reference's sweep shapes in f32 and bf16 and at the
+    LLM serving shape; then timed at the serving shape and at a long one,
+    beside its bound and SDPA on the same tensors."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(3)
+
+    def make(b, sq, t, h, kv, hd, dtype):
+        mk = lambda *s: torch.from_numpy(
+            rng.normal(size=s).astype(np.float32)).to(dev, dtype)
+        return mk(b, sq, h, hd), mk(b, t, kv, hd), mk(b, t, kv, hd)
+
+    def compare(name, q, k, v, causal, window, tol):
+        out, lse = fa.flash_attention(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, causal, window)
+        err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        log(f"[kernels] flash_attention {name}: q {tuple(q.shape)}, kv "
+            f"{tuple(k.shape)} {q.dtype}, causal={causal}, window={window}: "
+            f"max |kernel - plain| out {err:.3e}, lse {lse_err:.3e} (limit "
+            f"{tol})")
+        if not (err <= tol and lse_err <= tol and out.dtype == q.dtype):
+            raise AssertionError(f"flash_attention {name}: out {err}, lse "
+                                 f"{lse_err} above {tol}")
+        return max(err, lse_err)
+
+    err = 0.0
+    for dtype, tol in ((torch.float32, FLASH_ATOL), (torch.bfloat16,
+                                                     BF16_TOL)):
+        for sq, t, h, kv, hd, causal, window in FLASH_SWEEP:
+            q, k, v = make(2, sq, t, h, kv, hd, dtype)
+            e = compare("sweep", q, k, v, causal, window, tol)
+            if dtype == torch.float32:
+                err = max(err, e)
+    q, k, v = make(1, 512, 512, 32, 4, 64, torch.bfloat16)
+    compare("LLM serving shape", q, k, v, True, None, BF16_TOL)
+
+    shapes = {}
+    for label, (b, s) in (("serving", (1, 512)), ("long", (8, 2048))):
+        q, k, v = make(b, s, s, 32, 4, 64, torch.bfloat16)
+        reps, inner = (25, 10) if label == "serving" else (5, 4)
+        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, True),
+                     reps=reps, inner=inner)
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v,
+                                                                   True),
+                           reps=3, inner=2, warmup=1)
+        dev_ms = device_ms(torch, lambda: fa.flash_attention(q, k, v, True),
+                           "flash_attention_kernel", n=50 if label ==
+                           "serving" else 20)
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))   # (B, H, S, hd)
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                      is_causal=True,
+                                                      enable_gqa=True)
+        lib_err = (sdpa().transpose(1, 2).float()
+                   - fa.flash_attention(q, k, v, True)[0].float()
+                   ).abs().max().item()
+        library_ms = time_ms(torch, sdpa, reps=reps, inner=inner)
+        n_bytes, n_ops = _flash_costs(q, k, True, None)
+        bound = bound_ms(n_bytes, n_ops, BF16_TC_OPS_PER_S)
+        by = ("bytes" if n_bytes / HBM_BYTES_PER_S
+              >= n_ops / BF16_TC_OPS_PER_S else "operations")
+        log(f"[kernels] flash_attention {label} shape: q {tuple(q.shape)}, "
+            f"kv {tuple(k.shape)} bf16 causal, {n_bytes} B, {n_ops} ops: "
+            f"kernel {ms:.5f} ms per call ({dev_ms:.5f} ms on the device, "
+            f"{n_ops / dev_ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.5f} ms, "
+            f"bound {bound:.6f} ms ({by}); scaled_dot_product_attention "
+            f"{library_ms:.5f} ms (max |diff| {lib_err:.3e})")
+        shapes[label] = {"q": list(q.shape), "kv": list(k.shape), "ms": ms,
+                         "device_ms": dev_ms, "plain_ms": plain_ms,
+                         "bound_ms": bound, "bound_by": by,
+                         "library_ms": library_ms}
+        del q, k, v, qh, kh, vh
+    serving = shapes["serving"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:110",
+            "max_abs_err": err, "ms": serving["ms"],
+            "device_ms": serving["device_ms"],
+            "plain_ms": serving["plain_ms"], "bound_ms": serving["bound_ms"],
+            "bound_by": serving["bound_by"],
+            "library_ms": serving["library_ms"], "shapes": shapes}
+
+
 def phase_serve(torch, np, ds, cfg, n_requests: int) -> dict:
     """The main path: live serving through both kernels, then every served
     row recomputed on the plain path. Returns the launch counts."""
     from repro_torch.core import gcn_model as M
-    from repro_torch.kernels import extract_gather as eg
-    from repro_torch.kernels import fused_layer as fl
     from repro_torch.serve import InferenceEngine, ServeOptions
 
     t0 = time.monotonic()
@@ -435,7 +586,8 @@ def phase_serve(torch, np, ds, cfg, n_requests: int) -> dict:
 
     zipf = np.minimum(np.random.default_rng(7).zipf(1.3, size=n_requests),
                       ds.num_vertices) - 1
-    eg.LAUNCHES = fl.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
     t0 = time.monotonic()
     rids = []
     for v in zipf:
@@ -444,8 +596,7 @@ def phase_serve(torch, np, ds, cfg, n_requests: int) -> dict:
     eng.drain()
     outs = {rid: eng.poll(rid) for rid in rids}
     dt = time.monotonic() - t0
-    launches = {"extract_dense_fused": eg.LAUNCHES,
-                "fused_layer": fl.LAUNCHES}
+    launches = read_launches()
     st = eng.stats()
     log(f"[serve] {len(rids)} requests in {dt:.4f} s: "
         f"{len(rids) / dt:.1f} req/s, p50 {st['p50_ms']:.4f} ms, "
@@ -453,7 +604,8 @@ def phase_serve(torch, np, ds, cfg, n_requests: int) -> dict:
         f"occupancy {st['occupancy']:.4f}, launches {launches}")
     # one extraction and one tail per layer for every device call
     expect = {"extract_dense_fused": st["device_calls"],
-              "fused_layer": cfg.num_layers * st["device_calls"]}
+              "fused_layer": cfg.num_layers * st["device_calls"],
+              "spmm_ell": 0, "flash_attention": 0}
     if launches != expect or st["device_calls"] == 0:
         raise AssertionError(f"kernel launches {launches} on the main path, "
                              f"expected {expect}")
@@ -505,19 +657,29 @@ def profile_stream(torch, eng, zipf) -> None:
 
 def device_profile(prof, wall_us: float, what: str) -> None:
     """The device's busy share of ``wall_us`` and its top six operations,
-    from a profiler trace. The phase annotations (``record_function``
-    ranges, mirrored on the device's timeline) span kernels already counted
-    and are left out."""
+    from a profiler trace, and what the host issued: the PyTorch operators
+    called from Python (``aten::`` ops not inside another one) and the
+    kernel launches. The phase annotations (``record_function`` ranges,
+    mirrored on the device's timeline) span kernels already counted and
+    are left out."""
     from torch.autograd import DeviceType
     by_name: dict = {}
+    host_ops = launches = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA \
                 and not getattr(e, "is_user_annotation", False):
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us()
+        elif e.name.startswith("aten::") and not (
+                e.cpu_parent is not None
+                and e.cpu_parent.name.startswith("aten::")):
+            host_ops += 1
+        elif e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            launches += 1
     busy_us = sum(by_name.values())
     log(f"[profile] {what}: wall {wall_us:.1f} us, device busy "
-        f"{busy_us:.1f} us ({100 * busy_us / wall_us:.2f} %)")
+        f"{busy_us:.1f} us ({100 * busy_us / wall_us:.2f} %); the host "
+        f"called {host_ops} operators and launched {launches} kernels")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         log(f"[profile]   {us:10.1f} us  {name[:90]}")
 
@@ -546,9 +708,6 @@ def phase_train(torch, np, plan, graph) -> dict:
     from repro_torch.core import fourd
     from repro_torch.core import gcn_model as M
     from repro_torch.core.forward import dropout_masks
-    from repro_torch.kernels import extract_gather as eg
-    from repro_torch.kernels import fused_layer as fl
-    from repro_torch.kernels import spmm_ell as sp
     from repro_torch.optim import AdamW, linear_warmup_cosine
     from repro_torch.train import Trainer, TrainLoopConfig
     from repro_torch.tree import leaves, tree_map, unflatten
@@ -620,16 +779,15 @@ def phase_train(torch, np, plan, graph) -> dict:
     state = trainer.init_state(fresh())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    eg.LAUNCHES = fl.LAUNCHES = sp.LAUNCHES = 0
+    zero_launches()
     state, run_log = trainer.run(state, graph)
-    launches = {"extract_dense_fused": eg.LAUNCHES, "fused_layer": fl.LAUNCHES,
-                "spmm_ell": sp.LAUNCHES}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     # per step: one fused extraction (the one block of g = 1), one SpMM and
     # one tail per layer
     expect = {"extract_dense_fused": TRAIN_STEPS,
               "fused_layer": cfg.num_layers * TRAIN_STEPS,
-              "spmm_ell": cfg.num_layers * TRAIN_STEPS}
+              "spmm_ell": cfg.num_layers * TRAIN_STEPS, "flash_attention": 0}
     losses = run_log.losses
     first, last = np.mean(losses[:CHUNK]), np.mean(losses[-CHUNK:])
     log(f"[train] {len(losses)} steps in chunks of {CHUNK}: "
@@ -670,6 +828,148 @@ def phase_train(torch, np, plan, graph) -> dict:
     return launches
 
 
+LLM_PROMPTS = 32
+LLM_CHECK_PROMPTS = 4
+LLM_CHECK_STEPS = 8
+
+
+def phase_llm(torch, np, cfg, dev) -> dict:
+    """The main path of LLM serving: ``cfg`` (tinyllama-1.1b at full
+    width) behind ``LLMEngine``, a stream of 32 prompts through the flash
+    kernel; then the kernel path against the plain attention on 4 prompts,
+    teacher forced. Returns the launch counts of the stream."""
+    from repro_torch.models import transformer as TT
+    from repro_torch.serve import LLMEngine, LLMServeOptions
+
+    t0 = time.monotonic()
+    model = TT.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[llm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, {cfg.param_dtype}; {n_params} parameters "
+        f"drawn in {time.monotonic() - t0:.2f} s")
+    # the config's count leaves out the final norm's scale
+    if n_params != cfg.num_params() + cfg.d_model:
+        raise AssertionError(f"{n_params} parameters, expected "
+                             f"{cfg.num_params() + cfg.d_model}")
+    opts = LLMServeOptions(slots=8, max_prompt_len=512, max_new_tokens=32,
+                           device=str(dev))
+    eng = LLMEngine(model, cfg, opts)
+    rng = np.random.default_rng(11)
+    lengths = rng.integers(32, 513, size=LLM_PROMPTS)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist()
+               for n in lengths]
+    eng.generate([prompts[0][:32]])                 # first-call warm-up
+    eng.reset_stats()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.monotonic()
+    rids = []
+    for p in prompts:             # staggered: two decode steps per arrival
+        rids.append(eng.submit(p))
+        eng.pump()
+        eng.pump()
+    eng.drain()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launches = read_launches()
+    done = eng.take_completed()
+    st = eng.stats()
+    n_tok = sum(len(done.get(r, ())) for r in rids)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[llm] {len(rids)} prompts ({int(lengths.min())}-"
+        f"{int(lengths.max())} tokens, mean {float(lengths.mean()):.1f}) in "
+        f"{dt:.4f} s: {n_tok} tokens, {n_tok / dt:.1f} tok/s; prefill p50 "
+        f"{st['prefill_p50_ms']:.4f} ms, p95 {st['prefill_p95_ms']:.4f} ms; "
+        f"decode p50 {st['decode_p50_ms']:.4f} ms, p95 "
+        f"{st['decode_p95_ms']:.4f} ms; {st['prefills']} prefills, "
+        f"{st['decode_steps']} decode steps, slot_occupancy "
+        f"{st['slot_occupancy']:.4f}, mid_stream_refills "
+        f"{st['mid_stream_refills']}; launches {launches}; peak device "
+        f"memory {peak / 2**30:.3f} GiB")
+    expect = {"extract_dense_fused": 0, "fused_layer": 0, "spmm_ell": 0,
+              "flash_attention": cfg.n_layers * st["prefills"]}
+    if launches != expect or st["prefills"] != LLM_PROMPTS:
+        raise AssertionError(f"kernel launches {launches} on the LLM path "
+                             f"({st['prefills']} prefills), expected "
+                             f"{expect}")
+    for rid in rids:
+        out = done.get(rid)
+        if out is None or out.shape != (opts.max_new_tokens,) \
+                or not np.all((out >= 0) & (out < cfg.vocab)):
+            raise AssertionError(f"prompt {rid}: bad completion {out}")
+    if st["mid_stream_refills"] == 0:
+        raise AssertionError("no slot was refilled mid-stream")
+
+    # the kernel path against the plain attention: a prefill and 8 decode
+    # steps on 4 prompts, both fed the kernel path's tokens
+    n = LLM_CHECK_PROMPTS
+    forced = []
+
+    def run(impl):
+        cache = TT.init_slot_cache(cfg, n, opts.max_prompt_len
+                                   + LLM_CHECK_STEPS + 1, dev)
+        steps, firsts = [], []
+        for i, p in enumerate(prompts[:n]):
+            padded = torch.zeros((1, opts.max_prompt_len), dtype=torch.int32,
+                                 device=dev)
+            padded[0, :len(p)] = torch.tensor(p, dtype=torch.int32)
+            tok, lg, cache = TT.prefill_into_slot(model, padded, len(p),
+                                                  cache, i, cfg,
+                                                  attn_impl=impl)
+            firsts.append(tok)
+            steps.append(lg[:, -1].float())
+        steps = [torch.cat(steps)]
+        cur = torch.cat(firsts)
+        if impl == "cuda":
+            forced.append(cur)
+        active = torch.ones(n, dtype=torch.bool, device=dev)
+        for step in range(LLM_CHECK_STEPS):
+            tok, lg, cache = TT.decode_step_slots(
+                model, forced[step][:, None], cache, cfg, active,
+                attn_impl=impl)
+            steps.append(lg[:, -1].float())
+            if impl == "cuda":
+                forced.append(tok)
+        torch.cuda.synchronize()
+        return steps
+
+    kernel_steps = run("cuda")
+    plain_steps = run("torch")
+    worst = 0.0
+    for a, b in zip(kernel_steps, plain_steps):
+        a, b = a[:, :cfg.vocab], b[:, :cfg.vocab]
+        worst = max(worst, (a - b).abs().max().item()
+                    / a.abs().max().item())
+    agree = sum(int(torch.equal(a.argmax(-1), b.argmax(-1)))
+                for a, b in zip(kernel_steps, plain_steps))
+    log(f"[llm] {n} prompts, prefill + {LLM_CHECK_STEPS} decode steps, "
+        f"teacher forced: max |kernel - plain| logit "
+        f"{worst:.3e} of the largest |logit| (limit {LLM_RTOL}); the greedy "
+        f"tokens agree at {agree} of {len(kernel_steps)} steps")
+    if not worst <= LLM_RTOL:
+        raise AssertionError(f"kernel and plain LLM paths differ by {worst}")
+
+    # where the time goes: one wave of 8 prompts under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    eng.reset_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        eng.generate(prompts[:opts.slots])
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    st = eng.stats()
+    device_profile(prof, wall_us, f"one wave of {opts.slots} prompts "
+                   f"({st['prefills']} prefills, {st['decode_steps']} "
+                   f"decode steps)")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--vertices", type=int, default=2_449_029,
@@ -685,6 +985,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
+    from repro_torch.configs import get_config
     from repro_torch.configs.gcn_paper import paper_model
     from repro_torch.device import use_full_f32_matmul
     from repro_torch.graphs import get_dataset
@@ -719,14 +1020,20 @@ def main() -> int:
                check_fused_tail(torch, cfg.d_hidden, spec.total, dev)]
     train_plan, train_graph = train_setup(torch, ds, dev)
     kernels.append(check_spmm_ell(torch, train_plan, train_graph, dev))
+    kernels.append(check_flash_attention(torch, np, dev))
 
-    serve_launches = phase_serve(torch, np, ds, cfg, args.requests)
-    train_launches = phase_train(torch, np, train_plan, train_graph)
+    by_path = {"serve": phase_serve(torch, np, ds, cfg, args.requests),
+               "train": phase_train(torch, np, train_plan, train_graph)}
+    del train_plan, train_graph
+    torch.cuda.empty_cache()
+    by_path["llm"] = phase_llm(torch, np, get_config("tinyllama-1.1b"), dev)
+    # each kernel's launches on the path that runs it
+    main_path = {"extract_dense_fused": "train", "fused_layer": "train",
+                 "spmm_ell": "train", "flash_attention": "llm"}
     for k in kernels:
-        k["launches"] = train_launches[k["name"]]
-        k["launches_by_path"] = {
-            "serve": serve_launches.get(k["name"], 0),
-            "train": train_launches[k["name"]]}
+        k["launches_by_path"] = {p: counts[k["name"]]
+                                 for p, counts in by_path.items()}
+        k["launches"] = by_path[main_path[k["name"]]][k["name"]]
     log(f"[done] {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))

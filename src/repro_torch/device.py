@@ -27,7 +27,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 
 def use_full_f32_matmul() -> None:
     """Keep float32 GEMMs and convolutions in full float32, as the JAX
-    reference computes them: TF32 keeps about three decimal digits. Called
-    by every entry point of the port."""
+    reference computes them: TF32 keeps about three decimal digits. A bf16
+    GEMM sums in float32 too (PyTorch's default lets it reduce in bf16;
+    XLA accumulates in float32). Called by every entry point of the
+    port."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

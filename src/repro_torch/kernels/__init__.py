@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for Hopper (``csrc/``), each beside its plain
 PyTorch version: the fused Alg.-2 extraction (``extract_gather``), the
-fused layer tail (``fused_layer``) and the block-ELL SpMM (``spmm_ell``);
-``ops`` gives the last two their autograd rules. ``_build`` compiles them
-at first use."""
+fused layer tail (``fused_layer``), the block-ELL SpMM (``spmm_ell``) and
+the flash-attention forward (``flash_attention``); ``ops`` gives the SpMM
+and the tail their autograd rules and is the public entry of attention.
+``_build`` compiles them at first use."""

@@ -38,6 +38,10 @@ SIGNATURES = {
     "repro_fused_layer": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P],
     # tiles, colidx, x, out, n_rb, n_slots, bm, bn, n_cb, d, bf16, stream
     "repro_spmm_ell": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, out, lse, b, sq, t, h, kv, hd, causal, use_window, window,
+    # scale, bf16, stream
+    "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,0 +1,124 @@
+"""Flash-attention forward — grouped-query attention with a running softmax
+as a CUDA kernel.
+
+Counterpart of ``repro/kernels/flash_attention.py``. For
+
+    q : (B, Sq, H, hd)      k, v : (B, T, KV, hd)      H % KV == 0
+
+with a causal mask (``k_pos <= q_pos``), an optional sliding window
+(``k_pos > q_pos - window``) or neither, :func:`flash_attention` returns
+``(out (B, Sq, H, hd) in q's type, lse (B, H, Sq) float32)``: the CUDA
+kernel (``csrc/flash_attention.cu``) for CUDA tensors, and
+:func:`flash_attention_plain` — the dense masked softmax in float32, as the
+reference's oracle ``ref.flash_attention_ref`` computes it, plus the lse —
+for CPU tensors. q head ``h`` reads kv head ``h // (H / KV)``. The kernel
+takes hd in {16, 32, 64, 128} and float32 or bfloat16; any Sq and T.
+``kernels.ops.flash_attention`` is the public entry.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+# kernel launches so far (a run zeroes it to show that a path used the kernel)
+LAUNCHES = 0
+
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def attention_mask(sq: int, t: int, causal: bool, window: Optional[int],
+                   device: torch.device) -> torch.Tensor:
+    """(Sq, T) bool: which keys each query row may see."""
+    qp = torch.arange(sq, device=device)[:, None]
+    kp = torch.arange(t, device=device)[None, :]
+    allow = torch.ones((sq, t), dtype=torch.bool, device=device)
+    if causal:
+        allow &= kp <= qp
+    if window is not None:
+        allow &= kp > qp - window
+    return allow
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True, window: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch: the dense masked softmax in
+    float32 over K/V repeated per q head, and the lse; a row with no key
+    to see gives zeros and ``lse = log(1e-20)``, as the kernel does."""
+    b, sq, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    kk = k.float().repeat_interleave(g, dim=2)
+    vv = v.float().repeat_interleave(g, dim=2)
+    s = torch.einsum("bqhd,bthd->bhqt", q.float(), kk) / math.sqrt(hd)
+    allow = attention_mask(sq, t, causal, window, q.device)
+    s = s.masked_fill(~allow, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m_safe)
+    l_sum = p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+    out = torch.einsum("bhqt,bthd->bqhd", p / l_sum, vv)
+    lse = (m_safe + torch.log(l_sum))[..., 0]
+    return out.to(q.dtype), lse
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> None:
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"flash_attention: {name} must be a contiguous {dtype} tensor of "
+            f"shape {shape} on {device}, got {tuple(t.shape)} {t.dtype} on "
+            f"{t.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention of ``q`` over ``k``/``v``; returns ``(out, lse)``."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, window)
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {dev}")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"flash_attention: q and k must be 4-D, got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    b, sq, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {hd} not in "
+                         f"{HEAD_DIMS}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: q must be float32 or bfloat16, "
+                         f"got {q.dtype}")
+    if kv <= 0 or h % kv != 0:
+        raise ValueError(f"flash_attention: {h} q heads are not a multiple "
+                         f"of {kv} kv heads")
+    _check(q, "q", q.dtype, (b, sq, h, hd), dev)
+    _check(k, "k", q.dtype, (b, t, kv, hd), dev)
+    _check(v, "v", q.dtype, (b, t, kv, hd), dev)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    if b == 0 or sq == 0 or h == 0:
+        return out, lse
+    if t == 0:                       # no key to see: the kernel's empty rows
+        out.zero_()
+        lse.fill_(math.log(1e-20))
+        return out, lse
+    lib = _build.load()
+    rc = lib.repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, sq, t, h, kv, hd, int(causal),
+        int(window is not None), 0 if window is None else int(window),
+        float(hd ** -0.5), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "flash_attention")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out, lse

@@ -1,10 +1,11 @@
 """Public wrappers of the port's kernels with their autograd rules
 (counterpart of ``repro/kernels/ops.py``).
 
-Each op is a ``torch.autograd.Function``: the forward is the CUDA kernel
-for CUDA tensors (its plain version for CPU tensors); the backward is plain
-PyTorch in the reference's order of operations, as the reference's custom
-VJPs are plain jnp (``_spmm_bwd``, ``_fused_bwd``) with no Pallas kernel.
+The SpMM and the tail are ``torch.autograd.Function``s: the forward is the
+CUDA kernel for CUDA tensors (its plain version for CPU tensors); the
+backward is plain PyTorch in the reference's order of operations, as the
+reference's custom VJPs are plain jnp (``_spmm_bwd``, ``_fused_bwd``) with
+no Pallas kernel. Attention is forward only so far.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fused_layer as _fused
 from repro_torch.kernels import spmm_ell as _spmm
 
@@ -130,3 +132,24 @@ def fused_layer_tail(
     rate = float(dropout_rate) if dropout_mask is not None else 0.0
     return _FusedTail.apply(x, scale, dropout_mask, residual, rate,
                             float(eps), use_rmsnorm, use_relu)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (forward only)
+# ---------------------------------------------------------------------------
+
+_FLASH_BWD_TODO = ("the flash-attention backward (ops._fa_bwd and "
+                   "layers._flash_bwd of the JAX package) is not ported yet: "
+                   "ROADMAP queue 1, item 10 (LLM training)")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Grouped-query attention with a running softmax; returns ``out``
+    (B, Sq, H, hd) in q's type: the CUDA kernel for CUDA tensors, its plain
+    version for CPU tensors. No autograd rule yet: an input that requires
+    grad raises."""
+    if any(t.requires_grad for t in (q, k, v)) and torch.is_grad_enabled():
+        raise NotImplementedError(_FLASH_BWD_TODO)
+    return _flash.flash_attention(q, k, v, causal, window)[0]

@@ -1,0 +1,200 @@
+"""Transformer building blocks (counterpart of ``repro/models/layers.py``).
+
+Functions over parameter mappings: ``p["wq"]`` and ``"bq" in p`` work on a
+dict of tensors and on the ``nn.ParameterDict``s of
+``models/transformer.py`` alike. Norm and softmax statistics run in
+float32 whatever the compute dtype, as in the reference; GQA stays grouped
+(no K/V repetition in memory).
+
+Full-sequence attention (:func:`blockwise_attention`) goes through
+``kernels.ops.flash_attention`` — the CUDA flash kernel for CUDA tensors —
+where the reference runs its jnp running-softmax scan; the two compute the
+same function (``tests/test_kernels_flash.py`` holds the reference's Pallas
+kernel and its scan equal). Every function that reaches it takes
+``attn_impl``: ``"cuda"`` (the default) goes through the kernel's wrapper,
+``"torch"`` calls the plain version directly on any device. Single-token
+decode attention (:func:`decode_attention`) is plain PyTorch in float32,
+as the reference's is plain jnp.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention_plain
+
+ATTN_IMPLS = ("cuda", "torch")
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    x32 = x.float()
+    ms = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor,
+              bias: Optional[torch.Tensor], eps: float) -> torch.Tensor:
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps) * scale.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
+def apply_norm(x: torch.Tensor, p: Mapping, kind: str,
+               eps: float) -> torch.Tensor:
+    if kind.startswith("layernorm"):      # "layernorm" | "layernorm_nobias"
+        return layernorm(x, p["scale"], p["bias"] if "bias" in p else None,
+                         eps)
+    return rmsnorm(x, p["scale"], eps)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (B, S, H, hd); positions: (B, S) or (S,)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs             # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.split(x.float(), half, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def _check_impl(attn_impl: str) -> None:
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl={attn_impl!r}, expected one of "
+                         f"{ATTN_IMPLS}")
+
+
+def blockwise_attention(
+    q: torch.Tensor,                 # (B, Sq, H, hd)
+    k: torch.Tensor,                 # (B, T, KV, hd)
+    v: torch.Tensor,                 # (B, T, KV, hd)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    attn_impl: str = "cuda",
+) -> torch.Tensor:
+    """Running-softmax attention, (B, Sq, H, hd) in q's type. The kernel
+    stages its own blocks of 64 keys, so the reference's ``kv_block`` is
+    not an argument. ``q_offset`` other than 0 and the reference's
+    q-chunked path (``_Q_CHUNK``) are not ported: its serving path uses
+    neither."""
+    _check_impl(attn_impl)
+    if q_offset != 0:
+        raise NotImplementedError("blockwise_attention: q_offset != 0 is not "
+                                  "ported (the reference's serving path "
+                                  "uses 0)")
+    if attn_impl == "torch":
+        return flash_attention_plain(q, k, v, causal, window)[0]
+    return ops.flash_attention(q, k, v, causal, window)
+
+
+def decode_attention(
+    q: torch.Tensor,            # (B, 1, H, hd), already roped at its position
+    k_cache: torch.Tensor,      # (B, T, KV, hd), roped at insert time
+    v_cache: torch.Tensor,      # (B, T, KV, hd)
+    cache_len: Union[int, torch.Tensor],  # valid entries: scalar or (B, 1)
+) -> torch.Tensor:
+    """Single-token attention over a (possibly ring) KV cache, in float32.
+    Slots below ``min(cache_len, T)`` hold data, which covers a ring buffer
+    that has wrapped (every slot valid) and one that has not, so the
+    reference's ``ring`` flag is not an argument."""
+    b, _, h, hd = q.shape
+    t, kv = k_cache.shape[1], k_cache.shape[2]
+    g = h // kv
+    scale = hd ** -0.5
+    qg = q.reshape(b, kv, g, hd).float()
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.float()) * scale
+    slot = torch.arange(t, device=q.device)
+    cl = torch.as_tensor(cache_len, device=q.device)
+    valid = slot[None] < torch.clamp(cl, max=t)               # (1|B, T)
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p, v_cache.float())
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def attn_project_qkv(p: Mapping, x: torch.Tensor, n_heads: int, n_kv: int,
+                     hd: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    b, s, _ = x.shape
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return (q.reshape(b, s, n_heads, hd), k.reshape(b, s, n_kv, hd),
+            v.reshape(b, s, n_kv, hd))
+
+
+def attention_block(
+    p: Mapping, x: torch.Tensor, *, n_heads: int, n_kv: int, hd: int,
+    rope_theta: Optional[float], positions: torch.Tensor,
+    causal: bool = True, window: Optional[int] = None,
+    attn_impl: str = "cuda", return_kv: bool = False,
+):
+    """Full-sequence self-attention (train / prefill). With ``return_kv``
+    also returns the roped ``(k, v)``, so that a prefill projects them once
+    for its cache."""
+    b, s, _ = x.shape
+    q, k, v = attn_project_qkv(p, x, n_heads, n_kv, hd)
+    if rope_theta is not None:
+        q = rope(q, positions, rope_theta)
+        k = rope(k, positions, rope_theta)
+    out = blockwise_attention(q, k, v, causal=causal, window=window,
+                              attn_impl=attn_impl)
+    y = out.reshape(b, s, n_heads * hd) @ p["wo"]
+    return (y, (k, v)) if return_kv else y
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def swiglu_mlp(p: Mapping, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+def gelu_mlp(p: Mapping, x: torch.Tensor) -> torch.Tensor:
+    h = x @ p["w1"]
+    if "b1" in p:
+        h = h + p["b1"]
+    h = F.gelu(h, approximate="tanh")      # jax.nn.gelu's default
+    h = h @ p["w2"]
+    if "b2" in p:
+        h = h + p["b2"]
+    return h
+
+
+def mlp_block(p: Mapping, x: torch.Tensor, kind: str) -> torch.Tensor:
+    return swiglu_mlp(p, x) if kind == "swiglu" else gelu_mlp(p, x)

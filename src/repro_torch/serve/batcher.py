@@ -16,7 +16,8 @@ Two flush policies, both deterministic given the caller-supplied clock:
 The batcher never reads a wall clock itself: every mutating call takes
 ``now``. The engine passes real time in live mode and a virtual clock in
 replay mode, which is what makes single-threaded replay bit-deterministic.
-A copy of ``repro/serve/batcher.py`` without the LLM path's request queue.
+The LLM path's :class:`RequestQueue` holds whole prompts instead. A copy of
+``repro/serve/batcher.py``.
 """
 from __future__ import annotations
 
@@ -109,3 +110,40 @@ class MicroBatcher:
         self.batches_emitted += 1
         return MicroBatch(items=tuple(items))
 
+
+
+class RequestQueue:
+    """FIFO queue at whole-request granularity.
+
+    The LLM backend's unit of admission is a prompt — one request claims one
+    KV cache slot end-to-end and is never split across batches, so its queue
+    holds requests, not per-item work. Same contract as :class:`MicroBatcher`
+    otherwise: no wall clock, deterministic under a caller-supplied stream.
+    """
+
+    def __init__(self):
+        self._queue: List[Tuple[int, object]] = []   # (req_id, payload)
+        self.items_enqueued = 0
+        self.wait_high_water = 0
+
+    def __len__(self) -> int:
+        return len(self._queue)
+
+    @property
+    def pending(self) -> int:
+        return len(self._queue)
+
+    def add(self, req_id: int, payload: object) -> None:
+        self._queue.append((req_id, payload))
+        self.items_enqueued += 1
+        self.wait_high_water = max(self.wait_high_water, len(self._queue))
+
+    def pop(self) -> Tuple[int, object]:
+        """Dequeue the oldest waiting request (FIFO)."""
+        return self._queue.pop(0)
+
+    def cancel(self, req_id: int) -> int:
+        """Drop a shed request still waiting for a slot."""
+        n = len(self._queue)
+        self._queue = [(r, p) for r, p in self._queue if r != req_id]
+        return n - len(self._queue)

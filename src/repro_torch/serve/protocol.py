@@ -6,11 +6,15 @@ table, clock (live/replay), latency histogram, deadline shedding, the
 ``submit``/``pump``/``poll``/``drain``/``take_completed`` lifecycle. A
 backend owns everything model-specific — how requests turn into batches
 (``admit``/``plan``), what ONE device call looks like (``execute``), and the
-model's own counters (``stats``). A copy of ``repro/serve/protocol.py``;
-the port has one backend so far, the GNN classifier (``serve/engine.py``:
-vertex-granular micro-batching, Alg.-2 neighborhood assembly, int8
-embedding cache, one device). The threaded driver and the LLM backend of
-the JAX package are still to be ported.
+model's own counters (``stats``). A copy of ``repro/serve/protocol.py``.
+The port has two backends, each on one device:
+
+* the GNN classifier (``serve/engine.py``): vertex-granular
+  micro-batching, Alg.-2 neighborhood assembly, int8 embedding cache;
+* the autoregressive LLM (``serve/llm_engine.py``): KV-cache slot
+  scheduling, continuous batching, one decode step per pump.
+
+The threaded driver of the JAX package is still to be ported.
 
 A "batch" is opaque to the core — it is whatever ``plan``/``admit`` emitted
 and only ``execute`` interprets it (a dp group of micro-batches for the GNN;

@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.graphs import make_synthetic_dataset  # noqa: E402
 from repro_torch.kernels import extract_gather as teg  # noqa: E402
+from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import fused_layer as tfl  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import spmm_ell as tspmm  # noqa: E402
@@ -199,3 +200,74 @@ def test_cuda_spmm_ell_rejects_bad_inputs(cuda):
         tspmm.spmm_ell(tiles.double(), colidx, x)
     with pytest.raises(ValueError, match="multiple of bn"):
         tspmm.spmm_ell(tiles, colidx, x[:-1])
+
+
+# the sweep of tests/test_kernels_flash.py, then ragged Sq and T, hd 128 and
+# the LLM serving shape (one prompt of 512, 32 q heads over 4 kv heads)
+FLASH_SHAPES = [
+    (2, 64, 64, 4, 2, 32, True, None),
+    (2, 32, 96, 4, 4, 16, False, None),
+    (2, 128, 128, 8, 2, 16, True, 32),
+    (2, 64, 100, 2, 1, 32, False, None),
+    (2, 256, 256, 2, 2, 64, True, None),
+    (3, 100, 77, 4, 2, 64, False, None),
+    (1, 130, 130, 4, 1, 128, True, 50),
+    (1, 512, 512, 32, 4, 64, True, None),
+]
+
+
+def _flash_case(b, sq, t, h, kv, hd, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.from_numpy(
+        rng.normal(size=s).astype(np.float32)).to(device, dtype)
+    return mk(b, sq, h, hd), mk(b, t, kv, hd), mk(b, t, kv, hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,t,h,kv,hd,causal,window", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+def test_cuda_flash_attention_matches_plain(cuda, b, sq, t, h, kv, hd,
+                                            causal, window, dtype, tol):
+    """out and lse against the plain dense softmax: f32 sums in another
+    order (1e-4), bf16 at the reference's 5e-2."""
+    q, k, v = _flash_case(b, sq, t, h, kv, hd, dtype, cuda)
+    n0 = tflash.LAUNCHES
+    out, lse = tflash.flash_attention(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert tflash.LAUNCHES == n0 + 1
+    ref, ref_lse = tflash.flash_attention_plain(q, k, v, causal, window)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert lse.shape == (b, h, sq)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_bad_inputs(cuda):
+    q, k, v = _flash_case(1, 8, 8, 2, 1, 48, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        tflash.flash_attention(q, k, v)
+    q, k, v = _flash_case(1, 8, 8, 3, 2, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        tflash.flash_attention(q, k, v)
+    q, k, v = _flash_case(1, 8, 8, 2, 1, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="k must"):
+        tflash.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="q must"):
+        tflash.flash_attention(q.transpose(1, 2), k, v)
+
+
+def test_llm_engine_without_device_needs_a_card(monkeypatch):
+    """``LLMServeOptions(device=None)`` means the card: without one the
+    engine raises instead of falling back to the CPU. Runs everywhere."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as TT
+    from repro_torch.serve import LLMEngine, LLMServeOptions
+    cfg = get_smoke("tinyllama-1.1b")
+    model = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        LLMEngine(model, cfg, LLMServeOptions(device=None))
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        TT.init_params(cfg, torch.Generator())

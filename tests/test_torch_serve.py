@@ -278,6 +278,8 @@ def test_port_imports_neither_jax_nor_repro():
         "assert not bad, bad\n"
         "assert 'repro_torch.serve.engine' in sys.modules\n"
         "assert 'repro_torch.train.runner' in sys.modules\n"
+        "assert 'repro_torch.serve.llm_engine' in sys.modules\n"
+        "assert 'repro_torch.models.transformer' in sys.modules\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=src,
                          capture_output=True, text=True, timeout=120,
