@@ -7,132 +7,340 @@
 //   out[i*bm : (i+1)*bm] = sum_s tiles[i, s] @ x[colidx[i, s]*bn : +bn]
 //
 // accumulated in float32, with tiles (n_rb, S, bm, bn), colidx (n_rb, S)
-// int32 and x (n_cb*bn, d); the output (n_rb*bm, d) has x's type. Padding
-// slots are all-zero tiles at column-block 0 and are computed like any other
-// slot, as the TPU kernel computes them. A column-block index outside
-// [0, n_cb) is clamped, as the reference's dynamic slice clamps it.
+// int32 and x (n_cb*bn, d); the output (n_rb*bm, d) has x's type. A
+// column-block index outside [0, n_cb) is clamped, as the reference's
+// dynamic slice clamps it.
 //
-// What bounds it on the H100: operations. At the training shape (n_rb = 64,
-// bm = bn = 128, d = 256, S = 32) a call does 2*64*32*128*128*256 = 17.2
-// GFLOP, 0.26 ms at 67 TFLOP/s on the float32 CUDA cores, against 134 MB of
-// tiles, 0.04 ms at 3.35 TB/s.
+// Padding. A padding slot is an all-zero tile at column-block 0, and in the
+// top-k layout it can stand in any slot (a live tile of column-block 0 can
+// stand in a slot other than 0), so padding is found from the tile itself,
+// never from colidx: the kernel skips every chunk of a tile (32 rows x 32
+// columns) that is all zero -- the x chunk under it is not loaded and its
+// product not computed. For finite x that is the function the TPU kernel
+// computes; a non-finite x under an all-zero chunk no longer turns the
+// output to NaN, as 0 * inf would.
+//
+// What bounds it on the H100. At the training shape (n_rb = 64, bm = bn =
+// 128, d = 256, S = 32, 506 of the 2,048 slots live) all tiles are read
+// once, padding included, to find it: 134 MB, 0.040 ms at 3.35 TB/s. The
+// live tiles need 2*506*128*128*256 = 4.24 GFLOP, 0.063 ms at 67 TFLOP/s
+// on the float32 CUDA cores (every slot would be 17.2 GFLOP), but most of
+// their 32 x 32 chunks are empty in a sampled adjacency, so the products
+// of the nonzeros are few and the bytes bound it. No route uses TF32,
+// which keeps about three decimal digits: the training path is held to
+// 1e-4.
 //
 // Design: the TPU kernel keeps all of x resident in VMEM and walks the slots
 // in a sequential fori_loop per (row-block, feature-tile) grid cell; 227 KB
-// of shared memory cannot hold x here. Instead one CTA computes a 64 x 64
-// output tile (64 rows of one row-block, 64 features) and walks the S slots
-// in order. Each slot's (bm, bn) tile and the matching (bn, 64) slice of x
-// are staged through shared memory in chunks of 16 along bn (converted to
-// float32 on the way in, through the intrinsics for bf16); each of the 256
-// threads accumulates a 4 x 4 micro-tile in float32 registers with FMAs.
-// Any bm and bn (the reference sweeps 8, 16, 32 and 128) and a ragged d are
-// masked at the edges. No wgmma or TMA yet: this is the simple, right
-// version; the tensor-core design is later work.
+// of shared memory cannot hold x here. One CTA of 128 threads owns 32 rows
+// of one row-block and 256 features, so that every tile byte is read by one
+// CTA only; each warp owns 8 rows and each lane an 8 x 8 micro-tile of
+// float32 FMAs (rows read as shared-memory broadcasts). The CTA works in
+// two passes over its strip of the row-block's slots. The scan reads the
+// strip with 16 loads of 16 bytes in flight a thread and sets a bit in a
+// shared-memory mask for every chunk that holds a nonzero (a warp's 32
+// lanes read one chunk, so one vote and one shared atomicOr mark it): it
+// runs at the memory's rate whatever the padding. The product then walks
+// the live chunks only, the tile chunk and its x chunk (32 x 256) double-
+// buffered with cp.async (16 bytes a thread). Any bm and bn (the reference
+// sweeps 8, 16, 32 and 128) and a ragged d are masked at the edges; when
+// bn or d is not a multiple of 16 bytes, or a pointer is not 16-byte
+// aligned, both passes use plain loads. bfloat16 tiles and x are staged as
+// they are and converted on their way into the FMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+
+#include "async_copy.cuh"
 
 namespace {
 
-constexpr int kTM = 64;        // output rows per CTA (within one row-block)
-constexpr int kTN = 64;        // output features per CTA
-constexpr int kTK = 16;        // depth of one staged chunk along bn
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+using bf16 = __nv_bfloat16;
+
+constexpr int kTM = 32;         // output rows per CTA (within one row-block)
+constexpr int kTN = 256;        // output features per CTA
+constexpr int kTK = 32;         // columns of a tile chunk
+constexpr int kThreads = 128;   // 4 warps of 8 rows; a lane owns 8 features
+constexpr int kMaskWords = 128;  // the live-chunk mask: 4096 chunks a pass
+constexpr int kScanBatch = 16;   // 16-byte loads in flight a thread (scan)
+
+// elements in a 16-byte piece
+template <typename T>
+__host__ __device__ constexpr int vec() {
+  return 16 / sizeof(T);
+}
+// a staged tile row, padded by 16 bytes
+template <typename T>
+__host__ __device__ constexpr int a_stride() {
+  return kTK + vec<T>();
+}
+// the mask, then the tile chunks and the x chunks, double-buffered
+template <typename T>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return kMaskWords * sizeof(uint32_t) +
+         (2 * static_cast<size_t>(kTM) * a_stride<T>() +
+          2 * static_cast<size_t>(kTK) * kTN) *
+             sizeof(T);
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+__device__ __forceinline__ void store(bf16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+// four consecutive staged elements as floats
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  v[0] = lo.x;
+  v[1] = lo.y;
+  v[2] = hi.x;
+  v[3] = hi.y;
+}
+
+// one 16-byte piece: cp.async when kVec, else element by element (masked)
+template <typename T, bool kVec>
+__device__ __forceinline__ void stage_piece(T* dst, const T* src, int valid) {
+  constexpr int V = vec<T>();
+  if (kVec) {
+    cp_async16(smem_addr(dst), src, valid == V);
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      if (e < valid) {
+        dst[e] = src[e];
+      } else {
+        store(dst + e, 0.0f);
+      }
+    }
+  }
+}
+
+// does a 16-byte piece hold a nonzero? (-0 counts as zero, NaN does not)
 template <typename T>
+__device__ __forceinline__ bool nonzero16(const uint4& u) {
+  constexpr uint32_t kMagnitude = sizeof(T) == 4 ? 0x7fffffffu : 0x7fff7fffu;
+  return ((u.x | u.y | u.z | u.w) & kMagnitude) != 0;
+}
+
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads) spmm_ell_kernel(
     const T* __restrict__ tiles, const int* __restrict__ colidx,
     const T* __restrict__ x, T* __restrict__ out, int n_slots, int bm,
     int bn, int n_cb, int d, int row_tiles) {
-  // the tile chunk k-major, one float of padding per row against bank
-  // conflicts on the transposing store
-  __shared__ float s_a[kTK][kTM + 1];
-  __shared__ float s_x[kTK][kTN];
+  constexpr int V = vec<T>();
+  constexpr int AS = a_stride<T>();
+  constexpr int kRowPieces = kTK / V;              // pieces in a chunk row
+  constexpr int kChunkPieces = kTM * kRowPieces;   // pieces in a chunk
+  constexpr int kAPieces = kChunkPieces / kThreads;  // a thread's share
+  constexpr int kXPieces = kTK * kTN / V / kThreads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint32_t* mask = reinterpret_cast<uint32_t*>(smem_raw);  // [kMaskWords]
+  T* s_a = reinterpret_cast<T*>(mask + kMaskWords);         // [2][kTM][AS]
+  T* s_x = s_a + 2 * kTM * AS;                              // [2][kTK][kTN]
 
-  const int i = blockIdx.x / row_tiles;             // row-block
-  const int r0 = (blockIdx.x % row_tiles) * kTM;    // first row in it
-  const int j0 = blockIdx.y * kTN;                  // first feature
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  const int i = blockIdx.x / row_tiles;           // row-block
+  const int r0 = (blockIdx.x % row_tiles) * kTM;  // first row in it
+  const int j0 = blockIdx.y * kTN;                // first feature
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;  // rows warp * 8 + {0..7}
+  const int k_chunks = (bn + kTK - 1) / kTK;
+  const int n_chunks = n_slots * k_chunks;
+  const T* tiles_i = tiles + static_cast<size_t>(i) * n_slots * bm * bn;
 
-  float acc[4][4];
+  // piece q of chunk c: its row in the strip, its first column in the tile
+  // and its address (slot c / k_chunks, columns from (c % k_chunks) * kTK)
+  auto a_piece = [&](int c, int q, int& r, int& col) {
+    r = q / kRowPieces;
+    col = (c % k_chunks) * kTK + (q % kRowPieces) * V;
+    return tiles_i + static_cast<size_t>(c / k_chunks) * bm * bn +
+           static_cast<size_t>(r0 + r) * bn + col;
+  };
+  // tile chunk c and the x chunk under it into buffer buf
+  auto stage = [&](int c, int buf) {
 #pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int n = 0; n < 4; ++n) acc[m][n] = 0.0f;
-
-  for (int s = 0; s < n_slots; ++s) {
-    int c = colidx[static_cast<size_t>(i) * n_slots + s];
-    c = min(max(c, 0), n_cb - 1);
-    const T* a = tiles + (static_cast<size_t>(i) * n_slots + s) * bm * bn;
-    const T* xb = x + static_cast<size_t>(c) * bn * d;
-    for (int k0 = 0; k0 < bn; k0 += kTK) {
-      for (int e = threadIdx.x; e < kTM * kTK; e += kThreads) {
-        const int r = e / kTK, k = e % kTK;
-        const int rr = r0 + r, kk = k0 + k;
-        s_a[k][r] = (rr < bm && kk < bn)
-                        ? to_f32(a[static_cast<size_t>(rr) * bn + kk])
-                        : 0.0f;
-      }
-      for (int e = threadIdx.x; e < kTK * kTN; e += kThreads) {
-        const int k = e / kTN, n = e % kTN;
-        const int kk = k0 + k, jj = j0 + n;
-        s_x[k][n] = (kk < bn && jj < d)
-                        ? to_f32(xb[static_cast<size_t>(kk) * d + jj])
-                        : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kTK; ++k) {
-        float av[4], xv[4];
-#pragma unroll
-        for (int m = 0; m < 4; ++m) av[m] = s_a[k][ty + 16 * m];
-#pragma unroll
-        for (int n = 0; n < 4; ++n) xv[n] = s_x[k][tx + 16 * n];
-#pragma unroll
-        for (int m = 0; m < 4; ++m)
-#pragma unroll
-          for (int n = 0; n < 4; ++n) acc[m][n] = fmaf(av[m], xv[n], acc[m][n]);
-      }
-      __syncthreads();
+    for (int p = 0; p < kAPieces; ++p) {
+      int r, col;
+      const T* src = a_piece(c, tid + p * kThreads, r, col);
+      const bool in = r0 + r < bm && col < bn;
+      stage_piece<T, kVec>(s_a + (buf * kTM + r) * AS + (col % kTK),
+                           in ? src : tiles, in ? min(V, bn - col) : 0);
     }
+    int cb = colidx[static_cast<size_t>(i) * n_slots + c / k_chunks];
+    cb = min(max(cb, 0), n_cb - 1);
+    const int k0 = (c % k_chunks) * kTK;
+    const T* xb = x + (static_cast<size_t>(cb) * bn + k0) * d + j0;
+#pragma unroll
+    for (int p = 0; p < kXPieces; ++p) {
+      const int e = tid + p * kThreads;
+      const int k = e / (kTN / V), n = (e % (kTN / V)) * V;
+      const bool in = k0 + k < bn && j0 + n < d;
+      stage_piece<T, kVec>(s_x + (buf * kTK + k) * kTN + n,
+                           in ? xb + static_cast<size_t>(k) * d + n : x,
+                           in ? min(V, d - j0 - n) : 0);
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) acc[m][n] = 0.0f;
+
+  for (int c0 = 0; c0 < n_chunks; c0 += 32 * kMaskWords) {
+    const int n_win = min(n_chunks - c0, 32 * kMaskWords);
+    for (int w = tid; w < kMaskWords; w += kThreads) mask[w] = 0;
+    __syncthreads();
+
+    // pass 1: mark the chunks of the window that hold a nonzero; a warp's
+    // 32 consecutive items are pieces of one chunk
+    const int n_items = n_win * kChunkPieces;
+    for (int base = 0; base < n_items; base += kThreads * kScanBatch) {
+      bool nz[kScanBatch];
+      if (kVec) {
+        uint4 raw[kScanBatch];
+#pragma unroll
+        for (int j = 0; j < kScanBatch; ++j) {
+          const int e = base + tid + j * kThreads;
+          int r, col;
+          const T* src = a_piece(c0 + e / kChunkPieces, e % kChunkPieces, r,
+                                 col);
+          raw[j] = e < n_items && r0 + r < bm && col < bn
+                       ? __ldg(reinterpret_cast<const uint4*>(src))
+                       : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int j = 0; j < kScanBatch; ++j) nz[j] = nonzero16<T>(raw[j]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kScanBatch; ++j) {
+          const int e = base + tid + j * kThreads;
+          int r, col;
+          const T* src = a_piece(c0 + e / kChunkPieces, e % kChunkPieces, r,
+                                 col);
+          nz[j] = false;
+          if (e < n_items && r0 + r < bm)
+            for (int v = 0; v < V && col + v < bn; ++v)
+              nz[j] |= to_f32(src[v]) != 0.0f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kScanBatch; ++j) {
+        const int c = (base + tid + j * kThreads) / kChunkPieces;
+        if (__any_sync(0xffffffffu, nz[j]) && lane == 0)
+          atomicOr(&mask[c >> 5], 1u << (c & 31));
+      }
+    }
+    __syncthreads();
+
+    // pass 2: the live chunks, double-buffered
+    auto next_live = [&](int c) {  // the first live chunk >= c, or n_win
+      while (c < n_win) {
+        const uint32_t word = mask[c >> 5] >> (c & 31);
+        if (word) return c + __ffs(word) - 1;
+        c = (c | 31) + 1;
+      }
+      return n_win;
+    };
+    int cur = next_live(0), buf = 0;
+    if (cur < n_win) stage(c0 + cur, 0);
+    cp_async_commit();
+    while (cur < n_win) {
+      const int nxt = next_live(cur + 1);
+      if (nxt < n_win) stage(c0 + nxt, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // chunk cur has landed
+      __syncthreads();
+      const T* a = s_a + buf * kTM * AS;
+      const T* xs = s_x + buf * kTK * kTN;
+#pragma unroll
+      for (int k = 0; k < kTK; k += 4) {
+        float av[8][4];
+#pragma unroll
+        for (int m = 0; m < 8; ++m) load4(a + (warp * 8 + m) * AS + k, av[m]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float xl[4], xh[4];
+          load4(xs + (k + u) * kTN + lane * 4, xl);
+          load4(xs + (k + u) * kTN + kTN / 2 + lane * 4, xh);
+#pragma unroll
+          for (int m = 0; m < 8; ++m)
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {
+              acc[m][n] = fmaf(av[m][u], xl[n], acc[m][n]);
+              acc[m][n + 4] = fmaf(av[m][u], xh[n], acc[m][n + 4]);
+            }
+        }
+      }
+      __syncthreads();  // buffer buf is read before it is refilled
+      cur = nxt;
+      buf ^= 1;
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the mask is read before the next window clears it
   }
 
 #pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const int rr = r0 + ty + 16 * m;
+  for (int m = 0; m < 8; ++m) {
+    const int rr = r0 + warp * 8 + m;
     if (rr >= bm) continue;
     T* orow = out + (static_cast<size_t>(i) * bm + rr) * d;
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int jj = j0 + tx + 16 * n;
+    for (int n = 0; n < 8; ++n) {
+      const int jj = j0 + (n / 4) * (kTN / 2) + lane * 4 + n % 4;
       if (jj < d) store(orow + jj, acc[m][n]);
     }
   }
 }
 
-template <typename T>
+template <typename T, bool kVec>
 int launch(const void* tiles, const void* colidx, const void* x, void* out,
            int n_rb, int n_slots, int bm, int bn, int n_cb, int d,
            cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<T>();
+  auto kernel = spmm_ell_kernel<T, kVec>;
+  static bool opted_in = false;
+  const cudaError_t e = opt_in(kernel, smem, opted_in);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int row_tiles = (bm + kTM - 1) / kTM;
   const dim3 grid(n_rb * row_tiles, (d + kTN - 1) / kTN);
-  spmm_ell_kernel<T><<<grid, kThreads, 0, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(tiles), static_cast<const int*>(colidx),
       static_cast<const T*>(x), static_cast<T*>(out), n_slots, bm, bn, n_cb,
       d, row_tiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* tiles, const void* colidx, const void* x, void* out,
+             int n_rb, int n_slots, int bm, int bn, int n_cb, int d,
+             cudaStream_t stream) {
+  constexpr int V = vec<T>();
+  const bool aligned =
+      bn % V == 0 && d % V == 0 &&
+      (reinterpret_cast<uintptr_t>(tiles) | reinterpret_cast<uintptr_t>(x)) %
+              16 ==
+          0;
+  return aligned ? launch<T, true>(tiles, colidx, x, out, n_rb, n_slots, bm,
+                                   bn, n_cb, d, stream)
+                 : launch<T, false>(tiles, colidx, x, out, n_rb, n_slots, bm,
+                                    bn, n_cb, d, stream);
 }
 
 }  // namespace
@@ -145,10 +353,8 @@ extern "C" int repro_spmm_ell(const void* tiles, const void* colidx,
                               int n_slots, int bm, int bn, int n_cb, int d,
                               int bf16, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    return launch<__nv_bfloat16>(tiles, colidx, x, out, n_rb, n_slots, bm,
-                                 bn, n_cb, d, st);
-  }
-  return launch<float>(tiles, colidx, x, out, n_rb, n_slots, bm, bn, n_cb, d,
-                       st);
+  return bf16 ? dispatch<__nv_bfloat16>(tiles, colidx, x, out, n_rb, n_slots,
+                                        bm, bn, n_cb, d, st)
+              : dispatch<float>(tiles, colidx, x, out, n_rb, n_slots, bm, bn,
+                                n_cb, d, st);
 }

@@ -12,7 +12,11 @@ kernel (``csrc/flash_attention.cu``) for CUDA tensors, and
 :func:`flash_attention_plain` — the dense masked softmax in float32, as the
 reference's oracle ``ref.flash_attention_ref`` computes it, plus the lse —
 for CPU tensors. q head ``h`` reads kv head ``h // (H / KV)``. The kernel
-takes hd in {16, 32, 64, 128} and float32 or bfloat16; any Sq and T.
+takes hd in {16, 32, 64, 128} and float32 or bfloat16; any Sq and T. It
+has two routes, one per type: bfloat16 runs both products on the tensor
+cores (``flash_attention_mma_kernel``, ``mma.sync`` with float32
+accumulation; its inputs must be 16-byte aligned), float32 on the float32
+CUDA cores (``flash_attention_kernel``), never through TF32.
 ``kernels.ops.flash_attention`` is the public entry.
 """
 from __future__ import annotations
@@ -24,8 +28,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-# kernel launches so far (a run zeroes it to show that a path used the kernel)
+# kernel launches so far, of both routes (a run zeroes it to show that a path
+# used the kernel), and each route's own: "mma" for bfloat16, "f32"
 LAUNCHES = 0
+ROUTE_LAUNCHES = {"mma": 0, "f32": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -103,6 +109,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, "q", q.dtype, (b, sq, h, hd), dev)
     _check(k, "k", q.dtype, (b, t, kv, hd), dev)
     _check(v, "v", q.dtype, (b, t, kv, hd), dev)
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16
+                                         for x in (q, k, v)):
+        raise ValueError("flash_attention: bfloat16 q, k and v must start "
+                         "on a 16-byte boundary (the kernel copies 16 bytes "
+                         "at a time)")
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     if b == 0 or sq == 0 or h == 0:
@@ -121,4 +132,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(rc, "flash_attention")
     global LAUNCHES
     LAUNCHES += 1
+    ROUTE_LAUNCHES["mma" if q.dtype == torch.bfloat16 else "f32"] += 1
     return out, lse

@@ -12,7 +12,10 @@ from::
 x[colidx[i, s]*bn : +bn]`` in float32, output in x's type: the CUDA kernel
 (``csrc/spmm_ell.cu``) for CUDA tensors, :func:`spmm_ell_plain` — the same
 function in plain PyTorch, slot by slot as the reference's oracle sums —
-for CPU tensors. The layout helpers (:func:`dense_to_block_ell`,
+for CPU tensors. The kernel finds padding from the tiles themselves, not
+from ``colidx``, and skips every all-zero 32 x 32 chunk of a tile: for
+finite x the same function (a non-finite x under a skipped chunk no longer
+turns the output to NaN). The layout helpers (:func:`dense_to_block_ell`,
 :func:`dense_to_block_ell_ranked`, :func:`ell_to_dense`,
 :func:`block_density`) are plain PyTorch and give the reference's layouts
 bit for bit.

@@ -191,6 +191,64 @@ def test_cuda_spmm_ell_autograd_matches_plain(cuda):
                                                          b.abs().max().item())
 
 
+# the slots of three row-blocks: a live tile's column-block, or None for
+# padding (an all-zero tile at column-block 0)
+PADDED_LAYOUT = [[3, None, 1, None, 2],   # padding between live slots
+                 [2, None, 0, 1, None],   # a live column-block-0 tile, slot 2
+                 [None] * 5]              # a row-block that is all padding
+
+
+def _padded_ell_case(bm, bn, d, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    n_rb, n_slots, n_cb = len(PADDED_LAYOUT), len(PADDED_LAYOUT[0]), 4
+    tiles = rng.normal(size=(n_rb, n_slots, bm, bn)).astype(np.float32)
+    colidx = np.zeros((n_rb, n_slots), np.int32)
+    for i, row in enumerate(PADDED_LAYOUT):
+        for s, cb in enumerate(row):
+            if cb is None:
+                tiles[i, s] = 0.0
+            else:
+                colidx[i, s] = cb
+    x = rng.normal(size=(n_cb * bn, d)).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(device)
+    return t(tiles).to(dtype), t(colidx), t(x).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm,bn,d", [(128, 128, 256), (16, 32, 37),
+                                     (8, 8, 16)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+def test_cuda_spmm_ell_skips_padding_in_any_slot(cuda, bm, bn, d, dtype,
+                                                 tol):
+    """The kernel finds padding from the tile, not from colidx: padding
+    between live slots, a live column-block-0 tile in slot 2 and a
+    row-block of padding only (exact zeros), against the plain version
+    (f32 1e-4, bf16 5e-2, relative to the largest output)."""
+    tiles, colidx, x = _padded_ell_case(bm, bn, d, dtype, cuda)
+    got = tspmm.spmm_ell(tiles, colidx, x)
+    torch.cuda.synchronize()
+    ref = tspmm.spmm_ell_plain(tiles, colidx, x)
+    assert got.dtype == dtype
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * max(1.0, ref.float().abs().max().item())
+    assert torch.count_nonzero(got[2 * bm:]) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_spmm_ell_padding_ignores_non_finite_x(cuda):
+    """A skipped padding tile reads no x: inf in column-block 0 reaches the
+    row-block whose block-0 tile is live and leaves the one whose block-0
+    slots are padding finite (the plain version's 0 * inf gives NaN)."""
+    tiles, colidx, x = _padded_ell_case(32, 32, 64, torch.float32, cuda)
+    x[:32] = float("inf")
+    got = tspmm.spmm_ell(tiles, colidx, x)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got[:32]).all()
+    assert not torch.isfinite(got[32:64]).all()
+    assert torch.count_nonzero(got[64:]) == 0
+
+
 @pytest.mark.cuda
 def test_cuda_spmm_ell_rejects_bad_inputs(cuda):
     tiles, colidx, x = (t.to(cuda) for t in _ell_case(8, 8, 2, 2, 4, 0.7))
@@ -202,8 +260,10 @@ def test_cuda_spmm_ell_rejects_bad_inputs(cuda):
         tspmm.spmm_ell(tiles, colidx, x[:-1])
 
 
-# the sweep of tests/test_kernels_flash.py, then ragged Sq and T, hd 128 and
-# the LLM serving shape (one prompt of 512, 32 q heads over 4 kv heads)
+# the sweep of tests/test_kernels_flash.py, then ragged Sq and T, hd 128,
+# GQA 8:1, a causal window, a window that leaves rows (and whole q tiles)
+# with no key, and the LLM serving shape (one prompt of 512, 32 q heads
+# over 4 kv heads) and a qwen2-style one (14 q heads over 2, hd 128)
 FLASH_SHAPES = [
     (2, 64, 64, 4, 2, 32, True, None),
     (2, 32, 96, 4, 4, 16, False, None),
@@ -212,7 +272,11 @@ FLASH_SHAPES = [
     (2, 256, 256, 2, 2, 64, True, None),
     (3, 100, 77, 4, 2, 64, False, None),
     (1, 130, 130, 4, 1, 128, True, 50),
+    (1, 77, 130, 8, 1, 32, False, None),
+    (2, 77, 130, 4, 2, 16, True, 40),
+    (1, 200, 64, 4, 2, 64, False, 32),
     (1, 512, 512, 32, 4, 64, True, None),
+    (1, 512, 512, 14, 2, 128, True, None),
 ]
 
 
@@ -225,22 +289,26 @@ def _flash_case(b, sq, t, h, kv, hd, dtype, device, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,t,h,kv,hd,causal,window", FLASH_SHAPES)
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("dtype,route,tol", [(torch.float32, "f32", 1e-4),
+                                             (torch.bfloat16, "mma", 1e-2)])
 def test_cuda_flash_attention_matches_plain(cuda, b, sq, t, h, kv, hd,
-                                            causal, window, dtype, tol):
+                                            causal, window, dtype, route,
+                                            tol):
     """out and lse against the plain dense softmax: f32 sums in another
-    order (1e-4), bf16 at the reference's 5e-2."""
+    order (1e-4); bf16 out, whose p and out are rounded to bf16, within
+    1e-2 of 1 + |plain| (an ulp in [1, 2) is 7.8e-3), and its lse, from
+    f32 scores, within 1e-4. The launch is counted once, on its route."""
     q, k, v = _flash_case(b, sq, t, h, kv, hd, dtype, cuda)
-    n0 = tflash.LAUNCHES
+    n0, r0 = tflash.LAUNCHES, dict(tflash.ROUTE_LAUNCHES)
     out, lse = tflash.flash_attention(q, k, v, causal, window)
     torch.cuda.synchronize()
     assert tflash.LAUNCHES == n0 + 1
+    assert tflash.ROUTE_LAUNCHES == {**r0, route: r0[route] + 1}
     ref, ref_lse = tflash.flash_attention_plain(q, k, v, causal, window)
     assert out.dtype == dtype and lse.dtype == torch.float32
     assert lse.shape == (b, h, sq)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
-    torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -256,6 +324,11 @@ def test_cuda_flash_attention_rejects_bad_inputs(cuda):
         tflash.flash_attention(q, k.bfloat16(), v)
     with pytest.raises(ValueError, match="q must"):
         tflash.flash_attention(q.transpose(1, 2), k, v)
+    # bf16 goes through 16-byte copies: a contiguous view 2 bytes in raises
+    q, k, v = _flash_case(1, 8, 8, 2, 1, 16, torch.bfloat16, cuda)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash.flash_attention(flat[1:].view(q.shape), k, v)
 
 
 def test_llm_engine_without_device_needs_a_card(monkeypatch):
