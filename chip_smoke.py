@@ -8,11 +8,22 @@ Phases, in order; any failure ends the script with a non-zero exit code:
 
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``;
-3. kernels — build the ogbn-products stand-in graph, then hold each CUDA
-   kernel against its plain PyTorch version on the card at the serving
-   shapes (extraction bit-identical on real sampled rows; fused tail within
-   1e-5 relative); time both per call with CUDA events, and the kernel
-   alone on the device with the profiler;
+3. kernels — build the ogbn-products stand-in graph and the training
+   plan, then hold each CUDA kernel against its plain PyTorch version on
+   the card. The extraction is bit-identical on real sampled serving rows
+   and on a real sampled training batch (8192 x 8192, scalar rescale); the
+   fused tail is within 1e-5 relative at the serving shape, a ragged one
+   and the training shape (8192, 256). Both are timed at the serving shape
+   (256 rows, back to back) and at the training shape on a cold L2 (256 MB
+   written before each call): per call with CUDA events, and the kernel
+   alone on the device with the profiler, beside the bound of the bytes
+   these inputs need and the device time of an empty kernel at the
+   serving grid (the launch floor). Those shapes take the tail's vector
+   route; its scalar route is timed at the ragged shape (300, 33). As a
+   diagnostic only, held against no target, each is also timed at the
+   training shape behind a flush that reads the 256 MB back, so that the
+   L2 holds no dirty lines to write back, and the extraction beside a
+   ``fill_`` of a block of its size;
    The block-ELL SpMM is held against its plain version on a real sampled
    training batch (8192 vertices, 128 x 128 tiles) within 1e-4 of the
    largest output, at the reference's sweep shapes with a ragged d, on a
@@ -36,8 +47,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
 4. serve   — the serving path: the port's ``InferenceEngine`` at the
    paper's width (d_hidden 256, 3 layers, seeded random weights) serves a
    Zipf(1.3) stream of single-vertex requests with both of its kernels on;
-   every kernel's launch count is zeroed just before the stream and read
-   just after, and every served logit row is recomputed by a second engine
+   every kernel route's launch count is zeroed just before the stream and
+   read just after, and every served logit row is recomputed by a second engine
    on the same card with the plain ``"torch"`` implementations and must
    match (atol 1e-4);
 5. train   — the training path: ``Trainer`` trains ``paper_model
@@ -60,9 +71,11 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    within 5e-2 of the largest |logit|; then one profiled wave.
 
 The last two lines of standard output are one JSON object per kernel
-route (``{"kernels": [...]}``, each with its launches on every path) and
-``{"ok": true, "device": {...}}``. Without a card, the script exits
-non-zero before printing either.
+route (``{"kernels": [...]}``, each with its launches on every path and,
+for the extraction and the tail's vector route, its times at the training
+shape, where the training path launches them, with the serving shape's
+under ``shapes``) and ``{"ok": true, "device": {...}}``. Without a card,
+the script exits non-zero before printing either.
 """
 from __future__ import annotations
 
@@ -104,7 +117,8 @@ LLM_RTOL = 5e-2          # bf16 logits, kernel vs plain path, of max |logit|
 # the kernels of the port: the module that counts their launches, and the
 # route's own count in that module where it has two routes
 KERNEL_COUNTERS = {"extract_dense_fused": ("extract_gather", None),
-                   "fused_layer": ("fused_layer", None),
+                   "fused_layer": ("fused_layer", "vector"),
+                   "fused_layer_scalar": ("fused_layer", "scalar"),
                    "spmm_ell": ("spmm_ell", None),
                    "flash_attention": ("flash_attention", "mma"),
                    "flash_attention_f32": ("flash_attention", "f32")}
@@ -112,6 +126,7 @@ KERNEL_COUNTERS = {"extract_dense_fused": ("extract_gather", None),
 TRAIN_BATCH = 8192
 TRAIN_STEPS = 48
 CHUNK = 8
+L2_FLUSH_BYTES = 256 << 20  # written between cold-L2 timings
 
 
 def log(msg: str) -> None:
@@ -119,44 +134,88 @@ def log(msg: str) -> None:
 
 
 def time_ms(torch, fn, reps: int = 25, inner: int = 10,
-            warmup: int = 5) -> float:
+            warmup: int = 5, flush=None) -> float:
     """Median over ``reps`` CUDA-event windows of ``inner`` calls each, per
-    call, after a warm-up."""
+    call, after a warm-up. With ``flush`` each window holds one call on a
+    cold L2: ``flush()`` writes a buffer larger than the L2, and the host
+    waits for it before the window opens, so the window holds the call's
+    host and device time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush()
+            torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        calls = 1 if flush is not None else inner
         start.record()
-        for _ in range(inner):
+        for _ in range(calls):
             fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
-def device_ms(torch, fn, kernel: str, n: int = 50) -> float:
+def device_ms(torch, fn, kernel: str, n: int = 50, flush=None) -> float:
     """Mean device time of the CUDA kernel named ``kernel`` over ``n`` calls,
     from the profiler's CUPTI trace: the kernel alone, without the host
-    time between launches that the event windows include. The trace can
-    miss launches at its edges (4 of 50, and 4 of 10, flash-attention
+    time between launches that the event windows include. With ``flush``,
+    ``flush()`` runs before each call, so each starts on a cold L2; the
+    flush's kernels have names of their own, outside the mean. The trace
+    can miss launches at its edges (4 of 50, and 4 of 10, flash-attention
     launches were missing in full-size runs), so the mean is over the
-    launches it holds, which must be at least half of them."""
+    launches it holds, which must be at least half of them; a trace that
+    holds fewer (once, none of 50 tail launches) is taken again, up to
+    three times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel in e.key]
-    if len(hits) != 1 or not n / 2 <= hits[0].count <= n:
-        raise AssertionError(f"profiler found {[(e.key, e.count) for e in hits]}"
-                             f" for {kernel} x {n}")
-    return hits[0].device_time_total / hits[0].count / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if kernel in e.key]
+        if len(hits) == 1 and n / 2 <= hits[0].count <= n:
+            return hits[0].device_time_total / hits[0].count / 1e3
+        log(f"[kernels] the profiler found {[(e.key, e.count) for e in hits]}"
+            f" for {kernel} x {n}; tracing again")
+    raise AssertionError(f"no trace held {kernel} x {n}")
+
+
+def l2_flushers(torch, dev) -> dict:
+    """Two ways to put the L2 out of a call's reach, each writing 256 MB,
+    five times the H100's 50 MB L2, before the call. ``"written"`` is the
+    cold L2 of every timing held against a bound: it leaves the L2 full of
+    the buffer's dirty lines, so the call also pays their write-back as it
+    evicts them. ``"clean"`` then reads the buffer, so the L2 holds clean
+    lines only: a diagnostic of what that write-back costs, held against
+    no target."""
+    buf = torch.zeros((L2_FLUSH_BYTES // 4,), dtype=torch.float32,
+                      device=dev)
+
+    def clean():
+        buf.add_(1.0)
+        buf.sum()
+
+    return {"written": lambda: buf.add_(1.0), "clean": clean}
+
+
+def launch_floor_ms(torch, grid: int, threads: int) -> float:
+    """Device time of an empty kernel at this grid: the floor under a
+    kernel's time where the launch, not the work, dominates."""
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    return device_ms(torch, lambda: _build.check(
+        lib.repro_empty_kernel(grid, threads, stream), "empty_kernel"),
+        "empty_kernel")
 
 
 def bound_ms(n_bytes: float, n_ops: float,
@@ -216,9 +275,35 @@ def phase_build() -> None:
         f"({_build.nvcc_path()})")
 
 
-def check_extraction(torch, A, plan, plan_b, dev) -> dict:
-    """The extraction kernel against its plain version on real sampled rows
-    (bit for bit), then both timed at the serving shape."""
+def _bound_by(n_bytes: float, n_ops: float) -> str:
+    return ("bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / F32_OPS_PER_S
+            else "operations")
+
+
+def _extraction_cost(rp, ids, b_c: int, max_deg: int,
+                     per_column: bool, nnz: int) -> tuple:
+    """Bytes and operations of one extraction: the rows, their two row
+    pointers, the edges walked (column and value), the sampled columns
+    (and their scales) read once and the dense block written once; a
+    binary search of each walked edge among the columns and a multiply and
+    an add for each nonzero placed."""
+    b_r = ids.shape[0]
+    ids = ids.long()
+    walked = int((rp[ids + 1] - rp[ids]).clamp(max=max_deg).sum())
+    n_bytes = (4 * b_r + 8 * b_r + 8 * walked + 4 * b_c
+               + (4 * b_c if per_column else 0) + 4 * b_r * b_c)
+    n_ops = walked * (math.ceil(math.log2(max(b_c, 2))) + 1) + 2 * nnz
+    return walked, n_bytes, n_ops
+
+
+def check_extraction(torch, A, plan, plan_b, train_plan, train_graph, dev,
+                     flushers) -> dict:
+    """The extraction kernel against its plain version, bit for bit: on
+    real sampled serving rows, then on a real sampled training batch
+    (8192 rows and columns of the partitioned graph, scalar rescale,
+    ``max_deg`` its ``max_row_nnz``). Both timed at the serving shape
+    back to back and at the training shape on a cold L2; beside them the
+    launch floor at the serving grid."""
     from repro_torch.kernels import extract_gather as eg
     csr = [torch.from_numpy(a).to(dev) for a in (A.indptr, A.indices,
                                                  A.data)]
@@ -228,61 +313,115 @@ def check_extraction(torch, A, plan, plan_b, dev) -> dict:
     col_scale_b = torch.from_numpy(plan_b.col_scale).to(dev)
     inv_p = float(plan.col_scale.max())
     max_deg = A.max_row_nnz()
-    cases = [("per-column, diag", ids, ids, col_scale, True, max_deg),
-             ("scalar, diag", ids, ids, inv_p, True, max_deg),
-             ("per-column, off-diag", ids, ids_b, col_scale_b, False,
+    builder = train_plan.builder
+    train_csr = [train_graph[k] for k in ("rp", "ci", "val")]
+    train_ids = builder.sample_ids(0, None, 0, device=dev)[0]
+    train_kw = dict(col_scale=builder.rescale_constants()[0], diag=True,
+                    max_deg=builder.max_row_nnz)
+    cases = [("per-column, diag", csr, ids, ids, col_scale, True, max_deg),
+             ("scalar, diag", csr, ids, ids, inv_p, True, max_deg),
+             ("per-column, off-diag", csr, ids, ids_b, col_scale_b, False,
               max_deg),
-             ("scalar, off-diag", ids, ids_b, inv_p, False, max_deg),
-             ("per-column, diag, max_deg 8", ids, ids, col_scale, True, 8)]
-    err = 0.0
-    for name, rows, cols, scale, diag, md in cases:
-        got = eg.extract_dense_fused(*csr, rows, cols, col_scale=scale,
+             ("scalar, off-diag", csr, ids, ids_b, inv_p, False, max_deg),
+             ("per-column, diag, max_deg 8", csr, ids, ids, col_scale, True,
+              8),
+             ("training batch", train_csr, train_ids, train_ids,
+              train_kw["col_scale"], True, train_kw["max_deg"])]
+    err, nnz = 0.0, {}
+    for name, graph_csr, rows, cols, scale, diag, md in cases:
+        got = eg.extract_dense_fused(*graph_csr, rows, cols, col_scale=scale,
                                      diag=diag, max_deg=md)
         torch.cuda.synchronize()
-        ref = eg.extract_dense_plain(*csr, rows, cols, col_scale=scale,
+        ref = eg.extract_dense_plain(*graph_csr, rows, cols, col_scale=scale,
                                      diag=diag, max_deg=md)
         case_err = (got - ref).abs().max().item()
-        nnz = int(torch.count_nonzero(ref))
+        nnz[name] = int(torch.count_nonzero(ref))
         log(f"[kernels] extract_dense_fused {name}: ({rows.shape[0]}, "
-            f"{cols.shape[0]}) nnz {nnz}, max |kernel - plain| {case_err}, "
-            f"bit-identical {torch.equal(got, ref)}")
-        if not torch.equal(got, ref) or nnz == 0:
+            f"{cols.shape[0]}) nnz {nnz[name]}, max |kernel - plain| "
+            f"{case_err}, bit-identical {torch.equal(got, ref)}")
+        if not torch.equal(got, ref) or nnz[name] == 0:
             raise AssertionError(f"extract_dense_fused {name}: kernel and "
                                  "plain version differ (or the block is "
                                  "empty)")
         err = max(err, case_err)
+        del got, ref
 
-    kw = dict(col_scale=col_scale, diag=True, max_deg=max_deg)
-    ms = time_ms(torch, lambda: eg.extract_dense_fused(*csr, ids, ids, **kw))
-    plain_ms = time_ms(torch,
-                       lambda: eg.extract_dense_plain(*csr, ids, ids, **kw))
-    dev_ms = device_ms(torch,
-                       lambda: eg.extract_dense_fused(*csr, ids, ids, **kw),
-                       "extract_dense_kernel")
-    b_r = b_c = ids.shape[0]
-    deg = A.indptr[plan.batch_ids + 1] - A.indptr[plan.batch_ids]
-    walked = int(deg.clip(max=max_deg).sum())
-    n_bytes = (4 * b_r + 8 * b_r + 8 * walked + 8 * b_c + 4 * b_r * b_c)
-    n_ops = walked * (math.ceil(math.log2(b_c)) + 1) + b_r * b_c
-    bound = bound_ms(n_bytes, n_ops)
-    log(f"[kernels] extract_dense_fused ({b_r}, {b_c}), {walked} edges, "
-        f"{n_bytes} B: kernel {ms:.5f} ms per call ({dev_ms:.5f} ms on the "
-        f"device), plain {plain_ms:.5f} ms, bound {bound:.6f} ms")
+    shapes = {}
+    for label, graph_csr, rows, kw, cold, case in (
+            ("serving", csr, ids, dict(col_scale=col_scale, diag=True,
+                                       max_deg=max_deg), None,
+             "per-column, diag"),
+            ("training", train_csr, train_ids, train_kw, flushers,
+             "training batch")):
+        call = lambda: eg.extract_dense_fused(*graph_csr, rows, rows, **kw)
+        written = cold["written"] if cold else None
+        ms = time_ms(torch, call, flush=written)
+        plain_ms = time_ms(torch, lambda: eg.extract_dense_plain(
+            *graph_csr, rows, rows, **kw), flush=written)
+        dev_ms = device_ms(torch, call, "extract_dense_kernel", flush=written)
+        b = rows.shape[0]
+        walked, n_bytes, n_ops = _extraction_cost(
+            graph_csr[0], rows, b, kw["max_deg"],
+            isinstance(kw["col_scale"], torch.Tensor), nnz[case])
+        bound = bound_ms(n_bytes, n_ops)
+        shapes[label] = {"b_r": b, "b_c": b, "edges": walked,
+                         "bytes": n_bytes, "ms": ms, "device_ms": dev_ms,
+                         "plain_ms": plain_ms, "bound_ms": bound,
+                         "bound_by": _bound_by(n_bytes, n_ops),
+                         "l2": "written" if cold else "warm"}
+        log(f"[kernels] extract_dense_fused {label} shape ({b}, {b}), "
+            f"{walked} edges, {n_bytes} B, L2 {shapes[label]['l2']}: kernel "
+            f"{ms:.5f} ms per call ({dev_ms:.5f} ms on the device, "
+            f"{n_bytes / dev_ms / 1e9:.3f} TB/s, {bound / dev_ms:.3f} of "
+            f"the bound), plain {plain_ms:.5f} ms, bound {bound:.6f} ms")
+        if cold:
+            # diagnostics: behind the clean flush, and beside it a fill of
+            # a block of the same size (one PyTorch call that writes its
+            # bytes)
+            blk = torch.empty((b, b), device=dev)
+            fill = lambda: blk.fill_(0.5)
+            more = {"device_ms_clean_l2": device_ms(
+                        torch, call, "extract_dense_kernel",
+                        flush=cold["clean"]),
+                    "fill_device_ms": device_ms(torch, fill, "FillFunctor",
+                                                flush=written),
+                    "fill_device_ms_clean_l2": device_ms(
+                        torch, fill, "FillFunctor", flush=cold["clean"])}
+            del blk
+            shapes[label].update(more)
+            log(f"[kernels] extract_dense_fused {label} shape, diagnostic, "
+                f"L2 clean: {more['device_ms_clean_l2']:.5f} ms on the device"
+                f" ({bound / more['device_ms_clean_l2']:.3f} of the bound); "
+                f"fill_ of a ({b}, {b}) float32 block "
+                f"{more['fill_device_ms']:.5f} ms (L2 written), "
+                f"{more['fill_device_ms_clean_l2']:.5f} ms (L2 clean)")
+    grid = eg.launch_config(
+        ids.shape[0], ids.shape[0], True,
+        torch.cuda.get_device_properties(dev).multi_processor_count)[0]
+    shapes["serving"]["floor_ms"] = launch_floor_ms(torch, grid, eg.THREADS)
+    log(f"[kernels] empty kernel at the extraction's serving grid "
+        f"({grid} x {eg.THREADS}): {shapes['serving']['floor_ms']:.5f} ms on "
+        f"the device")
+    train = shapes["training"]
     return {"name": "extract_dense_fused", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/extract_gather.cu",
             "replaces": "src/repro/kernels/extract_gather.py:101",
-            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": ("bytes" if n_bytes /
-                                            HBM_BYTES_PER_S >= n_ops /
-                                            F32_OPS_PER_S else "operations"),
-            "library_ms": None}
+            "max_abs_err": err,
+            **{k: train[k] for k in ("ms", "device_ms", "plain_ms",
+                                     "bound_ms", "bound_by")},
+            "library_ms": None, "shapes": shapes}
 
 
-def check_fused_tail(torch, d_hidden: int, rows: int, dev) -> dict:
-    """The fused-tail kernel against its plain version at the serving shape
-    and at a ragged one, with and without mask and residual; then both
-    timed at the serving shape (residual on, no dropout)."""
+def check_fused_tail(torch, d_hidden: int, rows: int, dev,
+                     flushers) -> list:
+    """The fused-tail kernel against its plain version at the serving
+    shape, at a ragged one and at the training shape (8192 rows, keep-mask
+    of dropout 0.3, residual), with and without mask and residual. Then
+    the vector route timed at the serving shape (residual on, no dropout)
+    back to back and at the training shape (mask and residual) on a cold
+    L2, beside the launch floor at the serving grid, and the scalar route
+    at the ragged shape (300, 33), mask and residual; each timed call must
+    take its route. Returns one entry per route."""
     from repro_torch.kernels import fused_layer as fl
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -294,47 +433,95 @@ def check_fused_tail(torch, d_hidden: int, rows: int, dev) -> dict:
         r = torch.randn((b, d), generator=gen, device=dev) if res else None
         return x, s, m, r
 
-    err = 0.0
-    for b, d in ((rows, d_hidden), (300, 33)):
+    err = {"vector": 0.0, "scalar": 0.0}
+    for b, d in ((rows, d_hidden), (300, 33), (TRAIN_BATCH, d_hidden)):
         for mask, res, rms in ((False, False, True), (True, True, True),
                                (False, True, True), (True, True, False)):
             x, s, m, r = case(b, d, mask, res)
             kw = dict(dropout_rate=0.3 if mask else 0.0, eps=1e-6,
                       use_rmsnorm=rms, use_relu=True)
+            before = dict(fl.ROUTE_LAUNCHES)
             got = fl.fused_layer(x, s, m, r, **kw)
             torch.cuda.synchronize()
+            route = "vector" if fl.ROUTE_LAUNCHES["vector"] \
+                > before["vector"] else "scalar"
             ref = fl.fused_layer_plain(x, s, m, r, **kw)
             case_err = (got - ref).abs().max().item()
             limit = TAIL_RTOL * max(1.0, ref.abs().max().item())
             log(f"[kernels] fused_layer ({b}, {d}) mask={mask} "
-                f"residual={res} rmsnorm={rms}: max |kernel - plain| "
-                f"{case_err:.3e} (limit {limit:.3e})")
+                f"residual={res} rmsnorm={rms}, {route} route: max |kernel "
+                f"- plain| {case_err:.3e} (limit {limit:.3e})")
             if not case_err <= limit:
                 raise AssertionError(f"fused_layer ({b}, {d}): error "
                                      f"{case_err} above {limit}")
-            err = max(err, case_err)
+            err[route] = max(err[route], case_err)
 
-    x, s, _, r = case(rows, d_hidden, False, True)
-    ms = time_ms(torch, lambda: fl.fused_layer(x, s, None, r))
-    plain_ms = time_ms(torch, lambda: fl.fused_layer_plain(x, s, None, r))
-    dev_ms = device_ms(torch, lambda: fl.fused_layer(x, s, None, r),
-                       "fused_layer_kernel")
-    n_el = rows * d_hidden
-    n_bytes = 4 * n_el + 4 * d_hidden + 4 * n_el + 4 * n_el
-    n_ops = 7 * n_el       # square-add, scale twice, relu, residual add
-    bound = bound_ms(n_bytes, n_ops)
-    log(f"[kernels] fused_layer ({rows}, {d_hidden}) residual, {n_bytes} B: "
-        f"kernel {ms:.5f} ms per call ({dev_ms:.5f} ms on the device), "
-        f"plain {plain_ms:.5f} ms, bound {bound:.6f} ms")
-    return {"name": "fused_layer", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/fused_layer.cu",
-            "replaces": "src/repro/kernels/fused_layer.py:78",
-            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": ("bytes" if n_bytes /
-                                            HBM_BYTES_PER_S >= n_ops /
-                                            F32_OPS_PER_S else "operations"),
-            "library_ms": None}
+    # (label, rows, d, mask, flushers, route, the route's kernel)
+    timed = (("serving", rows, d_hidden, False, None, "vector",
+              "fused_layer_kernel_vec"),
+             ("training", TRAIN_BATCH, d_hidden, True, flushers, "vector",
+              "fused_layer_kernel_vec"),
+             ("ragged", 300, 33, True, None, "scalar",
+              "fused_layer_kernel("))
+    shapes = {"vector": {}, "scalar": {}}
+    for label, b, d, mask, cold, route, kernel in timed:
+        x, s, m, r = case(b, d, mask, True)
+        kw = dict(dropout_rate=0.3 if mask else 0.0)
+        call = lambda: fl.fused_layer(x, s, m, r, **kw)
+        before = fl.ROUTE_LAUNCHES[route]
+        call()
+        if fl.ROUTE_LAUNCHES[route] != before + 1:
+            raise AssertionError(f"fused_layer {label} shape: the call did "
+                                 f"not take the {route} route")
+        written = cold["written"] if cold else None
+        ms = time_ms(torch, call, flush=written)
+        plain_ms = time_ms(torch, lambda: fl.fused_layer_plain(x, s, m, r,
+                                                               **kw),
+                           flush=written)
+        dev_ms = device_ms(torch, call, kernel, flush=written)
+        n_el = b * d
+        # x, the residual and the mask read once, the scale once, out
+        # written once
+        n_bytes = 4 * n_el + 4 * n_el + (n_el if mask else 0) + 4 * d \
+            + 4 * n_el
+        n_ops = 7 * n_el       # square-add, scale twice, relu, residual add
+        bound = bound_ms(n_bytes, n_ops)
+        shapes[route][label] = {"rows": b, "d": d, "mask": mask,
+                                "bytes": n_bytes, "ms": ms,
+                                "device_ms": dev_ms, "plain_ms": plain_ms,
+                                "bound_ms": bound,
+                                "bound_by": _bound_by(n_bytes, n_ops),
+                                "l2": "written" if cold else "warm"}
+        log(f"[kernels] fused_layer {label} shape ({b}, {d}) residual"
+            f"{', mask' if mask else ''}, {route} route, {n_bytes} B, L2 "
+            f"{shapes[route][label]['l2']}: kernel {ms:.5f} ms per call "
+            f"({dev_ms:.5f} ms on the device, {n_bytes / dev_ms / 1e9:.3f} "
+            f"TB/s, {bound / dev_ms:.3f} of the bound), plain "
+            f"{plain_ms:.5f} ms, bound {bound:.6f} ms")
+        if cold:
+            clean_ms = device_ms(torch, call, kernel, flush=cold["clean"])
+            shapes[route][label]["device_ms_clean_l2"] = clean_ms
+            log(f"[kernels] fused_layer {label} shape, diagnostic, L2 clean: "
+                f"{clean_ms:.5f} ms on the device ({bound / clean_ms:.3f} of "
+                f"the bound)")
+    grid, threads = -(-rows // fl.ROWS_PER_CTA), 32 * fl.ROWS_PER_CTA
+    serving = shapes["vector"]["serving"]
+    serving["floor_ms"] = launch_floor_ms(torch, grid, threads)
+    log(f"[kernels] empty kernel at the tail's serving grid ({grid} x "
+        f"{threads}): {serving['floor_ms']:.5f} ms on the device")
+
+    def entry(name, route, label):
+        at = shapes[route][label]
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/fused_layer.cu",
+                "replaces": "src/repro/kernels/fused_layer.py:78",
+                "max_abs_err": err[route],
+                **{k: at[k] for k in ("ms", "device_ms", "plain_ms",
+                                      "bound_ms", "bound_by")},
+                "library_ms": None, "shapes": shapes[route]}
+
+    return [entry("fused_layer", "vector", "training"),
+            entry("fused_layer_scalar", "scalar", "ragged")]
 
 
 def train_setup(torch, ds, dev):
@@ -690,7 +877,8 @@ def phase_serve(torch, np, ds, cfg, n_requests: int) -> dict:
     # one extraction and one tail per layer for every device call
     expect = {"extract_dense_fused": st["device_calls"],
               "fused_layer": cfg.num_layers * st["device_calls"],
-              "spmm_ell": 0, "flash_attention": 0, "flash_attention_f32": 0}
+              "fused_layer_scalar": 0, "spmm_ell": 0, "flash_attention": 0,
+              "flash_attention_f32": 0}
     if launches != expect or st["device_calls"] == 0:
         raise AssertionError(f"kernel launches {launches} on the main path, "
                              f"expected {expect}")
@@ -741,25 +929,39 @@ def profile_stream(torch, eng, zipf) -> None:
 
 
 def device_profile(prof, wall_us: float, what: str,
-                   watch: tuple = ()) -> None:
+                   watch: tuple = (), spans: tuple = ()) -> None:
     """The device's busy share of ``wall_us`` and its top six operations,
     from a profiler trace, and what the host issued: the PyTorch operators
     called from Python (``aten::`` ops not inside another one) and the
     kernel launches; then the device time and count in this trace of each
-    kernel whose name holds a string of ``watch``. The phase annotations
-    (``record_function`` ranges, mirrored on the device's timeline) span
-    kernels already counted and are left out."""
+    kernel whose name holds a string of ``watch``, and the device time of
+    the kernels launched inside each host range whose name ends with a
+    string of ``spans`` (a ``phase`` annotation or an autograd node; a
+    range inside another of the same name counts once). The phase
+    annotations' mirrors on the device's timeline span kernels already
+    counted and are left out."""
     from torch.autograd import DeviceType
     by_name: dict = {}
     count: dict = {}
+    span_us = dict.fromkeys(spans, 0.0)
+    span_n = dict.fromkeys(spans, 0)
     host_ops = launches = 0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA \
-                and not getattr(e, "is_user_annotation", False):
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us()
-            count[e.name] = count.get(e.name, 0) + 1
-        elif e.name.startswith("aten::") and not (
+        if e.device_type == DeviceType.CUDA:
+            if not getattr(e, "is_user_annotation", False):
+                by_name[e.name] = by_name.get(e.name, 0.0) \
+                    + e.time_range.elapsed_us()
+                count[e.name] = count.get(e.name, 0) + 1
+            continue
+        for sp in spans:
+            if e.name.endswith(sp):
+                up = e.cpu_parent
+                while up is not None and not up.name.endswith(sp):
+                    up = up.cpu_parent
+                if up is None:
+                    span_us[sp] += e.device_time_total
+                    span_n[sp] += 1
+        if e.name.startswith("aten::") and not (
                 e.cpu_parent is not None
                 and e.cpu_parent.name.startswith("aten::")):
             host_ops += 1
@@ -775,6 +977,9 @@ def device_profile(prof, wall_us: float, what: str,
         names = [n for n in by_name if kernel in n]
         log(f"[profile]   {kernel}: {sum(by_name[n] for n in names):.1f} us "
             f"in {sum(count[n] for n in names)} launches")
+    for sp in spans:
+        log(f"[profile]   inside {sp}: {span_us[sp]:.1f} us of device time "
+            f"over {span_n[sp]} ranges")
 
 
 def plain_loss(params, mb, cfg, masks):
@@ -877,9 +1082,10 @@ def phase_train(torch, np, plan, graph) -> dict:
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     # per step: one fused extraction (the one block of g = 1), one SpMM and
-    # one tail per layer
+    # one tail per layer, every tail on the vector route
     expect = {"extract_dense_fused": TRAIN_STEPS,
               "fused_layer": cfg.num_layers * TRAIN_STEPS,
+              "fused_layer_scalar": 0,
               "spmm_ell": cfg.num_layers * TRAIN_STEPS, "flash_attention": 0,
               "flash_attention_f32": 0}
     losses = run_log.losses
@@ -918,7 +1124,11 @@ def phase_train(torch, np, plan, graph) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
     device_profile(prof, wall_us, f"one chunk of {CHUNK} training "
-                   "steps", watch=("spmm_ell_kernel",))
+                   "steps", watch=("spmm_ell_kernel", "extract_dense_kernel",
+                                   "fused_layer_kernel_vec",
+                                   "fused_layer_kernel("),
+                   spans=("sample", "extract", "_SpmmEllBackward",
+                          "_FusedTailBackward"))
     return launches
 
 
@@ -986,7 +1196,8 @@ def phase_llm(torch, np, cfg, dev) -> dict:
         f"{st['mid_stream_refills']}; launches {launches}; peak device "
         f"memory {peak / 2**30:.3f} GiB")
     # every prefill layer through the tensor-core route, none through f32
-    expect = {"extract_dense_fused": 0, "fused_layer": 0, "spmm_ell": 0,
+    expect = {"extract_dense_fused": 0, "fused_layer": 0,
+              "fused_layer_scalar": 0, "spmm_ell": 0,
               "flash_attention": cfg.n_layers * st["prefills"],
               "flash_attention_f32": 0}
     if launches != expect or st["prefills"] != LLM_PROMPTS:
@@ -1112,9 +1323,13 @@ def main() -> int:
     plan, plan_b = plan_batch(req(), spec, pool), plan_batch(req(), spec,
                                                             pool)
     dev = torch.device("cuda")
-    kernels = [check_extraction(torch, A, plan, plan_b, dev),
-               check_fused_tail(torch, cfg.d_hidden, spec.total, dev)]
     train_plan, train_graph = train_setup(torch, ds, dev)
+    flushers = l2_flushers(torch, dev)
+    kernels = [check_extraction(torch, A, plan, plan_b, train_plan,
+                                train_graph, dev, flushers),
+               *check_fused_tail(torch, cfg.d_hidden, spec.total, dev,
+                                 flushers)]
+    del flushers
     kernels.append(check_spmm_ell(torch, train_plan, train_graph, dev))
     kernels.extend(check_flash_attention(torch, np, dev))
 
@@ -1123,11 +1338,13 @@ def main() -> int:
     del train_plan, train_graph
     torch.cuda.empty_cache()
     by_path["llm"] = phase_llm(torch, np, get_config("tinyllama-1.1b"), dev)
-    # each kernel's launches on the path that runs it, each flash route from
-    # its own count (the LLM path runs in bf16: the f32 route's reads 0)
+    # each kernel's launches on the path that runs it, each route of the
+    # tail and of flash from its own count (the training path's tails take
+    # the vector route and the LLM path runs in bf16: the tail's scalar and
+    # flash's f32 routes read 0)
     main_path = {"extract_dense_fused": "train", "fused_layer": "train",
-                 "spmm_ell": "train", "flash_attention": "llm",
-                 "flash_attention_f32": "llm"}
+                 "fused_layer_scalar": "train", "spmm_ell": "train",
+                 "flash_attention": "llm", "flash_attention_f32": "llm"}
     for k in kernels:
         k["launches_by_path"] = {p: counts[k["name"]]
                                  for p, counts in by_path.items()}

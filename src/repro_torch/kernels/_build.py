@@ -30,18 +30,21 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # c_void_p, or ctypes would pass them as 32-bit ints); all return an int
 SIGNATURES = {
     # rp, ci, val, rows, cols, col_scale|null, scalar_scale, diag,
-    # b_r, b_c, max_deg, out, stream
+    # b_r, b_c, max_deg, grid, rows_per_cta, staged, out, stream
     "repro_extract_dense_fused": [_P, _P, _P, _P, _P, _P, _F, _I,
-                                  _I, _I, _I, _P, _P],
+                                  _I, _I, _I, _I, _I, _I, _P, _P],
     # x, scale, mask|null, res|null, out, rows, d, eps, keep_prob,
-    # use_rmsnorm, use_relu, stream
-    "repro_fused_layer": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P],
+    # use_rmsnorm, use_relu, chunks, stream
+    "repro_fused_layer": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _I,
+                          _P],
     # tiles, colidx, x, out, n_rb, n_slots, bm, bn, n_cb, d, bf16, stream
     "repro_spmm_ell": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, out, lse, b, sq, t, h, kv, hd, causal, use_window, window,
     # scale, bf16, stream
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _F, _I, _P],
+    # grid, threads, stream: an empty kernel, the launch floor (measurement)
+    "repro_empty_kernel": [_I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -5,12 +5,16 @@ kernel (``csrc/extract_gather.cu``) reads the row's CSR extent, walks up to
 ``max_deg`` of its edges, keeps those whose column is one of the sorted
 distinct sampled columns, rescales per column (self-loops exempt when
 ``diag``, Eq. 24) and writes the dense ``(b_r, b_c)`` row once; no COO
-triples round-trip through device memory.
+triples round-trip through device memory. A CTA zero-fills the contiguous
+range of its rows, then places the rows' few values (:func:`launch_config`
+sizes the grid).
 
 :func:`extract_dense_fused` launches the kernel for CUDA tensors and runs
 :func:`extract_dense_plain`, the same function in plain PyTorch, for CPU
 tensors. On graphs without duplicate edges both equal
-``core.sampling.extract_dense_block`` bit for bit.
+``core.sampling.extract_dense_block`` bit for bit; where a row repeats an
+edge, the kernel sums ``val * scale`` per edge and the plain version scales
+the sum, so they agree up to rounding.
 """
 from __future__ import annotations
 
@@ -22,6 +26,28 @@ from repro_torch.kernels import _build
 
 # kernel launches so far (a run zeroes it to show that a path used the kernel)
 LAUNCHES = 0
+
+THREADS = 256                # threads a CTA has: 8 warps
+CTAS_PER_SM = 4              # the grid aimed at: 4 CTAs an SM, ...
+MIN_ROWS_PER_CTA = 4         # ... each owning at least 4 rows
+MAX_ROWS_PER_CTA = 16        # ... and at most 16
+STAGE_BYTES = 48 * 1024      # shared memory a launch gets by default
+
+
+def launch_config(b_r: int, b_c: int, per_column: bool, n_sm: int) -> tuple:
+    """``(grid, rows_per_cta, staged)`` of a launch on a card with ``n_sm``
+    SMs. A CTA owns ``rows_per_cta`` consecutive rows (one contiguous
+    range of the block): the least power of two from 4 to 16 that keeps
+    the grid at about 4 CTAs an SM. The sorted columns (with their scales,
+    from a 16-byte boundary, when ``per_column``) are staged in shared
+    memory where they fit in 48 KB, else read from global memory."""
+    rows_per_cta = MIN_ROWS_PER_CTA
+    while rows_per_cta < MAX_ROWS_PER_CTA \
+            and rows_per_cta * CTAS_PER_SM * n_sm < b_r:
+        rows_per_cta *= 2
+    grid = -(-b_r // rows_per_cta)
+    staged = 4 * ((-(-b_c // 4) * 4 if per_column else 0) + b_c)
+    return grid, rows_per_cta, staged <= STAGE_BYTES
 
 
 def _lane_scale(rows: torch.Tensor, cols: torch.Tensor,
@@ -113,11 +139,14 @@ def extract_dense_fused(rp: torch.Tensor, ci: torch.Tensor,
     out = torch.empty((b_r, b_c), dtype=torch.float32, device=dev)
     if b_r == 0 or b_c == 0:
         return out
+    grid, rows_per_cta, staged = launch_config(
+        b_r, b_c, scale_ptr is not None,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = _build.load()
     rc = lib.repro_extract_dense_fused(
         rp.data_ptr(), ci.data_ptr(), val.data_ptr(), rows.data_ptr(),
         cols.data_ptr(), scale_ptr, scalar, int(bool(diag)), b_r, b_c,
-        int(max_deg), out.data_ptr(),
+        int(max_deg), grid, rows_per_cta, int(staged), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "extract_dense_fused")
     global LAUNCHES

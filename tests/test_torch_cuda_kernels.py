@@ -76,8 +76,8 @@ def test_cuda_extraction_bitmatches_plain(graph, cuda, diag, per_col):
 
 @pytest.mark.cuda
 def test_cuda_extraction_wide_batch_uses_large_shared_memory(cuda):
-    """b_c = 8192 columns need 64 KB of shared memory, above the default
-    48 KB a launch gets without opting in."""
+    """b_c = 8192 columns: 32 KB of columns staged in shared memory once
+    per CTA, 128 rows."""
     big = make_synthetic_dataset(n=8192, num_classes=4, d_in=4,
                                  avg_degree=8, seed=0).adj_norm
     ids = torch.arange(8192, dtype=torch.int32, device=cuda)
@@ -91,24 +91,181 @@ def test_cuda_extraction_wide_batch_uses_large_shared_memory(cuda):
     assert torch.equal(got, ref)
 
 
+@pytest.fixture(scope="module")
+def big_graph():
+    return make_synthetic_dataset(n=65536, num_classes=4, d_in=4,
+                                  avg_degree=8, seed=1).adj_norm
+
+
+# (b_r, b_c, diag, cols at an odd element offset): the training shape; b_c
+# above 29,056 columns, more than 227 KB of shared memory can stage
+# (searched in global memory); b_c % 4 != 0, so rows start off 16-byte
+# alignment, with the columns staged by 4-byte loads from a view one
+# element in
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,d", [(256, 256), (300, 33), (5, 1)])
+@pytest.mark.parametrize("b_r,b_c,diag,odd_cols", [
+    (8192, 8192, True, False), (256, 40000, False, False),
+    (300, 1027, False, True)])
+def test_cuda_extraction_large_and_ragged_bitmatch_plain(
+        big_graph, cuda, b_r, b_c, diag, odd_cols):
+    rng = np.random.default_rng(b_c)
+    cols_np = np.sort(rng.choice(big_graph.n_rows, size=b_c,
+                                 replace=False)).astype(np.int32)
+    rows_np = cols_np if diag else np.sort(rng.choice(
+        big_graph.n_rows, size=b_r, replace=False)).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (big_graph.indptr, big_graph.indices, big_graph.data)]
+    rows = torch.from_numpy(rows_np).to(cuda)
+    cols = torch.from_numpy(cols_np).to(cuda)
+    if odd_cols:
+        flat = torch.zeros(b_c + 1, dtype=torch.int32, device=cuda)
+        flat[1:] = cols
+        cols = flat[1:]
+        assert cols.data_ptr() % 16 != 0 and cols.is_contiguous()
+    kw = dict(col_scale=3.7, diag=diag, max_deg=big_graph.max_row_nnz())
+    n0 = teg.LAUNCHES
+    got = teg.extract_dense_fused(*args, rows, cols, **kw)
+    torch.cuda.synchronize()
+    assert teg.LAUNCHES == n0 + 1
+    ref = teg.extract_dense_plain(*args, rows, cols, **kw)
+    assert torch.count_nonzero(ref) > 0
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("diag", [True, False])
+def test_cuda_extraction_duplicate_edges_within_rounding(graph, cuda, diag):
+    """A CSR whose rows repeat edges: the kernel adds ``val * scale`` per
+    edge, the plain version scales the sum, so a repeated cell differs by
+    rounding only: within 1e-6 of the largest |output|."""
+    indptr, indices, data = graph.indptr, graph.indices, graph.data
+    rp, ci, val = [0], [], []
+    for r in range(graph.n_rows):
+        lo, hi = indptr[r], indptr[r + 1]
+        # each row's first two edges once more, at the row's end
+        ci.extend(indices[lo:hi].tolist() + indices[lo:min(hi, lo + 2)]
+                  .tolist())
+        val.extend(data[lo:hi].tolist() + (data[lo:min(hi, lo + 2)] * 0.37)
+                   .tolist())
+        rp.append(len(ci))
+    csr = [torch.tensor(a, dtype=t, device=cuda)
+           for a, t in ((rp, torch.int32), (ci, torch.int32),
+                        (val, torch.float32))]
+    rows, cols, scale = _extraction_case(graph, diag, True)
+    args = [*csr, torch.from_numpy(rows).to(cuda),
+            torch.from_numpy(cols).to(cuda)]
+    kw = dict(col_scale=torch.from_numpy(scale).to(cuda), diag=diag,
+              max_deg=int(np.diff(rp).max()))
+    n0 = teg.LAUNCHES
+    got = teg.extract_dense_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert teg.LAUNCHES == n0 + 1
+    ref = teg.extract_dense_plain(*args, **kw)
+    once = teg.extract_dense_plain(
+        *[torch.from_numpy(a).to(cuda) for a in (indptr, indices, data)],
+        *args[3:], **kw)
+    assert not torch.equal(ref, once)       # some repeated edge was kept
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-6 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d", [(256, 256), (300, 33), (5, 1), (8192, 256),
+                                 (64, 130)])
 @pytest.mark.parametrize("has_mask,has_res", [(False, False), (True, True)])
 @pytest.mark.parametrize("use_rmsnorm", [True, False])
 def test_cuda_fused_tail_matches_plain(cuda, b, d, has_mask, has_res,
                                        use_rmsnorm):
-    """f32, the sum of squares reduced in another order: 1e-5 relative."""
+    """f32, the sum of squares reduced in another order: 1e-5 relative.
+    d = 256 takes the vector route, 33, 1 and 130 (d % 4 != 0) the scalar
+    one; the launch is counted once, on its route."""
     x, scale, mask, res = _tail_case(b, d, has_mask, has_res)
     t = lambda a: None if a is None else torch.from_numpy(a).to(cuda)
     kw = dict(dropout_rate=0.3 if has_mask else 0.0, eps=1e-6,
               use_rmsnorm=use_rmsnorm, use_relu=True)
-    n0 = tfl.LAUNCHES
+    route = "vector" if d % 4 == 0 else "scalar"
+    n0, r0 = tfl.LAUNCHES, dict(tfl.ROUTE_LAUNCHES)
     got = tfl.fused_layer(t(x), t(scale), t(mask), t(res), **kw)
     torch.cuda.synchronize()
     assert tfl.LAUNCHES == n0 + 1
+    assert tfl.ROUTE_LAUNCHES == {**r0, route: r0[route] + 1}
     ref = tfl.fused_layer_plain(t(x), t(scale), t(mask), t(res), **kw)
     err = (got - ref).abs().max().item()
     assert err <= 1e-5 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("odd", ["x", "residual", "mask"])
+def test_cuda_fused_tail_odd_offset_view_takes_scalar_route(cuda, odd):
+    """A contiguous view one element into its storage is not 16-byte (or,
+    for the mask, 4-byte) aligned: the call takes the scalar route and
+    matches the plain version (1e-5 relative)."""
+    x, scale, mask, res = (None if a is None else torch.from_numpy(a).to(cuda)
+                           for a in _tail_case(96, 256, True, True))
+    views = {"x": x, "residual": res, "mask": mask}
+    a = views[odd]
+    flat = torch.zeros(a.numel() + 1, dtype=a.dtype, device=cuda)
+    flat[1:] = a.reshape(-1)
+    views[odd] = flat[1:].view(a.shape)
+    assert views[odd].is_contiguous() and torch.equal(views[odd], a)
+    kw = dict(dropout_rate=0.3, eps=1e-6)
+    n0, r0 = tfl.LAUNCHES, dict(tfl.ROUTE_LAUNCHES)
+    got = tfl.fused_layer(views["x"], scale, views["mask"], views["residual"],
+                          **kw)
+    torch.cuda.synchronize()
+    assert tfl.LAUNCHES == n0 + 1
+    assert tfl.ROUTE_LAUNCHES == {**r0, "scalar": r0["scalar"] + 1}
+    ref = tfl.fused_layer_plain(x, scale, mask, res, **kw)
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-5 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [256, 33])
+@pytest.mark.parametrize("dropout_rate", [0.3, 0.1, 2.0 / 3.0])
+def test_cuda_fused_tail_dropout_divides_correctly_rounded(cuda, d,
+                                                           dropout_rate):
+    """With the norm, the ReLU and the residual off, a kept element is
+    v / keep_prob correctly rounded on both routes (the vector route at
+    d = 256 from the corrected reciprocal product, the scalar one at
+    d = 33 by division): bit for bit the float32 quotient numpy gives."""
+    rng = np.random.default_rng(5)
+    x = (rng.normal(size=(512, d)) * 10.0).astype(np.float32)
+    mask = rng.random((512, d)) < 0.5
+    keep = np.float32(1.0 - dropout_rate)
+    want = np.where(mask, x / keep, np.float32(0.0))
+    r0 = dict(tfl.ROUTE_LAUNCHES)
+    got = tfl.fused_layer(torch.from_numpy(x).to(cuda),
+                          torch.ones(d, device=cuda),
+                          torch.from_numpy(mask).to(cuda), None,
+                          dropout_rate=dropout_rate, use_rmsnorm=False,
+                          use_relu=False)
+    route = "vector" if d % 4 == 0 else "scalar"
+    assert tfl.ROUTE_LAUNCHES == {**r0, route: r0[route] + 1}
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_extraction_entry_point_rejects_bad_launch_shape(cuda):
+    """The C entry point launches nothing, and returns 1
+    (cudaErrorInvalidValue), for rows_per_cta outside 1-16 or a grid that
+    does not cover the rows."""
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    rp = torch.zeros(9, dtype=torch.int32, device=cuda)
+    ci = torch.zeros(1, dtype=torch.int32, device=cuda)
+    val = torch.zeros(1, device=cuda)
+    ids = torch.arange(8, dtype=torch.int32, device=cuda)
+    out = torch.full((8, 8), 7.0, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for grid, rows_per_cta in ((1, 17), (1, 0), (1, 4), (3, 2)):
+        rc = lib.repro_extract_dense_fused(
+            rp.data_ptr(), ci.data_ptr(), val.data_ptr(), ids.data_ptr(),
+            ids.data_ptr(), None, 1.0, 1, 8, 8, 1, grid, rows_per_cta, 1,
+            out.data_ptr(), stream)
+        assert rc == 1, (grid, rows_per_cta)
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
 
 
 @pytest.mark.cuda

@@ -81,6 +81,66 @@ def test_plain_extraction_bitmatches_jax(graph, diag, per_col):
 
 
 @pytest.mark.parametrize("diag", [True, False])
+def test_plain_extraction_130_columns_bitmatches_pallas(graph, diag):
+    """b_c = 130 (b_c % 4 != 0, the width at which the kernel's rows leave
+    16-byte alignment): plain version == Pallas kernel in interpret mode,
+    bit for bit."""
+    rng = np.random.default_rng(5)
+    cols = np.union1d([0], 1 + _sample(rng, graph.n_rows - 1, 129)
+                      ).astype(np.int32)
+    rows = cols if diag else _sample(rng, graph.n_rows, 48)
+    scale = rng.uniform(0.5, 9.0, 130).astype(np.float32)
+    got = teg.extract_dense_plain(
+        *_torch_csr(graph), torch.from_numpy(rows), torch.from_numpy(cols),
+        col_scale=torch.from_numpy(scale), diag=diag,
+        max_deg=graph.max_row_nnz()).numpy()
+    ref = np.asarray(jax_fused(
+        jnp.asarray(graph.indptr), jnp.asarray(graph.indices),
+        jnp.asarray(graph.data), jnp.asarray(rows), jnp.asarray(cols),
+        col_scale=jnp.asarray(scale), diag=diag, max_deg=graph.max_row_nnz(),
+        interpret=True))
+    assert got.shape == (rows.shape[0], 130) and np.count_nonzero(got) > 0
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_extraction_launch_config():
+    """A CTA owns the least power of two of consecutive rows, from 4 to
+    16, that keeps the grid near 4 CTAs an SM; the columns (and the
+    per-column scales, from a 16-byte boundary) are staged in shared
+    memory up to 48 KB, else read from global memory."""
+    assert teg.launch_config(256, 256, True, 132) == (64, 4, True)
+    assert teg.launch_config(8192, 8192, False, 132) == (512, 16, True)
+    assert teg.launch_config(1, 3, True, 132) == (1, 4, True)
+    assert teg.launch_config(2112, 1027, True, 132) == (528, 4, True)
+    assert teg.launch_config(2113, 1027, True, 132) == (265, 8, True)
+    assert teg.launch_config(10 ** 6, 64, False, 132) == (62500, 16, True)
+    assert teg.launch_config(256, 12 * 1024, False, 132)[2]
+    assert not teg.launch_config(256, 12 * 1024 + 1, False, 132)[2]
+    assert teg.launch_config(256, 6 * 1024, True, 132)[2]
+    assert teg.launch_config(256, 6 * 1024 - 3, True, 132)[2]
+    assert not teg.launch_config(256, 6 * 1024 + 1, True, 132)[2]
+    assert not teg.launch_config(256, 40000, False, 132)[2]
+
+
+def test_tail_vector_chunks():
+    """The vector route needs d % 4 == 0, d <= 1024, 16-byte aligned float
+    tensors and a 4-byte aligned mask; it holds ceil(d / 128) float4 a
+    lane."""
+    a = [0, 256, 4096]
+    assert tfl.vector_chunks(256, a, None) == 2
+    assert tfl.vector_chunks(256, a, 8) == 2
+    assert tfl.vector_chunks(128, a, None) == 1
+    assert tfl.vector_chunks(4, a, None) == 1
+    assert tfl.vector_chunks(132, a, None) == 2
+    assert tfl.vector_chunks(1024, a, None) == 8
+    assert tfl.vector_chunks(1028, a, None) == 0       # past 8 chunks
+    assert tfl.vector_chunks(130, a, None) == 0        # d % 4 != 0
+    assert tfl.vector_chunks(33, a, None) == 0
+    assert tfl.vector_chunks(256, a + [4100], None) == 0   # odd offset
+    assert tfl.vector_chunks(256, a, 2) == 0           # mask not 4-aligned
+
+
+@pytest.mark.parametrize("diag", [True, False])
 def test_plain_extraction_truncating_max_deg(graph, diag):
     """A ``max_deg`` below the largest row degree drops each row's tail
     edges exactly as the Pallas kernel does."""
@@ -130,7 +190,10 @@ def _tail_case(b, d, has_mask, has_res, seed=0):
 _TAIL_CASES = [(d, m, r, True, True) for d in (33, 128)
                for m in (False, True) for r in (False, True)] + [
     (33, True, True, False, True), (128, True, True, True, False),
-    (33, False, True, False, False)]
+    (33, False, True, False, False),
+    # d = 130: past one 128-float chunk and d % 4 != 0 (the kernel's scalar
+    # route)
+    (130, True, True, True, True), (130, False, False, True, True)]
 
 
 @pytest.mark.parametrize("d,has_mask,has_res,use_rmsnorm,use_relu",
