@@ -34,6 +34,12 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    every slot beside it) and two yardsticks the port
    never calls: ``torch.sparse.mm`` on the same tiles as a BSR tensor
    (``library_ms``) and a dense ``torch.matmul``;
+   The SpMM's dX kernel is held against its plain version on the same
+   batch's tiles with a random cotangent within 1e-5 of the largest |dX|,
+   bit-identical over 10 repeated calls, at the sweep shapes, on the
+   padding layout and in bf16 (5e-2), and timed beside its bound, its
+   plain version and the path it replaced (a batched GEMM over every slot
+   and an ``index_add_``); no single library call computes it;
    The flash-attention kernel is held against its plain version (out and
    lse) at the reference's five sweep shapes on both routes, f32 (CUDA
    cores, 1e-4 absolute) and bf16 (tensor cores: out per element within
@@ -52,13 +58,21 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    on the same card with the plain ``"torch"`` implementations and must
    match (atol 1e-4);
 5. train   — the training path: ``Trainer`` trains ``paper_model
-   ("ogbn-products")`` on the same graph with the block-ELL SpMM, the fused
-   tail and the fused extraction (batch 8192, AdamW with warm-up and
-   cosine decay, dropout 0.3) for 48 steps, launch counts zeroed just
-   before and read just after; the first step's loss and gradients and an
-   eight-step loss trajectory are held against the plain versions on the
-   card; the loss must fall; then one full-graph evaluation and one
-   profiled chunk;
+   ("ogbn-products")`` on the same graph with the block-ELL SpMM and its
+   dX kernel, the fused tail and the fused extraction (batch 8192, AdamW
+   with warm-up and cosine decay, dropout 0.3) through ``ForwardEngine``
+   on the 1x1x1x1 mesh for 48 steps, launch counts zeroed just before and
+   read just after, then twice more for the spread of ms/step; the first
+   step's loss and gradients and an eight-step loss trajectory are held
+   against the plain versions on the card, and eight steps run twice from
+   one state must give bit-identical losses and params; the loss must
+   fall; then one full-graph evaluation and one profiled chunk;
+5b. train-nccl — the distributed step at the training shape: a NCCL
+   process group of world size 1 (a ``FileStore`` under ``build/``),
+   ``make_mesh_4d(1, 1)`` over it, and 8 ``Trainer`` steps from the state
+   of phase 5's eight-step runs, whose losses and params must be phase 5's
+   bits (an all-reduce over one rank is the identity), counts zeroed
+   before and read after; the group is destroyed at the end;
 6. llm     — LLM serving: tinyllama-1.1b at its published width (22
    layers, d_model 2048, 32/4 heads, vocab 32000, bf16, seeded random
    weights) behind the port's ``LLMEngine`` (8 slots, prompts padded to
@@ -83,6 +97,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -102,6 +117,8 @@ BF16_TC_OPS_PER_S = 989e12
 TAIL_RTOL = 1e-5         # f32 sum of squares in another order
 SERVE_ATOL = 1e-4        # two GCN forwards: fused vs plain tail and extraction
 SPMM_RTOL = 1e-4         # f32 sums of up to S * bn products in another order
+DX_RTOL = 1e-5           # dX: the same products, summed in another order,
+                         # of the largest |dX|
 BF16_TOL = 5e-2          # the reference's bf16 tolerance (test_kernels.py)
 LOSS_RTOL = 1e-5         # first step: one loss, kernels vs plain versions
 GRAD_RTOL = 1e-4         # first step: every gradient leaf, of its max |.|
@@ -114,14 +131,18 @@ FLASH_BF16_OUT_RTOL = 1e-2
 FLASH_BF16_LSE_ATOL = 1e-4
 LLM_RTOL = 5e-2          # bf16 logits, kernel vs plain path, of max |logit|
 
-# the kernels of the port: the module that counts their launches, and the
-# route's own count in that module where it has two routes
-KERNEL_COUNTERS = {"extract_dense_fused": ("extract_gather", None),
-                   "fused_layer": ("fused_layer", "vector"),
-                   "fused_layer_scalar": ("fused_layer", "scalar"),
-                   "spmm_ell": ("spmm_ell", None),
-                   "flash_attention": ("flash_attention", "mma"),
-                   "flash_attention_f32": ("flash_attention", "f32")}
+# the kernels of the port: the module that counts their launches, the
+# count's name in it, and the route's own count in that module where it has
+# two routes
+KERNEL_COUNTERS = {
+    "extract_dense_fused": ("extract_gather", "LAUNCHES", None),
+    "fused_layer": ("fused_layer", "LAUNCHES", "vector"),
+    "fused_layer_scalar": ("fused_layer", "LAUNCHES", "scalar"),
+    "spmm_ell": ("spmm_ell", "LAUNCHES", None),
+    "spmm_ell_dx": ("spmm_ell", "DX_LAUNCHES", None),
+    "flash_attention": ("flash_attention", "LAUNCHES", "mma"),
+    "flash_attention_f32": ("flash_attention", "LAUNCHES", "f32")}
+DX_KERNELS = ("dx_scan_kernel", "dx_fill_kernel", "dx_product_kernel")
 
 TRAIN_BATCH = 8192
 TRAIN_STEPS = 48
@@ -160,10 +181,11 @@ def time_ms(torch, fn, reps: int = 25, inner: int = 10,
     return statistics.median(times)
 
 
-def device_ms(torch, fn, kernel: str, n: int = 50, flush=None) -> float:
+def device_ms(torch, fn, kernel, n: int = 50, flush=None) -> float:
     """Mean device time of the CUDA kernel named ``kernel`` over ``n`` calls,
     from the profiler's CUPTI trace: the kernel alone, without the host
-    time between launches that the event windows include. With ``flush``,
+    time between launches that the event windows include. A tuple of names
+    gives the sum of their means: the kernels of one call. With ``flush``,
     ``flush()`` runs before each call, so each starts on a cold L2; the
     flush's kernels have names of their own, outside the mean. The trace
     can miss launches at its edges (4 of 50, and 4 of 10, flash-attention
@@ -172,6 +194,7 @@ def device_ms(torch, fn, kernel: str, n: int = 50, flush=None) -> float:
     holds fewer (once, none of 50 tail launches) is taken again, up to
     three times."""
     from torch.profiler import ProfilerActivity, profile
+    names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
@@ -181,12 +204,15 @@ def device_ms(torch, fn, kernel: str, n: int = 50, flush=None) -> float:
                     flush()
                 fn()
             torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages() if kernel in e.key]
-        if len(hits) == 1 and n / 2 <= hits[0].count <= n:
-            return hits[0].device_time_total / hits[0].count / 1e3
-        log(f"[kernels] the profiler found {[(e.key, e.count) for e in hits]}"
-            f" for {kernel} x {n}; tracing again")
-    raise AssertionError(f"no trace held {kernel} x {n}")
+        hits = [[e for e in prof.key_averages() if name in e.key]
+                for name in names]
+        if all(len(h) == 1 and n / 2 <= h[0].count <= n for h in hits):
+            return sum(h[0].device_time_total / h[0].count
+                       for h in hits) / 1e3
+        log(f"[kernels] the profiler found "
+            f"{[[(e.key, e.count) for e in h] for h in hits]} for {names} x "
+            f"{n}; tracing again")
+    raise AssertionError(f"no trace held {names} x {n}")
 
 
 def l2_flushers(torch, dev) -> dict:
@@ -228,15 +254,16 @@ def bound_ms(n_bytes: float, n_ops: float,
 def _kernel_modules() -> dict:
     import importlib
     return {mod: importlib.import_module(f"repro_torch.kernels.{mod}")
-            for mod, _ in KERNEL_COUNTERS.values()}
+            for mod, _, _ in KERNEL_COUNTERS.values()}
 
 
 def zero_launches() -> None:
     """Set every kernel's launch counts to 0 (just before a path runs)."""
-    for m in _kernel_modules().values():
-        m.LAUNCHES = 0
-        for route in getattr(m, "ROUTE_LAUNCHES", {}):
-            m.ROUTE_LAUNCHES[route] = 0
+    mods = _kernel_modules()
+    for mod, counter, _ in KERNEL_COUNTERS.values():
+        setattr(mods[mod], counter, 0)
+        for route in getattr(mods[mod], "ROUTE_LAUNCHES", {}):
+            mods[mod].ROUTE_LAUNCHES[route] = 0
 
 
 def read_launches() -> dict:
@@ -248,9 +275,9 @@ def read_launches() -> dict:
         if routes is not None and sum(routes.values()) != m.LAUNCHES:
             raise AssertionError(f"{name}: route launches {routes} do not "
                                  f"add up to {m.LAUNCHES}")
-    return {name: (mods[mod].LAUNCHES if route is None
+    return {name: (getattr(mods[mod], counter) if route is None
                    else mods[mod].ROUTE_LAUNCHES[route])
-            for name, (mod, route) in KERNEL_COUNTERS.items()}
+            for name, (mod, counter, route) in KERNEL_COUNTERS.items()}
 
 
 def phase_device(torch) -> dict:
@@ -314,7 +341,7 @@ def check_extraction(torch, A, plan, plan_b, train_plan, train_graph, dev,
     inv_p = float(plan.col_scale.max())
     max_deg = A.max_row_nnz()
     builder = train_plan.builder
-    train_csr = [train_graph[k] for k in ("rp", "ci", "val")]
+    train_csr = list(train_graph["adj"][0])
     train_ids = builder.sample_ids(0, None, 0, device=dev)[0]
     train_kw = dict(col_scale=builder.rescale_constants()[0], diag=True,
                     max_deg=builder.max_row_nnz)
@@ -529,7 +556,9 @@ def train_setup(torch, ds, dev):
     with the block-ELL SpMM, the fused tail and the fused extraction at
     batch 8192, and ``ell_slots`` set from the first 8 sampled batches: the
     next power of two at or above the most non-empty column tiles any
-    row-block holds, so those batches drop no tile."""
+    row-block holds, so those batches drop no tile. Returns the plan, the
+    graph on the card and the partitioned graph (phase 5b plans on it
+    again)."""
     from repro_torch.configs.gcn_paper import paper_model
     from repro_torch.core import fourd
     from repro_torch.core.minibatch import BlockFormat
@@ -554,7 +583,7 @@ def train_setup(torch, ds, dev):
     blocks, most = [], 0
     for step in range(8):
         ids = b.sample_ids(step, None, 0, device=dev)[0]
-        dense = b.extract_block(graph["rp"], graph["ci"], graph["val"], ids,
+        dense = b.extract_block(*graph["adj"][0], ids,
                                 ids, col_scale=b.rescale_constants()[0],
                                 diag=True, fmt=BlockFormat.DENSE)
         per_rb = (dense.reshape(n_rb, tile, n_rb, tile).abs().sum((1, 3))
@@ -573,7 +602,7 @@ def train_setup(torch, ds, dev):
         f"most {most}; ell_slots = {slots} (no tile dropped)")
     plan = fourd.build_plan(pg, cfg, mesh, batch=TRAIN_BATCH,
                             opts=dataclasses.replace(opts, ell_slots=slots))
-    return plan, graph
+    return plan, graph, pg
 
 
 def check_spmm_ell(torch, plan, graph, dev) -> dict:
@@ -583,8 +612,8 @@ def check_spmm_ell(torch, plan, graph, dev) -> dict:
     shape beside its bound and two yardsticks."""
     from repro_torch.kernels import spmm_ell as sp
     gen = torch.Generator(device=dev).manual_seed(1)
-    mb = plan.builder.build(graph["rp"], graph["ci"], graph["val"],
-                            graph["features"], graph["labels"], 0)
+    mb = plan.builder.build(*graph["adj"][0], graph["features"],
+                            graph["labels"], 0)
     tiles, colidx = mb.adj[0]
     d = plan.cfg.d_hidden
     h = torch.randn((TRAIN_BATCH, d), generator=gen, device=dev)
@@ -686,6 +715,124 @@ def check_spmm_ell(torch, plan, graph, dev) -> dict:
             "bound_live_tiles_ms": live_bound,
             "bound_every_slot_ms": padded_bound, "live_tiles": nz_tiles,
             "library_ms": library_ms, "dense_matmul_ms": dense_ms}
+
+
+def atomic_dx(torch, tiles, colidx, g, n_rows):
+    """The SpMM backward's dX before the kernel: a batched GEMM over every
+    slot, padding included, then an ``index_add_`` (float atomics on the
+    card). A yardstick only: the port no longer calls it."""
+    n_rb, n_slots, bm, bn = tiles.shape
+    d = g.shape[1]
+    n_cb = n_rows // bn
+    c = colidx.long().clamp(0, max(n_cb - 1, 0))
+    contrib = torch.matmul(tiles.transpose(-1, -2),
+                           g.reshape(n_rb, bm, d)[:, None]).float()
+    dx = torch.zeros((n_cb, bn, d), dtype=torch.float32, device=g.device)
+    dx.index_add_(0, c.reshape(-1), contrib.reshape(-1, bn, d))
+    return dx.reshape(n_rows, d).to(g.dtype)
+
+
+def check_spmm_ell_dx(torch, plan, graph, dev) -> dict:
+    """The SpMM's dX kernel against its plain version: on a real sampled
+    training batch's tiles with a random cotangent, within 1e-5 of the
+    largest |dX|, and bit-identical over 10 repeated calls; at the
+    reference's tile sweep with a ragged d, on the top-k padding layout and
+    in bf16 (5e-2); then timed at the training shape beside its bound, the
+    plain version and the path it replaced (``atomic_dx``). No single
+    library call computes this function."""
+    from repro_torch.kernels import spmm_ell as sp
+    gen = torch.Generator(device=dev).manual_seed(2)
+    mb = plan.builder.build(*graph["adj"][0], graph["features"],
+                            graph["labels"], 0)
+    tiles, colidx = mb.adj[0]
+    d = plan.cfg.d_hidden
+    n_rb, n_slots, bm, bn = tiles.shape
+    n_rows = TRAIN_BATCH
+    g = torch.randn((n_rb * bm, d), generator=gen, device=dev)
+
+    def compare(name, t, c, gg, rows, rtol):
+        got = sp.spmm_ell_dx(t, c, gg, rows)
+        torch.cuda.synchronize()
+        ref = sp.spmm_ell_dx_plain(t, c, gg, rows)
+        err = (got.float() - ref.float()).abs().max().item()
+        limit = rtol * max(ref.float().abs().max().item(), 1e-30)
+        log(f"[kernels] spmm_ell_dx {name}: tiles {tuple(t.shape)} "
+            f"{t.dtype}, d {gg.shape[1]}: max |kernel - plain| {err:.3e} "
+            f"(limit {limit:.3e})")
+        if not err <= limit or got.dtype != gg.dtype:
+            raise AssertionError(f"spmm_ell_dx {name}: error {err} above "
+                                 f"{limit} (or dtype {got.dtype})")
+        return err
+
+    err = compare("training batch", tiles, colidx, g, n_rows, DX_RTOL)
+    first = sp.spmm_ell_dx(tiles, colidx, g, n_rows)
+    same = all(torch.equal(sp.spmm_ell_dx(tiles, colidx, g, n_rows), first)
+               for _ in range(9))
+    log(f"[kernels] spmm_ell_dx training batch, 10 calls: bit-identical "
+        f"{same}")
+    if not same:
+        raise AssertionError("spmm_ell_dx: repeated calls differ")
+    for bm_, bn_ in ((8, 8), (16, 32), (32, 16), (8, 128)):
+        n_rb_, n_cb_, dd = 6, 5, 37
+        keep = torch.rand((n_rb_, 1, n_cb_, 1), generator=gen,
+                          device=dev) < 0.5
+        dense = (torch.randn((n_rb_, bm_, n_cb_, bn_), generator=gen,
+                             device=dev) * keep).reshape(n_rb_ * bm_,
+                                                         n_cb_ * bn_)
+        t, c = sp.dense_to_block_ell(dense, bm_, bn_, n_cb_ - 1)
+        gg = torch.randn((n_rb_ * bm_, dd), generator=gen, device=dev)
+        err = max(err, compare(f"sweep ({bm_}, {bn_})", t, c, gg,
+                               n_cb_ * bn_, DX_RTOL))
+    layout = [[3, None, 1, None, 2], [2, None, 0, 1, None], [None] * 5]
+    t = torch.randn((3, 5, 128, 128), generator=gen, device=dev)
+    c = torch.zeros((3, 5), dtype=torch.int32, device=dev)
+    for i, row in enumerate(layout):
+        for slot, cb in enumerate(row):
+            if cb is None:
+                t[i, slot] = 0.0
+            else:
+                c[i, slot] = cb
+    gg = torch.randn((3 * 128, d), generator=gen, device=dev)
+    err = max(err, compare("top-k padding layout", t, c, gg, 4 * 128,
+                           DX_RTOL))
+    compare("bf16 training batch", tiles.bfloat16(), colidx, g.bfloat16(),
+            n_rows, BF16_TOL)
+
+    call = lambda: sp.spmm_ell_dx(tiles, colidx, g, n_rows)
+    ms = time_ms(torch, call)
+    plain_ms = time_ms(torch, lambda: sp.spmm_ell_dx_plain(tiles, colidx, g,
+                                                           n_rows))
+    atomic_ms = time_ms(torch, lambda: atomic_dx(torch, tiles, colidx, g,
+                                             n_rows))
+    dev_ms = device_ms(torch, call, DX_KERNELS)
+    atomic_err = (atomic_dx(torch, tiles, colidx, g, n_rows)
+                - first).abs().max().item()
+    # every tile read once (padding included, to find it), g read once,
+    # dX written once; the products this batch needs are those of its
+    # nonzeros; beside it the bound over the live tiles
+    n_bytes = 4 * (tiles.numel() + colidx.numel() + g.numel() + n_rows * d)
+    keep = tiles.abs().sum((2, 3)) > 0
+    nz_tiles = int(keep.sum())
+    n_ops = 2 * int(torch.count_nonzero(tiles)) * d
+    live_ops = 2 * nz_tiles * bm * bn * d
+    bound = bound_ms(n_bytes, n_ops)
+    live_bound = bound_ms(n_bytes, live_ops)
+    log(f"[kernels] spmm_ell_dx training shape: {n_rb} row-blocks x "
+        f"{n_slots} slots of ({bm}, {bn}) ({nz_tiles} live tiles), d {d}, "
+        f"{n_bytes} B, {n_ops} ops on the nonzeros: kernel {ms:.5f} ms per "
+        f"call ({dev_ms:.5f} ms on the device: scan, fill and product; "
+        f"{n_bytes / dev_ms / 1e9:.3f} TB/s), plain {plain_ms:.5f} ms, "
+        f"bound {bound:.6f} ms (over the live tiles, {live_ops} ops: "
+        f"{live_bound:.6f} ms); the path it replaced (batched GEMM + "
+        f"index_add_) {atomic_ms:.5f} ms (max |diff| {atomic_err:.3e})")
+    return {"name": "spmm_ell_dx", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/spmm_ell_dx.cu",
+            "replaces": "src/repro/kernels/ops.py:36",
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": _bound_by(n_bytes, n_ops),
+            "bound_live_tiles_ms": live_bound, "live_tiles": nz_tiles,
+            "atomic_path_ms": atomic_ms, "library_ms": None}
 
 
 # the reference's sweep (tests/test_kernels_flash.py), B = 2:
@@ -877,8 +1024,8 @@ def phase_serve(torch, np, ds, cfg, n_requests: int) -> dict:
     # one extraction and one tail per layer for every device call
     expect = {"extract_dense_fused": st["device_calls"],
               "fused_layer": cfg.num_layers * st["device_calls"],
-              "fused_layer_scalar": 0, "spmm_ell": 0, "flash_attention": 0,
-              "flash_attention_f32": 0}
+              "fused_layer_scalar": 0, "spmm_ell": 0, "spmm_ell_dx": 0,
+              "flash_attention": 0, "flash_attention_f32": 0}
     if launches != expect or st["device_calls"] == 0:
         raise AssertionError(f"kernel launches {launches} on the main path, "
                              f"expected {expect}")
@@ -999,10 +1146,14 @@ def plain_loss(params, mb, cfg, masks):
     return cross_entropy_loss(h @ params["w_out"], mb.labels)
 
 
-def phase_train(torch, np, plan, graph) -> dict:
+def phase_train(torch, np, plan, graph, pg) -> dict:
     """The main path of training: ``Trainer.run`` for 48 steps through the
-    three kernels, held against the plain versions first. Returns the
-    launch counts of the 48 steps."""
+    four kernels (the SpMM's dX among them), held against the plain
+    versions first, and twice more for the spread of ms/step; eight steps
+    run twice from one state must give the same bits; then phase 5b, the
+    distributed step through NCCL at world size 1, must give those bits
+    again. Returns the launch counts of the 48 steps (``"train"``) and of
+    phase 5b's eight (``"train_nccl"``)."""
     from repro_torch.core import fourd
     from repro_torch.core import gcn_model as M
     from repro_torch.core.forward import dropout_masks
@@ -1020,8 +1171,8 @@ def phase_train(torch, np, plan, graph) -> dict:
     mcfg = fourd.model_config(cfg, opts)
 
     def plain_step(params, step):
-        mb = plain_builder.build(graph["rp"], graph["ci"], graph["val"],
-                                 graph["features"], graph["labels"], step)
+        mb = plain_builder.build(*graph["adj"][0], graph["features"],
+                                 graph["labels"], step)
         masks = dropout_masks(opts, step, cfg.num_layers,
                               (TRAIN_BATCH, cfg.d_hidden), dev)
         for t in leaves(params):
@@ -1032,10 +1183,10 @@ def phase_train(torch, np, plan, graph) -> dict:
 
     # 1. the first step, kernels against plain versions, same params,
     #    batch and masks
-    kb = plan.builder.build(graph["rp"], graph["ci"], graph["val"],
-                            graph["features"], graph["labels"], 0)
-    pb = plain_builder.build(graph["rp"], graph["ci"], graph["val"],
-                             graph["features"], graph["labels"], 0)
+    kb = plan.builder.build(*graph["adj"][0], graph["features"],
+                            graph["labels"], 0)
+    pb = plain_builder.build(*graph["adj"][0], graph["features"],
+                             graph["labels"], 0)
     same_batch = all(torch.equal(a, b) for a, b in zip(kb.adj[0], pb.adj[0]))
     lk, gk = fourd.value_and_grad(fourd.make_loss_fn(plan), fresh(), graph, 0)
     lp, gp = plain_step(fresh(), 0)
@@ -1051,11 +1202,24 @@ def phase_train(torch, np, plan, graph) -> dict:
         raise AssertionError("first step: kernel path and plain path "
                              "disagree")
 
-    # 2. eight steps on each path from the same init
-    tr8 = Trainer(plan, make_opt(), TrainLoopConfig(total_steps=CHUNK,
-                                                    chunk_size=CHUNK),
-                  eval_fn=lambda p, g: 0.0)
-    _, log8 = tr8.run(tr8.init_state(fresh()), graph)
+    # 2. eight steps on each path from the same init; the kernel path twice
+    def eight(plan_, graph_):
+        tr8 = Trainer(plan_, make_opt(),
+                      TrainLoopConfig(total_steps=CHUNK, chunk_size=CHUNK),
+                      eval_fn=lambda p, g: 0.0)
+        st8, log8 = tr8.run(tr8.init_state(plan_.shard_params(fresh())),
+                            graph_)
+        return log8, st8.params
+
+    log8, params8 = eight(plan, graph)
+    again, params8b = eight(plan, graph)
+    same = again.losses == log8.losses and all(
+        torch.equal(a, b) for a, b in zip(leaves(params8), leaves(params8b)))
+    log(f"[train] 8 steps from one state, twice: losses and params "
+        f"bit-identical {same}")
+    if not same:
+        raise AssertionError("two runs of 8 steps from one state differ: "
+                             "the training step is not deterministic")
     opt, params = make_opt(), fresh()
     opt_state, plain_losses = opt.init(params), []
     for step in range(CHUNK):
@@ -1086,12 +1250,22 @@ def phase_train(torch, np, plan, graph) -> dict:
     expect = {"extract_dense_fused": TRAIN_STEPS,
               "fused_layer": cfg.num_layers * TRAIN_STEPS,
               "fused_layer_scalar": 0,
-              "spmm_ell": cfg.num_layers * TRAIN_STEPS, "flash_attention": 0,
-              "flash_attention_f32": 0}
+              "spmm_ell": cfg.num_layers * TRAIN_STEPS,
+              "spmm_ell_dx": cfg.num_layers * TRAIN_STEPS,
+              "flash_attention": 0, "flash_attention_f32": 0}
     losses = run_log.losses
     first, last = np.mean(losses[:CHUNK]), np.mean(losses[-CHUNK:])
+    # the spread of ms/step: two more runs of 48 steps from the same init
+    spread = [run_log.ms_per_step]
+    for _ in range(2):
+        tr = Trainer(plan, make_opt(),
+                     TrainLoopConfig(total_steps=TRAIN_STEPS,
+                                     chunk_size=CHUNK),
+                     eval_fn=lambda p, g: 0.0)
+        spread.append(tr.run(tr.init_state(fresh()), graph)[1].ms_per_step)
     log(f"[train] {len(losses)} steps in chunks of {CHUNK}: "
-        f"{run_log.ms_per_step:.4f} ms/step, loss {losses[0]:.5f} -> "
+        f"{run_log.ms_per_step:.4f} ms/step (three runs: "
+        f"{', '.join(f'{v:.4f}' for v in spread)}), loss {losses[0]:.5f} -> "
         f"{losses[-1]:.5f} (mean of first 8 {first:.5f}, last 8 "
         f"{last:.5f}), launches {launches}, peak device memory "
         f"{peak / 2**30:.3f} GiB")
@@ -1124,11 +1298,78 @@ def phase_train(torch, np, plan, graph) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
     device_profile(prof, wall_us, f"one chunk of {CHUNK} training "
-                   "steps", watch=("spmm_ell_kernel", "extract_dense_kernel",
+                   "steps", watch=("spmm_ell_kernel", *DX_KERNELS,
+                                   "extract_dense_kernel",
                                    "fused_layer_kernel_vec",
                                    "fused_layer_kernel("),
                    spans=("sample", "extract", "_SpmmEllBackward",
                           "_FusedTailBackward"))
+    return {"train": launches,
+            "train_nccl": phase_train_nccl(torch, plan, pg, fresh, make_opt,
+                                           log8, params8)}
+
+
+def phase_train_nccl(torch, plan, pg, fresh, make_opt, want_log,
+                     want_params) -> dict:
+    """Phase 5b: the distributed step through a real NCCL process group of
+    world size 1 (a ``FileStore`` under ``build/``), ``make_mesh_4d(1, 1)``
+    over it, the plan and graph built again on that mesh, and 8
+    ``Trainer`` steps from the state of phase 5's 8-step runs. An
+    all-reduce over one rank is the identity, so the losses and params must
+    be phase 5's bits. Returns the launch counts of the 8 steps."""
+    import torch.distributed as dist
+
+    from repro_torch.core import fourd
+    from repro_torch.train import Trainer, TrainLoopConfig
+    from repro_torch.tree import leaves
+
+    store = ROOT / "build" / "chip_smoke" / f"store.{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = fourd.make_mesh_4d(1, 1)
+        mplan = fourd.build_plan(pg, plan.cfg, mesh, batch=TRAIN_BATCH,
+                                 opts=plan.opts)
+        mgraph = mplan.shard_graph(pg)
+        tr = Trainer(mplan, make_opt(),
+                     TrainLoopConfig(total_steps=CHUNK, chunk_size=CHUNK),
+                     eval_fn=lambda p, g: 0.0)
+        state = tr.init_state(mplan.shard_params(fresh()))
+        torch.cuda.synchronize()
+        zero_launches()
+        state, run_log = tr.run(state, mgraph)
+        launches = read_launches()
+        same = run_log.losses == want_log.losses and all(
+            torch.equal(a, b) for a, b in zip(leaves(state.params),
+                                              leaves(want_params)))
+        # the first run also sets up NCCL's communicators: time a second
+        warm = Trainer(mplan, make_opt(),
+                       TrainLoopConfig(total_steps=CHUNK, chunk_size=CHUNK),
+                       eval_fn=lambda p, g: 0.0)
+        warm_ms = warm.run(warm.init_state(mplan.shard_params(fresh())),
+                           mgraph)[1].ms_per_step
+        log(f"[train-nccl] {dist.get_backend()} process group of "
+            f"{dist.get_world_size()} rank, mesh {mesh.shape} on "
+            f"{mesh.device}: 8 steps, {run_log.ms_per_step:.4f} ms/step "
+            f"(communicators set up), again {warm_ms:.4f} ms/step; losses "
+            f"and params bit-identical to phase 5's {same}, launches "
+            f"{launches}")
+        if not same:
+            raise AssertionError("the NCCL step differs from phase 5's")
+        expect = {"extract_dense_fused": CHUNK,
+                  "fused_layer": plan.cfg.num_layers * CHUNK,
+                  "fused_layer_scalar": 0,
+                  "spmm_ell": plan.cfg.num_layers * CHUNK,
+                  "spmm_ell_dx": plan.cfg.num_layers * CHUNK,
+                  "flash_attention": 0, "flash_attention_f32": 0}
+        if launches != expect:
+            raise AssertionError(f"kernel launches {launches} on the NCCL "
+                                 f"path, expected {expect}")
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
     return launches
 
 
@@ -1197,7 +1438,7 @@ def phase_llm(torch, np, cfg, dev) -> dict:
         f"memory {peak / 2**30:.3f} GiB")
     # every prefill layer through the tensor-core route, none through f32
     expect = {"extract_dense_fused": 0, "fused_layer": 0,
-              "fused_layer_scalar": 0, "spmm_ell": 0,
+              "fused_layer_scalar": 0, "spmm_ell": 0, "spmm_ell_dx": 0,
               "flash_attention": cfg.n_layers * st["prefills"],
               "flash_attention_f32": 0}
     if launches != expect or st["prefills"] != LLM_PROMPTS:
@@ -1323,7 +1564,7 @@ def main() -> int:
     plan, plan_b = plan_batch(req(), spec, pool), plan_batch(req(), spec,
                                                             pool)
     dev = torch.device("cuda")
-    train_plan, train_graph = train_setup(torch, ds, dev)
+    train_plan, train_graph, train_pg = train_setup(torch, ds, dev)
     flushers = l2_flushers(torch, dev)
     kernels = [check_extraction(torch, A, plan, plan_b, train_plan,
                                 train_graph, dev, flushers),
@@ -1331,11 +1572,12 @@ def main() -> int:
                                  flushers)]
     del flushers
     kernels.append(check_spmm_ell(torch, train_plan, train_graph, dev))
+    kernels.append(check_spmm_ell_dx(torch, train_plan, train_graph, dev))
     kernels.extend(check_flash_attention(torch, np, dev))
 
     by_path = {"serve": phase_serve(torch, np, ds, cfg, args.requests),
-               "train": phase_train(torch, np, train_plan, train_graph)}
-    del train_plan, train_graph
+               **phase_train(torch, np, train_plan, train_graph, train_pg)}
+    del train_plan, train_graph, train_pg
     torch.cuda.empty_cache()
     by_path["llm"] = phase_llm(torch, np, get_config("tinyllama-1.1b"), dev)
     # each kernel's launches on the path that runs it, each route of the
@@ -1344,6 +1586,7 @@ def main() -> int:
     # flash's f32 routes read 0)
     main_path = {"extract_dense_fused": "train", "fused_layer": "train",
                  "fused_layer_scalar": "train", "spmm_ell": "train",
+                 "spmm_ell_dx": "train",
                  "flash_attention": "llm", "flash_attention_f32": "llm"}
     for k in kernels:
         k["launches_by_path"] = {p: counts[k["name"]]

@@ -28,22 +28,25 @@ ARCH_IDS = (
 
 _PORTED = ("tinyllama-1.1b", "qwen2-0.5b")
 
+# the part of ROADMAP queue 1, "The LLM stack beyond the dense serving
+# path", that ports each id
 _TODO = {
-    "llama4-scout-17b-a16e": "item 10c (MoE)",
-    "mixtral-8x7b": "item 10c (MoE)",
-    "zamba2-2.7b": "item 10e (SSM and hybrid)",
-    "mamba2-780m": "item 10e (SSM and hybrid)",
-    "llama-3.2-vision-90b": "item 10f (VLM and audio)",
-    "whisper-base": "item 10f (VLM and audio)",
-    "command-r-plus-104b": "item 10i (the other dense configs)",
-    "internlm2-1.8b": "item 10i (the other dense configs)",
+    "llama4-scout-17b-a16e": "MoE",
+    "mixtral-8x7b": "MoE",
+    "zamba2-2.7b": "SSM and hybrid",
+    "mamba2-780m": "SSM and hybrid",
+    "llama-3.2-vision-90b": "VLM and audio",
+    "whisper-base": "VLM and audio",
+    "command-r-plus-104b": "the other dense configs",
+    "internlm2-1.8b": "the other dense configs",
 }
 
 
 def _module(arch: str):
     if arch in _TODO:
         raise NotImplementedError(
-            f"{arch} is not ported yet: ROADMAP queue 1, {_TODO[arch]}")
+            f"{arch} is not ported yet: ROADMAP queue 1, \"The LLM stack "
+            f"beyond the dense serving path\" ({_TODO[arch]})")
     if arch not in _PORTED:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     name = arch.replace("-", "_").replace(".", "_")

@@ -1,22 +1,38 @@
-"""Training options of the layer program, and its dropout generators.
+"""The ONE distributed layer-loop executor (ScaleGNN §III/§IV), its
+training options and its dropout generators.
 
-Counterpart of ``repro/core/forward.py``'s ``TrainOptions`` (every field,
+Counterpart of ``repro/core/forward.py``: ``TrainOptions`` (every field,
 the same defaults except ``extract_impl``, which names the port's
-backends) and ``_dropout_key``. The distributed ``ForwardEngine`` is
-ROADMAP queue 1, item 3: at g = 1 it computes exactly
-``core.gcn_model.forward``, which ``core/fourd.py`` calls. Values this
-slice cannot honour raise ``NotImplementedError`` naming their queue item.
+backends), ``_dropout_key`` and ``ForwardEngine`` with its ``"none"``
+overlap path. The engine runs the 3D-PMM layer program on this rank's
+shards of a ``fourd.Mesh`` — input projection, L layers of [aggregate ->
+GEMM -> residual reshard -> tail -> rotate], output head — with one
+all-reduce per product (``core/pmm3d.py``). The aggregation backend is
+``"dense"`` (a dense block, ``blk @ h``), ``"ell"`` (a block-ELL ``(tiles,
+colidx)`` pair through the SpMM kernel) or ``"csr"`` (a padded-CSR triple
+over the whole local shard: full-graph eval). The tail is plain PyTorch or
+the fused CUDA kernel (``TrainOptions.fused_elementwise``): fully fused
+when the feature dim is whole on the rank (g = 1, or RMSNorm off), else
+the distributed RMSNorm (an FP32 all-reduce) followed by the kernel
+without its norm. At 1x1x1x1 every all-reduce is the identity and the
+engine computes exactly ``core.gcn_model.forward``. Values this slice
+cannot honour raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Union
+from typing import Any, List, Optional, Sequence, Union
 
 import torch
 
+from repro_torch.core import pmm3d
 from repro_torch.core import sampling as smp
+from repro_torch.core.gcn_model import GCNConfig
+from repro_torch.core.precision import BF16_WIRE, psum_maybe_bf16
+from repro_torch.obs.tracer import phase
 
-_COMM = "ROADMAP queue 1, item 6 (ring overlap and compressed collectives)"
+_COMM = 'ROADMAP queue 1, "Ring overlap and compressed collectives"'
+BACKENDS = ("dense", "ell", "csr")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,14 +60,12 @@ class TrainOptions:
     compress_schedule: str = "uniform"
 
     def __post_init__(self):
-        if self.compress != "none" or self.bf16_collectives:
+        if self.bf16_collectives:
+            raise NotImplementedError(BF16_WIRE)
+        if self.compress != "none" or self.overlap_impl == "ring":
             raise NotImplementedError(
-                f"compress={self.compress!r}, bf16_collectives="
-                f"{self.bf16_collectives}: {_COMM}")
-        if self.overlap_impl == "ring" or self.reshard_impl == "permute":
-            raise NotImplementedError(
-                f"overlap_impl={self.overlap_impl!r}, reshard_impl="
-                f"{self.reshard_impl!r}: {_COMM}")
+                f"compress={self.compress!r}, overlap_impl="
+                f"{self.overlap_impl!r}: {_COMM}")
         if self.sample_kind in ("partition", "walk"):
             raise NotImplementedError(
                 f"sample_kind={self.sample_kind!r} is {smp._LOCALITY}")
@@ -60,7 +74,7 @@ class TrainOptions:
                 "block_dtype='bf16' is not ported: the extraction writes "
                 "float32 blocks")
         for name, value, allowed in (
-                ("reshard_impl", self.reshard_impl, ("gather",)),
+                ("reshard_impl", self.reshard_impl, ("gather", "permute")),
                 ("overlap_impl", self.overlap_impl, ("none",)),
                 ("sample_kind", self.sample_kind, ("stratified",)),
                 ("sample_mode", self.sample_mode, ("step", "epoch")),
@@ -75,17 +89,157 @@ class TrainOptions:
             raise ValueError(f"dropout={self.dropout}")
 
 
-def _dropout_key(opts: TrainOptions, step: int, layer: int) -> int:
-    """Per-layer dropout key of a step: (seed + 1, step, layer) mixed, as
-    the reference folds them (its block coordinates are all 0 at g = 1)."""
-    return smp.fold_in(smp.fold_in(opts.seed + 1, step), layer)
+def _dropout_key(opts: TrainOptions, step: int, layer: int, row: int = 0,
+                 col: int = 0, dp: int = 0) -> int:
+    """Per-block dropout key: (seed + 1, step, layer) mixed, then the
+    coordinates of the block's rows and columns and its DP group folded
+    in, as the reference folds them. The replicas of a block along the
+    third axis get the same key, hence the same mask, or they would
+    diverge."""
+    k = smp.fold_in(smp.fold_in(opts.seed + 1, step), layer)
+    for coord in (row, col, dp):
+        k = smp.fold_in(k, coord)
+    return k
+
+
+def _keep_mask(opts: TrainOptions, key: int, shape: tuple,
+               device: Union[str, torch.device]) -> torch.Tensor:
+    """A bool keep-mask, ``rand < 1 - p`` drawn on ``device`` from the
+    generator of ``key``."""
+    return torch.rand(shape, device=device, generator=smp.make_generator(
+        key, device)) < 1.0 - opts.dropout
 
 
 def dropout_masks(opts: TrainOptions, step: int, num_layers: int,
                   shape: tuple, device: Union[str, torch.device]
                   ) -> List[torch.Tensor]:
-    """One bool keep-mask per layer, ``rand < 1 - p`` drawn on ``device``
-    from the layer's generator: a pure function of (seed, step, layer)."""
-    return [torch.rand(shape, device=device, generator=smp.make_generator(
-        _dropout_key(opts, step, li), device)) < 1.0 - opts.dropout
-        for li in range(num_layers)]
+    """The single-device step's keep-masks, one per layer: those
+    ``ForwardEngine`` draws at block (0, 0) of DP group 0, a pure function
+    of (seed, step, layer)."""
+    return [_keep_mask(opts, _dropout_key(opts, step, li), shape, device)
+            for li in range(num_layers)]
+
+
+@dataclasses.dataclass(frozen=True)
+class ForwardEngine:
+    """The §III/§IV layer program on one rank of ``mesh``. ``cfg`` gives
+    the architecture (the tail follows ``opts.fused_elementwise`` and
+    ``opts.dropout``, as in the reference); ``csr_rows`` is the local row
+    count of the CSR shards (backend ``"csr"`` only)."""
+
+    cfg: GCNConfig
+    opts: TrainOptions
+    mesh: Any
+    backend: str = "dense"
+    csr_rows: int = 0
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend={self.backend!r}: one of {BACKENDS}")
+        if self.backend == "csr" and self.csr_rows <= 0:
+            raise ValueError("backend 'csr' needs the local row count "
+                             "(csr_rows)")
+
+    @classmethod
+    def from_options(cls, cfg: GCNConfig, opts: TrainOptions, mesh, *,
+                     backend: Optional[str] = None,
+                     csr_rows: int = 0) -> "ForwardEngine":
+        """The aggregation backend follows the mini-batch block format
+        (``opts.spmm_impl``) unless given (eval passes ``"csr"``)."""
+        return cls(cfg=cfg, opts=opts, mesh=mesh,
+                   backend=backend or opts.spmm_impl, csr_rows=csr_rows)
+
+    @property
+    def grid_side(self) -> int:
+        return self.mesh.shape["x"]
+
+    def aggregate_local(self, blk: Any, h: torch.Tensor) -> torch.Tensor:
+        """The local A @ H partial product, before the row-axis
+        all-reduce."""
+        if self.backend == "ell":
+            from repro_torch.kernels import ops as kops
+            return kops.spmm_ell(blk[0], blk[1], h)
+        if self.backend == "csr":
+            rp, ci, val = blk
+            return pmm3d.csr_spmm_local(rp, ci, val, h, self.csr_rows)
+        return blk @ h
+
+    def keep_mask(self, step: int, layer: int, st: pmm3d.PlaneState,
+                  shape: tuple, device: torch.device) -> torch.Tensor:
+        """Layer ``layer``'s keep-mask of this rank's block of plane
+        (p, r)."""
+        c = self.mesh.coords
+        return _keep_mask(self.opts, _dropout_key(
+            self.opts, step, layer, c[st.rep], c[st.row], c["d"]), shape,
+            device)
+
+    def tail(self, conv: torch.Tensor, residual: Optional[torch.Tensor],
+             scale: torch.Tensor, st: pmm3d.PlaneState,
+             mask: Optional[torch.Tensor], train: bool) -> torch.Tensor:
+        """RMSNorm -> ReLU -> dropout -> residual (Eqs. 7-10) on the local
+        block: ``conv`` on plane (p, r), RMSNorm reducing over r, the
+        residual already resharded to (p, r)."""
+        cfg, opts = self.cfg, self.opts
+        residual = residual if cfg.use_residual else None
+        mask = mask if train and opts.dropout > 0 else None
+        if opts.fused_elementwise:
+            from repro_torch.kernels import ops as kops
+            whole = not cfg.use_rmsnorm or self.grid_side == 1
+            h = conv if whole else pmm3d.parallel_rmsnorm(
+                conv, scale, self.mesh.axis(st.row), cfg.d_hidden,
+                cfg.rms_eps)
+            return kops.fused_layer_tail(
+                h, residual, scale, dropout_mask=mask,
+                dropout_rate=opts.dropout, eps=cfg.rms_eps,
+                use_rmsnorm=cfg.use_rmsnorm and whole,
+                use_relu=cfg.use_relu)
+        h = (pmm3d.parallel_rmsnorm(conv, scale, self.mesh.axis(st.row),
+                                    cfg.d_hidden, cfg.rms_eps)
+             if cfg.use_rmsnorm else conv)
+        if cfg.use_relu:
+            h = torch.relu(h)
+        if mask is not None:
+            h = torch.where(mask, h / (1.0 - opts.dropout),
+                            torch.zeros_like(h))
+        if residual is not None:
+            h = h + residual
+        return h
+
+    def __call__(self, params, adj_blocks: Sequence[Any],
+                 x_local: torch.Tensor, *, step: int, train: bool):
+        """§III forward under 3D PMM: ``adj_blocks[l % len]`` is this
+        rank's block for layer l's rotation plane, in the backend's
+        format; ``x_local`` the local feature block on plane (x, z).
+        Returns ``(logits, state)``: the local logits on plane (row, rep)
+        of the final state."""
+        cfg, opts, mesh = self.cfg, self.opts, self.mesh
+        bf16 = opts.bf16_collectives
+        st = pmm3d.initial_state()
+        # input projection (Eq. 4): IN (x, z) @ W_in (z, y) -> sum z ->
+        # F (x, y)
+        h = pmm3d.pmm_matmul(x_local, params["w_in"], mesh.axis("z"),
+                             bf16=bf16)
+        for li, layer in enumerate(params["layers"]):
+            blk = adj_blocks[li % len(adj_blocks)]
+            res = None
+            if cfg.use_residual:       # (r, c) -> (p, r), paper §IV-C4
+                with phase("reshard"):
+                    res = pmm3d.reshard(h, mesh, st, (st.rep, st.row),
+                                        impl=opts.reshard_impl)
+            with phase("spmm"):        # A (p, r) @ H (r, c) -> sum r
+                part = psum_maybe_bf16(self.aggregate_local(blk, h),
+                                       mesh.axis(st.row), bf16)
+            with phase("gemm"):        # H (p, c) @ W (c, r) -> sum c
+                conv = pmm3d.pmm_matmul(part, layer["w"], mesh.axis(st.col),
+                                        bf16=bf16)
+            mask = (self.keep_mask(step, li, st, tuple(conv.shape),
+                                   conv.device)
+                    if train and opts.dropout > 0 else None)
+            with phase("tail"):
+                h = self.tail(conv, res, layer["rms_scale"], st, mask, train)
+            st = st.rotate()
+        # output head (Eq. 11): X (r, c) @ W_out (c, p) -> sum c -> logits
+        # (r, p)
+        logits = pmm3d.pmm_matmul(h, params["w_out"], mesh.axis(st.col),
+                                  bf16=bf16)
+        return logits, st

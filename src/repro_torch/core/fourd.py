@@ -1,14 +1,28 @@
-"""The training and full-graph eval steps of the paper's GCN (ScaleGNN §IV),
-restricted to one device.
+"""4D parallel mini-batch GNN training (ScaleGNN §IV) over
+``torch.distributed``.
 
-Counterpart of ``repro/core/fourd.py`` at g = g_d = 1: ``make_mesh_4d``,
-``FourDPlan``, ``build_plan``, ``make_loss_fn``, ``make_train_step`` and
-``make_eval_step`` keep the reference's names. A step samples and extracts
-its batch (``MinibatchBuilder.build``), runs ``core.gcn_model.forward``
-and the masked cross-entropy, and differentiates with ``torch.autograd``
-through the kernels' autograd rules. At g = 1 this is exactly what the
-reference's ``ForwardEngine`` computes inside its ``shard_map``. Any larger
-mesh raises ``NotImplementedError`` (ROADMAP queue 1, item 3).
+Counterpart of ``repro/core/fourd.py`` and ``repro/launch/mesh.py``. The
+device grid is ``(d, x, y, z)``: G_d data-parallel groups times a g x g x g
+3D-PMM cube. Rank r sits at the row-major coordinates of ``(d, x, y, z)``,
+the reference's device order, so it holds exactly the shards of the
+reference's device r. One training step on a rank:
+
+  1. communication-free sampling and the rank's block of each rotation
+     plane (``MinibatchBuilder.build_local``);
+  2. the 3D-PMM forward (``ForwardEngine``): one all-reduce per product;
+  3. the distributed cross-entropy (FP32 reductions);
+  4. the backward through ``torch.autograd``, in the reference's
+     convention (:func:`value_and_grad`): every all-reduce transposes to an
+     all-reduce, the loss each (x, y, z) rank of a group holds gets the
+     cotangent ``1 / (G_d g^3)`` that ``shard_map`` gives an output
+     replicated over those axes, and each parameter shard's gradient is
+     summed over the axes that replicate it, ``d`` included (the paper's
+     data-parallel all-reduce, §IV-A).
+
+At 1x1x1x1 with no process group every collective is the identity and
+makes no call: the step is the single-device step. A mesh of more than one
+rank needs ``torch.distributed`` initialised first: NCCL for a mesh on the
+cards (``device=None`` is ``cuda:LOCAL_RANK``), gloo for one on the CPU.
 
 The reference's training path takes dropout from ``TrainOptions.dropout``
 and the fused tail from ``TrainOptions.fused_elementwise``, not from the
@@ -17,45 +31,141 @@ and the fused tail from ``TrainOptions.fused_elementwise``, not from the
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Union
+import os
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import gcn_model as M
+from repro_torch.core import pmm3d
 from repro_torch.core import sampling as smp
-from repro_torch.core.forward import TrainOptions, dropout_masks
+from repro_torch.core.forward import ForwardEngine, TrainOptions
 from repro_torch.core.minibatch import MinibatchBuilder
 from repro_torch.device import resolve_device
 from repro_torch.graphs.partition import PartitionedGraph
-from repro_torch.tree import leaves, unflatten
+from repro_torch.tree import (Path, flatten_with_paths, leaves, map_with_path,
+                               unflatten)
 
 AXES_4D = ("d", "x", "y", "z")
-_MESH = "ROADMAP queue 1, item 3 (4D distributed step)"
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The (d, x, y, z) device grid; one device until the 4D step lands."""
+    """The (d, x, y, z) grid as this rank sees it: the shape, the rank's
+    coordinates, its device and one process group per axis (the line of
+    ranks through this rank along that axis), None without a process
+    group."""
 
     shape: Dict[str, int]
+    coords: Dict[str, int]
     device: torch.device
+    rank: int = 0
+    groups: Optional[Dict[str, Any]] = None
+
+    @property
+    def size(self) -> int:
+        return int(np.prod([self.shape[a] for a in AXES_4D]))
+
+    def axis(self, name: str) -> pmm3d.Axis:
+        return pmm3d.Axis(name, self.coords[name], self.shape[name],
+                          None if self.groups is None else self.groups[name])
+
+    def rank_at(self, coords: Dict[str, int]) -> int:
+        """The rank at this rank's coordinates with ``coords`` replaced."""
+        c = dict(self.coords, **coords)
+        return int(np.ravel_multi_index([c[a] for a in AXES_4D],
+                                        [self.shape[a] for a in AXES_4D]))
+
+    def barrier(self) -> None:
+        """Wait for every rank (a no-op without a process group)."""
+        if self.groups is not None:
+            dist.all_reduce(torch.zeros(1, device=self.device))
+
+
+def _mesh_device(device) -> torch.device:
+    """``None`` means this process's card, ``cuda:LOCAL_RANK``."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    return dev
 
 
 def make_mesh_4d(g_d: int, g: int,
                  device: Union[str, torch.device, None] = None) -> Mesh:
-    """The paper's 4D virtual grid G_d x g x g x g — here only 1x1x1x1,
-    on ``device`` (the card by default)."""
-    if g_d != 1 or g != 1:
-        raise NotImplementedError(f"a {g_d}x{g}x{g}x{g} mesh is {_MESH}")
-    return Mesh(shape=dict.fromkeys(AXES_4D, 1),
-                device=resolve_device(device))
+    """The paper's 4D grid G_d x g x g x g on the initialised process group
+    (its world size must be G_d g^3), or the single device 1x1x1x1 without
+    one. Every rank creates the same groups in the same order."""
+    shape = dict(zip(AXES_4D, (g_d, g, g, g)))
+    n = g_d * g ** 3
+    dev = _mesh_device(device)
+    if not dist.is_initialized():
+        if n != 1:
+            raise ValueError(
+                f"a {g_d}x{g}x{g}x{g} mesh needs torch.distributed "
+                f"initialised with {n} ranks (torchrun --nproc_per_node {n})")
+        return Mesh(shape=shape, coords=dict.fromkeys(AXES_4D, 0),
+                    device=dev)
+    if dist.get_world_size() != n:
+        raise ValueError(f"a {g_d}x{g}x{g}x{g} mesh needs {n} ranks, the "
+                         f"process group has {dist.get_world_size()}")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dist.get_backend() != backend:
+        raise ValueError(f"a mesh on {dev} runs over {backend}, the process "
+                         f"group uses {dist.get_backend()}")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    rank = dist.get_rank()
+    dims = [shape[a] for a in AXES_4D]
+    coords = dict(zip(AXES_4D, map(int, np.unravel_index(rank, dims))))
+    ids = np.arange(n).reshape(dims)
+    groups = {}
+    for k, a in enumerate(AXES_4D):
+        lines = np.moveaxis(ids, k, -1).reshape(-1, shape[a])
+        for line in lines:                   # every rank, the same order
+            grp = dist.new_group(ranks=[int(r) for r in line])
+            if rank in line:
+                groups[a] = grp
+    return Mesh(shape=shape, coords=coords, device=dev, rank=rank,
+                groups=groups)
+
+
+# ---------------------------------------------------------------------------
+# Parameter and data layouts
+# ---------------------------------------------------------------------------
+
+def param_specs(num_layers: int) -> Dict[str, Any]:
+    """The mesh axis each parameter dim is sharded over, in the structure
+    of ``gcn_model.init_params``: w_in on (z, y); layer l's weight on
+    (c_l, r_l) and its RMSNorm scale over r_l; w_out on (c_L, p_L). The
+    axes a leaf's spec leaves out replicate it."""
+    st = pmm3d.initial_state()
+    layers = []
+    for _ in range(num_layers):
+        layers.append({"w": st.weight_plane, "rms_scale": (st.row,)})
+        st = st.rotate()
+    return {"w_in": ("z", "y"), "w_out": (st.col, st.rep), "layers": layers}
 
 
 def padded_class_count(num_classes: int, g: int) -> int:
-    """Class count ceil-padded to the grid side (the output head's
-    padding; a no-op at g = 1)."""
+    """Class count ceil-padded to the grid side — how the output head pads
+    so that it shards evenly."""
     return -(-num_classes // g) * g
+
+
+def pad_output_head(params, num_classes: int, g: int):
+    """Zero-pad ``w_out``'s class columns to a multiple of the grid side
+    (logits of padded classes are masked out of the loss and the argmax,
+    so padding is arithmetic-neutral). Returns (params', padded count)."""
+    n_pad = padded_class_count(num_classes, g)
+    w = params["w_out"]
+    if w.shape[1] == n_pad:
+        return params, n_pad
+    out = dict(params)
+    out["w_out"] = torch.cat([w, w.new_zeros((w.shape[0],
+                                              n_pad - w.shape[1]))], dim=1)
+    return out, n_pad
 
 
 def model_config(cfg: M.GCNConfig, opts: TrainOptions) -> M.GCNConfig:
@@ -86,30 +196,143 @@ class FourDPlan:
     def device(self) -> torch.device:
         return self.mesh.device
 
+    def engine(self, *, backend: Optional[str] = None,
+               csr_rows: int = 0) -> ForwardEngine:
+        """The layer-loop executor of this plan (``core/forward.py``)."""
+        return ForwardEngine.from_options(
+            model_config(self.cfg, self.opts), self.opts, self.mesh,
+            backend=backend, csr_rows=csr_rows)
+
+    # -- shards of parameter-shaped trees -------------------------------------
+
+    def spec_of(self, path: Path) -> Tuple[Optional[str], ...]:
+        """The sharding of the leaf at ``path`` in a tree that holds params
+        (params, grads, optimizer moments, a ``TrainState``): the spec of
+        the parameter its path ends in, () for a replicated leaf (a step
+        counter)."""
+        specs = param_specs(self.cfg.num_layers)
+        if path and path[-1] in ("w_in", "w_out"):
+            return specs[path[-1]]
+        if len(path) >= 3 and path[-3] == "layers":
+            return specs["layers"][int(path[-2])][path[-1]]
+        return ()
+
+    def shard(self, tree):
+        """This rank's shards of a tree of global (unsharded) leaves, on
+        the plan's device; ``w_out``-shaped leaves are zero-padded to the
+        padded class count first. A replicated leaf (a step counter) is
+        returned as it is, and at g = 1 so is a parameter already on the
+        device."""
+        def one(path, t):
+            if not self.spec_of(path):
+                return t
+            t = t.to(self.device)
+            if path and path[-1] == "w_out":
+                t = pad_output_head({"w_out": t}, self.cfg.num_classes,
+                                    self.grid_side)[0]["w_out"]
+            for dim, a in enumerate(self.spec_of(path)):
+                if self.mesh.shape[a] > 1:
+                    n = t.shape[dim] // self.mesh.shape[a]
+                    t = t.narrow(dim, self.mesh.coords[a] * n, n)
+            return t.contiguous()
+        return map_with_path(one, tree)
+
+    @torch.no_grad()
+    def unshard(self, tree):
+        """The global leaves of a tree of shards (every rank takes part in
+        the gathers and gets the whole tree), the head's class padding cut
+        off: the inverse of :meth:`shard`."""
+        def one(path, t):
+            for dim, a in enumerate(self.spec_of(path)):
+                t = pmm3d.all_gather(t, self.mesh.axis(a), dim)
+            if path and path[-1] == "w_out":
+                t = t[:, :self.cfg.num_classes]
+            return t
+        return map_with_path(one, tree)
+
     def shard_params(self, params):
-        """The params on the plan's device (one shard at g = 1)."""
-        return M.params_to(params, self.device)
+        """This rank's shards of the global params (``init_params``)."""
+        return self.shard(params)
+
+    def reduce_grads(self, grads):
+        """Sum each gradient shard over the axes that replicate its
+        parameter (``d`` included): one all-reduce per axis over the leaves
+        it replicates, flattened together."""
+        paths = [p for p, _ in flatten_with_paths(grads)]
+        flat = leaves(grads)
+        for a in AXES_4D:
+            axis = self.mesh.axis(a)
+            idx = [k for k, p in enumerate(paths)
+                   if a not in self.spec_of(p)]
+            if axis.group is None or not idx:
+                continue
+            buf = torch.cat([flat[k].reshape(-1) for k in idx])
+            dist.all_reduce(buf, group=axis.group)
+            for k, part in zip(idx, buf.split([flat[k].numel()
+                                               for k in idx])):
+                flat[k] = part.view_as(flat[k])
+        return unflatten(grads, flat)
+
+    def global_sumsq(self, grads) -> torch.Tensor:
+        """The squared global norm of a gradient tree of shards: each
+        leaf's local sum of squares, summed over the axes that shard it
+        (each distinct shard counts once), then over the leaves in order."""
+        paths = [p for p, _ in flatten_with_paths(grads)]
+        sq = [torch.sum(torch.square(g)) for g in leaves(grads)]
+        for a in AXES_4D:
+            axis = self.mesh.axis(a)
+            idx = [k for k, p in enumerate(paths) if a in self.spec_of(p)]
+            if axis.group is None or not idx:
+                continue
+            buf = torch.stack([sq[k] for k in idx])
+            dist.all_reduce(buf, group=axis.group)
+            for k, v in zip(idx, buf.unbind()):
+                sq[k] = v
+        return sum(sq)
 
     def shard_graph(self, pg: PartitionedGraph) -> Dict[str, Any]:
-        """The partitioned graph's arrays on the plan's device: the one
-        (0, 0) CSR block at g = 1, features and labels."""
+        """This rank's graph arrays on the plan's device: ``adj``, the CSR
+        block of each rotation plane (block (z, x), (y, z), (x, y): one
+        tensor triple per distinct block), the feature rows of range x and
+        columns of slice z, and the labels of the final row axis's
+        range."""
+        c, g, n_loc = self.mesh.coords, self.grid_side, pg.n_local
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device)
-        return {"rp": t(pg.block_rp[0, 0]), "ci": t(pg.block_ci[0, 0]),
-                "val": t(pg.block_val[0, 0]), "features": t(pg.features),
-                "labels": t(pg.labels)}
+        st, blocks, adj = pmm3d.initial_state(), {}, []
+        for _ in range(3):
+            i, j = (c[a] for a in st.adj_plane)
+            if (i, j) not in blocks:
+                blocks[(i, j)] = (t(pg.block_rp[i, j]), t(pg.block_ci[i, j]),
+                                  t(pg.block_val[i, j]))
+            adj.append(blocks[(i, j)])
+            st = st.rotate()
+        d_loc = pg.feature_dim // g
+        r_f = c[pmm3d.state_after_layers(self.cfg.num_layers).row]
+        return {"adj": tuple(adj),
+                "features": t(pg.features[c["x"] * n_loc:(c["x"] + 1) * n_loc,
+                                          c["z"] * d_loc:(c["z"] + 1)
+                                          * d_loc]),
+                "labels": t(pg.labels[r_f * n_loc:(r_f + 1) * n_loc])}
 
 
 def build_plan(pg: PartitionedGraph, cfg: M.GCNConfig, mesh: Mesh,
                batch: int, opts: TrainOptions = TrainOptions(),
                e_cap: Optional[int] = None) -> FourDPlan:
+    """The plan of a training run on ``mesh``: the sample configuration
+    (``e_cap`` defaults to the per-range batch times the largest row of
+    any block, which truncates nothing), the builder, the padded class
+    count."""
     g = mesh.shape["x"]
-    if any(mesh.shape[a] != 1 for a in AXES_4D):
-        raise NotImplementedError(f"mesh {mesh.shape} is {_MESH}")
+    if mesh.shape["y"] != g or mesh.shape["z"] != g:
+        raise ValueError("the ScaleGNN path needs a cube 3D grid")
     if pg.g != g:
         raise ValueError("graph partitioned for a different grid side")
     if batch % g:
         raise ValueError("batch must divide evenly across vertex ranges")
+    if cfg.d_hidden % g or cfg.d_in % g:
+        raise ValueError("d_in and d_hidden must be divisible by the grid "
+                         "side")
     b = batch // g
     e_cap = e_cap or b * max(pg.max_block_row_nnz, 1)
     scfg = smp.SampleConfig(n_pad=pg.n_pad, g=g, batch=batch,
@@ -122,65 +345,95 @@ def build_plan(pg: PartitionedGraph, cfg: M.GCNConfig, mesh: Mesh,
                                                            g))
 
 
-def make_loss_fn(plan: FourDPlan, *, train: bool = True):
-    """Returns ``loss(params, graph, step, epoch=None, *, ids=None)``, the
-    (G_d,) = (1,) per-group losses of step ``step``. ``ids`` injects the
-    (1, b) sample in place of drawing it from ``(seed, epoch, step)``."""
-    cfg = model_config(plan.cfg, plan.opts)
-    builder, opts = plan.builder, plan.opts
+class LossFn:
+    """The loss of a plan's step. ``local(...)`` is this rank's group loss
+    (replicated over x, y and z), differentiable; calling the object gives
+    the (G_d,) per-group losses, gathered over ``d``. ``ids`` injects this
+    rank's DP group's (g, b) sample in place of drawing it from ``(seed,
+    epoch, step, d)``."""
 
-    def loss_fn(params, graph, step, epoch=None, *, ids=None):
+    def __init__(self, plan: FourDPlan, train: bool):
+        self.plan, self.train = plan, train
+        self.engine = plan.engine()
+
+    def local(self, params, graph, step, epoch=None, *, ids=None
+              ) -> torch.Tensor:
+        plan, mesh = self.plan, self.plan.mesh
         step = int(step)
-        mb = builder.build(graph["rp"], graph["ci"], graph["val"],
-                           graph["features"], graph["labels"], step,
-                           epoch=None if epoch is None else int(epoch),
-                           ids=ids)
-        masks = None
-        if train and opts.dropout > 0:
-            masks = dropout_masks(opts, step, cfg.num_layers,
-                                  (mb.feats.shape[0], cfg.d_hidden),
-                                  mb.feats.device)
-        logits = M.forward(params, mb.adj[0], mb.feats, cfg, train=train,
-                           keep_masks=masks)
-        return M.cross_entropy_loss(logits, mb.labels)[None]
-    return loss_fn
+        mb = plan.builder.build_local(
+            graph["adj"], graph["features"], graph["labels"], step,
+            plan.cfg.num_layers, mesh.coords,
+            epoch=None if epoch is None else int(epoch), ids=ids)
+        logits, st = self.engine(params, mb.adj, mb.feats, step=step,
+                                 train=self.train)
+        nll_sum, cnt = pmm3d.parallel_cross_entropy(
+            logits, mb.labels, class_axis=mesh.axis(st.rep),
+            row_axis=mesh.axis(st.row), n_classes=plan.cfg.num_classes)
+        return nll_sum / torch.clamp(cnt, min=1.0)
+
+    @torch.no_grad()
+    def __call__(self, params, graph, step, epoch=None, *, ids=None
+                 ) -> torch.Tensor:
+        loss = self.local(params, graph, step, epoch, ids=ids)
+        return pmm3d.all_gather(loss[None], self.plan.mesh.axis("d"))
+
+
+def make_loss_fn(plan: FourDPlan, *, train: bool = True) -> LossFn:
+    """The plan's loss: per-group losses, and the differentiable local
+    loss that :func:`value_and_grad` takes."""
+    return LossFn(plan, train)
+
+
+def value_and_grad(loss_fn: LossFn, params, graph, step, epoch=None, *,
+                   ids=None):
+    """The mean over ``d`` of the per-group losses and its gradient, as
+    shards in the structure of ``params`` (whose leaves are set to require
+    grad), in the reference's convention: this rank's loss gets the
+    cotangent ``1 / (G_d g^3)``, the all-reduces transpose to all-reduces,
+    and each shard's gradient is summed over the axes that replicate it."""
+    plan = loss_fn.plan
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    with torch.enable_grad():
+        loss = loss_fn.local(params, graph, step, epoch, ids=ids)
+        out = loss if plan.mesh.size == 1 else loss / plan.mesh.size
+        grads = torch.autograd.grad(out, flat)
+    grads = plan.reduce_grads(unflatten(params, list(grads)))
+    losses = pmm3d.all_gather(loss.detach()[None], plan.mesh.axis("d"))
+    return losses.mean(), grads
 
 
 def make_train_step(plan: FourDPlan, optimizer):
     """``(params, opt_state, graph, step, *, ids=None) -> (params,
-    opt_state, loss)``. The optimizer updates ``params`` in place and
+    opt_state, loss)`` on this rank's shards. The optimizer updates
+    ``params`` in place (clipping by the global norm over the shards) and
     returns the same tensors."""
     loss_fn = make_loss_fn(plan, train=True)
 
     def train_step(params, opt_state, graph, step, *, ids=None):
         loss, grads = value_and_grad(loss_fn, params, graph, step, ids=ids)
-        params, opt_state = optimizer.update(params, grads, opt_state)
+        params, opt_state = optimizer.update(params, grads, opt_state,
+                                             sumsq=plan.global_sumsq)
         return params, opt_state, loss
     return train_step
 
 
 def make_eval_step(plan: FourDPlan):
-    """Full-graph evaluation (paper Table II): one forward over the whole
-    graph — no sampling — with the CSR aggregation, returning the accuracy
-    over every vertex with a label (ghosts excluded)."""
-    cfg = dataclasses.replace(model_config(plan.cfg, plan.opts),
-                              spmm_impl="csr")
+    """Full-graph evaluation (paper Table II): one 3D-PMM forward over the
+    whole graph — no sampling — with the CSR aggregation over each rank's
+    blocks, returning the accuracy over every vertex with a label (ghosts
+    excluded)."""
+    engine = plan.engine(backend="csr", csr_rows=plan.scfg.n_local)
+    mesh, n_cls = plan.mesh, plan.cfg.num_classes
 
     @torch.no_grad()
     def eval_step(params, graph):
-        logits = M.forward(params, (graph["rp"], graph["ci"], graph["val"]),
-                           graph["features"], cfg, train=False)
-        return M.accuracy(logits, graph["labels"])
+        planes = graph["adj"][:min(3, plan.cfg.num_layers)]
+        logits, st = engine(params, planes, graph["features"], step=0,
+                            train=False)
+        correct, total = pmm3d.parallel_argmax_correct(
+            logits, graph["labels"], class_axis=mesh.axis(st.rep),
+            row_axis=mesh.axis(st.row), n_classes=n_cls)
+        return correct / torch.clamp(total, min=1.0)
     return eval_step
-
-
-def value_and_grad(loss_fn, params, graph, step, epoch=None, *, ids=None):
-    """The mean loss of ``loss_fn`` and its gradient, in the structure of
-    ``params`` (whose leaves are set to require grad)."""
-    flat = leaves(params)
-    for p in flat:
-        p.requires_grad_(True)
-    with torch.enable_grad():
-        loss = loss_fn(params, graph, step, epoch, ids=ids).mean()
-        grads = torch.autograd.grad(loss, flat)
-    return loss.detach(), unflatten(params, list(grads))

@@ -1,8 +1,8 @@
-"""Mini-batch construction — the single-device owner of Alg. 2 end to end.
+"""Mini-batch construction — the one owner of Alg. 2 end to end.
 
-Counterpart of ``repro/core/minibatch.py`` for one device: the
-``BlockFormat`` enum, the ``Minibatch`` one training step consumes, and a
-``MinibatchBuilder`` that owns sampling (phase 1: mode ``exact`` |
+Counterpart of ``repro/core/minibatch.py``: the ``BlockFormat`` enum, the
+``Minibatch`` one training step consumes, and a ``MinibatchBuilder`` that
+owns sampling (phase 1: mode ``exact`` |
 ``stratified``, schedule ``step`` | ``epoch``, the sample a pure function
 of ``(seed, epoch, step, dp_index)``), the rescale constants (Eq. 23-24)
 and block extraction (phases 2-4) in the configured format and backend:
@@ -14,23 +14,27 @@ and block extraction (phases 2-4) in the configured format and backend:
   ``kernels.spmm_ell.dense_to_block_ell_ranked``; its plain PyTorch
   version runs for CPU tensors.
 
-Both backends give identical blocks in both formats. ``build`` is the
-training call at g = 1; the per-plane loop of the 4D step is ROADMAP
-queue 1, item 3. ``assemble`` is the serving call.
+Both backends give identical blocks in both formats. ``build_local`` is
+the training call on one rank of the 4D mesh: the rank's block of each
+rotation plane (``extract_plane_blocks``, with no communication) and its
+feature and label rows; ``build`` is the same call on the 1x1x1x1 mesh.
+``assemble`` is the serving call.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any, Optional, Tuple, Union
+from typing import Any, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.core import pmm3d
 from repro_torch.core import sampling as smp
 from repro_torch.device import resolve_device
 from repro_torch.obs.tracer import phase
 
-_MESH = "ROADMAP queue 1, item 3 (4D distributed step)"
+# the coordinates of the single-device step
+SINGLE = {"d": 0, "x": 0, "y": 0, "z": 0}
 
 
 class BlockFormat(enum.Enum):
@@ -47,9 +51,11 @@ class BlockFormat(enum.Enum):
 
 @dataclasses.dataclass(frozen=True)
 class Minibatch:
-    """One constructed mini-batch: the adjacency blocks (one at g = 1: a
-    dense tensor or a block-ELL (tiles, colidx) pair), the batch's feature
-    rows and label rows."""
+    """One constructed mini-batch on one rank: the adjacency block of each
+    rotation plane (a dense tensor or a block-ELL (tiles, colidx) pair; a
+    plane whose block another plane already holds shares it), the local
+    feature rows on plane (x, z) and the label rows over the final row
+    axis."""
 
     adj: Tuple[Any, ...]
     feats: torch.Tensor
@@ -206,32 +212,76 @@ class MinibatchBuilder:
             rp, ci, val, rows_local, cols_local, e_cap,
             rescale_offdiag=col_scale, is_diag_block=diag)
 
-    # -- the single-device training path -------------------------------------
+    # -- the training path (one rank of the mesh) ----------------------------
+
+    def extract_plane_blocks(self, planes: Sequence[Tuple[Any, Any, Any]],
+                             ids2d: torch.Tensor, num_layers: int,
+                             coords: Mapping[str, int], *, col_scale_fn,
+                             fmt: Optional[BlockFormat] = None
+                             ) -> Tuple[Any, ...]:
+        """The rotation-plane extraction: for each of the first ``min(3,
+        num_layers)`` planes this rank extracts its (i, j) block of the
+        batch adjacency from ``planes[l]``, the CSR block of that plane
+        (``ids2d`` is the (g, b) sample, i and j the rank's coordinates on
+        the plane's two axes). Planes with the same (i, j) hold the same
+        block, which is extracted once (every plane at g = 1)."""
+        n_loc = self.scfg.n_local
+        st = pmm3d.initial_state()
+        done, blocks = {}, []
+        for li in range(min(3, num_layers)):
+            i, j = (coords[a] for a in st.adj_plane)     # (p, r)
+            if (i, j) not in done:
+                rp, ci, val = planes[li]
+                done[(i, j)] = self.extract_block(
+                    rp, ci, val, ids2d[i] - i * n_loc, ids2d[j] - j * n_loc,
+                    col_scale=col_scale_fn(i, j), diag=i == j, fmt=fmt)
+            blocks.append(done[(i, j)])
+            st = st.rotate()
+        return tuple(blocks)
+
+    def local_rows(self, rows_local: torch.Tensor, ids2d: torch.Tensor,
+                   index: int) -> torch.Tensor:
+        """The rows of this rank's shard of per-vertex rows (features,
+        labels) that belong to the batch: range ``index``'s sample."""
+        return rows_local[(ids2d[index] - index * self.scfg.n_local).long()]
+
+    def build_local(self, planes: Sequence[Tuple[Any, Any, Any]],
+                    feats_loc: torch.Tensor, labels_loc: torch.Tensor,
+                    step: int, num_layers: int,
+                    coords: Mapping[str, int], *,
+                    epoch: Optional[int] = None,
+                    ids: Optional[torch.Tensor] = None) -> Minibatch:
+        """Alg. 2 on one rank, with no communication: sample from ``(seed,
+        epoch, step, coords["d"])`` — or take the (g, b) ``ids`` of this
+        rank's DP group — then extract the rank's block of each rotation
+        plane, and slice its feature rows (on plane (x, z)) and label rows
+        (over the final row axis)."""
+        with phase("sample"):
+            s2d = (self.sample_ids(step, epoch, coords["d"],
+                                   device=feats_loc.device)
+                   if ids is None else ids)
+        with phase("extract"):
+            blocks = self.extract_plane_blocks(
+                planes, s2d, num_layers, coords,
+                col_scale_fn=self.col_scale_fn(s2d))
+            r_f = pmm3d.state_after_layers(num_layers).row
+            return Minibatch(
+                adj=blocks,
+                feats=self.local_rows(feats_loc, s2d, coords["x"]),
+                labels=self.local_rows(labels_loc, s2d, coords[r_f]))
 
     def build(self, rp: torch.Tensor, ci: torch.Tensor, val: torch.Tensor,
               features: torch.Tensor, labels: torch.Tensor, step: int, *,
               epoch: Optional[int] = None, dp_index: int = 0,
               ids: Optional[torch.Tensor] = None) -> Minibatch:
-        """Alg. 2 on one device (the reference's ``build_local`` at g = 1):
-        sample from ``(seed, epoch, step, dp_index)`` — or take the (1, b)
-        ``ids`` given — then extract the batch's block and slice its
-        features and labels. At g = 1 the three rotation planes of the 4D
-        step hold the same block, so it is extracted once and serves every
-        layer."""
+        """:meth:`build_local` on the 1x1x1x1 mesh (DP group
+        ``dp_index``): the batch's one block, features and labels."""
         if self.scfg.g != 1:
-            raise NotImplementedError(
-                f"g={self.scfg.g}: the per-plane extraction of the mesh is "
-                f"{_MESH}")
-        with phase("sample"):
-            s2d = (self.sample_ids(step, epoch, dp_index, device=rp.device)
-                   if ids is None else ids)
-        s = s2d[0]
-        with phase("extract"):
-            blk = self.extract_block(rp, ci, val, s, s,
-                                     col_scale=self.col_scale_fn(s2d)(0, 0),
-                                     diag=True)
-            return Minibatch(adj=(blk,), feats=features[s.long()],
-                             labels=labels[s.long()])
+            raise ValueError(f"g={self.scfg.g}: a rank of the mesh builds "
+                             "its batch with build_local")
+        return self.build_local(((rp, ci, val),), features, labels, step, 1,
+                                dict(SINGLE, d=dp_index), epoch=epoch,
+                                ids=ids)
 
     def build_single(self, gen: torch.Generator, rp: torch.Tensor,
                      ci: torch.Tensor, val: torch.Tensor,

@@ -13,9 +13,10 @@ once per epoch when ``batch | n``, epoch slice 0 equal to the step sampler.
 Two modes, as in the reference: ``exact`` (Eq. 20, ``sort(perm(N)[:B])``)
 and ``stratified`` (``b = B/g`` vertices per contiguous range, with the
 range-dependent rescale constants of :func:`rescale_constants`); two
-schedules: per-step and per-epoch (without replacement). The locality
-modes (partition, walk) are ROADMAP queue 1, item 7: their
-``SampleConfig`` fields must stay 0.
+schedules: per-step and per-epoch (without replacement). Every DP group
+draws its own sample: its index is folded into the key. The locality
+modes (partition, walk) are ROADMAP queue 1, "Locality sampling modes and
+ingestion": their ``SampleConfig`` fields must stay 0.
 
 Extraction (the port's ``"torch"`` backend, and what the fused CUDA kernel
 of ``kernels/extract_gather.py`` is held against): phase 2 is the
@@ -32,14 +33,17 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
-_LOCALITY = ("ROADMAP queue 1, item 7 (locality sampling modes and "
-             "ingestion)")
+_LOCALITY = 'ROADMAP queue 1, "Locality sampling modes and ingestion"'
 
 
 class SampleConfig(NamedTuple):
     """Static sampling parameters. The locality-aware fields (``clusters``,
     ``dp_groups``, ``walk_len``, ``walk_k``) are kept for the reference's
-    layout and must stay at their defaults until their modes are ported."""
+    layout and must stay at their defaults until their modes are ported:
+    ``dp_groups > 1`` slices one cluster permutation across the DP groups
+    (partition mode and the epoch schedule only); the other modes fold the
+    DP index into the key, so any number of DP groups runs with
+    ``dp_groups = 1``."""
 
     n_pad: int          # padded vertex count (multiple of g)
     g: int              # grid side; 1 for single-device
@@ -67,14 +71,20 @@ class SampleConfig(NamedTuple):
 
     def validate(self) -> "SampleConfig":
         """Reject a batch larger than the vertex set (it would under-fill
-        the sample and bias the Eq. 23 rescale), and the locality modes,
-        which are not ported yet."""
-        if self.clusters or self.dp_groups != 1 or self.walk_len \
-                or self.walk_k:
+        the sample and bias the Eq. 23 rescale), DP-sliced permutations
+        outside partition mode (as the reference does), and the locality
+        modes, which are not ported yet."""
+        if self.clusters or self.walk_len or self.walk_k:
             raise NotImplementedError(
-                f"clusters={self.clusters}, dp_groups={self.dp_groups}, "
-                f"walk_len={self.walk_len}, walk_k={self.walk_k}: the "
-                f"partition and walk sampling modes are {_LOCALITY}")
+                f"clusters={self.clusters}, walk_len={self.walk_len}, "
+                f"walk_k={self.walk_k}: the partition and walk sampling "
+                f"modes are {_LOCALITY}")
+        if self.dp_groups != 1:
+            raise ValueError(
+                f"dp_groups={self.dp_groups} > 1 requires partition mode "
+                "(clusters > 0): only the cluster permutation is sliced "
+                "across DP groups; the other modes fold the DP index into "
+                "the key")
         if self.batch > self.n_pad:
             raise ValueError(f"batch={self.batch} exceeds the vertex count "
                              f"n_pad={self.n_pad}")

@@ -13,7 +13,7 @@ stack into rectangular arrays:
 Vertices are padded to ``n_pad = g * n_local``; ghost vertices have no
 edges, zero features, and label ``-1`` (masked from the loss). The
 locality clustering of the partition sampling mode is ROADMAP queue 1,
-item 7.
+"Locality sampling modes and ingestion".
 """
 from __future__ import annotations
 
@@ -118,11 +118,11 @@ def build_partitioned_graph(dataset, g: int, *,
                             clusters: int = 0) -> PartitionedGraph:
     """Partition a SyntheticDataset (or anything with the same fields) for
     a cube grid of side g. ``clusters > 0`` (the locality reordering of
-    partition sampling) is ROADMAP queue 1, item 7."""
+    partition sampling) is not ported yet."""
     if clusters:
         raise NotImplementedError(
             f"clusters={clusters}: the locality reordering is ROADMAP "
-            "queue 1, item 7 (locality sampling modes and ingestion)")
+            'queue 1, "Locality sampling modes and ingestion"')
     A = dataset.adj_norm
     n = A.n_rows
     n_local = -(-n // g)  # ceil

@@ -2,8 +2,10 @@
 (counterpart of ``repro/kernels/ops.py``).
 
 The SpMM and the tail are ``torch.autograd.Function``s: the forward is the
-CUDA kernel for CUDA tensors (its plain version for CPU tensors); the
-backward is plain PyTorch in the reference's order of operations, as the
+CUDA kernel for CUDA tensors (its plain version for CPU tensors). The
+SpMM's dX is a kernel of its own (``spmm_ell.spmm_ell_dx``: deterministic,
+so a training run repeats bit for bit on the card); the rest of both
+backwards is plain PyTorch in the reference's order of operations, as the
 reference's custom VJPs are plain jnp (``_spmm_bwd``, ``_fused_bwd``) with
 no Pallas kernel. Attention is forward only so far.
 """
@@ -33,25 +35,20 @@ class _SpmmEll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         tiles, colidx, x = ctx.saved_tensors
-        n_rb, n_slots, bm, bn = tiles.shape
-        d = x.shape[1]
-        n_cb = x.shape[0] // bn
-        c = colidx.long().clamp(0, max(n_cb - 1, 0))
-        gblocks = g.reshape(n_rb, bm, d)
         dtiles = dx = None
         if ctx.needs_input_grad[2]:
-            # dX = A^T g: each slot's tile^T @ g_rowblock, batched, summed
-            # into its column block (index_add_ uses atomics on the card)
-            contrib = torch.matmul(tiles.transpose(-1, -2),
-                                   gblocks[:, None]).float()
-            dx = torch.zeros((n_cb, bn, d), dtype=torch.float32,
-                             device=x.device)
-            dx.index_add_(0, c.reshape(-1), contrib.reshape(-1, bn, d))
-            dx = dx.reshape(x.shape).to(x.dtype)
+            # dX = A^T g: the deterministic kernel (its plain version on
+            # the CPU)
+            dx = _spmm.spmm_ell_dx(tiles, colidx, g.contiguous(), x.shape[0])
         if ctx.needs_input_grad[0]:
-            # dTiles = g_rowblock @ x_colblock^T per slot
+            # dTiles = g_rowblock @ x_colblock^T per slot (no path asks for
+            # it: the tiles never require grad)
+            n_rb, n_slots, bm, bn = tiles.shape
+            d = x.shape[1]
+            n_cb = x.shape[0] // bn
+            c = colidx.long().clamp(0, max(n_cb - 1, 0))
             xb = x.reshape(n_cb, bn, d)[c]                 # (n_rb, S, bn, d)
-            dtiles = torch.matmul(gblocks[:, None],
+            dtiles = torch.matmul(g.reshape(n_rb, bm, d)[:, None],
                                   xb.transpose(-1, -2)).to(tiles.dtype)
         return dtiles, None, dx
 
@@ -140,7 +137,8 @@ def fused_layer_tail(
 
 _FLASH_BWD_TODO = ("the flash-attention backward (ops._fa_bwd and "
                    "layers._flash_bwd of the JAX package) is not ported yet: "
-                   "ROADMAP queue 1, item 10 (LLM training)")
+                   'ROADMAP queue 1, "The LLM stack beyond the dense serving '
+                   'path" (LLM training)')
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

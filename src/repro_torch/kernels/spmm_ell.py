@@ -15,7 +15,10 @@ function in plain PyTorch, slot by slot as the reference's oracle sums —
 for CPU tensors. The kernel finds padding from the tiles themselves, not
 from ``colidx``, and skips every all-zero 32 x 32 chunk of a tile: for
 finite x the same function (a non-finite x under a skipped chunk no longer
-turns the output to NaN). The layout helpers (:func:`dense_to_block_ell`,
+turns the output to NaN). :func:`spmm_ell_dx` is its input gradient
+``A^T @ g`` (the reference's ``_spmm_bwd`` is plain jnp): a deterministic
+kernel (``csrc/spmm_ell_dx.cu``) over the same live chunks, with
+:func:`spmm_ell_dx_plain` beside it. The layout helpers (:func:`dense_to_block_ell`,
 :func:`dense_to_block_ell_ranked`, :func:`ell_to_dense`,
 :func:`block_density`) are plain PyTorch and give the reference's layouts
 bit for bit.
@@ -28,8 +31,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-# kernel launches so far (a run zeroes it to show that a path used the kernel)
+# kernel launches so far, of the product and of its input gradient (a run
+# zeroes them to show that a path used the kernels)
 LAUNCHES = 0
+DX_LAUNCHES = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -97,6 +102,75 @@ def spmm_ell(tiles: torch.Tensor, colidx: torch.Tensor,
     _build.check(rc, "spmm_ell")
     global LAUNCHES
     LAUNCHES += 1
+    return out
+
+
+def spmm_ell_dx_plain(tiles: torch.Tensor, colidx: torch.Tensor,
+                      g: torch.Tensor, n_rows_x: int) -> torch.Tensor:
+    """``A^T @ g`` for the block-ELL ``A = (tiles, colidx)`` in plain
+    PyTorch: each slot's ``tiles[rb, s]^T @ g_rowblock`` added in float32
+    into its (clamped) column block, slot by slot and, within a slot, row
+    block by row block (the reference's ``_spmm_bwd`` order; ``index_add_``
+    adds in index order on the CPU). ``n_rows_x`` rows, in g's type."""
+    n_rb, n_slots, bm, bn = tiles.shape
+    d = g.shape[1]
+    n_cb = n_rows_x // bn
+    c = colidx.long().clamp(0, max(n_cb - 1, 0))
+    gb = g.reshape(n_rb, bm, d).float()
+    dx = torch.zeros((n_cb, bn, d), dtype=torch.float32, device=g.device)
+    for s in range(n_slots):
+        dx.index_add_(0, c[:, s], torch.matmul(
+            tiles[:, s].float().transpose(-1, -2), gb))
+    return dx.reshape(n_rows_x, d).to(g.dtype)
+
+
+def spmm_ell_dx(tiles: torch.Tensor, colidx: torch.Tensor, g: torch.Tensor,
+                n_rows_x: int) -> torch.Tensor:
+    """The SpMM's input gradient ``dX = A^T @ g`` (``n_rows_x = n_cb * bn``
+    rows): the deterministic CUDA kernel (``csrc/spmm_ell_dx.cu``, no
+    float atomics, all-zero 32 x 32 chunks skipped) for CUDA tensors, its
+    plain version for CPU tensors. float32, or bfloat16 tiles and g, with
+    float32 accumulation."""
+    if g.device.type == "cpu":
+        return spmm_ell_dx_plain(tiles, colidx, g, n_rows_x)
+    dev = g.device
+    if dev.type != "cuda":
+        raise ValueError(f"spmm_ell_dx: unsupported device {dev}")
+    if tiles.dim() != 4 or g.dim() != 2:
+        raise ValueError(f"spmm_ell_dx: tiles must be 4-D and g 2-D, got "
+                         f"{tuple(tiles.shape)} and {tuple(g.shape)}")
+    n_rb, n_slots, bm, bn = tiles.shape
+    d = g.shape[1]
+    if bm <= 0 or bn <= 0 or n_rows_x % bn != 0:
+        raise ValueError(f"spmm_ell_dx: {n_rows_x} rows of dX are not a "
+                         f"multiple of bn={bn} (bm={bm})")
+    chunks = -(-bm // 32) * -(-bn // 32)
+    if chunks > 1024:
+        raise ValueError(f"spmm_ell_dx: ({bm}, {bn}) tiles hold {chunks} "
+                         "32 x 32 chunks, more than 1024")
+    if g.dtype not in _DTYPES:
+        raise ValueError(f"spmm_ell_dx: g must be float32 or bfloat16, got "
+                         f"{g.dtype}")
+    _check(tiles, "tiles", g.dtype, (n_rb, n_slots, bm, bn), dev)
+    _check(colidx, "colidx", torch.int32, (n_rb, n_slots), dev)
+    _check(g, "g", g.dtype, (n_rb * bm, d), dev)
+    out = torch.empty((n_rows_x, d), dtype=g.dtype, device=dev)
+    if n_rows_x == 0 or d == 0:
+        return out
+    n_cb, n_t = n_rows_x // bn, n_rb * n_slots
+    # pair counts and starts of each column block, the pair list, each
+    # tile's liveness and its chunks' flags (the kernel's scratch)
+    work = torch.empty((4 * (2 * n_cb + n_t) + n_t + n_t * chunks,),
+                       dtype=torch.uint8, device=dev)
+    lib = _build.load()
+    rc = lib.repro_spmm_ell_dx(
+        tiles.data_ptr(), colidx.data_ptr(), g.data_ptr(), out.data_ptr(),
+        work.data_ptr(), n_rb, n_slots, bm, bn, n_cb, d,
+        int(g.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "spmm_ell_dx")
+    global DX_LAUNCHES
+    DX_LAUNCHES += 1
     return out
 
 

@@ -3,24 +3,29 @@
 Counterpart of ``repro/launch/train.py`` with the same flags: it trains the
 paper's GCN on a synthetic stand-in dataset through ``Trainer`` (chunked
 steps, one eval per report boundary, full-state checkpointing with
-``--resume``). It runs on the card unless ``--device cpu`` (a rehearsal on
-the CPU, where every kernel runs its plain version). This slice trains on
-one device: ``--gd``/``--g`` other than 1, and the flags of features not
-ported yet, raise ``NotImplementedError`` naming their ROADMAP item.
-Example::
+``--resume``) on a ``--gd`` x ``--g``^3 mesh. It runs on the card unless
+``--device cpu`` (a rehearsal on the CPU, where every kernel runs its
+plain version). A mesh of more than one rank runs under ``torchrun``, one
+process per rank: NCCL on the cards (rank r on ``cuda:LOCAL_RANK``), gloo
+with ``--device cpu``. The flags of features not ported yet raise
+``NotImplementedError`` naming their ROADMAP item. Examples::
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --dataset ogbn-products --vertices 65536 --batch 1024 --steps 100 \\
         --fused-elementwise
+    PYTHONPATH=src torchrun --nproc_per_node 8 -m repro_torch.launch.train \\
+        --device cpu --g 2 --vertices 2048 --batch 256 --steps 8
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import fourd, gcn_model as GM
 from repro_torch.device import resolve_device, use_full_f32_matmul
@@ -36,9 +41,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--dataset", default="ogbn-products")
     ap.add_argument("--vertices", type=int, default=8192)
     ap.add_argument("--gd", type=int, default=1, help="data-parallel groups "
-                    "(1 only: the mesh is ROADMAP queue 1, item 3)")
-    ap.add_argument("--g", type=int, default=1, help="3D PMM cube side "
-                    "(1 only: the mesh is ROADMAP queue 1, item 3)")
+                    "(the mesh has gd * g^3 ranks, one process each)")
+    ap.add_argument("--g", type=int, default=1, help="3D PMM cube side")
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--d-hidden", type=int, default=128)
     ap.add_argument("--layers", type=int, default=3)
@@ -55,13 +59,13 @@ def build_argparser() -> argparse.ArgumentParser:
                          "permutation per (seed, epoch, dp)")
     ap.add_argument("--sample-kind", default="stratified",
                     choices=["stratified", "partition", "walk"],
-                    help="sampling family; partition and walk are ROADMAP "
-                         "queue 1, item 7")
+                    help="sampling family; partition and walk are not "
+                         "ported yet")
     ap.add_argument("--clusters", type=int, default=0)
     ap.add_argument("--walk-len", type=int, default=4)
     ap.add_argument("--walk-k", type=int, default=8)
     ap.add_argument("--mmap-dir", default=None, metavar="DIR",
-                    help="mmap shard ingestion: ROADMAP queue 1, item 7")
+                    help="mmap shard ingestion: not ported yet")
     ap.add_argument("--lr", type=float, default=5e-3)
     ap.add_argument("--dropout", type=float, default=0.2)
     ap.add_argument("--bf16-collectives", action="store_true")
@@ -78,7 +82,7 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="XLA's latency-hiding scheduler; no counterpart "
                          "on this path")
     ap.add_argument("--prefetch", action="store_true",
-                    help="§V-A sampling overlap: ROADMAP queue 1, item 5")
+                    help="§V-A sampling overlap: not ported yet")
     ap.add_argument("--chunk-size", type=int, default=8,
                     help="optimizer steps per chunk")
     ap.add_argument("--target-acc", type=float, default=None)
@@ -111,13 +115,27 @@ def main(argv=None):
     if args.xla_overlap:
         raise NotImplementedError(
             "--xla-overlap sets XLA scheduler flags; the port's overlap is "
-            "ROADMAP queue 1, item 6")
+            'ROADMAP queue 1, "Ring overlap and compressed collectives"')
     if args.mmap_dir:
         raise NotImplementedError(
-            "--mmap-dir: mmap shard ingestion is ROADMAP queue 1, item 7")
+            "--mmap-dir: mmap shard ingestion is ROADMAP queue 1, "
+            '"Locality sampling modes and ingestion"')
     device = resolve_device(args.device)
     use_full_f32_matmul()
+    launched = "WORLD_SIZE" in os.environ        # under torchrun
+    if launched:
+        dist.init_process_group("gloo" if device.type == "cpu" else "nccl")
+    try:
+        _train(args, device)
+    finally:
+        if launched:
+            dist.destroy_process_group()
+
+
+def _train(args, device):
     mesh = fourd.make_mesh_4d(args.gd, args.g, device)
+    device = mesh.device
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
 
     ds = get_dataset(args.dataset, scale_vertices=args.vertices,
                      seed=args.seed)
@@ -166,18 +184,18 @@ def main(argv=None):
             raise SystemExit(
                 f"--resume: no TrainState checkpoint in {args.ckpt_dir}")
         state = restored
-        print(f"resumed: step {int(state.step)} epoch {int(state.epoch)}")
+        say(f"resumed: step {int(state.step)} epoch {int(state.epoch)}")
 
-    print(f"ScaleGNN (port): mesh {mesh.shape} on {device}  dataset "
-          f"{ds.name} N={pg.n} E={ds.num_edges} batch={args.batch} "
-          f"sample-kind={args.sample_kind} sample-mode={args.sample_mode} "
-          f"steps={total_steps} (epochs={args.epochs}, "
-          f"{plan.scfg.steps_per_epoch}/epoch) chunk={args.chunk_size}")
+    say(f"ScaleGNN (port): mesh {mesh.shape} on {device}  dataset "
+        f"{ds.name} N={pg.n} E={ds.num_edges} batch={args.batch} "
+        f"sample-kind={args.sample_kind} sample-mode={args.sample_mode} "
+        f"steps={total_steps} (epochs={args.epochs}, "
+        f"{plan.scfg.steps_per_epoch}/epoch) chunk={args.chunk_size}")
     t0 = time.time()
 
     def report(step, loss, acc):
-        print(f"step {step:5d}  loss {loss:.4f}  "
-              f"full-graph acc {acc:.4f}  t={time.time()-t0:.1f}s")
+        say(f"step {step:5d}  loss {loss:.4f}  "
+            f"full-graph acc {acc:.4f}  t={time.time()-t0:.1f}s")
 
     tracer.start_profile()
     try:
@@ -191,14 +209,14 @@ def main(argv=None):
     else:
         acc = float(trainer.eval_fn(state.params, graph))
     dt = time.time() - t0
-    print(f"done: steps<= {total_steps}  time {dt:.1f}s  "
-          f"full-graph accuracy {acc:.4f}")
+    say(f"done: steps<= {total_steps}  time {dt:.1f}s  "
+        f"full-graph accuracy {acc:.4f}")
     if log.final_ckpt:
-        print("checkpoint:", log.final_ckpt)
-    print(f"ms/step {log.ms_per_step:.2f}  eval_s {log.eval_s:.2f}  "
-          f"ckpt_overlap_s {log.ckpt_overlap_s:.2f}")
+        say("checkpoint:", log.final_ckpt)
+    say(f"ms/step {log.ms_per_step:.2f}  eval_s {log.eval_s:.2f}  "
+        f"ckpt_overlap_s {log.ckpt_overlap_s:.2f}")
 
-    if args.metrics_json:
+    if args.metrics_json and mesh.rank == 0:
         doc = {
             "run": {"dataset": ds.name, "mesh": mesh.shape,
                     "device": str(device), "batch": args.batch,
@@ -212,7 +230,7 @@ def main(argv=None):
         with open(args.metrics_json, "w") as f:
             json.dump(doc, f, indent=1)
             f.write("\n")
-        print("metrics:", args.metrics_json)
+        say("metrics:", args.metrics_json)
 
 
 if __name__ == "__main__":

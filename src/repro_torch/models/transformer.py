@@ -33,12 +33,16 @@ from repro_torch.models.config import ModelConfig
 
 Cache = Dict[str, Any]
 
+LLM_ITEM = '"The LLM stack beyond the dense serving path"'
+
+# the part of ROADMAP queue 1, "The LLM stack beyond the dense serving
+# path", that ports each family
 _FAMILY_TODO = {
-    "moe": "item 10c (MoE)",
-    "ssm": "item 10e (SSM and hybrid)",
-    "hybrid": "item 10e (SSM and hybrid)",
-    "vlm": "item 10f (VLM and audio)",
-    "audio": "item 10f (VLM and audio)",
+    "moe": "MoE",
+    "ssm": "SSM and hybrid",
+    "hybrid": "SSM and hybrid",
+    "vlm": "VLM and audio",
+    "audio": "VLM and audio",
 }
 
 
@@ -46,7 +50,7 @@ def _check_family(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported yet: ROADMAP queue 1, "
-            f"{_FAMILY_TODO.get(cfg.family, 'item 10')}")
+            f'{LLM_ITEM} ({_FAMILY_TODO.get(cfg.family, cfg.family)})')
 
 
 def _pdict(leaves: Mapping[str, torch.Tensor]) -> nn.ParameterDict:

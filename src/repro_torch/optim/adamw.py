@@ -28,10 +28,15 @@ def _to_schedule(lr) -> Schedule:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, sumsq=None):
     """``(grads * min(1, max_norm / (|grads| + 1e-9)), |grads|)``; the
-    scaled grads are new tensors."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in leaves(grads)))
+    scaled grads are new tensors. ``sumsq(grads)`` gives the squared global
+    norm of a tree of shards (``FourDPlan.global_sumsq``: each distinct
+    shard counted once, as the reference takes the norm of its global
+    arrays); by default the leaves are whole."""
+    if sumsq is None:
+        sumsq = lambda t: sum(torch.sum(torch.square(g)) for g in leaves(t))
+    gnorm = torch.sqrt(sumsq(grads))
     scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads), gnorm
 
@@ -51,12 +56,14 @@ class AdamW:
                 "nu": tree_map(torch.zeros_like, params)}
 
     @torch.no_grad()
-    def update(self, params, grads, state) -> Tuple[Any, Any]:
+    def update(self, params, grads, state, *, sumsq=None) -> Tuple[Any, Any]:
+        """One step in place; ``sumsq`` as in :func:`clip_by_global_norm`
+        (for the shards of a mesh)."""
         sched = _to_schedule(self.lr)
         state["step"] = state["step"] + 1
         step = state["step"]
         if self.grad_clip > 0:
-            grads, _ = clip_by_global_norm(grads, self.grad_clip)
+            grads, _ = clip_by_global_norm(grads, self.grad_clip, sumsq)
         lr = sched(step)
         b1, b2 = self.b1, self.b2
         bc1 = 1 - b1 ** step.to(torch.float32)
@@ -84,7 +91,9 @@ class Sgd:
                 "vel": tree_map(torch.zeros_like, params)}
 
     @torch.no_grad()
-    def update(self, params, grads, state):
+    def update(self, params, grads, state, *, sumsq=None):
+        """One step in place (no clipping, so ``sumsq`` is not read)."""
+        del sumsq
         sched = _to_schedule(self.lr)
         state["step"] = state["step"] + 1
         lr = sched(state["step"])

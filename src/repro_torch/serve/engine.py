@@ -42,7 +42,8 @@ from repro_torch.serve.core import ServingCore
 from repro_torch.serve.protocol import Completion, PendingRequest
 
 _MESH_TODO = ("serving over a mesh (serve/distributed.py) is not ported "
-              "yet: ROADMAP queue 1, item 4 (distributed serving)")
+              'yet: ROADMAP queue 1, "Distributed serving and the threaded '
+              'driver"')
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,31 +1,37 @@
 """The chunked training runtime.
 
 Counterpart of ``repro/train/runner.py``. ``Trainer`` runs a plan's steps
-in chunks of ``chunk_size``, each a Python loop of steps (the reference's
-``lax.scan``): sample + extract + forward + loss (``fourd.make_loss_fn``),
-the backward through the kernels' autograd rules, the optimizer update in
-place. Per-step losses stay on the device until ``run()`` ends, so the
-host never waits on the card between steps.
+on this rank of the plan's mesh, in chunks of ``chunk_size``, each a
+Python loop of steps (the reference's ``lax.scan``): sample + extract +
+forward + loss (``fourd.make_loss_fn``), the backward through the
+kernels' autograd rules and the mesh's collectives
+(``fourd.value_and_grad``), the optimizer update of the rank's shards in
+place, clipped by the global norm over the shards. Per-step losses stay on
+the device until ``run()`` ends, so the host never waits on the card
+between steps.
 
 The cadences and restore rules are the reference's:
 
 * **eval at chunk boundaries** — one eval per report boundary, used for
   both the report and the target-accuracy stop;
 * **full-state checkpoint/resume** — ``save()`` writes the whole
-  ``TrainState``; ``restore()`` + ``run()`` continue the run, because the
-  sample and the dropout masks are pure functions of ``(seed, epoch,
-  step)`` and both counters travel in the state. On the CPU the continued
-  run is bit-identical; on the card the SpMM's dX sums with atomics, so it
-  matches up to rounding. ``run()`` always persists the final state when
-  a checkpoint directory is configured;
-* **async checkpointing** — a mid-run save snapshots the state with
-  ``.clone()`` on the card (queued on the current stream, so the next
-  in-place update cannot reach it) and a worker thread copies it to the
-  host and writes it, overlapping with the next chunk; at most one save is
-  in flight.
+  ``TrainState`` with global (unsharded) params and optimizer moments, as
+  the reference's global arrays are: every rank takes part in the gathers
+  and rank 0 writes. ``restore()`` reads it on every rank and slices the
+  rank's shards, so a checkpoint of one card resumes on a mesh and back.
+  ``restore()`` + ``run()`` continue the run bit for bit, on the CPU and
+  on the card, because the sample and the dropout masks are pure
+  functions of ``(seed, epoch, step)``, both counters travel in the state
+  and every kernel of the step is deterministic. ``run()`` always persists
+  the final state when a checkpoint directory is configured;
+* **async checkpointing** — a mid-run save gathers the state and
+  snapshots it with ``.clone()`` on the device (queued on the current
+  stream, so the next in-place update cannot reach it), and a worker
+  thread of rank 0 copies it to the host and writes it, overlapping with
+  the next chunk; at most one save is in flight.
 
-§V-A prefetch is ROADMAP queue 1, item 5 (``prefetch=True`` raises).
-Capturing a chunk in a CUDA graph is later work.
+§V-A prefetch is ROADMAP queue 1, "§V-A prefetch" (``prefetch=True``
+raises). Capturing a chunk in a CUDA graph is later work.
 """
 from __future__ import annotations
 
@@ -55,7 +61,7 @@ class TrainLoopConfig:
 
     total_steps: Optional[int] = None
     chunk_size: int = 8        # optimizer steps per chunk
-    prefetch: bool = False     # §V-A: ROADMAP queue 1, item 5
+    prefetch: bool = False     # §V-A: not ported yet
     eval_every: Optional[int] = 0   # steps between evals (0/None = never),
                                # rounded up to the enclosing chunk boundary
     target_acc: Optional[float] = None   # stop once an eval reaches this
@@ -107,9 +113,11 @@ class RunLog:
 
 
 class Trainer:
-    """The runtime over a ``FourDPlan``: build once, then ``init_state`` /
-    ``restore`` -> ``run`` -> ``save``. ``eval_fn`` defaults to the plan's
-    full-graph eval step. ``run`` updates the state's tensors in place."""
+    """The runtime over a ``FourDPlan`` on one rank of its mesh: build
+    once, then ``init_state`` / ``restore`` -> ``run`` -> ``save``, the same
+    calls on every rank. The state holds the rank's shards. ``eval_fn``
+    defaults to the plan's full-graph eval step. ``run`` updates the
+    state's tensors in place."""
 
     def __init__(self, plan: fourd.FourDPlan, optimizer,
                  loop: TrainLoopConfig, *,
@@ -118,7 +126,7 @@ class Trainer:
         if loop.prefetch:
             raise NotImplementedError(
                 "prefetch=True (§V-A sampling overlap) is ROADMAP queue 1, "
-                "item 5")
+                '"§V-A prefetch"')
         self.plan = plan
         self.optimizer = optimizer
         self.loop = loop
@@ -138,29 +146,38 @@ class Trainer:
     # -- state construction --------------------------------------------------
 
     def init_state(self, params, graph=None) -> TrainState:
-        """A fresh state at step 0 (``graph`` is the reference's signature;
-        without prefetch it is not needed)."""
+        """A fresh state at step 0 over the rank's param shards
+        (``graph`` is the reference's signature; without prefetch it is
+        not needed)."""
         del graph
         return init_train_state(params, self.optimizer.init(params))
 
     def save(self, state: TrainState, directory: Optional[str] = None,
              *, sync: bool = True,
              step: Optional[int] = None) -> Optional[str]:
-        """Write the FULL state atomically; the filename carries the step.
-        ``sync=True`` blocks until the file is on disk and returns its
-        path; ``sync=False`` snapshots the state on the device and lets a
-        worker thread copy and write it (returns None). The previous
-        in-flight save is joined first either way."""
+        """Write the FULL state, unsharded, atomically; the filename carries
+        the step. Every rank calls it; rank 0 writes. ``sync=True`` blocks
+        until the file is on disk and returns its path; ``sync=False``
+        snapshots the gathered state on the device and lets a worker
+        thread copy and write it (returns None). The previous in-flight
+        save is joined first either way."""
         directory = directory or self.loop.ckpt_dir
         if not directory:
             raise ValueError("no checkpoint directory configured")
         self.join_saves()
         step = int(state.step) if step is None else step
+        mesh = self.plan.mesh
         if sync:
             with self.tracer.span("ckpt"):
-                return save_checkpoint(directory, step, state,
-                                       name=CKPT_NAME)
-        snap = tree_map(lambda t: t.detach().clone(), state)
+                full = self.plan.unshard(state)
+                if mesh.rank == 0:
+                    save_checkpoint(directory, step, full, name=CKPT_NAME)
+                mesh.barrier()
+            return checkpoint_path(directory, step, name=CKPT_NAME)
+        snap = tree_map(lambda t: t.detach().clone(),
+                        self.plan.unshard(state))
+        if mesh.rank != 0:
+            return None
 
         def work():
             t0 = time.perf_counter()
@@ -177,11 +194,13 @@ class Trainer:
         return None
 
     def join_saves(self) -> None:
-        """Wait for the in-flight async save (if any); re-raise its error."""
+        """Wait for the in-flight async save (if any) on every rank;
+        re-raise its error."""
         if self._save_thread is not None:
             with self.tracer.span("ckpt_wait"):
                 self._save_thread.join()
             self._save_thread = None
+        self.plan.mesh.barrier()
         if self._save_exc is not None:
             exc, self._save_exc = self._save_exc, None
             raise exc
@@ -191,10 +210,11 @@ class Trainer:
                 step: Optional[int] = None, *,
                 graph=None) -> Optional[TrainState]:
         """Latest (or given-step) full-state checkpoint, restored into the
-        structure, dtypes and devices of ``example_state``; None when there
-        is none. A checkpoint without the ``.epoch`` leaf gets it from the
-        step; leaves the port's state does not hold (the reference's
-        prefetch carry or error feedback) are left unread."""
+        structure, dtypes and devices of ``example_state`` (the rank's
+        shards, sliced from the global leaves); None when there is none.
+        Every rank calls it. A checkpoint without the ``.epoch`` leaf gets
+        it from the step; leaves the port's state does not hold (the
+        reference's prefetch carry or error feedback) are left unread."""
         del graph
         directory = directory or self.loop.ckpt_dir
         if not directory:
@@ -205,10 +225,11 @@ class Trainer:
                 return None
         has_epoch = ".epoch" in checkpoint_keys(directory, step,
                                                 name=CKPT_NAME)
-        example = example_state
+        example = self.plan.unshard(example_state)
         if not has_epoch:
             example = dataclasses.replace(example, epoch=None)
         state, _ = load_checkpoint(directory, step, example, name=CKPT_NAME)
+        state = self.plan.shard(state)
         if not has_epoch:
             state = dataclasses.replace(
                 state, epoch=torch.tensor(int(state.step)
@@ -219,10 +240,12 @@ class Trainer:
     # -- one step ------------------------------------------------------------
 
     def step(self, state: TrainState, graph) -> torch.Tensor:
-        """One optimizer step in place; returns the loss (on the device)."""
+        """One optimizer step in place; returns the loss, the mean over the
+        DP groups (on the device)."""
         loss, grads = fourd.value_and_grad(self._loss_fn, state.params,
                                            graph, state.step, state.epoch)
-        self.optimizer.update(state.params, grads, state.opt_state)
+        self.optimizer.update(state.params, grads, state.opt_state,
+                              sumsq=self.plan.global_sumsq)
         state.step = state.step + 1
         state.epoch = state.step // self.steps_per_epoch
         return loss

@@ -6,9 +6,10 @@ communication-free sampling and dropout (int32 scalars on the CPU, so the
 runner reads them without waiting on the card). Its leaves' paths are the
 reference's checkpoint keys (``.params::w_in``, ``.opt_state::mu::...``,
 ``.step``, ``.epoch``), so a state checkpoint loads in either package.
-The §V-A prefetch carry and the compressed-collective error feedback of
-the reference's state come with their features (ROADMAP queue 1, items 5
-and 6).
+On a mesh the state holds this rank's shards of the params and of the
+optimizer moments; a checkpoint holds the global leaves
+(``Trainer.save``). The §V-A prefetch carry and the compressed-collective
+error feedback of the reference's state come with their features.
 """
 from __future__ import annotations
 

@@ -338,11 +338,13 @@ def test_cuda_spmm_ell_autograd_matches_plain(cuda):
                                                       seed=2))
     w = torch.randn((96, 24), device=cuda)
     grads = []
+    n0 = tspmm.DX_LAUNCHES
     for fn in (tops.spmm_ell, tspmm.spmm_ell_plain):
         t = tiles.clone().requires_grad_(True)
         xx = x.clone().requires_grad_(True)
         (fn(t, colidx, xx) * w).sum().backward()
         grads.append((t.grad, xx.grad))
+    assert tspmm.DX_LAUNCHES == n0 + 1         # the rule's dX is the kernel
     for a, b in zip(*grads):
         assert (a - b).abs().max().item() <= 1e-4 * max(1.0,
                                                          b.abs().max().item())
@@ -415,6 +417,160 @@ def test_cuda_spmm_ell_rejects_bad_inputs(cuda):
         tspmm.spmm_ell(tiles.double(), colidx, x)
     with pytest.raises(ValueError, match="multiple of bn"):
         tspmm.spmm_ell(tiles, colidx, x[:-1])
+
+
+def _dx_grad(n_rows, d, dtype, device, seed=3):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=(n_rows, d)).astype(
+        np.float32)).to(device, dtype)
+
+
+def _dx_err(got, ref):
+    """max |kernel - plain| over the largest |plain|."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err / max(ref.float().abs().max().item(), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm,bn,n_rb,n_cb,d", [
+    (8, 8, 4, 4, 16), (16, 32, 2, 4, 64), (32, 16, 4, 2, 8),
+    (8, 128, 2, 2, 128), (128, 128, 4, 8, 256), (8, 8, 4, 4, 37),
+    (128, 128, 3, 5, 300)])
+@pytest.mark.parametrize("density", [0.2, 0.7])
+def test_cuda_spmm_ell_dx_matches_plain(cuda, bm, bn, n_rb, n_cb, d,
+                                        density):
+    """dX = A^T g in f32: within 1e-5 of the largest |dX| of the plain
+    version (the same products summed in another order); the reference's
+    tile sweep, the training tile, a ragged d and two feature tiles."""
+    tiles, colidx, _ = (t.to(cuda) for t in _ell_case(bm, bn, n_rb, n_cb, d,
+                                                      density))
+    g = _dx_grad(n_rb * bm, d, torch.float32, cuda)
+    n0 = tspmm.DX_LAUNCHES
+    got = tspmm.spmm_ell_dx(tiles, colidx, g, n_cb * bn)
+    torch.cuda.synchronize()
+    assert tspmm.DX_LAUNCHES == n0 + 1 and got.shape == (n_cb * bn, d)
+    assert _dx_err(got, tspmm.spmm_ell_dx_plain(tiles, colidx, g,
+                                                n_cb * bn)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm,bn,d", [(128, 128, 256), (16, 32, 37),
+                                     (8, 8, 16)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+def test_cuda_spmm_ell_dx_skips_padding_in_any_slot(cuda, bm, bn, d, dtype,
+                                                    tol):
+    """Padding between live slots, a live column-block-0 tile in slot 2 and
+    a row-block of padding only, in f32 (1e-5) and bf16 tiles and g (5e-2,
+    the reference's bf16 tolerance), relative to the largest |dX|; the
+    column block no live tile points at is exactly zero."""
+    tiles, colidx, _ = _padded_ell_case(bm, bn, d, dtype, cuda)
+    n_rows = 4 * bn
+    g = _dx_grad(tiles.shape[0] * bm, d, dtype, cuda)
+    got = tspmm.spmm_ell_dx(tiles, colidx, g, n_rows)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert _dx_err(got, tspmm.spmm_ell_dx_plain(tiles, colidx, g,
+                                                n_rows)) <= tol
+    # column blocks 0-3 are all live somewhere; a fifth would not be
+    wide = tspmm.spmm_ell_dx(tiles, colidx, g, n_rows + bn)
+    assert torch.equal(wide[:n_rows], got)
+    assert torch.count_nonzero(wide[n_rows:]) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_spmm_ell_dx_is_bit_identical_over_repeated_calls(cuda):
+    """The same inputs give the same bits ten times over: no float is added
+    with an atomic. A batch-like layout: 16 row-blocks of 32 slots of
+    128 x 128, most slots padding, so column block 0 holds many slots."""
+    tiles, colidx, _ = _ell_case(128, 128, 16, 16, 256, 0.3, seed=5,
+                                 extra_slots=16)
+    tiles, colidx = tiles.to(cuda), colidx.to(cuda)
+    g = _dx_grad(16 * 128, 256, torch.float32, cuda)
+    first = tspmm.spmm_ell_dx(tiles, colidx, g, 16 * 128)
+    for _ in range(9):
+        assert torch.equal(tspmm.spmm_ell_dx(tiles, colidx, g, 16 * 128),
+                           first)
+    assert _dx_err(first, tspmm.spmm_ell_dx_plain(tiles, colidx, g,
+                                                  16 * 128)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_spmm_ell_dx_padding_ignores_non_finite_g(cuda):
+    """As in the forward: a row-block of padding only reads no g, so inf
+    there leaves dX finite (the plain version's 0 * inf gives NaN in
+    column block 0)."""
+    tiles, colidx, _ = _padded_ell_case(32, 32, 64, torch.float32, cuda)
+    g = _dx_grad(3 * 32, 64, torch.float32, cuda)
+    g[64:] = float("inf")
+    got = tspmm.spmm_ell_dx(tiles, colidx, g, 4 * 32)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert not torch.isfinite(tspmm.spmm_ell_dx_plain(tiles, colidx, g,
+                                                      4 * 32)).all()
+
+
+@pytest.mark.cuda
+def test_cuda_spmm_ell_dx_rejects_bad_inputs(cuda):
+    tiles, colidx, _ = (t.to(cuda) for t in _ell_case(8, 8, 2, 2, 4, 0.7))
+    g = _dx_grad(16, 4, torch.float32, cuda)
+    with pytest.raises(ValueError, match="colidx"):
+        tspmm.spmm_ell_dx(tiles, colidx.long(), g, 16)
+    with pytest.raises(ValueError, match="tiles"):
+        tspmm.spmm_ell_dx(tiles.double(), colidx, g, 16)
+    with pytest.raises(ValueError, match="multiple of bn"):
+        tspmm.spmm_ell_dx(tiles, colidx, g, 15)
+    with pytest.raises(ValueError, match="g must be"):
+        tspmm.spmm_ell_dx(tiles, colidx, g.half(), 16)
+
+
+def _card_trainer(plan, steps, ckpt_dir=None):
+    from repro_torch import optim as topt
+    from repro_torch.train import Trainer, TrainLoopConfig
+    opt = topt.AdamW(lr=topt.linear_warmup_cosine(5e-3, 2, 6),
+                     weight_decay=1e-4, grad_clip=1.0)
+    loop = TrainLoopConfig(total_steps=steps, chunk_size=2,
+                           ckpt_dir=ckpt_dir, ckpt_every=2)
+    return Trainer(plan, opt, loop, eval_fn=lambda p, g: 0.0)
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_resume_is_bit_identical(cuda, tmp_path):
+    """On the card, 6 steps straight == 3 steps, a save, a restore and 3
+    more, bit for bit (losses and every state leaf): the block-ELL SpMM,
+    its dX kernel, the fused tail and extraction, dropout on. With the
+    dX of a float-atomic ``index_add_`` this matched only up to
+    rounding."""
+    from repro_torch.core import fourd
+    from repro_torch.core import gcn_model as TM
+    from repro_torch.core.forward import TrainOptions
+    from repro_torch.graphs import build_partitioned_graph
+    from repro_torch.tree import leaves, tree_map
+    ds = make_synthetic_dataset(n=2048, num_classes=4, d_in=16,
+                                avg_degree=8, seed=0)
+    pg = build_partitioned_graph(ds, g=1)
+    cfg = TM.GCNConfig(d_in=16, d_hidden=64, num_layers=3, num_classes=4)
+    opts = TrainOptions(spmm_impl="ell", fused_elementwise=True,
+                        extract_impl="cuda", dropout=0.3, seed=4,
+                        ell_tile=32, ell_slots=16)
+    plan = fourd.build_plan(pg, cfg, fourd.make_mesh_4d(1, 1, cuda),
+                            batch=512, opts=opts)
+    graph = plan.shard_graph(pg)
+    params0 = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                             device=cuda)
+    fresh = lambda: tree_map(lambda t: t.detach().clone(), params0)
+    n0 = tspmm.DX_LAUNCHES
+    tr = _card_trainer(plan, 6)
+    full, log_full = tr.run(tr.init_state(fresh()), graph)
+    # one dX per layer and step (every layer's input depends on w_in)
+    assert tspmm.DX_LAUNCHES - n0 == 6 * cfg.num_layers
+    part = _card_trainer(plan, 3, str(tmp_path))
+    part.run(part.init_state(fresh()), graph)
+    rest = _card_trainer(plan, 6, str(tmp_path))
+    st, log_b = rest.run(rest.restore(rest.init_state(fresh())), graph)
+    assert log_full.losses[3:] == log_b.losses
+    for a, b in zip(leaves(st), leaves(full)):
+        assert torch.equal(a.cpu(), b.cpu())
 
 
 # the sweep of tests/test_kernels_flash.py, then ragged Sq and T, hd 128,

@@ -242,11 +242,59 @@ def test_build_single_and_build_match_direct_extraction(graph):
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """The locality modes raise, naming their ROADMAP item by its title;
+    DP-sliced permutations need partition mode, as in the reference (the
+    other modes fold the DP index into the key); g > 1 builds on a rank of
+    the mesh (``build_local``), not through the single-device ``build``."""
+    locality = "Locality sampling modes and ingestion"
+    with pytest.raises(NotImplementedError, match=locality):
         tsmp.SampleConfig(n_pad=64, g=1, batch=8, e_cap=1,
                           clusters=4).validate()
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match=locality):
         tmb.MinibatchBuilder(tsmp.SampleConfig(64, 1, 8, 1), mode="walk")
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(ValueError, match="requires partition mode"):
+        tsmp.SampleConfig(n_pad=64, g=1, batch=8, e_cap=1,
+                          dp_groups=2).validate()
+    with pytest.raises(ValueError, match="build_local"):
         tmb.MinibatchBuilder(tsmp.SampleConfig(64, 2, 8, 1)).build(
             *(torch.zeros(1),) * 5, step=0)
+
+
+@pytest.mark.parametrize("coords", [(0, 0, 0), (1, 0, 1), (0, 1, 1),
+                                    (1, 1, 1)])
+def test_build_local_on_a_rank_of_the_2x2x2_mesh(graph, coords):
+    """g = 2: one rank's batch from its CSR blocks of the three rotation
+    planes, (z, x), (y, z) and (x, y), with the reference's sample: each
+    plane's block is that (i, j) block of the one-device stratified batch,
+    bit for bit; planes with the same block share it; the feature rows are
+    range x's (all columns here) and the label rows range x's (the final
+    row axis after 3 layers)."""
+    from repro_torch.graphs import build_partitioned_graph
+    pg = build_partitioned_graph(graph, g=G)
+    c = dict(zip("xyz", coords), d=0)
+    cfg = tsmp.SampleConfig(n_pad=N, g=G, batch=B,
+                            e_cap=(B // G) * pg.max_block_row_nnz)
+    ids = _t(_ref_ids())
+    one = tsmp.make_minibatch_stratified(
+        None, *_csr(graph, True), torch.zeros((N, 1)),
+        torch.zeros(N, dtype=torch.int32), cfg, ids=ids)
+    blk = lambda i, j: (torch.from_numpy(pg.block_rp[i, j]),
+                        torch.from_numpy(pg.block_ci[i, j]),
+                        torch.from_numpy(pg.block_val[i, j]))
+    planes = [blk(c["z"], c["x"]), blk(c["y"], c["z"]), blk(c["x"], c["y"])]
+    n_loc, b = N // G, B // G
+    feats = torch.arange(N, dtype=torch.float32)[:, None]
+    labels = torch.arange(N, dtype=torch.int32)
+    x_rows = slice(c["x"] * n_loc, (c["x"] + 1) * n_loc)
+    mb = tmb.MinibatchBuilder(cfg).build_local(
+        planes, feats[x_rows], labels[x_rows], 0, 3, c, ids=ids)
+    for (i, j), got in zip(((c["z"], c["x"]), (c["y"], c["z"]),
+                            (c["x"], c["y"])), mb.adj):
+        assert torch.equal(got, one.adj[i * b:(i + 1) * b,
+                                        j * b:(j + 1) * b])
+    pairs = [(c["z"], c["x"]), (c["y"], c["z"]), (c["x"], c["y"])]
+    for p in range(3):
+        for q in range(3):
+            assert (mb.adj[p] is mb.adj[q]) == (pairs[p] == pairs[q])
+    assert torch.equal(mb.feats[:, 0], ids[c["x"]].float())
+    assert torch.equal(mb.labels, ids[c["x"]])

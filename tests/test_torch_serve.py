@@ -280,6 +280,9 @@ def test_port_imports_neither_jax_nor_repro():
         "assert 'repro_torch.train.runner' in sys.modules\n"
         "assert 'repro_torch.serve.llm_engine' in sys.modules\n"
         "assert 'repro_torch.models.transformer' in sys.modules\n"
+        "for m in ('core.pmm3d', 'core.fourd', 'core.forward',\n"
+        "          'core.precision', 'launch.train'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=src,
                          capture_output=True, text=True, timeout=120,

@@ -214,16 +214,24 @@ def test_trainer_eval_cadence_and_target_stop(data):
 
 
 def test_unported_options_raise(data):
+    """Options not ported raise, naming their ROADMAP item by its title; a
+    mesh of more than one rank needs a process group (the mesh itself runs
+    in ``test_torch_fourd_dist.py``), and reshard_impl="permute" is
+    ported."""
     ds, jcfg, _ = data
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 8"):
         tfourd.make_mesh_4d(1, 2, "cpu")
-    for kw, item in ((dict(compress="int8"), "item 6"),
-                     (dict(overlap_impl="ring"), "item 6"),
-                     (dict(sample_kind="walk"), "item 7"),
+    comm = "Ring overlap and compressed collectives"
+    for kw, item in ((dict(compress="int8"), comm),
+                     (dict(overlap_impl="ring"), comm),
+                     (dict(bf16_collectives=True), comm),
+                     (dict(sample_kind="walk"),
+                      "Locality sampling modes and ingestion"),
                      (dict(block_dtype="bf16"), "bf16")):
         with pytest.raises(NotImplementedError, match=item):
             TrainOptions(**kw)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    assert TrainOptions(reshard_impl="permute").reshard_impl == "permute"
+    with pytest.raises(NotImplementedError, match="§V-A prefetch"):
         Trainer(_tplan(ds, jcfg), topt.Sgd(),
                 TrainLoopConfig(total_steps=1, prefetch=True))
 
@@ -239,5 +247,6 @@ def test_train_cli_rehearses_on_cpu(tmp_path, capsys):
     assert "full-graph accuracy" in out and "state_00000004.npz" in out
     tlaunch.main(argv(6) + ["--resume"])
     assert "resumed: step 4" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 3"):
+    # a mesh of 8 ranks runs under torchrun (test_torch_fourd_dist.py)
+    with pytest.raises(ValueError, match="torchrun"):
         tlaunch.main(["--device", "cpu", "--g", "2"])
