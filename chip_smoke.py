@@ -73,6 +73,22 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    of phase 5's eight-step runs, whose losses and params must be phase 5's
    bits (an all-reduce over one rank is the identity), counts zeroed
    before and read after; the group is destroyed at the end;
+5c. train-comm — the paper's §V options at the training shape. §V-B: 8
+   steps with ``bf16_collectives=True``, then 8 with ``compress="bf16"``,
+   each on the single device (no group) and through a NCCL group of one
+   rank: the two runs of an option bit-identical, the first loss within
+   5e-2 relative of phase 5's f32 step; ``overlap_impl="ring"`` through
+   the group bit-identical to phase 5b; 8 steps with ``compress="int8"``
+   bit-identical to phase 5 with every error-feedback accumulator exactly
+   zero (a quantized wire at g = 1 is the identity); the quantizers
+   (int8, int4 and its nibble packing) at (8192, 256) on the card give
+   the CPU's bits. §V-A: 48 steps with ``prefetch=True`` (the next batch
+   built on a side CUDA stream), counts zeroed before and read after (49
+   extractions: the warm-up batch and one after each step), whose losses
+   and final params must be phase 5's 48 steps' bits; then
+   ms/step with prefetch on and off, three runs each in turns, and one
+   profiled chunk with prefetch on, from whose trace the device time
+   during which side-stream and main-stream kernels run together;
 6. llm     — LLM serving: tinyllama-1.1b at its published width (22
    layers, d_model 2048, 32/4 heads, vocab 32000, bf16, seeded random
    weights) behind the port's ``LLMEngine`` (8 slots, prompts padded to
@@ -147,6 +163,7 @@ DX_KERNELS = ("dx_scan_kernel", "dx_fill_kernel", "dx_product_kernel")
 TRAIN_BATCH = 8192
 TRAIN_STEPS = 48
 CHUNK = 8
+BF16_LOSS_RTOL = 5e-2    # a bf16 wire's first loss against the f32 step
 L2_FLUSH_BYTES = 256 << 20  # written between cold-L2 timings
 
 
@@ -1245,6 +1262,7 @@ def phase_train(torch, np, plan, graph, pg) -> dict:
     state, run_log = trainer.run(state, graph)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
+    params48 = tree_map(lambda t: t.detach().clone(), state.params)
     # per step: one fused extraction (the one block of g = 1), one SpMM and
     # one tail per layer, every tail on the vector route
     expect = {"extract_dense_fused": TRAIN_STEPS,
@@ -1304,9 +1322,11 @@ def phase_train(torch, np, plan, graph, pg) -> dict:
                                    "fused_layer_kernel("),
                    spans=("sample", "extract", "_SpmmEllBackward",
                           "_FusedTailBackward"))
-    return {"train": launches,
-            "train_nccl": phase_train_nccl(torch, plan, pg, fresh, make_opt,
-                                           log8, params8)}
+    nccl = phase_train_nccl(torch, plan, pg, fresh, make_opt, log8, params8)
+    return {"train": launches, "train_nccl": nccl,
+            "train_prefetch": phase_train_comm(
+                torch, np, plan, graph, pg, fresh, make_opt, (log8, params8),
+                (run_log, params48), expect)}
 
 
 def phase_train_nccl(torch, plan, pg, fresh, make_opt, want_log,
@@ -1370,6 +1390,198 @@ def phase_train_nccl(torch, plan, pg, fresh, make_opt, want_log,
     finally:
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
+    return launches
+
+
+def _stream_overlap_us(trace_path, side_kernel: str) -> dict:
+    """From a profiler's Chrome trace: the device time (us) of the kernels
+    on the stream that ran ``side_kernel``, of those on the other streams,
+    and the time during which kernels of both run together (the measure of
+    the intersection of the two unions of intervals)."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    side = {e["args"]["stream"] for e in events if side_kernel in e["name"]}
+    if len(side) != 1:
+        raise AssertionError(f"{side_kernel} ran on streams {side}")
+
+    def union(evs):
+        out = []
+        for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in evs):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+    s_iv = union([e for e in events if e["args"]["stream"] in side])
+    m_iv = union([e for e in events if e["args"]["stream"] not in side])
+    both, i, j = 0.0, 0, 0
+    while i < len(s_iv) and j < len(m_iv):
+        lo = max(s_iv[i][0], m_iv[j][0])
+        hi = min(s_iv[i][1], m_iv[j][1])
+        both += max(0.0, hi - lo)
+        if s_iv[i][1] < m_iv[j][1]:
+            i += 1
+        else:
+            j += 1
+    return {"side_us": sum(b - a for a, b in s_iv),
+            "main_us": sum(b - a for a, b in m_iv), "overlap_us": both}
+
+
+def phase_train_comm(torch, np, plan, graph, pg, fresh, make_opt, want8,
+                     want48, expect) -> dict:
+    """Phase 5c: the §V options at the training shape (see the module
+    docstring). ``want8`` is phase 5's 8-step (log, params), ``want48`` its
+    48-step run's, ``expect`` that run's launch counts. Returns the launch
+    counts of the 48 prefetched steps."""
+    import torch.distributed as dist
+
+    from repro_torch.core import fourd
+    from repro_torch.core.precision import (dequantize, pack_int4, quantize,
+                                            unpack_int4)
+    from repro_torch.train import Trainer, TrainLoopConfig
+    from repro_torch.tree import leaves
+
+    cfg, dev = plan.cfg, plan.device
+    log8, params8 = want8
+    log48, params48 = want48
+
+    def same_run(a, b):
+        return a[0].losses == b[0].losses and all(
+            torch.equal(x, y) for x, y in zip(leaves(a[1]), leaves(b[1])))
+
+    def run(plan_, graph_, steps, prefetch=False):
+        tr = Trainer(plan_, make_opt(),
+                     TrainLoopConfig(total_steps=steps, chunk_size=CHUNK,
+                                     prefetch=prefetch),
+                     eval_fn=lambda p, g: 0.0)
+        st, lg = tr.run(tr.init_state(plan_.shard_params(fresh()), graph_),
+                        graph_)
+        return lg, st.params, st, tr
+
+    def with_opts(mesh, **kw):
+        return fourd.build_plan(pg, cfg, mesh, batch=TRAIN_BATCH,
+                                opts=dataclasses.replace(plan.opts, **kw))
+
+    # the quantizers on the card against the CPU, at the training shape
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(TRAIN_BATCH, cfg.d_hidden)).astype(np.float32)
+    x[3] = 0.0
+    x[7] *= 1e4
+    xc = torch.from_numpy(x)
+    for bits in (8, 4):
+        qc, sc = quantize(xc, bits)
+        qg, sg = quantize(xc.to(dev), bits)
+        ok = (torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu(), sc)
+              and torch.equal(dequantize(qg, sg, bits).cpu(),
+                              dequantize(qc, sc, bits)))
+        log(f"[train-comm] quantize/dequantize int{bits} at {tuple(x.shape)}"
+            f" on the card: the CPU's bits {ok}")
+        if not ok:
+            raise AssertionError(f"int{bits} quantizers differ on the card")
+    q4 = torch.from_numpy(rng.integers(-7, 8, size=x.shape).astype(np.int8))
+    ok = (torch.equal(pack_int4(q4.to(dev)).cpu(), pack_int4(q4))
+          and torch.equal(unpack_int4(pack_int4(q4.to(dev))).cpu(), q4))
+    log(f"[train-comm] pack_int4/unpack_int4 on the card: the CPU's bits "
+        f"and a round trip {ok}")
+    if not ok:
+        raise AssertionError("int4 packing differs on the card")
+
+    # §V-B and the quantized wire on the single device
+    single = {}
+    for name, kw in (("bf16_collectives", dict(bf16_collectives=True)),
+                     ("compress=bf16", dict(compress="bf16")),
+                     ("compress=int8", dict(compress="int8"))):
+        single[name] = run(with_opts(plan.mesh, **kw), graph, CHUNK)
+    lg, _, st, _ = single["compress=int8"]
+    zero = all(bool((v == 0).all()) for v in st.comm_ef.values())
+    same = same_run(single["compress=int8"], (log8, params8))
+    log(f"[train-comm] compress=int8, 8 steps: bit-identical to phase 5 "
+        f"{same}, {len(st.comm_ef)} EF accumulators all exactly zero {zero}")
+    if not (same and zero):
+        raise AssertionError("the int8 wire at g = 1 is not the identity")
+
+    # the same options, and the ring, through a NCCL group of one rank
+    store = ROOT / "build" / "chip_smoke" / f"store5c.{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = fourd.make_mesh_4d(1, 1)
+        mgraph = fourd.build_plan(pg, cfg, mesh, batch=TRAIN_BATCH,
+                                  opts=plan.opts).shard_graph(pg)
+        for name, kw in (("bf16_collectives", dict(bf16_collectives=True)),
+                         ("compress=bf16", dict(compress="bf16"))):
+            got = run(with_opts(mesh, **kw), mgraph, CHUNK)
+            same = same_run(got, single[name])
+            rel = abs(got[0].losses[0] - log8.losses[0]) / abs(
+                log8.losses[0])
+            log(f"[train-comm] {name}, 8 steps: single device and NCCL "
+                f"bit-identical {same}; first loss {got[0].losses[0]:.7f} "
+                f"vs f32 {log8.losses[0]:.7f} (rel {rel:.3e}, limit "
+                f"{BF16_LOSS_RTOL}); losses {[round(v, 5) for v in got[0].losses]}")
+            if not (same and rel <= BF16_LOSS_RTOL):
+                raise AssertionError(f"{name}: the bf16 wire is off")
+        got = run(with_opts(mesh, overlap_impl="ring"), mgraph, CHUNK)
+        same = same_run(got, (log8, params8))
+        log(f"[train-comm] overlap_impl=ring through NCCL, 8 steps: "
+            f"bit-identical to phase 5b {same}")
+        if not same:
+            raise AssertionError("the ring differs from the none path")
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+    # §V-A: 48 steps with the next batch built on a side stream
+    pplan = with_opts(plan.mesh)
+    torch.cuda.synchronize()
+    zero_launches()
+    lg, params, _, tr = run(pplan, graph, TRAIN_STEPS, prefetch=True)
+    launches = read_launches()
+    same = same_run((lg, params), (log48, params48))
+    host_ms = tr.tracer.totals().get("prefetch", 0.0) * 1e3 / TRAIN_STEPS
+    log(f"[train-comm] prefetch, {TRAIN_STEPS} steps: losses and params "
+        f"bit-identical to phase 5's {same}, launches {launches}, host "
+        f"time in the prefetch {host_ms:.4f} ms/step")
+    if not same:
+        raise AssertionError("prefetch changed the run")
+    # the warm-up batch, then one prefetched after each step (the last
+    # one is the carry a checkpoint would hold)
+    expect = dict(expect, extract_dense_fused=TRAIN_STEPS + 1)
+    if launches != expect:
+        raise AssertionError(f"kernel launches {launches} with prefetch, "
+                             f"expected {expect}")
+    ms = {True: [lg.ms_per_step], False: []}
+    for prefetch in (False, True, False, True, False):
+        ms[prefetch].append(run(pplan, graph, TRAIN_STEPS,
+                                prefetch)[0].ms_per_step)
+    log(f"[train-comm] ms/step over {TRAIN_STEPS} steps, in turns: prefetch "
+        f"on {', '.join(f'{v:.4f}' for v in ms[True])}; off "
+        f"{', '.join(f'{v:.4f}' for v in ms[False])}")
+
+    # one profiled chunk with prefetch on: do side and main kernels overlap
+    from torch.profiler import ProfilerActivity, profile
+    tr = Trainer(pplan, make_opt(),
+                 TrainLoopConfig(total_steps=CHUNK, chunk_size=CHUNK,
+                                 prefetch=True), eval_fn=lambda p, g: 0.0)
+    state = tr.init_state(fresh(), graph)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        tr.run(state, graph)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    trace = ROOT / "build" / "chip_smoke" / "prefetch_trace.json"
+    prof.export_chrome_trace(str(trace))
+    ov = _stream_overlap_us(trace, "extract_dense_kernel")
+    trace.unlink()
+    device_profile(prof, wall_us, f"one chunk of {CHUNK} training steps with "
+                   "prefetch", spans=("sample", "extract"))
+    log(f"[train-comm] prefetch chunk: side-stream kernels "
+        f"{ov['side_us']:.1f} us, main-stream kernels {ov['main_us']:.1f} us,"
+        f" both at once {ov['overlap_us']:.1f} us of {wall_us:.1f} us wall")
     return launches
 
 

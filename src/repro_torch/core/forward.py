@@ -3,11 +3,17 @@ training options and its dropout generators.
 
 Counterpart of ``repro/core/forward.py``: ``TrainOptions`` (every field,
 the same defaults except ``extract_impl``, which names the port's
-backends), ``_dropout_key`` and ``ForwardEngine`` with its ``"none"``
-overlap path. The engine runs the 3D-PMM layer program on this rank's
-shards of a ``fourd.Mesh`` — input projection, L layers of [aggregate ->
-GEMM -> residual reshard -> tail -> rotate], output head — with one
-all-reduce per product (``core/pmm3d.py``). The aggregation backend is
+backends), ``wire_format``, ``_dropout_key`` and ``ForwardEngine``. The
+engine runs the 3D-PMM layer program on this rank's shards of a
+``fourd.Mesh`` — input projection, L layers of [residual reshard ->
+aggregate -> GEMM -> tail -> rotate], output head — with one all-reduce
+per product (``core/pmm3d.py``), under the paper's §V communication
+options: a bf16 wire (``bf16_collectives``, ``compress="bf16"``), the
+ring schedule (``overlap_impl="ring"``: the residual reshard issued
+first, the SpMM partial reduced in chunks and each chunk GEMMed as it
+lands) and quantized wires (``compress`` int8 or int4, per layer under
+``compress_schedule``) whose error-feedback residuals the caller carries
+(``ef``). The aggregation backend is
 ``"dense"`` (a dense block, ``blk @ h``), ``"ell"`` (a block-ELL ``(tiles,
 colidx)`` pair through the SpMM kernel) or ``"csr"`` (a padded-CSR triple
 over the whole local shard: full-graph eval). The tail is plain PyTorch or
@@ -15,24 +21,28 @@ the fused CUDA kernel (``TrainOptions.fused_elementwise``): fully fused
 when the feature dim is whole on the rank (g = 1, or RMSNorm off), else
 the distributed RMSNorm (an FP32 all-reduce) followed by the kernel
 without its norm. At 1x1x1x1 every all-reduce is the identity and the
-engine computes exactly ``core.gcn_model.forward``. Values this slice
-cannot honour raise ``NotImplementedError`` naming their ROADMAP item.
+engine computes exactly ``core.gcn_model.forward`` (a bf16 wire keeps its
+casts). Values the port cannot honour yet raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.core import pmm3d
 from repro_torch.core import sampling as smp
 from repro_torch.core.gcn_model import GCNConfig
-from repro_torch.core.precision import BF16_WIRE, psum_maybe_bf16
+from repro_torch.core.precision import WIRE_FORMATS, psum_maybe_bf16
 from repro_torch.obs.tracer import phase
 
-_COMM = 'ROADMAP queue 1, "Ring overlap and compressed collectives"'
 BACKENDS = ("dense", "ell", "csr")
+OVERLAPS = ("none", "ring")
+COMPRESS_SCHEDULES = ("uniform", "variable")
+# the formats with a quantized wire: the ones that carry error feedback
+QUANTIZED_FORMATS = ("int8", "int4")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,17 +65,11 @@ class TrainOptions:
     ell_tile: int = 128                # (bm = bn) tile side
     ell_slots: int = 16                # max nonzero col-tiles per row-block
     extract_impl: str = "torch"        # "torch" | "cuda" (fused kernel)
-    overlap_impl: str = "none"         # "none" ("ring")
-    compress: str = "none"             # "none" ("bf16", "int8", "int4")
-    compress_schedule: str = "uniform"
+    overlap_impl: str = "none"         # "none" | "ring"
+    compress: str = "none"             # "none" | "bf16" | "int8" | "int4"
+    compress_schedule: str = "uniform"  # "uniform" | "variable"
 
     def __post_init__(self):
-        if self.bf16_collectives:
-            raise NotImplementedError(BF16_WIRE)
-        if self.compress != "none" or self.overlap_impl == "ring":
-            raise NotImplementedError(
-                f"compress={self.compress!r}, overlap_impl="
-                f"{self.overlap_impl!r}: {_COMM}")
         if self.sample_kind in ("partition", "walk"):
             raise NotImplementedError(
                 f"sample_kind={self.sample_kind!r} is {smp._LOCALITY}")
@@ -75,18 +79,32 @@ class TrainOptions:
                 "float32 blocks")
         for name, value, allowed in (
                 ("reshard_impl", self.reshard_impl, ("gather", "permute")),
-                ("overlap_impl", self.overlap_impl, ("none",)),
+                ("overlap_impl", self.overlap_impl, OVERLAPS),
+                ("compress", self.compress, WIRE_FORMATS),
                 ("sample_kind", self.sample_kind, ("stratified",)),
                 ("sample_mode", self.sample_mode, ("step", "epoch")),
                 ("block_dtype", self.block_dtype, ("f32",)),
                 ("spmm_impl", self.spmm_impl, ("dense", "ell")),
                 ("extract_impl", self.extract_impl, ("torch", "cuda")),
                 ("compress_schedule", self.compress_schedule,
-                 ("uniform", "variable"))):
+                 COMPRESS_SCHEDULES)):
             if value not in allowed:
                 raise ValueError(f"{name}={value!r}: one of {allowed}")
         if not 0.0 <= self.dropout < 1.0:
             raise ValueError(f"dropout={self.dropout}")
+
+
+def wire_format(compress: str, schedule: str, layer: int,
+                num_layers: int) -> str:
+    """The wire format of layer ``layer`` (0-based): ``compress`` on every
+    layer under ``"uniform"``; under ``"variable"`` the bf16 -> int8 ->
+    int4 ladder ramped with depth, capped at ``compress``."""
+    if compress in ("none", "bf16") or schedule == "uniform" \
+            or num_layers <= 1:
+        return compress
+    ladder = ["bf16", "int8", "int4"]
+    cap = ladder.index(compress)
+    return ladder[int(layer * cap / (num_layers - 1) + 0.5)]
 
 
 def _dropout_key(opts: TrainOptions, step: int, layer: int, row: int = 0,
@@ -139,6 +157,17 @@ class ForwardEngine:
         if self.backend == "csr" and self.csr_rows <= 0:
             raise ValueError("backend 'csr' needs the local row count "
                              "(csr_rows)")
+        fmts, g = self.wire_formats, self.grid_side
+        # int4 packs two nibbles per byte along the feature axis
+        if "int4" in fmts and (self.cfg.d_hidden // g) % 2:
+            raise ValueError(
+                "int4 compression needs an even local feature width "
+                f"(d_hidden={self.cfg.d_hidden} / g={g})")
+        if fmts[-1] == "int4" and -(-self.cfg.num_classes // g) % 2:
+            raise ValueError(
+                "int4 head compression needs an even local class width "
+                f"(padded classes / g = {-(-self.cfg.num_classes // g)}); "
+                "use int8 or pad num_classes")
 
     @classmethod
     def from_options(cls, cfg: GCNConfig, opts: TrainOptions, mesh, *,
@@ -152,6 +181,51 @@ class ForwardEngine:
     @property
     def grid_side(self) -> int:
         return self.mesh.shape["x"]
+
+    # -- the compressible collectives ----------------------------------------
+
+    @property
+    def wire_formats(self) -> Tuple[str, ...]:
+        """Each layer's wire format, covering its SpMM and GEMM all-reduces
+        and its residual reshard; the input projection follows layer 0's,
+        the head the last layer's."""
+        L = self.cfg.num_layers
+        return tuple(wire_format(self.opts.compress,
+                                 self.opts.compress_schedule, li, L)
+                     for li in range(L))
+
+    @property
+    def quantized(self) -> bool:
+        """Whether any collective sends an int8 or int4 wire: exactly when
+        the engine carries error feedback."""
+        return bool(self.ef_sites())
+
+    def ef_sites(self) -> Tuple[Tuple[str, str], ...]:
+        """The (site, format) pairs that carry an error-feedback
+        accumulator, in the order the forward consumes them: the one
+        definition ``__call__`` and ``fourd.make_ef`` both follow."""
+        fmts = self.wire_formats
+        sites = []
+        if fmts[0] in QUANTIZED_FORMATS:
+            sites.append(("proj", fmts[0]))
+        for li, f in enumerate(fmts):
+            if f not in QUANTIZED_FORMATS:
+                continue
+            if self.cfg.use_residual:
+                sites.append((f"l{li}_reshard", f))
+            sites.append((f"l{li}_spmm", f))
+            sites.append((f"l{li}_gemm", f))
+        if fmts[-1] in QUANTIZED_FORMATS:
+            sites.append(("head", fmts[-1]))
+        return tuple(sites)
+
+    def ef_site_shapes(self, batch_local: int) -> Dict[str, tuple]:
+        """This rank's shape of each EF accumulator for a training batch of
+        ``batch_local`` rows per vertex range."""
+        dloc = self.cfg.d_hidden // self.grid_side
+        ncl = -(-self.cfg.num_classes // self.grid_side)
+        return {site: (batch_local, ncl if site == "head" else dloc)
+                for site, _ in self.ef_sites()}
 
     def aggregate_local(self, blk: Any, h: torch.Tensor) -> torch.Tensor:
         """The local A @ H partial product, before the row-axis
@@ -206,32 +280,97 @@ class ForwardEngine:
         return h
 
     def __call__(self, params, adj_blocks: Sequence[Any],
-                 x_local: torch.Tensor, *, step: int, train: bool):
+                 x_local: torch.Tensor, *, step: int, train: bool,
+                 ef: Optional[Dict[str, torch.Tensor]] = None):
         """§III forward under 3D PMM: ``adj_blocks[l % len]`` is this
         rank's block for layer l's rotation plane, in the backend's
         format; ``x_local`` the local feature block on plane (x, z).
         Returns ``(logits, state)``: the local logits on plane (row, rep)
-        of the final state."""
+        of the final state. With ``ef`` (the error-feedback accumulators
+        of ``ef_sites``) each quantized send compresses ``x + ef[site]``
+        and the call returns ``(logits, state, new_ef)``; without it the
+        quantized wires run without feedback (eval, the stateless
+        ``make_train_step``)."""
         cfg, opts, mesh = self.cfg, self.opts, self.mesh
-        bf16 = opts.bf16_collectives
+        ring = opts.overlap_impl == "ring"
+        fmts = self.wire_formats
+        collect = {} if ef is not None else None
+
+        def take_ef(site: str, like: torch.Tensor) -> torch.Tensor:
+            if ef is None:
+                return torch.zeros_like(like, dtype=torch.float32)
+            if site not in ef:
+                raise KeyError(f"no EF accumulator for site {site!r}")
+            return ef[site]
+
+        def put_ef(site: str, resid: torch.Tensor) -> None:
+            if collect is not None:
+                collect[site] = resid
+
+        def ar(x, axis_name, fmt, site):
+            """The PMM all-reduce: the quantized ring (with EF) for an int
+            wire, else the ring or the monolithic sum, bf16 on the wire
+            under either knob."""
+            axis = mesh.axis(axis_name)
+            if fmt in QUANTIZED_FORMATS:
+                y, r = pmm3d.compressed_psum(x, axis, fmt, take_ef(site, x))
+                put_ef(site, r)
+                return y
+            bf = fmt == "bf16" or opts.bf16_collectives
+            if ring:
+                return pmm3d.ring_psum(x, axis, bf16=bf)
+            return psum_maybe_bf16(x, axis, bf)
+
         st = pmm3d.initial_state()
         # input projection (Eq. 4): IN (x, z) @ W_in (z, y) -> sum z ->
         # F (x, y)
-        h = pmm3d.pmm_matmul(x_local, params["w_in"], mesh.axis("z"),
-                             bf16=bf16)
+        h = ar(x_local @ params["w_in"], "z", fmts[0], "proj")
         for li, layer in enumerate(params["layers"]):
             blk = adj_blocks[li % len(adj_blocks)]
+            fmt = fmts[li]
+            quant = fmt in QUANTIZED_FORMATS
+            # the residual moves (r, c) -> (p, r) (paper §IV-C4); issued
+            # first, it depends on h only
             res = None
-            if cfg.use_residual:       # (r, c) -> (p, r), paper §IV-C4
+            if cfg.use_residual:
                 with phase("reshard"):
-                    res = pmm3d.reshard(h, mesh, st, (st.rep, st.row),
-                                        impl=opts.reshard_impl)
+                    to = (st.rep, st.row)
+                    if quant:
+                        site = f"l{li}_reshard"
+                        res, r = pmm3d.reshard_compressed(
+                            h, mesh, st, to, fmt, take_ef(site, h),
+                            impl=opts.reshard_impl)
+                        put_ef(site, r)
+                    elif fmt == "bf16":       # the reshard's wire too
+                        res = pmm3d.reshard(
+                            h.to(torch.bfloat16), mesh, st, to,
+                            impl=opts.reshard_impl,
+                            overlap=opts.overlap_impl).to(h.dtype)
+                    else:
+                        res = pmm3d.reshard(h, mesh, st, to,
+                                            impl=opts.reshard_impl,
+                                            overlap=opts.overlap_impl)
             with phase("spmm"):        # A (p, r) @ H (r, c) -> sum r
-                part = psum_maybe_bf16(self.aggregate_local(blk, h),
-                                       mesh.axis(st.row), bf16)
+                part = self.aggregate_local(blk, h)
+                if not ring and not quant:
+                    part = ar(part, st.row, fmt, None)
             with phase("gemm"):        # H (p, c) @ W (c, r) -> sum c
-                conv = pmm3d.pmm_matmul(part, layer["w"], mesh.axis(st.col),
-                                        bf16=bf16)
+                if quant:
+                    # a quantized ring is chunked anyway: the SpMM's reduce
+                    # feeds the GEMM chunk by chunk at either overlap
+                    site = f"l{li}_spmm"
+                    conv, r = pmm3d.compressed_psum_gemm(
+                        part, layer["w"], mesh.axis(st.row), fmt,
+                        take_ef(site, part))
+                    put_ef(site, r)
+                    conv = ar(conv, st.col, fmt, f"l{li}_gemm")
+                elif ring:
+                    bf = fmt == "bf16" or opts.bf16_collectives
+                    conv = ar(pmm3d.ring_psum_gemm(
+                        part, layer["w"], mesh.axis(st.row), bf16=bf),
+                        st.col, fmt, None)
+                else:
+                    conv = ar(part @ layer["w"], st.col, fmt, None)
             mask = (self.keep_mask(step, li, st, tuple(conv.shape),
                                    conv.device)
                     if train and opts.dropout > 0 else None)
@@ -240,6 +379,7 @@ class ForwardEngine:
             st = st.rotate()
         # output head (Eq. 11): X (r, c) @ W_out (c, p) -> sum c -> logits
         # (r, p)
-        logits = pmm3d.pmm_matmul(h, params["w_out"], mesh.axis(st.col),
-                                  bf16=bf16)
+        logits = ar(h @ params["w_out"], st.col, fmts[-1], "head")
+        if ef is not None:
+            return logits, st, collect
         return logits, st

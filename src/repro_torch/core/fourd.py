@@ -24,6 +24,13 @@ makes no call: the step is the single-device step. A mesh of more than one
 rank needs ``torch.distributed`` initialised first: NCCL for a mesh on the
 cards (``device=None`` is ``cuda:LOCAL_RANK``), gloo for one on the CPU.
 
+With compressed collectives (``TrainOptions.compress`` int8 or int4) each
+quantized site carries an error-feedback accumulator (:func:`make_ef`):
+the loss and :func:`value_and_grad` take it in and hand the new one out.
+A checkpoint holds each as the reference's global ``(G_d, g, g, g) +
+local`` array, and the §V-A prefetch carry (a ``Minibatch``) as the
+reference's global arrays with a leading ``d`` dim.
+
 The reference's training path takes dropout from ``TrainOptions.dropout``
 and the fused tail from ``TrainOptions.fused_elementwise``, not from the
 ``GCNConfig`` fields; :func:`model_config` makes that mapping explicit.
@@ -42,7 +49,7 @@ from repro_torch.core import gcn_model as M
 from repro_torch.core import pmm3d
 from repro_torch.core import sampling as smp
 from repro_torch.core.forward import ForwardEngine, TrainOptions
-from repro_torch.core.minibatch import MinibatchBuilder
+from repro_torch.core.minibatch import Minibatch, MinibatchBuilder
 from repro_torch.device import resolve_device
 from repro_torch.graphs.partition import PartitionedGraph
 from repro_torch.tree import (Path, flatten_with_paths, leaves, map_with_path,
@@ -69,8 +76,11 @@ class Mesh:
         return int(np.prod([self.shape[a] for a in AXES_4D]))
 
     def axis(self, name: str) -> pmm3d.Axis:
+        ranks = tuple(self.rank_at({name: k})
+                      for k in range(self.shape[name]))
         return pmm3d.Axis(name, self.coords[name], self.shape[name],
-                          None if self.groups is None else self.groups[name])
+                          None if self.groups is None else self.groups[name],
+                          ranks)
 
     def rank_at(self, coords: Dict[str, int]) -> int:
         """The rank at this rank's coordinates with ``coords`` replaced."""
@@ -207,15 +217,39 @@ class FourDPlan:
 
     def spec_of(self, path: Path) -> Tuple[Optional[str], ...]:
         """The sharding of the leaf at ``path`` in a tree that holds params
-        (params, grads, optimizer moments, a ``TrainState``): the spec of
-        the parameter its path ends in, () for a replicated leaf (a step
-        counter)."""
+        (params, grads, optimizer moments, a ``TrainState``): the mesh axis
+        of each dim of its global array (None: whole), () for a replicated
+        leaf (a step counter). A parameter's is the spec of the parameter
+        its path ends in; the carries of a ``TrainState`` add leading dims
+        (:meth:`lead_dims`): an EF accumulator is (d, x, y, z) + its local
+        shape, a prefetched ``Minibatch`` leaf ``d`` + its plane (the
+        reference's layouts)."""
+        if path and path[0] == ".comm_ef":
+            return AXES_4D + (None, None)
+        if path and path[0] == ".minibatch":
+            if path[1] == ".feats":
+                return ("d", "x", "z")
+            if path[1] == ".labels":
+                return ("d", pmm3d.state_after_layers(
+                    self.cfg.num_layers).row)
+            st = pmm3d.initial_state()
+            for _ in range(int(path[2])):
+                st = st.rotate()
+            return ("d",) + st.adj_plane + (None, None)
         specs = param_specs(self.cfg.num_layers)
         if path and path[-1] in ("w_in", "w_out"):
             return specs[path[-1]]
         if len(path) >= 3 and path[-3] == "layers":
             return specs["layers"][int(path[-2])][path[-1]]
         return ()
+
+    @staticmethod
+    def lead_dims(path: Path) -> int:
+        """How many leading dims the global array of the leaf at ``path``
+        has that a rank's shard has not: 4 for an EF accumulator, 1 for the
+        prefetch carry, else 0."""
+        return {".comm_ef": 4, ".minibatch": 1}.get(path[0] if path else "",
+                                                    0)
 
     def shard(self, tree):
         """This rank's shards of a tree of global (unsharded) leaves, on
@@ -231,9 +265,12 @@ class FourDPlan:
                 t = pad_output_head({"w_out": t}, self.cfg.num_classes,
                                     self.grid_side)[0]["w_out"]
             for dim, a in enumerate(self.spec_of(path)):
-                if self.mesh.shape[a] > 1:
+                if a is not None and self.mesh.shape[a] > 1:
                     n = t.shape[dim] // self.mesh.shape[a]
                     t = t.narrow(dim, self.mesh.coords[a] * n, n)
+            lead = self.lead_dims(path)
+            if lead:
+                t = t.reshape(t.shape[lead:])
             return t.contiguous()
         return map_with_path(one, tree)
 
@@ -243,8 +280,12 @@ class FourDPlan:
         the gathers and gets the whole tree), the head's class padding cut
         off: the inverse of :meth:`shard`."""
         def one(path, t):
+            lead = self.lead_dims(path)
+            if lead:
+                t = t.reshape((1,) * lead + tuple(t.shape))
             for dim, a in enumerate(self.spec_of(path)):
-                t = pmm3d.all_gather(t, self.mesh.axis(a), dim)
+                if a is not None:
+                    t = pmm3d.all_gather(t, self.mesh.axis(a), dim)
             if path and path[-1] == "w_out":
                 t = t[:, :self.cfg.num_classes]
             return t
@@ -339,10 +380,31 @@ def build_plan(pg: PartitionedGraph, cfg: M.GCNConfig, mesh: Mesh,
                             e_cap=e_cap).validate()
     builder = MinibatchBuilder.from_options(
         scfg, opts, max_row_nnz=max(pg.max_block_row_nnz, 1))
-    return FourDPlan(mesh=mesh, cfg=cfg, scfg=scfg, opts=opts,
+    plan = FourDPlan(mesh=mesh, cfg=cfg, scfg=scfg, opts=opts,
                      builder=builder,
                      num_classes_padded=padded_class_count(cfg.num_classes,
                                                            g))
+    plan.engine()                  # the engine's own checks (int4 widths)
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# Error-feedback accumulators (compressed collectives)
+# ---------------------------------------------------------------------------
+
+def ef_local_shapes(plan: FourDPlan) -> Dict[str, tuple]:
+    """site -> this rank's EF shape for the plan's training batch."""
+    return plan.engine().ef_site_shapes(plan.scfg.batch // plan.grid_side)
+
+
+def make_ef(plan: FourDPlan) -> Optional[Dict[str, torch.Tensor]]:
+    """Zero float32 EF accumulators, one per quantized site, this rank's
+    own, on the plan's device; None when no wire is quantized."""
+    shapes = ef_local_shapes(plan)
+    if not shapes:
+        return None
+    return {site: torch.zeros(shp, dtype=torch.float32, device=plan.device)
+            for site, shp in shapes.items()}
 
 
 class LossFn:
@@ -350,32 +412,44 @@ class LossFn:
     (replicated over x, y and z), differentiable; calling the object gives
     the (G_d,) per-group losses, gathered over ``d``. ``ids`` injects this
     rank's DP group's (g, b) sample in place of drawing it from ``(seed,
-    epoch, step, d)``."""
+    epoch, step, d)``; ``mb`` gives the batch itself (the §V-A carry), and
+    ``ef`` the error-feedback accumulators, in which case the loss comes
+    with the new ones: ``(loss, new_ef)``."""
 
     def __init__(self, plan: FourDPlan, train: bool):
         self.plan, self.train = plan, train
         self.engine = plan.engine()
 
-    def local(self, params, graph, step, epoch=None, *, ids=None
-              ) -> torch.Tensor:
-        plan, mesh = self.plan, self.plan.mesh
-        step = int(step)
-        mb = plan.builder.build_local(
-            graph["adj"], graph["features"], graph["labels"], step,
-            plan.cfg.num_layers, mesh.coords,
+    def sample(self, graph, step, epoch=None, *, ids=None) -> Minibatch:
+        """This rank's batch of ``step`` (Alg. 2, no communication)."""
+        plan = self.plan
+        return plan.builder.build_local(
+            graph["adj"], graph["features"], graph["labels"], int(step),
+            plan.cfg.num_layers, plan.mesh.coords,
             epoch=None if epoch is None else int(epoch), ids=ids)
-        logits, st = self.engine(params, mb.adj, mb.feats, step=step,
-                                 train=self.train)
+
+    def local(self, params, graph, step, epoch=None, *, ids=None,
+              mb: Optional[Minibatch] = None, ef=None):
+        mesh = self.plan.mesh
+        step = int(step)
+        if mb is None:
+            mb = self.sample(graph, step, epoch, ids=ids)
+        out = self.engine(params, mb.adj, mb.feats, step=step,
+                          train=self.train, ef=ef)
+        logits, st = out[:2]
         nll_sum, cnt = pmm3d.parallel_cross_entropy(
             logits, mb.labels, class_axis=mesh.axis(st.rep),
-            row_axis=mesh.axis(st.row), n_classes=plan.cfg.num_classes)
-        return nll_sum / torch.clamp(cnt, min=1.0)
+            row_axis=mesh.axis(st.row), n_classes=self.plan.cfg.num_classes)
+        loss = nll_sum / torch.clamp(cnt, min=1.0)
+        return loss if ef is None else (loss, out[2])
 
     @torch.no_grad()
-    def __call__(self, params, graph, step, epoch=None, *, ids=None
-                 ) -> torch.Tensor:
-        loss = self.local(params, graph, step, epoch, ids=ids)
-        return pmm3d.all_gather(loss[None], self.plan.mesh.axis("d"))
+    def __call__(self, params, graph, step, epoch=None, *, ids=None,
+                 mb: Optional[Minibatch] = None, ef=None):
+        out = self.local(params, graph, step, epoch, ids=ids, mb=mb, ef=ef)
+        loss = out if ef is None else out[0]
+        losses = pmm3d.all_gather(loss[None], self.plan.mesh.axis("d"))
+        return losses if ef is None else (losses, out[1])
 
 
 def make_loss_fn(plan: FourDPlan, *, train: bool = True) -> LossFn:
@@ -385,30 +459,37 @@ def make_loss_fn(plan: FourDPlan, *, train: bool = True) -> LossFn:
 
 
 def value_and_grad(loss_fn: LossFn, params, graph, step, epoch=None, *,
-                   ids=None):
+                   ids=None, mb: Optional[Minibatch] = None, ef=None):
     """The mean over ``d`` of the per-group losses and its gradient, as
     shards in the structure of ``params`` (whose leaves are set to require
     grad), in the reference's convention: this rank's loss gets the
     cotangent ``1 / (G_d g^3)``, the all-reduces transpose to all-reduces,
-    and each shard's gradient is summed over the axes that replicate it."""
+    and each shard's gradient is summed over the axes that replicate it.
+    With ``ef`` it returns ``(loss, grads, new_ef)``."""
     plan = loss_fn.plan
     flat = leaves(params)
     for p in flat:
         p.requires_grad_(True)
     with torch.enable_grad():
-        loss = loss_fn.local(params, graph, step, epoch, ids=ids)
-        out = loss if plan.mesh.size == 1 else loss / plan.mesh.size
-        grads = torch.autograd.grad(out, flat)
+        out = loss_fn.local(params, graph, step, epoch, ids=ids, mb=mb,
+                            ef=ef)
+        loss = out if ef is None else out[0]
+        scaled = loss if plan.mesh.size == 1 else loss / plan.mesh.size
+        grads = torch.autograd.grad(scaled, flat)
     grads = plan.reduce_grads(unflatten(params, list(grads)))
     losses = pmm3d.all_gather(loss.detach()[None], plan.mesh.axis("d"))
-    return losses.mean(), grads
+    if ef is None:
+        return losses.mean(), grads
+    return losses.mean(), grads, {k: v.detach() for k, v in out[1].items()}
 
 
 def make_train_step(plan: FourDPlan, optimizer):
     """``(params, opt_state, graph, step, *, ids=None) -> (params,
     opt_state, loss)`` on this rank's shards. The optimizer updates
     ``params`` in place (clipping by the global norm over the shards) and
-    returns the same tensors."""
+    returns the same tensors. Under a quantized ``compress`` this step runs
+    without error feedback (zero accumulators every step); the carry lives
+    in ``train.Trainer``."""
     loss_fn = make_loss_fn(plan, train=True)
 
     def train_step(params, opt_state, graph, step, *, ids=None):

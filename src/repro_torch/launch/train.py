@@ -7,14 +7,18 @@ steps, one eval per report boundary, full-state checkpointing with
 ``--device cpu`` (a rehearsal on the CPU, where every kernel runs its
 plain version). A mesh of more than one rank runs under ``torchrun``, one
 process per rank: NCCL on the cards (rank r on ``cuda:LOCAL_RANK``), gloo
-with ``--device cpu``. The flags of features not ported yet raise
-``NotImplementedError`` naming their ROADMAP item. Examples::
+with ``--device cpu``; ``--overlap ring``, ``--compress``,
+``--compress-schedule``, ``--bf16-collectives`` and ``--prefetch`` select
+the paper's §V communication and sampling overlaps. The flags of features
+not ported yet raise ``NotImplementedError`` naming their ROADMAP item.
+Examples::
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --dataset ogbn-products --vertices 65536 --batch 1024 --steps 100 \\
         --fused-elementwise
     PYTHONPATH=src torchrun --nproc_per_node 8 -m repro_torch.launch.train \\
-        --device cpu --g 2 --vertices 2048 --batch 256 --steps 8
+        --device cpu --g 2 --vertices 2048 --batch 256 --steps 8 \\
+        --overlap ring --compress int8 --prefetch
 """
 from __future__ import annotations
 
@@ -82,7 +86,7 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="XLA's latency-hiding scheduler; no counterpart "
                          "on this path")
     ap.add_argument("--prefetch", action="store_true",
-                    help="§V-A sampling overlap: not ported yet")
+                    help="§V-A: build the next batch on a side stream")
     ap.add_argument("--chunk-size", type=int, default=8,
                     help="optimizer steps per chunk")
     ap.add_argument("--target-acc", type=float, default=None)
@@ -113,9 +117,9 @@ def main(argv=None):
     if args.epochs is None and args.steps is None:
         args.steps = 300
     if args.xla_overlap:
-        raise NotImplementedError(
-            "--xla-overlap sets XLA scheduler flags; the port's overlap is "
-            'ROADMAP queue 1, "Ring overlap and compressed collectives"')
+        raise ValueError(
+            "--xla-overlap sets XLA scheduler flags, which have no "
+            "counterpart here: the port overlaps with --overlap ring")
     if args.mmap_dir:
         raise NotImplementedError(
             "--mmap-dir: mmap shard ingestion is ROADMAP queue 1, "

@@ -28,10 +28,18 @@ The cadences and restore rules are the reference's:
   snapshots it with ``.clone()`` on the device (queued on the current
   stream, so the next in-place update cannot reach it), and a worker
   thread of rank 0 copies it to the host and writes it, overlapping with
-  the next chunk; at most one save is in flight.
+  the next chunk; at most one save is in flight;
+* **§V-A prefetch** (``prefetch=True``) — the state carries batch t
+  (``TrainState.minibatch``, built at ``init_state`` for step 0); a step
+  consumes it, then builds batch t + 1 on a side CUDA stream after its
+  forward and backward are enqueued (``core/pipeline.py``), the epoch of
+  step t + 1 derived there, so the carry crosses epoch boundaries. The
+  losses are prefetch-off's bit for bit;
+* **error feedback** — under a quantized ``TrainOptions.compress`` the
+  state carries the accumulators (``TrainState.comm_ef``) from step to
+  step and into checkpoints.
 
-§V-A prefetch is ROADMAP queue 1, "§V-A prefetch" (``prefetch=True``
-raises). Capturing a chunk in a CUDA graph is later work.
+Capturing a chunk in a CUDA graph is later work.
 """
 from __future__ import annotations
 
@@ -46,6 +54,7 @@ from repro_torch.checkpoint import (checkpoint_keys, checkpoint_path,
                                     latest_step, load_checkpoint,
                                     save_checkpoint)
 from repro_torch.core import fourd
+from repro_torch.core import pipeline as PL
 from repro_torch.obs.tracer import Tracer
 from repro_torch.train.state import TrainState, init_train_state
 from repro_torch.tree import tree_map
@@ -61,7 +70,7 @@ class TrainLoopConfig:
 
     total_steps: Optional[int] = None
     chunk_size: int = 8        # optimizer steps per chunk
-    prefetch: bool = False     # §V-A: not ported yet
+    prefetch: bool = False     # §V-A: build batch t + 1 on a side stream
     eval_every: Optional[int] = 0   # steps between evals (0/None = never),
                                # rounded up to the enclosing chunk boundary
     target_acc: Optional[float] = None   # stop once an eval reaches this
@@ -123,10 +132,6 @@ class Trainer:
                  loop: TrainLoopConfig, *,
                  eval_fn: Optional[Callable] = None,
                  tracer: Optional[Tracer] = None):
-        if loop.prefetch:
-            raise NotImplementedError(
-                "prefetch=True (§V-A sampling overlap) is ROADMAP queue 1, "
-                '"§V-A prefetch"')
         self.plan = plan
         self.optimizer = optimizer
         self.loop = loop
@@ -137,7 +142,10 @@ class Trainer:
         self.eval_every = (loop.eval_every_epochs * self.steps_per_epoch
                            if loop.eval_every_epochs is not None
                            else (loop.eval_every or 0))
-        self._loss_fn = fourd.make_loss_fn(plan, train=True)
+        self._sample_fn, self._loss_fn = PL.make_pipeline_fns(plan)
+        self._side = PL.SideStream(plan.device)
+        # a quantized wire carries error-feedback accumulators in the state
+        self._uses_ef = self._loss_fn.engine.quantized
         self.eval_fn = eval_fn if eval_fn is not None \
             else fourd.make_eval_step(plan)
         self._save_thread: Optional[threading.Thread] = None
@@ -146,11 +154,17 @@ class Trainer:
     # -- state construction --------------------------------------------------
 
     def init_state(self, params, graph=None) -> TrainState:
-        """A fresh state at step 0 over the rank's param shards
-        (``graph`` is the reference's signature; without prefetch it is
-        not needed)."""
-        del graph
-        return init_train_state(params, self.optimizer.init(params))
+        """A fresh state at step 0 over the rank's param shards: with the
+        warm-up batch when prefetching (``graph`` is needed then) and zero
+        EF accumulators when a wire is quantized."""
+        mb = None
+        if self.loop.prefetch:
+            if graph is None:
+                raise ValueError("prefetch=True builds the warm-up batch at "
+                                 "init_state: pass graph=...")
+            mb = self._sample_fn(graph, 0, 0)
+        ef = fourd.make_ef(self.plan) if self._uses_ef else None
+        return init_train_state(params, self.optimizer.init(params), mb, ef)
 
     def save(self, state: TrainState, directory: Optional[str] = None,
              *, sync: bool = True,
@@ -212,10 +226,19 @@ class Trainer:
         """Latest (or given-step) full-state checkpoint, restored into the
         structure, dtypes and devices of ``example_state`` (the rank's
         shards, sliced from the global leaves); None when there is none.
-        Every rank calls it. A checkpoint without the ``.epoch`` leaf gets
-        it from the step; leaves the port's state does not hold (the
-        reference's prefetch carry or error feedback) are left unread."""
-        del graph
+        Every rank calls it. The reference's rules for checkpoints written
+        under other flags:
+
+        * one without the ``.epoch`` leaf gets it from the step;
+        * one without the prefetch carry, restored with prefetch on,
+          rebuilds the warm-up batch from the restored (step, epoch) when
+          ``graph`` is given (the carry is a pure function of them), and
+          raises otherwise; one with the carry, restored with prefetch
+          off, drops it;
+        * one without EF accumulators, restored under a quantized wire,
+          starts from zero ones (they only shift when the quantization
+          error is corrected); one with them, restored without, drops
+          them."""
         directory = directory or self.loop.ckpt_dir
         if not directory:
             raise ValueError("no checkpoint directory configured")
@@ -223,11 +246,23 @@ class Trainer:
             step = latest_step(directory, name=CKPT_NAME)
             if step is None:
                 return None
-        has_epoch = ".epoch" in checkpoint_keys(directory, step,
-                                                name=CKPT_NAME)
+        keys = checkpoint_keys(directory, step, name=CKPT_NAME)
+        heads = {k.split("::")[0] for k in keys}
+        has_epoch = ".epoch" in heads
+        rebuild_carry = self.loop.prefetch and ".minibatch" not in heads
+        backfill_ef = self._uses_ef and ".comm_ef" not in heads
+        if rebuild_carry and graph is None:
+            raise ValueError(
+                f"checkpoint step {step} in {directory} was written without "
+                "the §V-A prefetch carry but this Trainer has prefetch=True: "
+                "pass graph=... to restore() to rebuild the warm-up batch "
+                "(the same bits: the carry is a pure function of (seed, "
+                "epoch, step)), or resume with prefetch off")
         example = self.plan.unshard(example_state)
-        if not has_epoch:
-            example = dataclasses.replace(example, epoch=None)
+        example = dataclasses.replace(
+            example, epoch=example.epoch if has_epoch else None,
+            minibatch=None if rebuild_carry else example.minibatch,
+            comm_ef=None if backfill_ef else example.comm_ef)
         state, _ = load_checkpoint(directory, step, example, name=CKPT_NAME)
         state = self.plan.shard(state)
         if not has_epoch:
@@ -235,20 +270,42 @@ class Trainer:
                 state, epoch=torch.tensor(int(state.step)
                                           // self.steps_per_epoch,
                                           dtype=torch.int32))
+        if backfill_ef:
+            state = dataclasses.replace(state,
+                                        comm_ef=fourd.make_ef(self.plan))
+        if rebuild_carry:
+            state = dataclasses.replace(state, minibatch=self._sample_fn(
+                graph, int(state.step), int(state.epoch)))
         return state
 
     # -- one step ------------------------------------------------------------
 
     def step(self, state: TrainState, graph) -> torch.Tensor:
         """One optimizer step in place; returns the loss, the mean over the
-        DP groups (on the device)."""
-        loss, grads = fourd.value_and_grad(self._loss_fn, state.params,
-                                           graph, state.step, state.epoch)
-        self.optimizer.update(state.params, grads, state.opt_state,
+        DP groups (on the device). With prefetch it consumes the carried
+        batch and leaves batch t + 1, built on the side stream, in its
+        place; with error feedback it leaves the new accumulators."""
+        mb = None
+        if self.loop.prefetch:
+            self._side.join()
+            mb = state.minibatch
+        out = fourd.value_and_grad(self._loss_fn, state.params, graph,
+                                   state.step, state.epoch, mb=mb,
+                                   ef=state.comm_ef)
+        nxt = int(state.step) + 1
+        if self.loop.prefetch:
+            # after the forward and backward are enqueued (paper §V-A); the
+            # span is the host's time in the build, its sync included
+            with self.tracer.span("prefetch"):
+                state.minibatch = self._side.build(
+                    self._sample_fn, graph, nxt, nxt // self.steps_per_epoch)
+        if state.comm_ef is not None:
+            state.comm_ef = out[2]
+        self.optimizer.update(state.params, out[1], state.opt_state,
                               sumsq=self.plan.global_sumsq)
         state.step = state.step + 1
         state.epoch = state.step // self.steps_per_epoch
-        return loss
+        return out[0]
 
     # -- the driver loop -----------------------------------------------------
 
@@ -279,6 +336,7 @@ class Trainer:
             with tr.span("chunk"):      # launch time (the card runs async)
                 device_losses += [self.step(state, graph) for _ in range(n)]
             done += n
+            self._side.join()        # the carry is the main stream's again
 
             if eval_every and done // eval_every > eval_mark:
                 eval_mark = done // eval_every

@@ -1,22 +1,26 @@
 """The training-loop state.
 
 Counterpart of ``repro/train/state.py``. ``TrainState`` holds the params,
-the optimizer state, and the ``step`` and ``epoch`` counters that seed the
+the optimizer state, the ``step`` and ``epoch`` counters that seed the
 communication-free sampling and dropout (int32 scalars on the CPU, so the
-runner reads them without waiting on the card). Its leaves' paths are the
+runner reads them without waiting on the card), and two carries that are
+``None`` when their feature is off: ``minibatch``, the §V-A prefetch carry
+(batch ``step``, already built), and ``comm_ef``, the error-feedback
+accumulators of the compressed collectives (``fourd.make_ef``). The
+fields are in the reference's order, so its leaves' paths are the
 reference's checkpoint keys (``.params::w_in``, ``.opt_state::mu::...``,
-``.step``, ``.epoch``), so a state checkpoint loads in either package.
-On a mesh the state holds this rank's shards of the params and of the
-optimizer moments; a checkpoint holds the global leaves
-(``Trainer.save``). The §V-A prefetch carry and the compressed-collective
-error feedback of the reference's state come with their features.
+``.step``, ``.minibatch::.adj::0``, ``.epoch``, ``.comm_ef::l0_spmm``) and a
+state checkpoint loads in either package. On a mesh the state holds this
+rank's shards; a checkpoint holds the global leaves (``Trainer.save``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Dict, Optional
 
 import torch
+
+from repro_torch.core.minibatch import Minibatch
 
 
 @dataclasses.dataclass
@@ -27,11 +31,18 @@ class TrainState:
     params: Any
     opt_state: Any
     step: torch.Tensor
-    epoch: torch.Tensor
+    minibatch: Optional[Minibatch] = None
+    epoch: Optional[torch.Tensor] = None
+    comm_ef: Optional[Dict[str, torch.Tensor]] = None
 
 
-def init_train_state(params, opt_state) -> TrainState:
-    """A fresh state at step 0, epoch 0."""
+def init_train_state(params, opt_state,
+                     minibatch: Optional[Minibatch] = None,
+                     comm_ef: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> TrainState:
+    """A fresh state at step 0, epoch 0 (EF accumulators start at zero)."""
     return TrainState(params=params, opt_state=opt_state,
                       step=torch.zeros((), dtype=torch.int32),
-                      epoch=torch.zeros((), dtype=torch.int32))
+                      minibatch=minibatch,
+                      epoch=torch.zeros((), dtype=torch.int32),
+                      comm_ef=comm_ef)

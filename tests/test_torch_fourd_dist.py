@@ -261,7 +261,9 @@ def test_checkpoints_move_between_one_device_and_the_mesh(runs):
 
 def test_train_cli_runs_under_torchrun_at_g2(tmp_path):
     """The CLI's rehearsal on 8 gloo ranks (``torchrun --standalone``):
-    trains, evaluates, writes one unsharded checkpoint and resumes it."""
+    trains, evaluates, writes one unsharded checkpoint and resumes it; then
+    resumes that checkpoint with the ring, the int8 wire and prefetch on
+    (the warm-up batch rebuilt, zero EF accumulators backfilled)."""
     def cli(steps, *extra):
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                "--nproc_per_node", "8", "-m", "repro_torch.launch.train",
@@ -277,6 +279,9 @@ def test_train_cli_runs_under_torchrun_at_g2(tmp_path):
     assert "full-graph accuracy" in out and "state_00000002.npz" in out
     assert out.count("done: steps") == 1           # rank 0 reports
     assert "resumed: step 2" in cli(4, "--resume")
+    out = cli(6, "--resume", "--overlap", "ring", "--compress", "int8",
+              "--prefetch")
+    assert "resumed: step 4" in out and "state_00000006.npz" in out
 
 
 # ---------------------------------------------------------------------------

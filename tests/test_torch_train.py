@@ -2,8 +2,11 @@
 training step through ``fourd.make_train_step`` on a 1x1x1 plan (block-ELL
 SpMM, fused tail, fused extraction) against the reference's on a 1x1x1
 mesh with the reference's own sample injected; dropout through the model
-with the reference's masks injected; and the port's ``Trainer`` resuming
-bit for bit on the CPU."""
+with the reference's masks injected; the port's ``Trainer`` resuming bit
+for bit on the CPU; and its §V-A prefetch carry and error-feedback carry,
+their restore rules and their checkpoint keys, as the reference's
+``tests/test_train_runtime.py`` and ``tests/test_compress.py`` hold
+them."""
 import dataclasses
 
 import jax
@@ -216,24 +219,25 @@ def test_trainer_eval_cadence_and_target_stop(data):
 def test_unported_options_raise(data):
     """Options not ported raise, naming their ROADMAP item by its title; a
     mesh of more than one rank needs a process group (the mesh itself runs
-    in ``test_torch_fourd_dist.py``), and reshard_impl="permute" is
-    ported."""
+    in ``test_torch_fourd_dist.py``), reshard_impl="permute" is ported, and
+    an int4 wire the widths cannot pack raises ``ValueError``."""
     ds, jcfg, _ = data
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 8"):
         tfourd.make_mesh_4d(1, 2, "cpu")
-    comm = "Ring overlap and compressed collectives"
-    for kw, item in ((dict(compress="int8"), comm),
-                     (dict(overlap_impl="ring"), comm),
-                     (dict(bf16_collectives=True), comm),
-                     (dict(sample_kind="walk"),
+    for kw, item in ((dict(sample_kind="walk"),
                       "Locality sampling modes and ingestion"),
                      (dict(block_dtype="bf16"), "bf16")):
         with pytest.raises(NotImplementedError, match=item):
             TrainOptions(**kw)
     assert TrainOptions(reshard_impl="permute").reshard_impl == "permute"
-    with pytest.raises(NotImplementedError, match="§V-A prefetch"):
-        Trainer(_tplan(ds, jcfg), topt.Sgd(),
-                TrainLoopConfig(total_steps=1, prefetch=True))
+    with pytest.raises(ValueError, match="even local class width"):
+        _tplan(ds, dataclasses.replace(jcfg, num_classes=5),
+               compress="int4")
+    with pytest.raises(ValueError, match="even local feature width"):
+        _tplan(ds, dataclasses.replace(jcfg, d_hidden=33),
+               compress="int4", compress_schedule="variable")
+    with pytest.raises(ValueError, match="compress"):
+        TrainOptions(compress="int2")
 
 
 def test_train_cli_rehearses_on_cpu(tmp_path, capsys):
@@ -250,3 +254,223 @@ def test_train_cli_rehearses_on_cpu(tmp_path, capsys):
     # a mesh of 8 ranks runs under torchrun (test_torch_fourd_dist.py)
     with pytest.raises(ValueError, match="torchrun"):
         tlaunch.main(["--device", "cpu", "--g", "2"])
+
+
+# ---------------------------------------------------------------------------
+# §V-A prefetch and the error-feedback carry
+# ---------------------------------------------------------------------------
+
+def _prefetch_trainer(plan, prefetch, ckpt_dir=None, **loop):
+    kw = dict(total_steps=6, chunk_size=2)
+    kw.update(loop)
+    return Trainer(plan, topt.AdamW(lr=5e-3),
+                   TrainLoopConfig(prefetch=prefetch, ckpt_dir=ckpt_dir,
+                                   **kw), eval_fn=lambda p, g: 0.0)
+
+
+def _fresh(np_params):
+    return TM.params_from_numpy(np_params, device="cpu")
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_prefetch_losses_bit_identical_to_prefetch_off(data, chunk):
+    """Chunks of 1 and 4 over 6 steps (4 does not divide 6), dropout on:
+    the carried batch is a pure function of (seed, epoch, step, dp), so
+    the losses and the final state are prefetch-off's bit for bit."""
+    ds, jcfg, np_params = data
+    plan = _tplan(ds, jcfg, dropout=0.3, seed=4)
+    graph = plan.shard_graph(tbuild(ds, g=1))
+    out = {}
+    for prefetch in (False, True):
+        tr = _prefetch_trainer(plan, prefetch, chunk_size=chunk)
+        st, log = tr.run(tr.init_state(_fresh(np_params), graph), graph)
+        assert int(st.step) == 6 and len(log.losses) == 6
+        assert (st.minibatch is not None) == prefetch
+        out[prefetch] = log.losses, st.params
+    assert out[True][0] == out[False][0]
+    for a, b in zip(leaves(out[True][1]), leaves(out[False][1])):
+        assert torch.equal(a, b)
+
+
+def test_prefetched_train_step_matches_the_trainer(data):
+    """``pipeline.make_prefetched_train_step``, stepped by hand from the
+    warm-up batch, gives the losses and params of the Trainer without
+    prefetch."""
+    from repro_torch.core import pipeline as PL
+    ds, jcfg, np_params = data
+    plan = _tplan(ds, jcfg, dropout=0.3, seed=4)
+    graph = plan.shard_graph(tbuild(ds, g=1))
+    opt = topt.AdamW(lr=5e-3)
+    sample_fn, step_fn = PL.make_prefetched_train_step(plan, opt)
+    params = _fresh(np_params)
+    state = PL.PrefetchState(params, opt.init(params), sample_fn(graph, 0))
+    losses = []
+    for step in range(6):
+        state, loss = step_fn(state, graph, step)
+        losses.append(loss.item())
+    tr = _prefetch_trainer(plan, False)
+    st, log = tr.run(tr.init_state(_fresh(np_params)), graph)
+    assert losses == log.losses
+    for a, b in zip(leaves(state.params), leaves(st.params)):
+        assert torch.equal(a, b)
+
+
+def test_prefetch_carry_crosses_the_epoch_boundary(data):
+    """Under sample_mode="epoch", chunks of 3 over 2 epochs of 4 steps:
+    the batch prefetched at step 3 comes from epoch 1's permutation inside
+    one chunk, and the losses are prefetch-off's bit for bit."""
+    ds, jcfg, np_params = data
+    plan = _tplan(ds, jcfg, sample_mode="epoch")
+    graph = plan.shard_graph(tbuild(ds, g=1))
+    out = {}
+    for prefetch in (False, True):
+        tr = Trainer(plan, topt.AdamW(lr=5e-3), TrainLoopConfig(
+            epochs=2, chunk_size=3, prefetch=prefetch),
+            eval_fn=lambda p, g: 0.0)
+        assert tr.total_steps == 8 and tr.steps_per_epoch == 4
+        st, log = tr.run(tr.init_state(_fresh(np_params), graph), graph)
+        assert int(st.step) == 8 and int(st.epoch) == 2
+        out[prefetch] = log.losses
+    assert out[True] == out[False]
+
+
+def test_prefetch_resume_is_bit_identical(data, tmp_path):
+    """Save at step 4 with the carry, restore into a fresh Trainer and go
+    on: the loss tail and the final state are the uninterrupted run's."""
+    ds, jcfg, np_params = data
+    plan = _tplan(ds, jcfg, dropout=0.3, seed=4)
+    graph = plan.shard_graph(tbuild(ds, g=1))
+    tr = _prefetch_trainer(plan, True, str(tmp_path), ckpt_every=4)
+    full, full_log = tr.run(tr.init_state(_fresh(np_params), graph), graph)
+    rest = _prefetch_trainer(plan, True, str(tmp_path))
+    state = rest.restore(rest.init_state(_fresh(np_params), graph), step=4)
+    assert int(state.step) == 4 and state.minibatch is not None
+    state, log = rest.run(state, graph)
+    assert log.losses == full_log.losses[4:]
+    for a, b in zip(leaves(state), leaves(full)):
+        assert torch.equal(a, b)
+
+
+def test_restore_with_prefetch_from_a_checkpoint_without_the_carry(
+        data, tmp_path):
+    """A checkpoint written with prefetch off, restored with it on: without
+    the graph it raises, naming prefetch; with it the warm-up batch is
+    rebuilt, and the run goes on as an all-prefetch run does."""
+    ds, jcfg, np_params = data
+    plan = _tplan(ds, jcfg)
+    graph = plan.shard_graph(tbuild(ds, g=1))
+    off = _prefetch_trainer(plan, False, str(tmp_path), total_steps=4)
+    off.run(off.init_state(_fresh(np_params), graph), graph)
+    on = _prefetch_trainer(plan, True, str(tmp_path))
+    example = on.init_state(_fresh(np_params), graph)
+    with pytest.raises(ValueError, match="prefetch"):
+        on.restore(example)
+    state = on.restore(example, graph=graph)
+    assert int(state.step) == 4 and state.minibatch is not None
+    state, log = on.run(state, graph)
+    ref = _prefetch_trainer(plan, True)
+    _, ref_log = ref.run(ref.init_state(_fresh(np_params), graph), graph)
+    assert log.losses == ref_log.losses[4:]
+
+
+def test_restore_without_prefetch_drops_the_carry(data, tmp_path):
+    ds, jcfg, np_params = data
+    plan = _tplan(ds, jcfg)
+    graph = plan.shard_graph(tbuild(ds, g=1))
+    on = _prefetch_trainer(plan, True, str(tmp_path), total_steps=4)
+    on.run(on.init_state(_fresh(np_params), graph), graph)
+    off = _prefetch_trainer(plan, False, str(tmp_path))
+    state = off.restore(off.init_state(_fresh(np_params)))
+    assert int(state.step) == 4 and state.minibatch is None
+    state, log = off.run(state, graph)
+    ref = _prefetch_trainer(plan, False)
+    _, ref_log = ref.run(ref.init_state(_fresh(np_params)), graph)
+    assert log.losses == ref_log.losses[4:]
+
+
+def test_prefetch_needs_the_graph_at_init(data):
+    ds, jcfg, np_params = data
+    tr = _prefetch_trainer(_tplan(ds, jcfg), True)
+    with pytest.raises(ValueError, match="graph"):
+        tr.init_state(_fresh(np_params))
+
+
+def test_compress_none_has_no_ef_state(data):
+    ds, jcfg, np_params = data
+    plan = _tplan(ds, jcfg)
+    assert not plan.engine().quantized and tfourd.make_ef(plan) is None
+    graph = plan.shard_graph(tbuild(ds, g=1))
+    tr = _prefetch_trainer(plan, False, total_steps=2)
+    state = tr.init_state(_fresh(np_params), graph)
+    assert state.comm_ef is None
+    state, log = tr.run(state, graph)
+    assert state.comm_ef is None and len(log.losses) == 2
+
+
+def test_trainer_carries_and_checkpoints_ef(data, tmp_path):
+    """The EF carry survives the run and a save and restore; restoring a
+    checkpoint without it backfills zero accumulators, which train on. At
+    g = 1 nothing travels, so the int8 run is the uncompressed one bit for
+    bit and its accumulators stay zero."""
+    ds, jcfg, np_params = data
+    plan = _tplan(ds, jcfg, compress="int8")
+    graph = plan.shard_graph(tbuild(ds, g=1))
+    sites = dict(plan.engine().ef_sites())
+    assert len(sites) == 3 * LAYERS + 2 and set(sites.values()) == {"int8"}
+    tr = _prefetch_trainer(plan, False, str(tmp_path / "ef"), total_steps=4)
+    state = tr.init_state(_fresh(np_params), graph)
+    assert sorted(state.comm_ef) == sorted(sites)
+    assert state.comm_ef["head"].shape == (BATCH, CLASSES)
+    state, log = tr.run(state, graph)
+    none = _prefetch_trainer(_tplan(ds, jcfg), False, total_steps=4)
+    _, none_log = none.run(none.init_state(_fresh(np_params)), graph)
+    assert log.losses == none_log.losses
+    assert all(not v.any() for v in state.comm_ef.values())
+    restored = tr.restore(tr.init_state(_fresh(np_params), graph))
+    assert int(restored.step) == 4
+    for k in sites:
+        assert torch.equal(restored.comm_ef[k], state.comm_ef[k])
+    # a checkpoint without the EF leaves -> zero accumulators
+    pre = _prefetch_trainer(_tplan(ds, jcfg), False, str(tmp_path / "pre"),
+                            total_steps=2)
+    pre.run(pre.init_state(_fresh(np_params)), graph)
+    q = _prefetch_trainer(plan, False, str(tmp_path / "pre"), total_steps=4)
+    back = q.restore(q.init_state(_fresh(np_params)))
+    assert int(back.step) == 2 and sorted(back.comm_ef) == sorted(sites)
+    assert all(not v.any() for v in back.comm_ef.values())
+    back, log = q.run(back, graph)
+    assert int(back.step) == 4 and np.isfinite(log.losses).all()
+
+
+def test_checkpoint_keys_and_shapes_match_the_reference(data, tmp_path):
+    """A state checkpoint with the prefetch carry and the EF accumulators
+    (int8, block-ELL) has the reference's keys, each with the reference's
+    shape, for the same plan: the carry as its global (G_d, ...) arrays,
+    each accumulator as (G_d, g, g, g) + its local shape."""
+    from repro.train import Trainer as JTrainer
+    from repro.train import TrainLoopConfig as JLoop
+    ds, jcfg, np_params = data
+    jopts = jfourd.TrainOptions(spmm_impl="ell", compress="int8",
+                                ell_tile=TILE, ell_slots=BATCH // TILE)
+    jplan = jfourd.build_plan(jbuild(ds, g=1), jcfg,
+                              jfourd.make_mesh_4d(1, 1), batch=BATCH,
+                              opts=jopts)
+    jtr = JTrainer(jplan, jopt.AdamW(lr=5e-3), JLoop(
+        total_steps=1, prefetch=True, ckpt_dir=str(tmp_path / "ref")))
+    jgraph = jplan.shard_graph(jbuild(ds, g=1))
+    jstate = jtr.init_state(
+        jplan.shard_params(jax.tree.map(jnp.asarray, np_params)), jgraph)
+    jpath = jtr.save(jstate)
+    plan = _tplan(ds, jcfg, compress="int8")
+    graph = plan.shard_graph(tbuild(ds, g=1))
+    tr = _prefetch_trainer(plan, True, str(tmp_path / "port"))
+    path = tr.save(tr.init_state(_fresh(np_params), graph))
+
+    def shapes(p):
+        with np.load(p) as f:
+            return {k: f[k].shape for k in f.files}
+    want, got = shapes(jpath), shapes(path)
+    assert any(k.startswith(".minibatch::.adj::0::") for k in want)
+    assert any(k.startswith(".comm_ef::") for k in want)
+    assert got == want
+
