@@ -4,7 +4,9 @@ training options and its dropout generators.
 Counterpart of ``repro/core/forward.py``: ``TrainOptions`` (every field,
 the same defaults except ``extract_impl``, which names the port's
 backends), ``wire_format``, ``_dropout_key`` and ``ForwardEngine``. The
-engine runs the 3D-PMM layer program on this rank's shards of a
+dropout masks are counter-based draws from a key derived from the step,
+which may be a device counter (``kernels/counter_rng.py``). The engine
+runs the 3D-PMM layer program on this rank's shards of a
 ``fourd.Mesh`` — input projection, L layers of [residual reshard ->
 aggregate -> GEMM -> tail -> rotate], output head — with one all-reduce
 per product (``core/pmm3d.py``), under the paper's §V communication
@@ -36,6 +38,7 @@ from repro_torch.core import pmm3d
 from repro_torch.core import sampling as smp
 from repro_torch.core.gcn_model import GCNConfig
 from repro_torch.core.precision import WIRE_FORMATS, psum_maybe_bf16
+from repro_torch.kernels import counter_rng as crng
 from repro_torch.obs.tracer import phase
 
 BACKENDS = ("dense", "ell", "csr")
@@ -107,28 +110,30 @@ def wire_format(compress: str, schedule: str, layer: int,
     return ladder[int(layer * cap / (num_layers - 1) + 0.5)]
 
 
-def _dropout_key(opts: TrainOptions, step: int, layer: int, row: int = 0,
-                 col: int = 0, dp: int = 0) -> int:
-    """Per-block dropout key: (seed + 1, step, layer) mixed, then the
-    coordinates of the block's rows and columns and its DP group folded
-    in, as the reference folds them. The replicas of a block along the
-    third axis get the same key, hence the same mask, or they would
-    diverge."""
-    k = smp.fold_in(smp.fold_in(opts.seed + 1, step), layer)
+def _dropout_key(opts: TrainOptions, step: smp.Key, layer: int,
+                 row: int = 0, col: int = 0, dp: int = 0) -> smp.Key:
+    """Per-block dropout key: the layer, the coordinates of the block's
+    rows and columns and its DP group folded into ``seed + 1``, then the
+    step (last, so a device counter costs one fold on the device). The
+    replicas of a block along the third axis get the same key, hence the
+    same mask, or they would diverge."""
+    k = smp.fold_in(opts.seed + 1, layer)
     for coord in (row, col, dp):
         k = smp.fold_in(k, coord)
-    return k
+    return smp.fold_in(k, step)
 
 
-def _keep_mask(opts: TrainOptions, key: int, shape: tuple,
+def _keep_mask(opts: TrainOptions, key: smp.Key, shape: tuple,
                device: Union[str, torch.device]) -> torch.Tensor:
-    """A bool keep-mask, ``rand < 1 - p`` drawn on ``device`` from the
-    generator of ``key``."""
-    return torch.rand(shape, device=device, generator=smp.make_generator(
-        key, device)) < 1.0 - opts.dropout
+    """A (rows, cols) bool keep-mask of ``opts.dropout`` drawn from ``key``
+    on ``device`` (``kernels.counter_rng.keep_mask``: the kernel on the
+    card, its plain version on the CPU)."""
+    rows, cols = shape
+    return crng.keep_mask(smp.key_tensor(key, device), rows, cols,
+                          opts.dropout)
 
 
-def dropout_masks(opts: TrainOptions, step: int, num_layers: int,
+def dropout_masks(opts: TrainOptions, step: smp.Key, num_layers: int,
                   shape: tuple, device: Union[str, torch.device]
                   ) -> List[torch.Tensor]:
     """The single-device step's keep-masks, one per layer: those
@@ -238,10 +243,10 @@ class ForwardEngine:
             return pmm3d.csr_spmm_local(rp, ci, val, h, self.csr_rows)
         return blk @ h
 
-    def keep_mask(self, step: int, layer: int, st: pmm3d.PlaneState,
+    def keep_mask(self, step: smp.Key, layer: int, st: pmm3d.PlaneState,
                   shape: tuple, device: torch.device) -> torch.Tensor:
         """Layer ``layer``'s keep-mask of this rank's block of plane
-        (p, r)."""
+        (p, r); ``step`` may be a device counter."""
         c = self.mesh.coords
         return _keep_mask(self.opts, _dropout_key(
             self.opts, step, layer, c[st.rep], c[st.row], c["d"]), shape,
@@ -280,7 +285,7 @@ class ForwardEngine:
         return h
 
     def __call__(self, params, adj_blocks: Sequence[Any],
-                 x_local: torch.Tensor, *, step: int, train: bool,
+                 x_local: torch.Tensor, *, step: smp.Key, train: bool,
                  ef: Optional[Dict[str, torch.Tensor]] = None):
         """§III forward under 3D PMM: ``adj_blocks[l % len]`` is this
         rank's block for layer l's rotation plane, in the backend's

@@ -414,7 +414,9 @@ class LossFn:
     rank's DP group's (g, b) sample in place of drawing it from ``(seed,
     epoch, step, d)``; ``mb`` gives the batch itself (the §V-A carry), and
     ``ef`` the error-feedback accumulators, in which case the loss comes
-    with the new ones: ``(loss, new_ef)``."""
+    with the new ones: ``(loss, new_ef)``. ``step`` and ``epoch`` are
+    Python ints or the device counters of a ``TrainState``, which no call
+    here reads on the host (a CUDA graph captures the step whole)."""
 
     def __init__(self, plan: FourDPlan, train: bool):
         self.plan, self.train = plan, train
@@ -424,14 +426,12 @@ class LossFn:
         """This rank's batch of ``step`` (Alg. 2, no communication)."""
         plan = self.plan
         return plan.builder.build_local(
-            graph["adj"], graph["features"], graph["labels"], int(step),
-            plan.cfg.num_layers, plan.mesh.coords,
-            epoch=None if epoch is None else int(epoch), ids=ids)
+            graph["adj"], graph["features"], graph["labels"], step,
+            plan.cfg.num_layers, plan.mesh.coords, epoch=epoch, ids=ids)
 
     def local(self, params, graph, step, epoch=None, *, ids=None,
               mb: Optional[Minibatch] = None, ef=None):
         mesh = self.plan.mesh
-        step = int(step)
         if mb is None:
             mb = self.sample(graph, step, epoch, ids=ids)
         out = self.engine(params, mb.adj, mb.feats, step=step,
@@ -485,7 +485,8 @@ def value_and_grad(loss_fn: LossFn, params, graph, step, epoch=None, *,
 
 def make_train_step(plan: FourDPlan, optimizer):
     """``(params, opt_state, graph, step, *, ids=None) -> (params,
-    opt_state, loss)`` on this rank's shards. The optimizer updates
+    opt_state, loss)`` on this rank's shards; ``step`` is an int or a
+    device counter. The optimizer updates
     ``params`` in place (clipping by the global norm over the shards) and
     returns the same tensors. Under a quantized ``compress`` this step runs
     without error feedback (zero accumulators every step); the carry lives

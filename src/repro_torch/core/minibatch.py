@@ -112,43 +112,52 @@ class MinibatchBuilder:
     def steps_per_epoch(self) -> int:
         return self.scfg.steps_per_epoch
 
-    def epoch_of(self, step: int) -> int:
+    def epoch_of(self, step: smp.Key) -> smp.Key:
         """The epoch a global step falls in (boundaries at fixed multiples
-        of ``steps_per_epoch``)."""
+        of ``steps_per_epoch``): an int for an int step, a floor division
+        on the device for a device step."""
+        if isinstance(step, torch.Tensor):
+            return torch.div(step, self.steps_per_epoch,
+                             rounding_mode="floor")
         return int(step) // self.steps_per_epoch
 
-    def sample(self, gen: torch.Generator,
-               t: Optional[int] = None) -> torch.Tensor:
-        """(g, b) global vertex ids — sampling-mode dispatch. ``t`` is the
-        step within the epoch (required under the 'epoch' schedule, where
-        ``gen`` is seeded with the epoch key; ignored under 'step')."""
+    def sample(self, key: torch.Tensor,
+               t: Optional[smp.Key] = None) -> torch.Tensor:
+        """(g, b) global vertex ids — sampling-mode dispatch. ``key`` is the
+        0-d int64 key (``sampling.key_tensor``) on the device that draws;
+        ``t`` is the step within the epoch (required under the 'epoch'
+        schedule, where ``key`` is the epoch key; ignored under 'step')."""
         if self.schedule == "epoch":
             if t is None:
                 raise ValueError("the epoch schedule needs the in-epoch step")
             if self.mode == "exact":
-                return smp.sample_epoch_exact(gen, self.scfg.n_pad,
+                return smp.sample_epoch_exact(key, self.scfg.n_pad,
                                               self.scfg.batch, t)[None]
-            return smp.sample_epoch_stratified(gen, self.scfg, t)
+            return smp.sample_epoch_stratified(key, self.scfg, t)
         if self.mode == "exact":
-            return smp.sample_uniform_exact(gen, self.scfg.n_pad,
+            return smp.sample_uniform_exact(key, self.scfg.n_pad,
                                             self.scfg.batch)[None]
-        return smp.sample_stratified(gen, self.scfg)
+        return smp.sample_stratified(key, self.scfg)
 
-    def sample_ids(self, step: int, epoch: Optional[int], dp_index: int,
-                   *, device: Union[str, torch.device, None] = None
+    def sample_ids(self, step: smp.Key, epoch: Optional[smp.Key],
+                   dp_index: int, *,
+                   device: Union[str, torch.device, None] = None
                    ) -> torch.Tensor:
         """The (g, b) sample as a pure function of ``(seed, epoch, step,
-        dp_index)``, drawn on ``device`` (the card by default): per-step key
-        under 'step', epoch-permutation slice under 'epoch'."""
-        dev = resolve_device(device)
-        step = int(step)
+        dp_index)``: per-step key under 'step', epoch-permutation slice
+        under 'epoch'. Python counters draw on ``device`` (the card by
+        default); a step or epoch that is a device tensor (a ``TrainState``
+        counter) draws on its own device, which derives the key itself: no
+        counter is read on the host."""
+        counters = [c for c in (step, epoch) if isinstance(c, torch.Tensor)]
+        dev = counters[0].device if counters else resolve_device(device)
         if self.schedule == "epoch":
-            epoch = self.epoch_of(step) if epoch is None else int(epoch)
+            if epoch is None:
+                epoch = self.epoch_of(step)
             t = step - epoch * self.steps_per_epoch
-            gen = smp.make_generator(smp.epoch_key(self.seed, epoch,
-                                                   dp_index), dev)
-            return self.sample(gen, t)
-        return self.sample(smp.make_generator(
+            key = smp.epoch_key(self.seed, epoch, dp_index)
+            return self.sample(smp.key_tensor(key, dev), t)
+        return self.sample(smp.key_tensor(
             smp.step_key(self.seed, step, dp_index), dev))
 
     def rescale_constants(self) -> Tuple[float, float]:
@@ -247,13 +256,14 @@ class MinibatchBuilder:
 
     def build_local(self, planes: Sequence[Tuple[Any, Any, Any]],
                     feats_loc: torch.Tensor, labels_loc: torch.Tensor,
-                    step: int, num_layers: int,
+                    step: smp.Key, num_layers: int,
                     coords: Mapping[str, int], *,
-                    epoch: Optional[int] = None,
+                    epoch: Optional[smp.Key] = None,
                     ids: Optional[torch.Tensor] = None) -> Minibatch:
         """Alg. 2 on one rank, with no communication: sample from ``(seed,
-        epoch, step, coords["d"])`` — or take the (g, b) ``ids`` of this
-        rank's DP group — then extract the rank's block of each rotation
+        epoch, step, coords["d"])`` (Python counters or device tensors,
+        which no host reads) — or take the (g, b) ``ids`` of this rank's DP
+        group — then extract the rank's block of each rotation
         plane, and slice its feature rows (on plane (x, z)) and label rows
         (over the final row axis)."""
         with phase("sample"):
@@ -271,8 +281,8 @@ class MinibatchBuilder:
                 labels=self.local_rows(labels_loc, s2d, coords[r_f]))
 
     def build(self, rp: torch.Tensor, ci: torch.Tensor, val: torch.Tensor,
-              features: torch.Tensor, labels: torch.Tensor, step: int, *,
-              epoch: Optional[int] = None, dp_index: int = 0,
+              features: torch.Tensor, labels: torch.Tensor, step: smp.Key,
+              *, epoch: Optional[smp.Key] = None, dp_index: int = 0,
               ids: Optional[torch.Tensor] = None) -> Minibatch:
         """:meth:`build_local` on the 1x1x1x1 mesh (DP group
         ``dp_index``): the batch's one block, features and labels."""
@@ -283,20 +293,20 @@ class MinibatchBuilder:
                                 dict(SINGLE, d=dp_index), epoch=epoch,
                                 ids=ids)
 
-    def build_single(self, gen: torch.Generator, rp: torch.Tensor,
+    def build_single(self, key: torch.Tensor, rp: torch.Tensor,
                      ci: torch.Tensor, val: torch.Tensor,
                      features: torch.Tensor,
                      labels: torch.Tensor) -> smp.MiniBatch:
         """One-device dense batch in the configured sampling mode
-        (Alg. 1)."""
+        (Alg. 1), drawn from ``key``."""
         if self.mode == "exact":
-            s = self.sample(gen)[0]
+            s = self.sample(key)[0]
             inv_p, _ = self.rescale_constants()
             adj = self.extract_block(rp, ci, val, s, s, col_scale=inv_p,
                                      diag=True, fmt=BlockFormat.DENSE)
             return smp.MiniBatch(adj=adj, feats=features[s.long()],
                                  labels=labels[s.long()], vertex_ids=s)
-        return smp.make_minibatch_stratified(gen, rp, ci, val, features,
+        return smp.make_minibatch_stratified(key, rp, ci, val, features,
                                              labels, self.scfg)
 
     # -- the serving path (arbitrary requested vertex sets) ------------------

@@ -3,12 +3,16 @@ extraction (ScaleGNN Alg. 1 and Alg. 2 phases 2-4) in PyTorch.
 
 Counterpart of ``repro/core/sampling.py``. The sample is a pure function
 of ``(seed, step or epoch, dp_index)``: :func:`step_key` /
-:func:`epoch_key` mix those into one 64-bit key (splitmix64), and the key
-seeds a ``torch.Generator`` on the sampling device (:func:`make_generator`)
-that the samplers draw their ``torch.randperm`` from. The port cannot
-reproduce ``jax.random.permutation``'s bits, so it is held to the
-reference's properties instead: sorted distinct in-range ids, each vertex
-once per epoch when ``batch | n``, epoch slice 0 equal to the step sampler.
+:func:`epoch_key` mix those into one 64-bit key (splitmix64), and the
+samplers draw from the key with counters: the permutation of ``n`` is the
+argsort of ``fold_in(key, i)`` over ``i < n`` (``kernels/counter_rng.py``,
+a CUDA kernel on the card). Where the step is a device tensor, the key is
+derived on the device and the draw reads it there, so the host never
+waits and a CUDA graph of the step draws each replay's own sample; the
+bits are the same on the CPU and on the card. The port cannot reproduce
+``jax.random.permutation``'s bits, so it is held to the reference's
+properties instead: sorted distinct in-range ids, each vertex once per
+epoch when ``batch | n``, epoch slice 0 equal to the step sampler.
 
 Two modes, as in the reference: ``exact`` (Eq. 20, ``sort(perm(N)[:B])``)
 and ``stratified`` (``b = B/g`` vertices per contiguous range, with the
@@ -32,6 +36,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
+
+from repro_torch.kernels import counter_rng as crng
 
 _LOCALITY = 'ROADMAP queue 1, "Locality sampling modes and ingestion"'
 
@@ -98,7 +104,8 @@ class SampleConfig(NamedTuple):
 # Keys and vertex sampling (Eq. 20)
 # ---------------------------------------------------------------------------
 
-_MASK64 = (1 << 64) - 1
+_MASK64 = crng.MASK64
+Key = Union[int, torch.Tensor]
 
 
 def _splitmix64(x: int) -> int:
@@ -109,83 +116,103 @@ def _splitmix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
-def fold_in(key: int, data: int) -> int:
+def fold_in(key: Key, data: Key) -> Key:
     """Fold an integer into a 64-bit key (the ``jax.random.fold_in`` of
-    the port: fixed, so a key is the same on every host and device)."""
-    return _splitmix64(_splitmix64(int(key) & _MASK64)
-                       ^ (int(data) & _MASK64))
+    the port: fixed, so a key is the same on every host and device).
+    Python ints give a Python int in [0, 2^64); where either is a tensor
+    (a step counter on the device) the result is an int64 tensor holding
+    the same bits, computed on the tensor's device without reading it."""
+    if not isinstance(key, torch.Tensor) and \
+            not isinstance(data, torch.Tensor):
+        return _splitmix64(_splitmix64(int(key) & _MASK64)
+                           ^ (int(data) & _MASK64))
+    if isinstance(key, torch.Tensor):
+        mixed = crng.splitmix64(key.long())
+    else:
+        mixed = crng.signed64(_splitmix64(int(key) & _MASK64))
+    if isinstance(data, torch.Tensor):
+        data = data.long()
+    else:
+        data = crng.signed64(data)
+    return crng.splitmix64(data ^ mixed)
 
 
-def step_key(seed: int, step: int, dp_index: int = 0) -> int:
-    """The shared per-step key: (step, dp_group) folded into the seed. All
-    devices of one DP group derive the same key, hence the same sample."""
-    return fold_in(fold_in(seed, step), dp_index)
+def step_key(seed: int, step: Key, dp_index: int = 0) -> Key:
+    """The shared per-step key: (dp_group, step) folded into the seed. All
+    devices of one DP group derive the same key, hence the same sample.
+    The step is folded last, so a device counter costs one fold there."""
+    return fold_in(fold_in(seed, dp_index), step)
 
 
-def epoch_key(seed: int, epoch: int, dp_index: int = 0) -> int:
-    """The shared per-epoch key: (epoch, dp_group) folded into the seed; one
-    key -> one epoch permutation, sliced by the steps of the epoch."""
-    return fold_in(fold_in(seed, epoch), dp_index)
+def epoch_key(seed: int, epoch: Key, dp_index: int = 0) -> Key:
+    """The shared per-epoch key: (dp_group, epoch) folded into the seed;
+    one key -> one epoch permutation, sliced by the steps of the epoch."""
+    return fold_in(fold_in(seed, dp_index), epoch)
 
 
-def make_generator(key: int, device: Union[str, torch.device]
-                   ) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded with ``key``."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(key)
-    return gen
+def key_tensor(key: Key, device: Union[str, torch.device, None] = None
+               ) -> torch.Tensor:
+    """``key`` as the 0-d int64 tensor the draws read (a Python key is
+    written on ``device`` by a fill, which a CUDA graph can capture)."""
+    if isinstance(key, torch.Tensor):
+        return key.long().reshape(())
+    return torch.full((), crng.signed64(key), dtype=torch.int64,
+                      device=device)
 
 
-def _perm(gen: torch.Generator, n: int) -> torch.Tensor:
-    return torch.randperm(n, generator=gen, device=gen.device,
-                          dtype=torch.int32)
+def _perm(key: torch.Tensor, n: int, rows: int = 1) -> torch.Tensor:
+    """``rows`` permutations of ``n // rows`` each, int64 (rows, n // rows):
+    row r orders ``r * n / rows + j`` by ``fold_in(key, .)``, a bijection,
+    so the keys are distinct and the argsort exact."""
+    return torch.argsort(crng.hash_keys(key, n).view(rows, n // rows), dim=1)
 
 
-def _slice_sorted(perm: torch.Tensor, t: int, b: int) -> torch.Tensor:
-    """Sorted slice ``t`` of width ``b`` (the start clamped into range, as
-    the reference's dynamic slice clamps it)."""
-    start = min(max(int(t) * b, 0), perm.shape[0] - b)
-    return torch.sort(perm[start:start + b]).values
+def _slice_sorted(perm: torch.Tensor, t: Key, b: int) -> torch.Tensor:
+    """Sorted slice ``t`` of width ``b`` of each row of ``perm`` (the start
+    clamped into range, as the reference's dynamic slice clamps it); ``t``
+    may be a device tensor. A Python ``t`` is written on the device by a
+    fill, which a CUDA graph can capture."""
+    m = perm.shape[-1]
+    if not isinstance(t, torch.Tensor):
+        t = torch.full((), int(t), dtype=torch.int64, device=perm.device)
+    start = torch.clamp(t.long() * b, 0, m - b)
+    part = perm.index_select(-1, start + torch.arange(b, device=perm.device))
+    return torch.sort(part, dim=-1).values
 
 
-def sample_uniform_exact(gen: torch.Generator, n: int,
+def sample_uniform_exact(key: torch.Tensor, n: int,
                          batch: int) -> torch.Tensor:
     """Paper Eq. 20: B distinct vertices uniformly, sorted ascending
-    (int32, on the generator's device)."""
+    (int32, on the key's device)."""
+    return sample_epoch_exact(key, n, batch, 0)
+
+
+def sample_epoch_exact(key: torch.Tensor, n: int, batch: int,
+                       t: Key) -> torch.Tensor:
+    """Without-replacement epoch schedule, exact mode: step ``t`` of the
+    epoch is slice ``t`` of the one permutation of the epoch key, sorted;
+    slice 0 equals :func:`sample_uniform_exact` under the same key."""
     if batch > n:
         raise ValueError(f"batch={batch} > n={n}: perm[:batch] would return "
                          f"only {n} vertices and corrupt the Eq. 23 rescale")
-    return _slice_sorted(_perm(gen, n), 0, batch)
+    return _slice_sorted(_perm(key, n), t, batch)[0].to(torch.int32)
 
 
-def sample_epoch_exact(gen: torch.Generator, n: int, batch: int,
-                       t: int) -> torch.Tensor:
-    """Without-replacement epoch schedule, exact mode: step ``t`` of the
-    epoch is slice ``t`` of the one permutation drawn from the epoch
-    generator, sorted; slice 0 equals :func:`sample_uniform_exact` under
-    the same seed."""
-    if batch > n:
-        raise ValueError(f"batch={batch} > n={n}")
-    return _slice_sorted(_perm(gen, n), t, batch)
-
-
-def sample_stratified(gen: torch.Generator,
+def sample_stratified(key: torch.Tensor,
                       cfg: SampleConfig) -> torch.Tensor:
     """b = B/g distinct vertices per contiguous range: (g, b) global ids,
-    sorted within each range (one permutation per range, drawn in range
-    order from ``gen``)."""
-    n_loc, b = cfg.n_local, cfg.b_local
-    return torch.stack([_slice_sorted(_perm(gen, n_loc), 0, b) + i * n_loc
-                        for i in range(cfg.g)])
+    sorted within each range (one permutation per range)."""
+    return sample_epoch_stratified(key, cfg, 0)
 
 
-def sample_epoch_stratified(gen: torch.Generator, cfg: SampleConfig,
-                            t: int) -> torch.Tensor:
+def sample_epoch_stratified(key: torch.Tensor, cfg: SampleConfig,
+                            t: Key) -> torch.Tensor:
     """Without-replacement epoch schedule, stratified mode: one permutation
     per range, step ``t`` takes slice ``t`` of each; (g, b) global ids."""
-    n_loc, b = cfg.n_local, cfg.b_local
-    return torch.stack([_slice_sorted(_perm(gen, n_loc), t, b) + i * n_loc
-                        for i in range(cfg.g)])
+    n_loc = cfg.n_local
+    local = _slice_sorted(_perm(key, cfg.n_pad, cfg.g), t, cfg.b_local)
+    base = torch.arange(cfg.g, device=local.device)[:, None] * n_loc
+    return (local + base).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -400,14 +427,14 @@ class MiniBatch(NamedTuple):
 
 
 def make_minibatch_exact(
-    gen: torch.Generator,
+    key: torch.Tensor,
     rp: torch.Tensor, ci: torch.Tensor, val: torch.Tensor,
     features: torch.Tensor, labels: torch.Tensor,
     n: int, batch: int, e_cap: int,
 ) -> MiniBatch:
     """Paper Alg. 1 on one device: sample S, build the dense rescaled A_S,
     slice features/labels (Eq. 26)."""
-    s = sample_uniform_exact(gen, n, batch)
+    s = sample_uniform_exact(key, n, batch)
     inv_p = (n - 1) / (batch - 1)          # 1/p, Eq. 23
     adj = extract_dense_block(rp, ci, val, s, s, e_cap,
                               rescale_offdiag=inv_p, is_diag_block=True)
@@ -416,7 +443,7 @@ def make_minibatch_exact(
 
 
 def make_minibatch_stratified(
-    gen: Optional[torch.Generator],
+    key: Optional[torch.Tensor],
     rp: torch.Tensor, ci: torch.Tensor, val: torch.Tensor,
     features: torch.Tensor, labels: torch.Tensor,
     cfg: SampleConfig, *, ids: Optional[torch.Tensor] = None,
@@ -424,8 +451,8 @@ def make_minibatch_stratified(
     """Single-device reference of the stratified sampler (g ranges, one
     device), assembled block by block so each block uses its pairwise
     constant. ``ids`` injects a (g, b) sample in place of drawing one from
-    ``gen``."""
-    s2d = sample_stratified(gen, cfg) if ids is None else ids
+    ``key``."""
+    s2d = sample_stratified(key, cfg) if ids is None else ids
     s = s2d.reshape(-1)                                  # sorted globally
     inv_same, inv_cross = rescale_constants(cfg)
     rows_of = [torch.cat([extract_dense_block(

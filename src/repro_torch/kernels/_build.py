@@ -26,6 +26,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # every exported function: name -> argtypes (pointers and the stream are
 # c_void_p, or ctypes would pass them as 32-bit ints); all return an int
 SIGNATURES = {
@@ -47,6 +48,10 @@ SIGNATURES = {
     # scale, bf16, stream
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _F, _I, _P],
+    # key, n, out, stream
+    "repro_hash_keys": [_P, _L, _P, _P],
+    # key, n, threshold, out, stream
+    "repro_keep_mask": [_P, _L, _I, _P, _P],
     # grid, threads, stream: an empty kernel, the launch floor (measurement)
     "repro_empty_kernel": [_I, _I, _P],
 }

@@ -206,23 +206,20 @@ def dense_to_block_ell_ranked(adj: torch.Tensor, bm: int, bn: int,
     """Dense -> block-ELL with the direct extraction's slot layout
     (``core.sampling.extract_block_ell``): slot s of a row-block holds its
     s-th smallest non-empty column-block; blocks past ``n_slots`` are
-    dropped."""
+    dropped. Fixed-shape work with no read on the host (a CUDA graph can
+    capture it): slot s's column-block is where the running count of
+    non-empty blocks first reaches s + 1."""
     blocks = _blocks(adj, bm, bn)
     n_rb, n_cb = blocks.shape[:2]
-    nz = blocks.float().abs().sum(dim=(2, 3)) > 0
-    rank = torch.cumsum(nz.long(), dim=1) - 1              # ascending-cb rank
-    ok = nz & (rank < n_slots)
-    rb, cb = ok.nonzero(as_tuple=True)
-    slot = rank[rb, cb]
-    # each kept block has a slot of its own: the scatter-add onto zeros of
-    # the reference, restricted to the kept blocks
-    tiles = torch.zeros((n_rb, n_slots, bm, bn), dtype=adj.dtype,
-                        device=adj.device)
-    tiles.index_put_((rb, slot), blocks[rb, cb], accumulate=True)
-    colidx = torch.zeros((n_rb, n_slots), dtype=torch.int32,
-                         device=adj.device)
-    colidx[rb, slot] = cb.to(torch.int32)
-    return tiles, colidx
+    cum = torch.cumsum(blocks.float().abs().sum(dim=(2, 3)) > 0, dim=1)
+    s = torch.arange(n_slots, device=adj.device)
+    cb = torch.searchsorted(cum, (s + 1).repeat(n_rb, 1))
+    valid = s < cum[:, -1:]
+    cb = torch.where(valid, cb, torch.zeros_like(cb))
+    rb = torch.arange(n_rb, device=adj.device)[:, None]
+    tiles = blocks[rb, cb]                              # (n_rb, S, bm, bn)
+    tiles.masked_fill_(~valid[:, :, None, None], 0)
+    return tiles, cb.to(torch.int32)
 
 
 def ell_to_dense(tiles: torch.Tensor, colidx: torch.Tensor,
@@ -241,7 +238,7 @@ def ell_to_dense(tiles: torch.Tensor, colidx: torch.Tensor,
 
 
 def block_density(adj: torch.Tensor, bm: int, bn: int) -> torch.Tensor:
-    """Fraction of (bm, bn) blocks with any nonzero — the kernel's work
-    ratio against a dense product."""
+    """Fraction of (bm, bn) blocks with any non-zero entry — the kernel's
+    work ratio against a dense product."""
     nz = _blocks(adj, bm, bn).abs().sum(dim=(2, 3)) > 0
     return nz.float().mean()

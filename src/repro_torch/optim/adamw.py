@@ -5,9 +5,11 @@ rounds where the reference rounds). The same API: ``opt.init(params) ->
 state``; ``opt.update(params, grads, state) -> (params, state)``. The port
 updates in place, under ``torch.no_grad()``: ``update`` writes the new
 values into the param tensors and the moment tensors of ``state`` and
-returns those same objects. ``state["step"]`` is an int32 scalar on the
-CPU, so the schedule costs the card nothing and the state checkpoints in
-the reference's format.
+returns those same objects, ``state["step"]`` included. That step is an
+int32 scalar on the params' device, and the learning rate and the bias
+corrections are computed from it there, so the update reads nothing on
+the host and a CUDA graph of the training step sees each replay's own
+step; the state checkpoints in the reference's format.
 """
 from __future__ import annotations
 
@@ -24,7 +26,15 @@ Schedule = Callable[[torch.Tensor], torch.Tensor]
 def _to_schedule(lr) -> Schedule:
     if callable(lr):
         return lr
-    return lambda step: torch.tensor(lr, dtype=torch.float32)
+    return lambda step: torch.full((), lr, dtype=torch.float32,
+                                   device=step.device)
+
+
+def _step_counter(params) -> torch.Tensor:
+    """A zero int32 step on the params' device."""
+    flat = leaves(params)
+    return torch.zeros((), dtype=torch.int32,
+                       device=flat[0].device if flat else None)
 
 
 @torch.no_grad()
@@ -51,7 +61,7 @@ class AdamW:
     grad_clip: float = 0.0
 
     def init(self, params):
-        return {"step": torch.zeros((), dtype=torch.int32),
+        return {"step": _step_counter(params),
                 "mu": tree_map(torch.zeros_like, params),
                 "nu": tree_map(torch.zeros_like, params)}
 
@@ -60,8 +70,7 @@ class AdamW:
         """One step in place; ``sumsq`` as in :func:`clip_by_global_norm`
         (for the shards of a mesh)."""
         sched = _to_schedule(self.lr)
-        state["step"] = state["step"] + 1
-        step = state["step"]
+        step = state["step"].add_(1)
         if self.grad_clip > 0:
             grads, _ = clip_by_global_norm(grads, self.grad_clip, sumsq)
         lr = sched(step)
@@ -86,8 +95,8 @@ class Sgd:
 
     def init(self, params):
         if self.momentum == 0.0:
-            return {"step": torch.zeros((), dtype=torch.int32)}
-        return {"step": torch.zeros((), dtype=torch.int32),
+            return {"step": _step_counter(params)}
+        return {"step": _step_counter(params),
                 "vel": tree_map(torch.zeros_like, params)}
 
     @torch.no_grad()
@@ -95,8 +104,7 @@ class Sgd:
         """One step in place (no clipping, so ``sumsq`` is not read)."""
         del sumsq
         sched = _to_schedule(self.lr)
-        state["step"] = state["step"] + 1
-        lr = sched(state["step"])
+        lr = sched(state["step"].add_(1))
         if self.momentum == 0.0:
             for p, g in zip(leaves(params), leaves(grads)):
                 p.copy_(p - lr * g)

@@ -1,6 +1,7 @@
 """Learning-rate schedules (counterpart of ``repro/optim/schedules.py``):
 pure functions of the step (an int32 scalar tensor) returning a float32
-scalar tensor, computed with the reference's operations in float32.
+scalar tensor on the step's device, computed with the reference's
+operations in float32.
 
 Step-based forms and epoch-based forms of the same shapes; the epoch forms
 delegate, so both give the same values when ``total_steps == epochs *
@@ -23,7 +24,7 @@ def epochs_to_steps(epochs: int, steps_per_epoch: int) -> int:
 
 
 def constant_schedule(lr: float):
-    return lambda step: torch.tensor(lr, dtype=_F32)
+    return lambda step: torch.full((), lr, dtype=_F32, device=step.device)
 
 
 def cosine_schedule(peak_lr: float, total_steps: int, final_frac: float = 0.0):

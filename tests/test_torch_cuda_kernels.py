@@ -524,53 +524,188 @@ def test_cuda_spmm_ell_dx_rejects_bad_inputs(cuda):
         tspmm.spmm_ell_dx(tiles, colidx, g.half(), 16)
 
 
-def _card_trainer(plan, steps, ckpt_dir=None):
+def _card_trainer(plan, steps, ckpt_dir=None, prefetch=False, chunk=2):
     from repro_torch import optim as topt
     from repro_torch.train import Trainer, TrainLoopConfig
     opt = topt.AdamW(lr=topt.linear_warmup_cosine(5e-3, 2, 6),
                      weight_decay=1e-4, grad_clip=1.0)
-    loop = TrainLoopConfig(total_steps=steps, chunk_size=2,
-                           ckpt_dir=ckpt_dir, ckpt_every=2)
+    loop = TrainLoopConfig(total_steps=steps, chunk_size=chunk,
+                           ckpt_dir=ckpt_dir, ckpt_every=2 if ckpt_dir
+                           else 0, prefetch=prefetch)
     return Trainer(plan, opt, loop, eval_fn=lambda p, g: 0.0)
 
 
-@pytest.mark.cuda
-def test_cuda_trainer_resume_is_bit_identical(cuda, tmp_path):
-    """On the card, 6 steps straight == 3 steps, a save, a restore and 3
-    more, bit for bit (losses and every state leaf): the block-ELL SpMM,
-    its dX kernel, the fused tail and extraction, dropout on. With the
-    dX of a float-atomic ``index_add_`` this matched only up to
-    rounding."""
+def _card_plan(cuda, **kw):
+    """The block-ELL training plan at a small size on the card (SpMM, its
+    dX kernel, the fused tail and extraction, the counter draws)."""
     from repro_torch.core import fourd
     from repro_torch.core import gcn_model as TM
     from repro_torch.core.forward import TrainOptions
     from repro_torch.graphs import build_partitioned_graph
-    from repro_torch.tree import leaves, tree_map
+    from repro_torch.tree import tree_map
     ds = make_synthetic_dataset(n=2048, num_classes=4, d_in=16,
                                 avg_degree=8, seed=0)
     pg = build_partitioned_graph(ds, g=1)
     cfg = TM.GCNConfig(d_in=16, d_hidden=64, num_layers=3, num_classes=4)
-    opts = TrainOptions(spmm_impl="ell", fused_elementwise=True,
-                        extract_impl="cuda", dropout=0.3, seed=4,
-                        ell_tile=32, ell_slots=16)
+    opts = dict(spmm_impl="ell", fused_elementwise=True, extract_impl="cuda",
+                dropout=0.3, seed=4, ell_tile=32, ell_slots=16)
+    opts.update(kw)
     plan = fourd.build_plan(pg, cfg, fourd.make_mesh_4d(1, 1, cuda),
-                            batch=512, opts=opts)
-    graph = plan.shard_graph(pg)
+                            batch=512, opts=TrainOptions(**opts))
     params0 = TM.init_params(cfg, torch.Generator().manual_seed(0),
                              device=cuda)
-    fresh = lambda: tree_map(lambda t: t.detach().clone(), params0)
+    return plan, plan.shard_graph(pg), \
+        lambda: tree_map(lambda t: t.detach().clone(), params0)
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_resume_is_bit_identical(cuda, tmp_path):
+    """On the card, 6 captured steps straight == 3 steps, a save, a
+    restore and 3 more, bit for bit (losses and every state leaf): the
+    block-ELL SpMM, its dX kernel, the fused tail and extraction, dropout
+    on. With the dX of a float-atomic ``index_add_`` this matched only up
+    to rounding. The restore runs on the trainer that captured the first
+    state, so it drops that graph and captures the restored one."""
+    from repro_torch.tree import leaves
+    plan, graph, fresh = _card_plan(cuda)
     n0 = tspmm.DX_LAUNCHES
     tr = _card_trainer(plan, 6)
     full, log_full = tr.run(tr.init_state(fresh()), graph)
-    # one dX per layer and step (every layer's input depends on w_in)
-    assert tspmm.DX_LAUNCHES - n0 == 6 * cfg.num_layers
-    part = _card_trainer(plan, 3, str(tmp_path))
+    # one dX a layer in the warm-up step and one in the capture; the five
+    # replays relaunch them without the wrapper
+    assert tspmm.DX_LAUNCHES - n0 == 2 * plan.cfg.num_layers
+    assert log_full.replays == 5 and log_full.capture_s > 0
+    part = _card_trainer(plan, 6, str(tmp_path))
+    part.total_steps = 3
     part.run(part.init_state(fresh()), graph)
-    rest = _card_trainer(plan, 6, str(tmp_path))
-    st, log_b = rest.run(rest.restore(rest.init_state(fresh())), graph)
+    part.total_steps = 6
+    st, log_b = part.run(part.restore(part.init_state(fresh())), graph)
+    assert log_b.replays == 2
     assert log_full.losses[3:] == log_b.losses
     for a, b in zip(leaves(st), leaves(full)):
         assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefetch", [False, True])
+def test_cuda_captured_steps_bit_identical_to_eager_steps(cuda, prefetch):
+    """8 steps of ``Trainer.run`` (a warm-up step, a capture, 7 replays, in
+    chunks of 3 with a remainder) and 8 eager ``Trainer.step`` calls from
+    the same init: losses and every state leaf bit for bit, the counters
+    on the card."""
+    from repro_torch.tree import leaves
+    plan, graph, fresh = _card_plan(cuda)
+    eager = _card_trainer(plan, 8, prefetch=prefetch)
+    st_e = eager.init_state(fresh(), graph)
+    want = torch.stack([eager.step(st_e, graph) for _ in range(8)])
+    tr = _card_trainer(plan, 8, prefetch=prefetch, chunk=3)
+    st, log = tr.run(tr.init_state(fresh(), graph), graph)
+    assert log.replays == 7 and st.step.device.type == "cuda"
+    assert log.losses == want.cpu().tolist()
+    for a, b in zip(leaves(st), leaves(st_e)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_eager_step_syncs_nowhere(cuda):
+    """``Trainer.step`` with prefetch, under
+    ``torch.cuda.set_sync_debug_mode("error")``: no operation of the step
+    waits for the card (a warm-up step builds the kernels first)."""
+    plan, graph, fresh = _card_plan(cuda, sample_mode="epoch")
+    tr = _card_trainer(plan, 8, prefetch=True)
+    st = tr.init_state(fresh(), graph)
+    tr.step(st, graph)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            tr.step(st, graph)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(st.step) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("captured", [False, True])
+def test_cuda_side_stream_reads_a_freed_argument_before_its_reuse(cuda,
+                                                                  captured):
+    """A build's tensor argument that is a temporary (``step + 1``, made on
+    the main stream and freed as soon as ``build`` returns) is read on the
+    side stream behind a long kernel there, while the main stream takes a
+    tensor of its size right after the fork and overwrites it: the build
+    still reads the counter, eagerly and in replays of a captured graph,
+    whose main branch nothing orders after the side branch's read."""
+    from repro_torch.core.pipeline import SideStream
+    side = SideStream(cuda)
+    step = torch.zeros((), dtype=torch.int64, device=cuda)
+
+    def build(s):
+        torch.cuda._sleep(20_000_000)        # the side stream reads s late
+        return (s * 1,)
+
+    def body():
+        (got,) = side.build(build, step + 1)
+        clobber = torch.empty_like(step)     # the freed block's size
+        clobber.fill_(-7)
+        side.join()
+        return got, clobber
+
+    if captured:
+        body()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got, clobber = body()
+    for v in (4, 9):
+        step.fill_(v)
+        if captured:
+            graph.replay()
+        else:
+            got, clobber = body()
+        torch.cuda.synchronize()
+        assert (int(got), int(clobber)) == (v + 1, -7)
+
+
+@pytest.mark.cuda
+def test_cuda_counter_kernels_bit_identical_to_plain(cuda):
+    """``hash_keys`` over the 2,449,029 vertices of the training graph and
+    ``keep_mask`` at (8192, 256), a ragged (33, 70) and (1, 15), each against
+    its plain version on the card and on the CPU, for keys at and above
+    2^63."""
+    from repro_torch.core import sampling as tsmp
+    from repro_torch.kernels import counter_rng as crng
+    for key in (0, 12345, 2 ** 63, 2 ** 64 - 1):
+        k = tsmp.key_tensor(key, cuda)
+        got = crng.hash_keys(k, 2_449_029)
+        assert torch.equal(got, crng.hash_keys_plain(k, 2_449_029))
+        assert torch.equal(got[:4099].cpu(), crng.hash_keys_plain(
+            tsmp.key_tensor(key, "cpu"), 4099))
+        for rows, cols in ((8192, 256), (33, 70), (1, 15)):
+            for rate in (0.0, 0.3, 0.5):
+                m = crng.keep_mask(k, rows, cols, rate)
+                assert m.dtype == torch.bool and m.shape == (rows, cols)
+                assert torch.equal(m, crng.keep_mask_plain(k, rows, cols,
+                                                           rate))
+        assert torch.equal(crng.keep_mask(k, 33, 70, 0.3).cpu(),
+                           crng.keep_mask_plain(tsmp.key_tensor(key, "cpu"),
+                                                33, 70, 0.3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["step", "epoch"])
+@pytest.mark.parametrize("mode,g", [("exact", 1), ("stratified", 1),
+                                    ("stratified", 4)])
+def test_cuda_sampled_ids_equal_the_cpus(cuda, schedule, mode, g):
+    """The card's sample for (seed, step), drawn from a counter on the
+    card, is the CPU's for the same Python step."""
+    from repro_torch.core import minibatch as tmb
+    from repro_torch.core import sampling as tsmp
+    cfg = tsmp.SampleConfig(n_pad=100_000, g=g, batch=8192, e_cap=1)
+    b = tmb.MinibatchBuilder(cfg, mode=mode, schedule=schedule, seed=3)
+    for step in (0, 1, 11, 12, 25):
+        t = torch.tensor(step, dtype=torch.int32, device=cuda)
+        assert torch.equal(b.sample_ids(t, None, 2).cpu(),
+                           b.sample_ids(step, None, 2, device="cpu"))
 
 
 # the sweep of tests/test_kernels_flash.py, then ragged Sq and T, hd 128,

@@ -187,14 +187,18 @@ def test_epoch_schedule_covers_every_vertex_once(mode):
 
 def test_epoch_slice0_equals_step_sampler_and_keys_are_pure():
     cfg = tsmp.SampleConfig(n_pad=300, g=3, batch=30, e_cap=1)
-    key = tsmp.epoch_key(9, 2, 1)
-    gen = lambda: tsmp.make_generator(key, "cpu")
-    assert torch.equal(tsmp.sample_epoch_exact(gen(), 300, 30, 0),
-                       tsmp.sample_uniform_exact(gen(), 300, 30))
-    assert torch.equal(tsmp.sample_epoch_stratified(gen(), cfg, 0),
-                       tsmp.sample_stratified(gen(), cfg))
+    key = tsmp.key_tensor(tsmp.epoch_key(9, 2, 1), "cpu")
+    assert torch.equal(tsmp.sample_epoch_exact(key, 300, 30, 0),
+                       tsmp.sample_uniform_exact(key, 300, 30))
+    assert torch.equal(tsmp.sample_epoch_stratified(key, cfg, 0),
+                       tsmp.sample_stratified(key, cfg))
+    # a slice index on the device gives the host index's slice
+    for t in (0, 3, 9):
+        assert torch.equal(
+            tsmp.sample_epoch_stratified(key, cfg, torch.tensor(t)),
+            tsmp.sample_epoch_stratified(key, cfg, t))
     # step and epoch keys are the same mix, fixed across calls
-    assert tsmp.step_key(9, 2, 1) == key == tsmp.epoch_key(9, 2, 1)
+    assert tsmp.step_key(9, 2, 1) == tsmp.epoch_key(9, 2, 1)
     keys = {tsmp.step_key(s, t, d) for s in range(3) for t in range(3)
             for d in range(3)}
     assert len(keys) == 27 and all(0 <= k < 2 ** 64 for k in keys)
@@ -203,6 +207,9 @@ def test_epoch_slice0_equals_step_sampler_and_keys_are_pure():
     assert torch.equal(*same)
     assert not torch.equal(same[0], b.sample_ids(8, None, 1, device="cpu"))
     assert not torch.equal(same[0], b.sample_ids(7, None, 0, device="cpu"))
+    # a device counter draws the sample of the same int
+    assert torch.equal(same[0], b.sample_ids(
+        torch.tensor(7, dtype=torch.int32), None, 1))
 
 
 def test_build_single_and_build_match_direct_extraction(graph):
@@ -212,16 +219,16 @@ def test_build_single_and_build_match_direct_extraction(graph):
     feats = torch.from_numpy(graph.features.astype(np.float32))
     labels = torch.from_numpy(graph.labels.astype(np.int32))
     b = tmb.MinibatchBuilder(cfg, mode="exact", seed=2)
-    mb = b.build_single(tsmp.make_generator(5, "cpu"), *_csr(graph, True),
+    mb = b.build_single(tsmp.key_tensor(5, "cpu"), *_csr(graph, True),
                         feats, labels)
     s = mb.vertex_ids
     inv = (N - 1) / 63
     assert torch.equal(mb.adj, tsmp.extract_dense_block(
         *_csr(graph, True), s, s, cfg.e_cap, rescale_offdiag=inv,
         is_diag_block=True))
-    # the exact Alg.-1 batch: the same generator gives the same batch, and
-    # its block is the reference's for those ids
-    mb2 = tsmp.make_minibatch_exact(tsmp.make_generator(5, "cpu"),
+    # the exact Alg.-1 batch: the same key gives the same batch, and its
+    # block is the reference's for those ids
+    mb2 = tsmp.make_minibatch_exact(tsmp.key_tensor(5, "cpu"),
                                     *_csr(graph, True), feats, labels, N, 64,
                                     cfg.e_cap)
     assert torch.equal(mb2.vertex_ids, s) and torch.equal(mb2.adj, mb.adj)

@@ -13,9 +13,11 @@ with warm-up and cosine decay, 48 steps in chunks of 8 from one seeded
 init. The inline mode runs the Trainer's prefetch body with its side
 stream taken away (``SideStream.stream = None``, the CPU's path), so the
 carry, the order of the work and the batches are the same and only the
-stream differs. Each run prints its ms/step (``RunLog``) and the host's
-ms/step inside the ``prefetch`` span, after the card's name and power
-limit; every mode's losses must be prefetch-off's bits.
+stream differs. Each run prints its ms/step (``RunLog``; the Trainer
+replays a captured step) and the host's ms/step inside the ``prefetch``
+span (the fork of the eager warm-up step and of the capture), after the
+card's name and power limit; every mode's losses must be prefetch-off's
+bits.
 """
 from __future__ import annotations
 

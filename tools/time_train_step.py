@@ -13,8 +13,10 @@ the fused extraction, batch 8192, ``ell_slots`` 32, dropout 0.3, AdamW with
 warm-up and cosine decay. It runs ``--runs`` times 48 steps in chunks of 8
 from one seeded init and prints each run's ms/step (``RunLog``: wall time
 over the steps, losses read once at the end) after the card's name and
-power limit. Alternate the trees (parent, change, change, parent) on one
-machine: the host bounds the step, and hosts differ between machines.
+power limit, and the seconds each run spent capturing a CUDA graph (0 on
+a tree that captures none; ms/step includes them, as the reference's
+includes its compile). Alternate the trees (parent, change, change,
+parent) on one machine: hosts differ between machines.
 """
 from __future__ import annotations
 
@@ -66,7 +68,7 @@ def main() -> int:
     params0 = M.init_params(cfg, torch.Generator().manual_seed(0),
                             device=dev)
     print(f"set-up {time.monotonic() - t0:.1f} s", flush=True)
-    ms = []
+    ms, capture_s = [], []
     for _ in range(args.runs):
         tr = Trainer(plan, AdamW(lr=linear_warmup_cosine(5e-3, 20, 48),
                                  weight_decay=1e-4, grad_clip=1.0),
@@ -75,8 +77,9 @@ def main() -> int:
         params = tree_map(lambda t: t.detach().clone(), params0)
         _, log = tr.run(tr.init_state(params), graph)
         ms.append(log.ms_per_step)
+        capture_s.append(getattr(log, "capture_s", 0.0))
     print(json.dumps({"src": args.src, "ms_per_step": ms,
-                      "last_loss": log.losses[-1]}))
+                      "capture_s": capture_s, "last_loss": log.losses[-1]}))
     return 0
 
 
