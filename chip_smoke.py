@@ -4,10 +4,11 @@
     python3 chip_smoke.py                      # the full run, one card
     python3 chip_smoke.py --vertices 65536     # a quick run on a smaller graph
 
-Phases, in order (phase 5 and its sub-phases run right after the plan is
-built, before phases 3-4: in a process whose earlier profiler sessions
-traced the kernels, a profiled replay of a captured training step crashed
-the process); any failure ends the script with a non-zero exit code:
+Phases, in order (phase 5 and its sub-phases 5b-5e run right after the
+plan is built, before phases 3-4: in a process whose earlier profiler
+sessions traced the kernels, a profiled replay of a captured training step
+crashed the process); any failure ends the script with a non-zero exit
+code:
 
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``;
@@ -114,6 +115,24 @@ the process); any failure ends the script with a non-zero exit code:
    each, with each one's peak device memory
    and the memory the graph holds; one profiled eager chunk beside phase
    5's profiled replays;
+5e. train-samplers — the reference's other samplers, the paper model on
+   the same graph, dropout 0.3, AdamW, the fused tail: partition (the
+   locality reordering into clusters of 1,024, q = 8 at batch 8192) and
+   walk (2,048 roots of 4 vertices, ``walk_k`` 8) through the 4D step
+   with the block-ELL SpMM and the plain extraction (their rescale is per
+   pair of vertices), 48 steps of ``Trainer.run`` each (captured), 8 and
+   48 eager steps bit-identical to the captured ones, the card's samples
+   the CPU's; then the baselines, eagerly: GraphSAINT's node sampler
+   (batch 8192, the extraction kernel, 48 steps), GraphSAGE's (1,024
+   targets, fan-outs (15, 10, 5), 48 steps; its frontier sizes printed)
+   and the full-batch GCN (8 steps over every vertex; the largest halving
+   of the graph that fits if the whole one does not). Each path: the
+   first step's loss within 1e-5 and its gradients within 1e-4 of the
+   same step through the plain versions, counts zeroed just before its
+   run and read just after (each kernel of the path at its exact count),
+   the loss falls; ms/step, a step's device time from one profiled
+   chunk, labelled vertices per second, peak memory and the full-graph
+   accuracy after its steps;
 6. llm     — LLM serving: tinyllama-1.1b at its published width (22
    layers, d_model 2048, 32/4 heads, vocab 32000, bf16, seeded random
    weights) behind the port's ``LLMEngine`` (8 slots, prompts padded to
@@ -671,9 +690,7 @@ def train_setup(torch, ds, dev):
     again)."""
     from repro_torch.configs.gcn_paper import paper_model
     from repro_torch.core import fourd
-    from repro_torch.core.minibatch import BlockFormat
     from repro_torch.graphs import build_partitioned_graph
-    from repro_torch.kernels.spmm_ell import dense_to_block_ell_ranked
 
     t0 = time.monotonic()
     pg = build_partitioned_graph(ds, g=1)
@@ -688,13 +705,27 @@ def train_setup(torch, ds, dev):
         f"{pg.e_pad}, max_block_row_nnz {pg.max_block_row_nnz}, e_cap "
         f"{plan.scfg.e_cap}")
 
-    b, tile = plan.builder, opts.ell_tile
-    n_rb = TRAIN_BATCH // tile
+    slots = ell_slots_for(torch, plan, graph, "train")
+    plan = fourd.build_plan(pg, cfg, mesh, batch=TRAIN_BATCH,
+                            opts=dataclasses.replace(opts, ell_slots=slots))
+    return plan, graph, pg
+
+
+def ell_slots_for(torch, plan, graph, tag: str) -> int:
+    """``ell_slots`` for a plan: the next power of two at or above the
+    most non-empty column tiles any row-block of its first 8 sampled
+    batches holds (each extracted dense with the plan's own rescale), so
+    that those batches drop no tile."""
+    from repro_torch.core.minibatch import BlockFormat
+    from repro_torch.kernels.spmm_ell import dense_to_block_ell_ranked
+    b, tile = plan.builder, plan.opts.ell_tile
+    aux = graph.get("walk")
+    n_rb = plan.scfg.batch // tile
     blocks, most = [], 0
     for step in range(8):
-        ids = b.sample_ids(step, None, 0, device=dev)[0]
-        dense = b.extract_block(*graph["adj"][0], ids,
-                                ids, col_scale=b.rescale_constants()[0],
+        ids = b.sample_ids(step, None, 0, device=plan.device, aux=aux)
+        dense = b.extract_block(*graph["adj"][0], ids[0], ids[0],
+                                col_scale=b.col_scale_fn(ids, aux)(0, 0),
                                 diag=True, fmt=BlockFormat.DENSE)
         per_rb = (dense.reshape(n_rb, tile, n_rb, tile).abs().sum((1, 3))
                   > 0).sum(1)
@@ -708,11 +739,9 @@ def train_setup(torch, ds, dev):
         if kept != want:
             raise AssertionError(f"ell_slots={slots} drops entries: ELL "
                                  f"nnz {kept} != dense nnz {want}")
-    log(f"[train] non-empty column tiles per row-block over 8 batches: at "
+    log(f"[{tag}] non-empty column tiles per row-block over 8 batches: at "
         f"most {most}; ell_slots = {slots} (no tile dropped)")
-    plan = fourd.build_plan(pg, cfg, mesh, batch=TRAIN_BATCH,
-                            opts=dataclasses.replace(opts, ell_slots=slots))
-    return plan, graph, pg
+    return slots
 
 
 def check_spmm_ell(torch, plan, graph, dev) -> dict:
@@ -1863,6 +1892,436 @@ def phase_train_capture(torch, np, plan, graph, fresh, make_opt,
     return kernels
 
 
+# phase 5e: the reference's other samplers at the training shape
+CLUSTER_SIZE = 1024      # partition: vertices per cluster (q = 8 at 8192)
+WALK_LEN, WALK_K = 3, 8  # walk: 2048 roots of 4 vertices at 8192
+SAGE_BATCH = 1024
+SAGE_FANOUTS = (15, 10, 5)   # innermost first
+FULLBATCH_STEPS = 8
+
+
+def _per_step(**counts) -> dict:
+    """A path's launches of one step, every other kernel at 0."""
+    return {name: counts.get(name, 0) for name in KERNEL_COUNTERS}
+
+
+def _times(counts: dict, k: int) -> dict:
+    return {name: n * k for name, n in counts.items()}
+
+
+def _first_step_check(torch, tag, loss_k, grads_k, loss_p, grads_p):
+    """The first step's loss within LOSS_RTOL and every gradient leaf
+    within GRAD_RTOL of its max |.| of the plain versions' step."""
+    from repro_torch.tree import leaves
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst = max((a - b).abs().max().item() / max(b.abs().max().item(),
+                                                   1e-30)
+                for a, b in zip(leaves(grads_k), leaves(grads_p)))
+    log(f"[{tag}] first step, kernels vs plain versions: loss "
+        f"{loss_k:.7f} vs {loss_p:.7f} (rel {rel:.3e}, limit {LOSS_RTOL}), "
+        f"worst gradient leaf {worst:.3e} of its max |.| (limit "
+        f"{GRAD_RTOL})")
+    if not (rel <= LOSS_RTOL and worst <= GRAD_RTOL):
+        raise AssertionError(f"{tag}: kernel and plain first steps differ")
+
+
+def _loss_falls(tag, losses, np) -> None:
+    k = min(CHUNK, len(losses) // 2)
+    first, last = np.mean(losses[:k]), np.mean(losses[-k:])
+    log(f"[{tag}] loss {losses[0]:.5f} -> {losses[-1]:.5f} (mean of first "
+        f"{k} {first:.5f}, last {k} {last:.5f})")
+    if not (np.all(np.isfinite(losses)) and last < first):
+        raise AssertionError(f"{tag}: the loss did not fall: {losses}")
+
+
+def _grad_of(torch, loss_fn, params):
+    from repro_torch.tree import leaves, unflatten
+    for t in leaves(params):
+        t.requires_grad_(True)
+    loss = loss_fn(params)
+    grads = torch.autograd.grad(loss, leaves(params))
+    return loss.item(), unflatten(params, list(grads))
+
+
+def _summary(tag, labelled, ms, dev_ms, peak, acc, extra="") -> dict:
+    out = {"ms_per_step": ms, "device_ms_per_step": dev_ms,
+           "labelled_per_s": labelled / ms * 1e3, "peak_gib": peak / 2**30,
+           "accuracy": acc}
+    log(f"[{tag}] summary: {ms:.4f} ms/step{extra}, a step's device time "
+        f"{dev_ms:.4f} ms (profiled chunk), {labelled} labelled vertices a "
+        f"step = {out['labelled_per_s']:.1f} labelled vertices/s, peak "
+        f"device memory {out['peak_gib']:.3f} GiB, full-graph accuracy "
+        f"after its steps {acc:.6f}")
+    return out
+
+
+def _profiled_ms(torch, run, steps: int, tag: str, watch=()) -> float:
+    """A step's device time: the device busy time of ``run()`` (``steps``
+    steps) under the profiler, over ``steps``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    seen = device_profile(prof, wall_us, f"{tag}: {steps} steps",
+                          watch=watch)
+    return seen["busy_us"] / steps / 1e3
+
+
+def locality_path(torch, np, tag, pg, kind, eval_plan, **opts) -> tuple:
+    """Partition or walk through the 4D step at the training shape:
+    ``Trainer.run`` replays a captured step (48 steps), held against the
+    plain versions (first step), against 8 and 48 eager steps (bit for
+    bit), its card samples against the CPU's; returns (launches, summary).
+    """
+    from repro_torch.configs.gcn_paper import paper_model
+    from repro_torch.core import fourd
+    from repro_torch.core import gcn_model as M
+    from repro_torch.core.forward import dropout_masks
+    from repro_torch.optim import AdamW, linear_warmup_cosine
+    from repro_torch.train import Trainer, TrainLoopConfig
+    from repro_torch.tree import leaves, tree_map
+
+    dev = eval_plan.device
+    t0 = time.monotonic()
+    base = fourd.TrainOptions(spmm_impl="ell", fused_elementwise=True,
+                              extract_impl="torch", dropout=0.3,
+                              ell_tile=128, sample_kind=kind, **opts)
+    cfg = paper_model("ogbn-products")
+    plan = fourd.build_plan(pg, cfg, eval_plan.mesh, batch=TRAIN_BATCH,
+                            opts=base)
+    graph = plan.shard_graph(pg)
+    slots = ell_slots_for(torch, plan, graph, tag)
+    plan = fourd.build_plan(pg, cfg, eval_plan.mesh, batch=TRAIN_BATCH,
+                            opts=dataclasses.replace(base, ell_slots=slots))
+    s = plan.scfg
+    log(f"[{tag}] plan in {time.monotonic() - t0:.2f} s: n_pad {s.n_pad}, "
+        f"e_cap {s.e_cap}, clusters {s.clusters} (q "
+        f"{s.clusters_per_step if s.clusters else 0}), walk_len "
+        f"{s.walk_len}, walk_k {s.walk_k}, ell_slots {slots}")
+    aux = graph.get("walk")
+    aux_cpu = None if aux is None else {k: v.cpu() for k, v in aux.items()}
+    b = plan.builder
+    for step in (0, 47):
+        t = torch.tensor(step, dtype=torch.int32, device=dev)
+        same = torch.equal(b.sample_ids(t, None, 0, aux=aux).cpu(),
+                           b.sample_ids(step, None, 0, device="cpu",
+                                        aux=aux_cpu))
+        log(f"[{tag}] sampled ids of (seed {b.seed}, step {step}): the "
+            f"card's draws the CPU's {same}")
+        if not same:
+            raise AssertionError(f"{tag}: the card's sample differs")
+
+    params0 = M.init_params(cfg, torch.Generator().manual_seed(0),
+                            device=dev)
+    fresh = lambda: tree_map(lambda t: t.detach().clone(), params0)
+    make_opt = lambda: AdamW(lr=linear_warmup_cosine(5e-3, 20, TRAIN_STEPS),
+                             weight_decay=1e-4, grad_clip=1.0)
+    # 1. the first step: kernels against plain versions on its batch
+    lk, gk = fourd.value_and_grad(fourd.make_loss_fn(plan), fresh(), graph,
+                                  0)
+    mb = b.build(*graph["adj"][0], graph["features"], graph["labels"], 0,
+                 aux=aux)
+    masks = dropout_masks(plan.opts, 0, cfg.num_layers,
+                          (TRAIN_BATCH, cfg.d_hidden), dev)
+    mcfg = fourd.model_config(cfg, plan.opts)
+    lp, gp = _grad_of(torch, lambda p: plain_loss(p, mb, mcfg, masks),
+                      fresh())
+    _first_step_check(torch, tag, lk.item(), gk, lp, gp)
+    labelled = int((mb.labels >= 0).sum())
+
+    def trainer(steps):
+        return Trainer(plan, make_opt(), TrainLoopConfig(
+            total_steps=steps, chunk_size=CHUNK), eval_fn=lambda p, g: 0.0)
+
+    # 2. 8 captured steps and 8 eager ones from one state
+    tr = trainer(CHUNK)
+    st, log8 = tr.run(tr.init_state(fresh()), graph)
+    tr_e = trainer(CHUNK)
+    st_e = tr_e.init_state(fresh())
+    eager8 = eager_run(torch, tr_e, st_e, graph, CHUNK)[0]
+    same = eager8 == log8.losses and all(
+        torch.equal(x, y) for x, y in zip(leaves(st.params),
+                                          leaves(st_e.params)))
+    log(f"[{tag}] 8 steps from one state, captured ({log8.replays} "
+        f"replays) and eager: losses and params bit-identical {same}")
+    if not same or log8.replays != CHUNK - 1:
+        raise AssertionError(f"{tag}: captured and eager steps differ")
+    del tr, tr_e, st, st_e
+
+    # 3. the path: 48 captured steps, counts zeroed just before
+    tr = trainer(TRAIN_STEPS)
+    state = tr.init_state(fresh())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    state, run_log = tr.run(state, graph)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = _per_step(hash_keys=1 + s.walk_len,
+                         **dict.fromkeys(("fused_layer", "spmm_ell",
+                                          "spmm_ell_dx", "keep_mask"),
+                                         cfg.num_layers))
+    expect = _times(per_step, 2)
+    log(f"[{tag}] {TRAIN_STEPS} steps, {run_log.replays} replays of the "
+        f"captured step (capture {run_log.capture_s:.3f} s): "
+        f"{run_log.ms_per_step:.4f} ms/step (without the capture "
+        f"{ms_without_capture(run_log):.4f}), launches {launches}")
+    if launches != expect or run_log.replays != TRAIN_STEPS - 1:
+        raise AssertionError(f"{tag}: launches {launches}, expected "
+                             f"{expect}")
+    _loss_falls(tag, run_log.losses, np)
+    acc = float(eval_plan_eval(torch, plan, state.params, graph))
+
+    # 4. the same 48 steps eagerly: the captured run's bits, timed
+    tr_e = trainer(TRAIN_STEPS)
+    st_e = tr_e.init_state(fresh())
+    losses_e, ms_e = eager_run(torch, tr_e, st_e, graph, TRAIN_STEPS)
+    same = losses_e == run_log.losses and all(
+        torch.equal(x, y) for x, y in zip(leaves(state.params),
+                                          leaves(st_e.params)))
+    log(f"[{tag}] {TRAIN_STEPS} eager Trainer.step calls: {ms_e:.4f} "
+        f"ms/step; losses and params bit-identical to the captured run "
+        f"{same}")
+    if not same:
+        raise AssertionError(f"{tag}: 48 eager steps differ from captured")
+    del tr_e, st_e
+
+    # 5. a step's device time: one profiled chunk of replays
+    tr.total_steps = TRAIN_STEPS + CHUNK
+
+    def chunk():
+        if tr.run(state, graph)[1].replays != CHUNK:
+            raise AssertionError(f"{tag}: the chunk was not replayed")
+    dev_ms = _profiled_ms(torch, chunk, CHUNK, f"{tag}, captured replays",
+                          watch=tuple(STEP_KERNELS))
+    out = _summary(tag, labelled, ms_without_capture(run_log), dev_ms, peak,
+                   acc, extra=f" captured (RunLog {run_log.ms_per_step:.4f}"
+                   f" with the capture), {ms_e:.4f} eager")
+    out["ms_per_step_eager"] = ms_e
+    del tr, state, graph
+    return launches, out
+
+
+def eval_plan_eval(torch, plan, params, graph) -> float:
+    """The full-graph accuracy of ``params`` on ``plan``'s graph."""
+    from repro_torch.core import fourd
+    acc = float(fourd.make_eval_step(plan)(params, graph))
+    torch.cuda.synchronize()
+    if not 0.0 <= acc <= 1.0:
+        raise AssertionError(f"accuracy {acc}")
+    return acc
+
+
+def eager_path(torch, np, tag, step_fn, params, opt, steps, labelled,
+               per_step, eval_fn) -> tuple:
+    """``steps`` eager steps of ``step_fn(params, opt_state, step) ->
+    loss``, counts zeroed just before and read just after (each must be
+    ``per_step`` times ``steps``), timed; the loss must fall; then one
+    profiled chunk for a step's device time and the full-graph
+    accuracy. Returns (launches, summary)."""
+    opt_state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    losses = torch.stack([step_fn(params, opt_state, i)
+                          for i in range(steps)]).cpu().tolist()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] {steps} eager steps: {ms:.4f} ms/step, launches "
+        f"{launches}")
+    if launches != _times(per_step, steps):
+        raise AssertionError(f"{tag}: launches {launches}, expected "
+                             f"{_times(per_step, steps)}")
+    _loss_falls(tag, losses, np)
+    acc = eval_fn(params)
+    n = min(CHUNK, steps)
+    dev_ms = _profiled_ms(torch, lambda: [step_fn(params, opt_state, steps + i)
+                                          for i in range(n)], n, tag)
+    return launches, _summary(tag, labelled, ms, dev_ms, peak, acc)
+
+
+def phase_train_samplers(torch, np, ds, train_plan, train_graph,
+                         train_pg) -> tuple:
+    """Phase 5e: the reference's other samplers on the card at the
+    training shape (see the module docstring). Returns the launch counts
+    of each path and each path's summary."""
+    from repro_torch.configs.gcn_paper import paper_model
+    from repro_torch.core import baselines as TB
+    from repro_torch.core import gcn_model as M
+    from repro_torch.core import sampling as smp
+    from repro_torch.core.forward import dropout_masks
+    from repro_torch.core.minibatch import MinibatchBuilder
+    from repro_torch.graphs import build_partitioned_graph
+    from repro_torch.kernels import counter_rng as crng
+    from repro_torch.optim import AdamW, linear_warmup_cosine
+    from repro_torch.tree import leaves
+
+    launches, summaries = {}, {}
+    n = ds.num_vertices
+    clusters = -(-(-(-n // CLUSTER_SIZE)) // CHUNK) * CHUNK
+    t0 = time.monotonic()
+    pg_p = build_partitioned_graph(ds, g=1, clusters=clusters)
+    log(f"[train-partition] locality reordering and partition of {n} "
+        f"vertices into {clusters} clusters of {pg_p.cluster_size}: "
+        f"{time.monotonic() - t0:.2f} s (max_cluster_block_nnz "
+        f"{pg_p.max_cluster_block_nnz})")
+    if pg_p.cluster_size != CLUSTER_SIZE:
+        raise AssertionError(f"clusters of {pg_p.cluster_size} vertices")
+    launches["partition"], summaries["partition"] = locality_path(
+        torch, np, "train-partition", pg_p, "partition", train_plan,
+        clusters=clusters)
+    del pg_p
+    t0 = time.monotonic()
+    launches["walk"], summaries["walk"] = locality_path(
+        torch, np, "train-walk", train_pg, "walk", train_plan,
+        walk_len=WALK_LEN, walk_k=WALK_K)
+    log(f"[train-walk] the path in {time.monotonic() - t0:.2f} s (its walk "
+        "tables built on the host included)")
+    torch.cuda.empty_cache()
+
+    # the baselines: one device, eager steps of the paper's model
+    dev, opts = train_plan.device, train_plan.opts
+    rp, ci, val = train_graph["adj"][0]
+    feats, labels = train_graph["features"], train_graph["labels"]
+    n_pad, L = train_pg.n_pad, train_plan.cfg.num_layers
+    kcfg = dataclasses.replace(paper_model("ogbn-products"), dropout=0.3,
+                               elementwise_impl="cuda")
+    pcfg = dataclasses.replace(kcfg, elementwise_impl="torch")
+    make_opt = lambda steps: AdamW(lr=linear_warmup_cosine(5e-3, 20, steps),
+                                   weight_decay=1e-4, grad_clip=1.0)
+    init = lambda: M.init_params(kcfg, torch.Generator().manual_seed(0),
+                                 device=dev)
+    evaluate = lambda p: eval_plan_eval(torch, train_plan, p, train_graph)
+
+    def descend(opt, params, opt_state, loss_fn):
+        for t in leaves(params):
+            t.requires_grad_(True)
+        loss = loss_fn(params)
+        grads = torch.autograd.grad(loss, leaves(params))
+        from repro_torch.tree import unflatten
+        opt.update(params, unflatten(params, list(grads)), opt_state)
+        return loss.detach()
+
+    # GraphSAINT node sampler: batch 8192, the extraction kernel
+    deg = (rp[1:] - rp[:-1]).float()
+    e_cap = TRAIN_BATCH * train_pg.max_block_row_nnz
+    scfg = smp.SampleConfig(n_pad=n_pad, g=1, batch=TRAIN_BATCH, e_cap=e_cap)
+    kb = MinibatchBuilder(scfg, mode="exact", impl="cuda",
+                          max_row_nnz=train_pg.max_block_row_nnz)
+    pb = MinibatchBuilder(scfg, mode="exact")
+
+    def saint_loss(step, builder, cfg):
+        key = smp.key_tensor(smp.step_key(opts.seed, step), dev)
+        sb = TB.saint_node_sample(key, rp, ci, val, feats, labels, deg,
+                                  n_pad, TRAIN_BATCH, e_cap, builder)
+        masks = dropout_masks(opts, step, L, (TRAIN_BATCH, kcfg.d_hidden),
+                              dev)
+        return lambda p: M.cross_entropy_loss(
+            M.forward(p, sb.adj, sb.feats, cfg, train=True,
+                      keep_masks=masks), sb.labels, sb.loss_weights), sb
+
+    (fk, sb0), (fp, _) = saint_loss(0, kb, kcfg), saint_loss(0, pb, pcfg)
+    _first_step_check(torch, "train-saint", *_grad_of(torch, fk, init()),
+                      *_grad_of(torch, fp, init()))
+    opt = make_opt(TRAIN_STEPS)
+    launches["saint"], summaries["saint"] = eager_path(
+        torch, np, "train-saint",
+        lambda p, o, i: descend(opt, p, o, saint_loss(i, kb, kcfg)[0]),
+        init(), opt, TRAIN_STEPS, int((sb0.labels >= 0).sum()),
+        _per_step(extract_dense_fused=1, hash_keys=1, fused_layer=L,
+                  keep_mask=L), evaluate)
+    del sb0
+
+    # GraphSAGE neighbor sampler: batch 1024, fan-outs (15, 10, 5)
+    def sage_loss(step, cfg):
+        key = smp.key_tensor(smp.step_key(opts.seed, step), dev)
+        sgb = TB.sage_sample(key, rp, ci, feats, labels, n_pad, SAGE_BATCH,
+                             SAGE_FANOUTS)
+        masks = [crng.keep_mask(smp.key_tensor(smp.fold_in(key, 100 + li)),
+                                f.shape[0], kcfg.d_hidden, kcfg.dropout)
+                 for li, f in enumerate(sgb.frontiers[:L])]
+        return lambda p: M.cross_entropy_loss(M.sage_forward(
+            p, sgb, cfg, train=True, keep_masks=masks), sgb.labels), sgb
+
+    (fk, sgb0), (fp, _) = sage_loss(0, kcfg), sage_loss(0, pcfg)
+    log(f"[train-sage] frontier sizes {[f.shape[0] for f in sgb0.frontiers]}"
+        f" (fan-outs {SAGE_FANOUTS}, innermost first)")
+    _first_step_check(torch, "train-sage", *_grad_of(torch, fk, init()),
+                      *_grad_of(torch, fp, init()))
+    opt = make_opt(TRAIN_STEPS)
+    launches["sage"], summaries["sage"] = eager_path(
+        torch, np, "train-sage",
+        lambda p, o, i: descend(opt, p, o, sage_loss(i, kcfg)[0]),
+        init(), opt, TRAIN_STEPS, int((sgb0.labels >= 0).sum()),
+        _per_step(hash_keys=1 + len(SAGE_FANOUTS), fused_layer=L,
+                  keep_mask=L), evaluate)
+    del sgb0
+    torch.cuda.empty_cache()
+
+    # the full-batch GCN: every vertex in every step
+    launches["fullbatch"], summaries["fullbatch"] = fullbatch_path(
+        torch, np, ds, train_plan, train_graph, train_pg, make_opt, init)
+    return launches, summaries
+
+
+def fullbatch_path(torch, np, ds, train_plan, train_graph, train_pg,
+                   make_opt, init) -> tuple:
+    """The full-batch GCN for FULLBATCH_STEPS steps over the whole graph
+    (the "csr" engine, the fused tail); on running out of the card's
+    memory, the largest halving of the vertex count that fits."""
+    from repro_torch.core import baselines as TB
+    from repro_torch.core import fourd
+    from repro_torch.graphs import build_partitioned_graph, get_dataset
+    plan, graph, pg = train_plan, train_graph, train_pg
+    L = plan.cfg.num_layers
+    while True:
+        kplan = fourd.build_plan(pg, plan.cfg, plan.mesh, batch=TRAIN_BATCH,
+                                 opts=fourd.TrainOptions(
+                                     fused_elementwise=True, dropout=0.3))
+        pplan = dataclasses.replace(kplan, opts=dataclasses.replace(
+            kplan.opts, fused_elementwise=False))
+        oom = False
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            lk, gk = fourd.value_and_grad(TB.make_fullbatch_gcn_loss(kplan),
+                                          init(), graph, 0)
+            lp, gp = fourd.value_and_grad(TB.make_fullbatch_gcn_loss(pplan),
+                                          init(), graph, 0)
+            _first_step_check(torch, "train-fullbatch", lk.item(), gk,
+                              lp.item(), gp)
+            del gk, gp
+            opt = make_opt(FULLBATCH_STEPS)
+            step = TB.make_fullbatch_gcn_step(kplan, opt)
+            res = eager_path(
+                torch, np, "train-fullbatch",
+                lambda p, o, i: step(p, o, graph, i)[2], init(), opt,
+                FULLBATCH_STEPS, int((graph["labels"] >= 0).sum()),
+                _per_step(fused_layer=L, keep_mask=L),
+                lambda p: eval_plan_eval(torch, kplan, p, graph))
+            log(f"[train-fullbatch] {pg.n} vertices"
+                + ("" if pg.n == train_pg.n else
+                   f" (cut from {train_pg.n}: the whole graph ran out of "
+                   "the card's memory)"))
+            return res
+        except torch.cuda.OutOfMemoryError:
+            oom = True                 # the traceback's tensors go first
+        if oom:
+            log(f"[train-fullbatch] {pg.n} vertices: out of memory, peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+            torch.cuda.empty_cache()
+            if pg.n < 2 * TRAIN_BATCH:
+                raise AssertionError("the full-batch GCN fits no graph")
+            pg = build_partitioned_graph(get_dataset(
+                "ogbn-products", scale_vertices=pg.n // 2), g=1)
+            graph = kplan.shard_graph(pg)
+
+
 LLM_PROMPTS = 32
 LLM_CHECK_PROMPTS = 4
 LLM_CHECK_STEPS = 8
@@ -2060,6 +2519,9 @@ def main() -> int:
     # profiled replay of a captured step crashed (PERF.md section 7)
     by_path, counter_kernels = phase_train(torch, np, train_plan,
                                            train_graph, train_pg)
+    samplers, _ = phase_train_samplers(torch, np, ds, train_plan,
+                                       train_graph, train_pg)
+    by_path.update(samplers)
     flushers = l2_flushers(torch, dev)
     kernels = [check_extraction(torch, A, plan, plan_b, train_plan,
                                 train_graph, dev, flushers),

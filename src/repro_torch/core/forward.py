@@ -59,10 +59,10 @@ class TrainOptions:
     dropout: float = 0.0               # dropout of the training step
     seed: int = 0
     sample_mode: str = "step"          # "step" | "epoch"
-    sample_kind: str = "stratified"    # "stratified" ("partition", "walk")
-    clusters: int = 0
-    walk_len: int = 4
-    walk_k: int = 8
+    sample_kind: str = "stratified"    # "stratified" | "partition" | "walk"
+    clusters: int = 0                  # partition: clusters per range
+    walk_len: int = 4                  # walk: steps per root
+    walk_k: int = 8                    # walk: neighbor-table width
     block_dtype: str = "f32"           # "f32" ("bf16")
     spmm_impl: str = "dense"           # "dense" | "ell" (block-ELL kernel)
     ell_tile: int = 128                # (bm = bn) tile side
@@ -73,9 +73,6 @@ class TrainOptions:
     compress_schedule: str = "uniform"  # "uniform" | "variable"
 
     def __post_init__(self):
-        if self.sample_kind in ("partition", "walk"):
-            raise NotImplementedError(
-                f"sample_kind={self.sample_kind!r} is {smp._LOCALITY}")
         if self.block_dtype == "bf16":
             raise NotImplementedError(
                 "block_dtype='bf16' is not ported: the extraction writes "
@@ -84,7 +81,8 @@ class TrainOptions:
                 ("reshard_impl", self.reshard_impl, ("gather", "permute")),
                 ("overlap_impl", self.overlap_impl, OVERLAPS),
                 ("compress", self.compress, WIRE_FORMATS),
-                ("sample_kind", self.sample_kind, ("stratified",)),
+                ("sample_kind", self.sample_kind,
+                 ("stratified", "partition", "walk")),
                 ("sample_mode", self.sample_mode, ("step", "epoch")),
                 ("block_dtype", self.block_dtype, ("f32",)),
                 ("spmm_impl", self.spmm_impl, ("dense", "ell")),

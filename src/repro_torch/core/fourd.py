@@ -51,7 +51,7 @@ from repro_torch.core import sampling as smp
 from repro_torch.core.forward import ForwardEngine, TrainOptions
 from repro_torch.core.minibatch import Minibatch, MinibatchBuilder
 from repro_torch.device import resolve_device
-from repro_torch.graphs.partition import PartitionedGraph
+from repro_torch.graphs.partition import PartitionedGraph, build_walk_tables
 from repro_torch.tree import (Path, flatten_with_paths, leaves, map_with_path,
                                unflatten)
 
@@ -335,10 +335,13 @@ class FourDPlan:
         """This rank's graph arrays on the plan's device: ``adj``, the CSR
         block of each rotation plane (block (z, x), (y, z), (x, y): one
         tensor triple per distinct block), the feature rows of range x and
-        columns of slice z, and the labels of the final row axis's
-        range."""
+        columns of slice z, and the labels of the final row axis's range.
+        Walk mode adds its replicated tables under ``"walk"``: the in-range
+        neighbor table ``nbr`` and the inclusion estimate ``p = min(1,
+        b_local * p_tilde)`` of the SAINT rescale."""
         c, g, n_loc = self.mesh.coords, self.grid_side, pg.n_local
-        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
+        # a read-only mmap shard is copied (np.require "W"), not aliased
+        t = lambda a: torch.from_numpy(np.require(a, requirements="CW")).to(
             self.device)
         st, blocks, adj = pmm3d.initial_state(), {}, []
         for _ in range(3):
@@ -350,11 +353,16 @@ class FourDPlan:
             st = st.rotate()
         d_loc = pg.feature_dim // g
         r_f = c[pmm3d.state_after_layers(self.cfg.num_layers).row]
-        return {"adj": tuple(adj),
-                "features": t(pg.features[c["x"] * n_loc:(c["x"] + 1) * n_loc,
-                                          c["z"] * d_loc:(c["z"] + 1)
-                                          * d_loc]),
-                "labels": t(pg.labels[r_f * n_loc:(r_f + 1) * n_loc])}
+        out = {"adj": tuple(adj),
+               "features": t(pg.features[c["x"] * n_loc:(c["x"] + 1) * n_loc,
+                                         c["z"] * d_loc:(c["z"] + 1)
+                                         * d_loc]),
+               "labels": t(pg.labels[r_f * n_loc:(r_f + 1) * n_loc])}
+        if self.builder.mode == "walk":
+            nbr, p_tilde = build_walk_tables(pg, k=self.scfg.walk_k)
+            p = torch.clamp(self.scfg.b_local * t(p_tilde), max=1.0)
+            out["walk"] = {"nbr": t(nbr), "p": p}
+        return out
 
 
 def build_plan(pg: PartitionedGraph, cfg: M.GCNConfig, mesh: Mesh,
@@ -363,7 +371,11 @@ def build_plan(pg: PartitionedGraph, cfg: M.GCNConfig, mesh: Mesh,
     """The plan of a training run on ``mesh``: the sample configuration
     (``e_cap`` defaults to the per-range batch times the largest row of
     any block, which truncates nothing), the builder, the padded class
-    count."""
+    count. ``opts.sample_kind`` "partition" takes its clusters from the
+    options or the graph, tightens ``e_cap`` to q whole clusters' worth of
+    block nnz and, under the epoch schedule, slices one cluster
+    permutation across the mesh's DP groups; "walk" takes the walk's
+    length and table width from the options."""
     g = mesh.shape["x"]
     if mesh.shape["y"] != g or mesh.shape["z"] != g:
         raise ValueError("the ScaleGNN path needs a cube 3D grid")
@@ -375,9 +387,29 @@ def build_plan(pg: PartitionedGraph, cfg: M.GCNConfig, mesh: Mesh,
         raise ValueError("d_in and d_hidden must be divisible by the grid "
                          "side")
     b = batch // g
+    clusters = walk_len = walk_k = 0
+    dp_groups = 1
+    if opts.sample_kind == "partition":
+        clusters = opts.clusters or pg.clusters
+        if clusters <= 0:
+            raise ValueError(
+                "sample_kind='partition' needs a clustered graph: "
+                "build_partitioned_graph(..., clusters=C) or set "
+                "TrainOptions.clusters")
+        cs = pg.n_local // clusters
+        if e_cap is None and cs > 0 and b % cs == 0 \
+                and pg.max_cluster_block_nnz > 0:
+            # q whole clusters per range bound a block's nnz far tighter
+            # than b * max_block_row_nnz
+            e_cap = max((b // cs) * pg.max_cluster_block_nnz, 1)
+        if opts.sample_mode == "epoch":
+            dp_groups = mesh.shape["d"]
+    elif opts.sample_kind == "walk":
+        walk_len, walk_k = opts.walk_len, opts.walk_k
     e_cap = e_cap or b * max(pg.max_block_row_nnz, 1)
-    scfg = smp.SampleConfig(n_pad=pg.n_pad, g=g, batch=batch,
-                            e_cap=e_cap).validate()
+    scfg = smp.SampleConfig(n_pad=pg.n_pad, g=g, batch=batch, e_cap=e_cap,
+                            clusters=clusters, dp_groups=dp_groups,
+                            walk_len=walk_len, walk_k=walk_k).validate()
     builder = MinibatchBuilder.from_options(
         scfg, opts, max_row_nnz=max(pg.max_block_row_nnz, 1))
     plan = FourDPlan(mesh=mesh, cfg=cfg, scfg=scfg, opts=opts,
@@ -427,7 +459,8 @@ class LossFn:
         plan = self.plan
         return plan.builder.build_local(
             graph["adj"], graph["features"], graph["labels"], step,
-            plan.cfg.num_layers, plan.mesh.coords, epoch=epoch, ids=ids)
+            plan.cfg.num_layers, plan.mesh.coords, epoch=epoch, ids=ids,
+            aux=graph.get("walk"))
 
     def local(self, params, graph, step, epoch=None, *, ids=None,
               mb: Optional[Minibatch] = None, ef=None):

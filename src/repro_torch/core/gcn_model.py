@@ -15,6 +15,8 @@ a ``(rp, ci, val)`` CSR triple over the whole graph (``"csr"``, full-graph
 eval — the reference's ``ForwardEngine`` backend of that name). The layer
 tail is the fused CUDA kernel when ``elementwise_impl="cuda"``. Both
 kernels carry autograd rules (``kernels/ops.py``), so the model trains.
+:func:`sage_forward` runs the same network over a GraphSAGE batch
+(``core/baselines.py``).
 
 Every architectural component can be toggled (paper §III-A).
 """
@@ -185,3 +187,38 @@ def accuracy(logits: torch.Tensor, labels: torch.Tensor,
         valid = valid & mask
     correct = (torch.argmax(logits, dim=-1) == labels) & valid
     return torch.sum(correct) / torch.clamp(torch.sum(valid), min=1)
+
+
+# ---------------------------------------------------------------------------
+# GraphSAGE variant of the same network (the baseline of Table I, Fig. 6)
+# ---------------------------------------------------------------------------
+
+def sage_forward(params: Params, batch, cfg: GCNConfig, *,
+                 train: bool = False,
+                 keep_masks: Optional[Sequence[torch.Tensor]] = None
+                 ) -> torch.Tensor:
+    """SAGE-style forward over a ``baselines.SageBatch``: the parameters
+    and layers of :func:`forward`, but layer l aggregates by the mean over
+    the sampled neighbors (``baselines.sage_aggregate``) instead of the
+    rescaled induced-subgraph SpMM, walking inward from the outermost
+    frontier. The tail is :func:`forward`'s (the fused kernel when
+    ``elementwise_impl="cuda"``); ``keep_masks[l]`` is layer l's
+    (|frontier l|, d_hidden) keep-mask. The layer count must equal
+    ``len(batch.neighbors)``."""
+    from repro_torch.core import baselines as bl
+    if cfg.num_layers != len(batch.neighbors):
+        raise ValueError(f"{cfg.num_layers} layers for a batch of "
+                         f"{len(batch.neighbors)} fan-outs")
+    masks = (keep_masks if keep_masks is not None
+             else [None] * cfg.num_layers)
+    h = batch.feats @ params["w_in"]
+    # layer li consumes frontier li + 1's embeddings and produces frontier
+    # li's (its self vertices are the prefix of frontier li + 1)
+    for li in reversed(range(cfg.num_layers)):
+        layer = params["layers"][li]
+        n_inner = batch.frontiers[li].shape[0]
+        agg = bl.sage_aggregate(h, batch.neighbors[li])
+        conv = agg @ layer["w"]
+        h = _elementwise_tail(conv, h[:n_inner], layer["rms_scale"], cfg,
+                              masks[li], train)
+    return h @ params["w_out"]

@@ -3,9 +3,11 @@
 Counterpart of ``repro/core/minibatch.py``: the ``BlockFormat`` enum, the
 ``Minibatch`` one training step consumes, and a ``MinibatchBuilder`` that
 owns sampling (phase 1: mode ``exact`` |
-``stratified``, schedule ``step`` | ``epoch``, the sample a pure function
-of ``(seed, epoch, step, dp_index)``), the rescale constants (Eq. 23-24)
-and block extraction (phases 2-4) in the configured format and backend:
+``stratified`` | ``partition`` | ``walk``, schedule ``step`` | ``epoch``, the
+sample a pure function of ``(seed, epoch, step, dp_index)``), the rescale
+(Eq. 23-24: a scalar per block pair, or the locality modes' per-pair
+matrix) and block extraction (phases 2-4) in the configured format and
+backend:
 
 * ``"torch"`` — ``core.sampling.extract_dense_block`` /
   ``extract_block_ell`` (COO triples bounded by ``e_cap``), the reference;
@@ -14,10 +16,17 @@ and block extraction (phases 2-4) in the configured format and backend:
   ``kernels.spmm_ell.dense_to_block_ell_ranked``; its plain PyTorch
   version runs for CPU tensors.
 
-Both backends give identical blocks in both formats. ``build_local`` is
-the training call on one rank of the 4D mesh: the rank's block of each
-rotation plane (``extract_plane_blocks``, with no communication) and its
-feature and label rows; ``build`` is the same call on the 1x1x1x1 mesh.
+Both backends give identical blocks in both formats. The fused kernel
+rescales by a scalar or per column only, so the locality modes, whose
+rescale is per pair, need ``"torch"``, as the reference's need its
+``"jax"`` backend; a per-pair rescale inside the kernel is ROADMAP queue
+1, "the per-pair rescale inside the extraction kernel". Walk mode's
+replicated tables (``{"nbr", "p"}``) reach the sampler as ``aux``.
+
+``build_local`` is the training call on one rank of the 4D mesh: the
+rank's block of each rotation plane (``extract_plane_blocks``, with no
+communication) and its feature and label rows; ``build`` is the same
+call on the 1x1x1x1 mesh.
 ``assemble`` is the serving call.
 """
 from __future__ import annotations
@@ -35,6 +44,7 @@ from repro_torch.obs.tracer import phase
 
 # the coordinates of the single-device step
 SINGLE = {"d": 0, "x": 0, "y": 0, "z": 0}
+MODES = ("exact", "stratified", "partition", "walk")
 
 
 class BlockFormat(enum.Enum):
@@ -71,7 +81,8 @@ class MinibatchBuilder:
     COO-level ``e_cap``."""
 
     scfg: smp.SampleConfig
-    mode: str = "stratified"          # 'stratified' | 'exact'
+    mode: str = "stratified"          # 'stratified' | 'exact' |
+                                      # 'partition' | 'walk'
     schedule: str = "step"            # 'step' | 'epoch' (without-replacement)
     fmt: BlockFormat = BlockFormat.DENSE
     impl: str = "torch"               # 'torch' | 'cuda'
@@ -81,16 +92,28 @@ class MinibatchBuilder:
     seed: int = 0
 
     def __post_init__(self):
-        if self.mode in ("partition", "walk"):
-            raise NotImplementedError(
-                f"mode={self.mode!r} is {smp._LOCALITY}")
-        if self.mode not in ("exact", "stratified"):
-            raise ValueError(f"mode={self.mode!r}: 'exact' | 'stratified'")
+        if self.mode not in MODES:
+            raise ValueError(f"mode={self.mode!r}: one of {MODES}")
         if self.schedule not in ("step", "epoch"):
             raise ValueError(f"schedule={self.schedule!r}: 'step' | 'epoch'")
         if self.impl not in ("torch", "cuda"):
             raise ValueError(f"impl={self.impl!r}: 'torch' | 'cuda'")
         self.scfg.validate()
+        if self.mode == "partition" and self.scfg.clusters <= 0:
+            raise ValueError(
+                "partition mode needs SampleConfig.clusters: partition the "
+                "graph with build_partitioned_graph(..., clusters=C)")
+        if self.mode == "walk" and (self.scfg.walk_len <= 0
+                                    or self.scfg.walk_k <= 0):
+            raise ValueError("walk mode needs SampleConfig.walk_len and "
+                             "walk_k (the table of graphs.build_walk_tables)")
+        if self.mode in ("partition", "walk") and self.impl == "cuda":
+            raise ValueError(
+                f"{self.mode} mode rescales per pair of vertices (a (b, b) "
+                "matrix), which the fused extraction kernel does not: use "
+                "extract_impl='torch', as the reference needs 'jax' "
+                '(ROADMAP queue 1, "the per-pair rescale inside the '
+                'extraction kernel")')
         if self.impl == "cuda" and self.max_row_nnz <= 0:
             raise ValueError("the fused extraction needs the per-row edge "
                              "bound (max_row_nnz)")
@@ -121,15 +144,26 @@ class MinibatchBuilder:
                              rounding_mode="floor")
         return int(step) // self.steps_per_epoch
 
-    def sample(self, key: torch.Tensor,
-               t: Optional[smp.Key] = None) -> torch.Tensor:
+    def sample(self, key: torch.Tensor, t: Optional[smp.Key] = None,
+               aux: Optional[Mapping[str, torch.Tensor]] = None
+               ) -> torch.Tensor:
         """(g, b) global vertex ids — sampling-mode dispatch. ``key`` is the
         0-d int64 key (``sampling.key_tensor``) on the device that draws;
         ``t`` is the step within the epoch (required under the 'epoch'
-        schedule, where ``key`` is the epoch key; ignored under 'step')."""
-        if self.schedule == "epoch":
-            if t is None:
-                raise ValueError("the epoch schedule needs the in-epoch step")
+        schedule, where ``key`` is the epoch key; ignored under 'step');
+        ``aux`` carries walk mode's replicated tables."""
+        epoch = self.schedule == "epoch"
+        if epoch and t is None:
+            raise ValueError("the epoch schedule needs the in-epoch step")
+        if self.mode == "walk":
+            if aux is None:
+                raise ValueError("walk mode needs its tables (aux)")
+            return smp.sample_walk_stratified(key, self.scfg, aux["nbr"],
+                                              t=t if epoch else None)
+        if self.mode == "partition":
+            return smp.sample_partition_epoch(key, self.scfg,
+                                              t if epoch else 0)
+        if epoch:
             if self.mode == "exact":
                 return smp.sample_epoch_exact(key, self.scfg.n_pad,
                                               self.scfg.batch, t)[None]
@@ -141,24 +175,34 @@ class MinibatchBuilder:
 
     def sample_ids(self, step: smp.Key, epoch: Optional[smp.Key],
                    dp_index: int, *,
-                   device: Union[str, torch.device, None] = None
+                   device: Union[str, torch.device, None] = None,
+                   aux: Optional[Mapping[str, torch.Tensor]] = None
                    ) -> torch.Tensor:
         """The (g, b) sample as a pure function of ``(seed, epoch, step,
         dp_index)``: per-step key under 'step', epoch-permutation slice
         under 'epoch'. Python counters draw on ``device`` (the card by
         default); a step or epoch that is a device tensor (a ``TrainState``
         counter) draws on its own device, which derives the key itself: no
-        counter is read on the host."""
+        counter is read on the host.
+
+        Partition + epoch with ``dp_groups > 1`` is special: the DP groups
+        share the un-folded epoch key and take interleaved slices of one
+        cluster permutation, so together they cover every cluster once per
+        epoch, disjointly."""
         counters = [c for c in (step, epoch) if isinstance(c, torch.Tensor)]
         dev = counters[0].device if counters else resolve_device(device)
         if self.schedule == "epoch":
             if epoch is None:
                 epoch = self.epoch_of(step)
             t = step - epoch * self.steps_per_epoch
+            if self.mode == "partition" and self.scfg.dp_groups > 1:
+                key = smp.key_tensor(smp.epoch_key(self.seed, epoch, 0), dev)
+                return smp.sample_partition_epoch(key, self.scfg, t,
+                                                  dp_slot=dp_index)
             key = smp.epoch_key(self.seed, epoch, dp_index)
-            return self.sample(smp.key_tensor(key, dev), t)
+            return self.sample(smp.key_tensor(key, dev), t, aux)
         return self.sample(smp.key_tensor(
-            smp.step_key(self.seed, step, dp_index), dev))
+            smp.step_key(self.seed, step, dp_index), dev), aux=aux)
 
     def rescale_constants(self) -> Tuple[float, float]:
         """(1/p_same, 1/p_cross): Eq. 23, range-dependent under
@@ -169,10 +213,19 @@ class MinibatchBuilder:
             return inv, inv
         return smp.rescale_constants(self.scfg)
 
-    def col_scale_fn(self, s2d: torch.Tensor):
+    def col_scale_fn(self, s2d: torch.Tensor,
+                     aux: Optional[Mapping[str, torch.Tensor]] = None):
         """The off-diagonal rescale as an ``(i, j) -> scale`` closure over
-        the (g, b) sample: a scalar per block pair (Eq. 23)."""
-        del s2d                       # the exact/stratified scale is per pair
+        the (g, b) sample: a scalar per block pair for exact and stratified
+        (Eq. 23); a (b, b) per-pair matrix for partition (within a cluster,
+        across clusters, across ranges) and walk (SAINT's 1/q_uv, from
+        ``aux["p"]``)."""
+        if self.mode == "partition":
+            inv_cc, inv_cr = smp.partition_rescale_constants(self.scfg)
+            return lambda i, j: smp.partition_col_scale(
+                s2d[i], s2d[j], i, j, self.scfg, inv_cc, inv_cr)
+        if self.mode == "walk":
+            return lambda i, j: smp.walk_col_scale(s2d[i], s2d[j], aux["p"])
         inv_same, inv_cross = self.rescale_constants()
         return lambda i, j: smp.stratified_col_scale(i, j, inv_same,
                                                      inv_cross)
@@ -188,7 +241,9 @@ class MinibatchBuilder:
         """Extract ONE rescaled float32 block in the configured format and
         backend: a dense ``(b_r, b_c)`` tensor or a block-ELL ``(tiles,
         colidx)`` pair. ``col_scale`` is the off-diagonal rescale, a scalar
-        (training, Eq. 23) or a (b_c,) per-column tensor (serving); ``diag``
+        (training, Eq. 23), a (b_c,) per-column tensor (serving) or a
+        (b_r, b_c) per-pair matrix (the locality modes: ``"torch"`` only);
+        ``diag``
         marks coinciding row/column vertex sets, enabling the Eq. 24
         self-loop exemption."""
         e_cap = self.scfg.e_cap if e_cap is None else e_cap
@@ -259,21 +314,24 @@ class MinibatchBuilder:
                     step: smp.Key, num_layers: int,
                     coords: Mapping[str, int], *,
                     epoch: Optional[smp.Key] = None,
-                    ids: Optional[torch.Tensor] = None) -> Minibatch:
+                    ids: Optional[torch.Tensor] = None,
+                    aux: Optional[Mapping[str, torch.Tensor]] = None
+                    ) -> Minibatch:
         """Alg. 2 on one rank, with no communication: sample from ``(seed,
         epoch, step, coords["d"])`` (Python counters or device tensors,
         which no host reads) — or take the (g, b) ``ids`` of this rank's DP
         group — then extract the rank's block of each rotation
         plane, and slice its feature rows (on plane (x, z)) and label rows
-        (over the final row axis)."""
+        (over the final row axis). ``aux`` holds walk mode's replicated
+        tables (``{"nbr", "p"}``), so its gathers stay on the rank."""
         with phase("sample"):
             s2d = (self.sample_ids(step, epoch, coords["d"],
-                                   device=feats_loc.device)
+                                   device=feats_loc.device, aux=aux)
                    if ids is None else ids)
         with phase("extract"):
             blocks = self.extract_plane_blocks(
                 planes, s2d, num_layers, coords,
-                col_scale_fn=self.col_scale_fn(s2d))
+                col_scale_fn=self.col_scale_fn(s2d, aux))
             r_f = pmm3d.state_after_layers(num_layers).row
             return Minibatch(
                 adj=blocks,
@@ -283,7 +341,9 @@ class MinibatchBuilder:
     def build(self, rp: torch.Tensor, ci: torch.Tensor, val: torch.Tensor,
               features: torch.Tensor, labels: torch.Tensor, step: smp.Key,
               *, epoch: Optional[smp.Key] = None, dp_index: int = 0,
-              ids: Optional[torch.Tensor] = None) -> Minibatch:
+              ids: Optional[torch.Tensor] = None,
+              aux: Optional[Mapping[str, torch.Tensor]] = None
+              ) -> Minibatch:
         """:meth:`build_local` on the 1x1x1x1 mesh (DP group
         ``dp_index``): the batch's one block, features and labels."""
         if self.scfg.g != 1:
@@ -291,7 +351,7 @@ class MinibatchBuilder:
                              "its batch with build_local")
         return self.build_local(((rp, ci, val),), features, labels, step, 1,
                                 dict(SINGLE, d=dp_index), epoch=epoch,
-                                ids=ids)
+                                ids=ids, aux=aux)
 
     def build_single(self, key: torch.Tensor, rp: torch.Tensor,
                      ci: torch.Tensor, val: torch.Tensor,
@@ -299,6 +359,10 @@ class MinibatchBuilder:
                      labels: torch.Tensor) -> smp.MiniBatch:
         """One-device dense batch in the configured sampling mode
         (Alg. 1), drawn from ``key``."""
+        if self.mode not in ("exact", "stratified"):
+            raise ValueError(
+                f"build_single supports the Alg. 1 modes; {self.mode} mode "
+                "builds on a rank of the mesh (build_local)")
         if self.mode == "exact":
             s = self.sample(key)[0]
             inv_p, _ = self.rescale_constants()

@@ -14,13 +14,20 @@ bits are the same on the CPU and on the card. The port cannot reproduce
 properties instead: sorted distinct in-range ids, each vertex once per
 epoch when ``batch | n``, epoch slice 0 equal to the step sampler.
 
-Two modes, as in the reference: ``exact`` (Eq. 20, ``sort(perm(N)[:B])``)
-and ``stratified`` (``b = B/g`` vertices per contiguous range, with the
-range-dependent rescale constants of :func:`rescale_constants`); two
-schedules: per-step and per-epoch (without replacement). Every DP group
-draws its own sample: its index is folded into the key. The locality
-modes (partition, walk) are ROADMAP queue 1, "Locality sampling modes and
-ingestion": their ``SampleConfig`` fields must stay 0.
+Four modes, as in the reference: ``exact`` (Eq. 20,
+``sort(perm(N)[:B])``), ``stratified`` (``b = B/g`` vertices per
+contiguous range, with the range-dependent rescale constants of
+:func:`rescale_constants`), and the locality modes: ``partition`` (q whole
+contiguous clusters per range, after the graph's locality reordering;
+:func:`sample_partition_epoch`) and ``walk`` (random walks over a
+replicated in-range neighbor table; :func:`sample_walk_stratified`), whose
+rescales are per pair of vertices (:func:`partition_col_scale`,
+:func:`walk_col_scale`). Two schedules: per-step and per-epoch (without
+replacement). Every DP group draws its own sample: its index is folded
+into the key, except under partition + epoch with ``dp_groups > 1``,
+where the groups share one cluster permutation and take disjoint slices.
+Every draw of every mode is a counter draw from the key, so each is a pure
+function of the key on the CPU and on the card alike.
 
 Extraction (the port's ``"torch"`` backend, and what the fused CUDA kernel
 of ``kernels/extract_gather.py`` is held against): phase 2 is the
@@ -28,7 +35,8 @@ prefix-sum vectorized CSR row gather, phase 3 the binary-search column
 membership filter + compact remap, phase 4 the rescale/assembly into a
 dense ``(b_r, b_c)`` block (:func:`extract_dense_block`) or straight into
 block-ELL (:func:`extract_block_ell`, bit-identical to the reference for
-the same ids). Static shapes throughout: ``e_cap`` bounds the extracted
+the same ids); its rescale is a scalar, a per-column vector or, for the
+locality modes, a per-pair matrix. Static shapes throughout: ``e_cap`` bounds the extracted
 edges, as in the JAX version.
 """
 from __future__ import annotations
@@ -39,17 +47,23 @@ import torch
 
 from repro_torch.kernels import counter_rng as crng
 
-_LOCALITY = 'ROADMAP queue 1, "Locality sampling modes and ingestion"'
-
 
 class SampleConfig(NamedTuple):
-    """Static sampling parameters. The locality-aware fields (``clusters``,
-    ``dp_groups``, ``walk_len``, ``walk_k``) are kept for the reference's
-    layout and must stay at their defaults until their modes are ported:
-    ``dp_groups > 1`` slices one cluster permutation across the DP groups
-    (partition mode and the epoch schedule only); the other modes fold the
-    DP index into the key, so any number of DP groups runs with
-    ``dp_groups = 1``."""
+    """Static sampling parameters. The locality fields default to "off":
+
+    * ``clusters``  — partition mode: equal contiguous clusters PER VERTEX
+      RANGE; a step samples ``clusters_per_step`` whole clusters per range
+      instead of scattered vertices. 0 = off;
+    * ``dp_groups`` — partition + epoch schedule only: DP groups sharing one
+      (un-dp-folded) epoch cluster permutation and taking disjoint slices
+      of it, so that together they cover every cluster once per epoch;
+      the other modes fold the DP index into the key, so any number of DP
+      groups runs with ``dp_groups = 1``;
+    * ``walk_len``  — walk mode: random-walk steps per root; each root
+      contributes its ``walk_len + 1`` visited vertices. 0 = off;
+    * ``walk_k``    — the width of the replicated in-range neighbor table
+      the walks traverse.
+    """
 
     n_pad: int          # padded vertex count (multiple of g)
     g: int              # grid side; 1 for single-device
@@ -69,34 +83,90 @@ class SampleConfig(NamedTuple):
         return self.batch // self.g
 
     @property
+    def cluster_size(self) -> int:
+        """Vertices per cluster (partition mode)."""
+        return self.n_local // self.clusters
+
+    @property
+    def clusters_per_step(self) -> int:
+        """q: whole clusters sampled per range per step (partition mode)."""
+        return self.b_local // self.cluster_size
+
+    @property
+    def walk_roots(self) -> int:
+        """Roots per range per step (walk mode): each contributes its
+        ``walk_len + 1`` visited vertices, filling the per-range batch."""
+        return self.b_local // (self.walk_len + 1)
+
+    @property
     def steps_per_epoch(self) -> int:
         """Full without-replacement slices one epoch permutation yields
         (``batch | n_pad`` covers every vertex exactly once per epoch; a
-        remainder < batch is dropped)."""
+        remainder < batch is dropped). Under partition + ``dp_groups > 1``
+        the groups take disjoint slices of one permutation, so an epoch is
+        covered in ``1/dp_groups`` of the steps."""
         return self.n_pad // (self.batch * self.dp_groups)
 
     def validate(self) -> "SampleConfig":
-        """Reject a batch larger than the vertex set (it would under-fill
-        the sample and bias the Eq. 23 rescale), DP-sliced permutations
-        outside partition mode (as the reference does), and the locality
-        modes, which are not ported yet."""
-        if self.clusters or self.walk_len or self.walk_k:
-            raise NotImplementedError(
-                f"clusters={self.clusters}, walk_len={self.walk_len}, "
-                f"walk_k={self.walk_k}: the partition and walk sampling "
-                f"modes are {_LOCALITY}")
-        if self.dp_groups != 1:
-            raise ValueError(
-                f"dp_groups={self.dp_groups} > 1 requires partition mode "
-                "(clusters > 0): only the cluster permutation is sliced "
-                "across DP groups; the other modes fold the DP index into "
-                "the key")
+        """Reject what would mis-sample instead of failing, each as the
+        reference's assertion does: a batch larger than the vertex set
+        (it under-fills the sample and biases the Eq. 23 rescale); a
+        cluster count that does not tile the range, the batch or the DP
+        slices (slices would overlap or skip clusters); DP-sliced
+        permutations outside partition mode; a walk that does not tile the
+        per-range batch, or an ``e_cap`` below it."""
         if self.batch > self.n_pad:
             raise ValueError(f"batch={self.batch} exceeds the vertex count "
                              f"n_pad={self.n_pad}")
         if self.b_local > self.n_local:
             raise ValueError(f"per-range batch {self.b_local} exceeds the "
                              f"range size {self.n_local}")
+        if self.clusters:
+            if self.n_local % self.clusters:
+                raise ValueError(
+                    f"clusters={self.clusters} does not divide the range "
+                    f"size n_local={self.n_local}: clusters must be "
+                    "equal-size contiguous spans")
+            if self.b_local % self.cluster_size:
+                raise ValueError(
+                    f"per-range batch {self.b_local} is not a whole number "
+                    f"of clusters (cluster_size={self.cluster_size}): "
+                    "partition mode samples whole clusters")
+            if self.clusters % (self.clusters_per_step * self.dp_groups):
+                raise ValueError(
+                    f"clusters={self.clusters} is not divisible by "
+                    f"clusters_per_step*dp_groups="
+                    f"{self.clusters_per_step * self.dp_groups}: the epoch "
+                    "permutation would leave a partial slice")
+        elif self.dp_groups != 1:
+            raise ValueError(
+                f"dp_groups={self.dp_groups} > 1 requires partition mode "
+                "(clusters > 0): only the cluster permutation is sliced "
+                "across DP groups; the other modes fold the DP index into "
+                "the key")
+        if self.walk_len:
+            if self.clusters:
+                raise ValueError("walk and partition modes are mutually "
+                                 "exclusive: set clusters=0 for walk mode")
+            if self.walk_k < 1:
+                raise ValueError(f"walk mode needs a neighbor table "
+                                 f"(walk_k={self.walk_k}); set walk_k >= 1")
+            if self.walk_len + 1 > self.b_local:
+                raise ValueError(
+                    f"walk_len={self.walk_len}: one walk visits "
+                    f"{self.walk_len + 1} vertices, more than the per-range "
+                    f"batch {self.b_local}")
+            if self.b_local % (self.walk_len + 1):
+                raise ValueError(
+                    f"walk_len={self.walk_len}: walks of "
+                    f"{self.walk_len + 1} vertices do not tile the "
+                    f"per-range batch {self.b_local}; pick walk_len + 1 "
+                    "dividing batch // g")
+            if self.e_cap < self.b_local:
+                raise ValueError(
+                    f"e_cap={self.e_cap} is below the per-range batch "
+                    f"{self.b_local}: the walk's extraction would truncate "
+                    "edges")
         return self
 
 
@@ -205,14 +275,148 @@ def sample_stratified(key: torch.Tensor,
     return sample_epoch_stratified(key, cfg, 0)
 
 
+def _global(local: torch.Tensor, n_local: int) -> torch.Tensor:
+    """(g, b) range-local ids -> int32 global ids (row i + i * n_local)."""
+    base = torch.arange(local.shape[0], device=local.device)[:, None]
+    return (local + base * n_local).to(torch.int32)
+
+
 def sample_epoch_stratified(key: torch.Tensor, cfg: SampleConfig,
                             t: Key) -> torch.Tensor:
     """Without-replacement epoch schedule, stratified mode: one permutation
     per range, step ``t`` takes slice ``t`` of each; (g, b) global ids."""
-    n_loc = cfg.n_local
     local = _slice_sorted(_perm(key, cfg.n_pad, cfg.g), t, cfg.b_local)
-    base = torch.arange(cfg.g, device=local.device)[:, None] * n_loc
-    return (local + base).to(torch.int32)
+    return _global(local, cfg.n_local)
+
+
+# ---------------------------------------------------------------------------
+# Locality-aware sampling: partition (Cluster-GCN-style) and walk (SAINT)
+# ---------------------------------------------------------------------------
+#
+# Both keep the paper's invariant: the sample is a pure function of (seed,
+# epoch, step, dp_index), so every rank of a DP group derives the same
+# (g, b) vertex set with no communication. Partition mode picks q whole
+# contiguous clusters per range (after the locality reordering a cluster's
+# neighborhood is concentrated, so e_cap tightens to q *
+# max_cluster_block_nnz); walk mode grows the batch from random-walk roots
+# over a replicated in-range neighbor table (its gathers read replicated
+# tensors: no communication either).
+
+def sample_partition_stratified(key: torch.Tensor,
+                                cfg: SampleConfig) -> torch.Tensor:
+    """Partition mode, per-step schedule: q = b / cluster_size whole
+    clusters per range, the head of a per-range cluster permutation.
+    Returns (g, b) global ids, sorted within each range."""
+    return sample_partition_epoch(key, cfg, 0)
+
+
+def sample_partition_epoch(key: torch.Tensor, cfg: SampleConfig, t: Key,
+                           dp_slot: int = 0) -> torch.Tensor:
+    """Partition mode, epoch schedule: one cluster permutation per range
+    and (seed, epoch); step ``t`` of DP slot ``dp_slot`` takes slice ``t *
+    dp_groups + dp_slot`` of q clusters, so the slots share the un-folded
+    epoch key and jointly cover every cluster once per epoch, disjointly.
+    Slice 0 is :func:`sample_partition_stratified`. The permutation is the
+    argsort of the clusters' counter hashes, as the uniform sampler's is:
+    the reference ranks clusters by O(C^2) pairwise compares only to keep
+    XLA's partitioner from mis-sharding a sort, a problem PyTorch does not
+    have. The chosen clusters, ascending, expand to their contiguous id
+    spans, so the ids come out sorted."""
+    q, cs = cfg.clusters_per_step, cfg.cluster_size
+    if isinstance(t, torch.Tensor):
+        slot = t.long() * cfg.dp_groups + dp_slot
+    else:
+        slot = int(t) * cfg.dp_groups + dp_slot
+    chosen = _slice_sorted(_perm(key, cfg.g * cfg.clusters, cfg.g), slot, q)
+    span = torch.arange(cs, device=chosen.device)
+    local = (chosen[:, :, None] * cs + span).reshape(cfg.g, q * cs)
+    return _global(local, cfg.n_local)
+
+
+def partition_rescale_constants(cfg: SampleConfig) -> Tuple[float, float]:
+    """(1/p_cross_cluster, 1/p_cross_range): the Eq. 23 pair inclusions of
+    partition sampling. Within a chosen cluster both endpoints always
+    co-occur (no rescale); across clusters of a range p = (q-1)/(C-1);
+    across ranges p = q/C. At q = 1 cross-cluster pairs never co-occur
+    (Cluster-GCN's regime) and the rescale is 0."""
+    C, q = cfg.clusters, cfg.clusters_per_step
+    inv_cc = (C - 1) / (q - 1) if q > 1 else 0.0
+    return inv_cc, C / q
+
+
+def partition_col_scale(ids_r: torch.Tensor, ids_c: torch.Tensor,
+                        row_range: int, col_range: int, cfg: SampleConfig,
+                        inv_cc: float, inv_cr: float) -> torch.Tensor:
+    """The (b_r, b_c) float32 per-pair rescale of partition mode: 1 within
+    a cluster, ``inv_cc`` across clusters of one range, ``inv_cr`` across
+    ranges. ``ids_*`` are global ids; a cluster is positional (``local id
+    // cluster_size``)."""
+    shape = (ids_r.shape[0], ids_c.shape[0])
+    if row_range != col_range:
+        return torch.full(shape, inv_cr, dtype=torch.float32,
+                          device=ids_r.device)
+    cs = cfg.cluster_size
+    cl_r = (ids_r.long() % cfg.n_local) // cs
+    cl_c = (ids_c.long() % cfg.n_local) // cs
+    one = torch.ones((), dtype=torch.float32, device=ids_r.device)
+    return torch.where(cl_r[:, None] == cl_c[None, :], one,
+                       torch.full((), inv_cc, dtype=torch.float32,
+                                  device=ids_r.device))
+
+
+def sample_walk_stratified(key: torch.Tensor, cfg: SampleConfig,
+                           walk_nbr: torch.Tensor,
+                           t: Optional[Key] = None) -> torch.Tensor:
+    """Walk mode: per range, ``walk_roots`` roots (the head of a per-range
+    permutation, or slice ``t`` of it under the epoch schedule) each walk
+    ``walk_len`` steps over ``walk_nbr``, the replicated (n_pad, walk_k)
+    table of in-range neighbor ids (``graphs.partition.build_walk_tables``).
+    The roots come from ``fold_in(key, 0)``, the neighbor choice of step
+    s from ``fold_in(key, 1 + s)`` (its counter hash mod ``walk_k``). The
+    visited multiset is deduplicated to exactly ``b`` distinct ids with a
+    random fill, as the reference does: visited ids score their first
+    visit's position (< b; a ``scatter_reduce_`` "amin", deterministic on
+    the card), unvisited ids n_local + their permutation rank, and the b
+    smallest scores win (every score is distinct). Returns (g, b) global
+    ids, sorted within each range."""
+    g, n_loc, b = cfg.g, cfg.n_local, cfg.b_local
+    n_roots = cfg.walk_roots
+    dev = key.device
+    perm = _perm(fold_in(key, 0), cfg.n_pad, g)           # (g, n_loc)
+    if t is None:
+        roots = perm[:, :n_roots]
+    else:
+        if not isinstance(t, torch.Tensor):
+            t = torch.full((), int(t), dtype=torch.int64, device=dev)
+        start = torch.clamp(t.long() * n_roots, 0, n_loc - n_roots)
+        roots = perm.index_select(1, start + torch.arange(n_roots,
+                                                          device=dev))
+    base = torch.arange(g, device=dev)[:, None] * n_loc
+    cur = roots + base                                    # global, (g, R)
+    visited = [cur]
+    for s in range(cfg.walk_len):
+        choice = torch.remainder(crng.hash_keys(fold_in(key, 1 + s),
+                                                g * n_roots),
+                                 cfg.walk_k).view(g, n_roots)
+        cur = walk_nbr[cur, choice].long()
+        visited.append(cur)
+    vis = torch.stack(visited, 1).reshape(g, b) - base    # local, visit order
+    order = torch.arange(n_loc, device=dev).expand(g, n_loc)
+    score = torch.empty_like(perm).scatter_(1, perm, order) + n_loc
+    score.scatter_reduce_(1, vis, order[:, :b], reduce="amin")
+    ids = torch.topk(score, b, dim=1, largest=False).indices
+    return _global(torch.sort(ids, dim=1).values, n_loc)
+
+
+def walk_col_scale(ids_r: torch.Tensor, ids_c: torch.Tensor,
+                   p_incl: torch.Tensor) -> torch.Tensor:
+    """The (b_r, b_c) SAINT edge rescale 1/q_uv, q_uv = p_u + p_v - p_u p_v
+    (Zeng et al. 2019, Eq. 6), from ``p_incl``, the replicated (n_pad,)
+    inclusion estimate ``min(1, b * p_tilde)``. Self-loops are exempted
+    by the extraction's diagonal rule (Eq. 24)."""
+    pr = p_incl[ids_r.long()][:, None]
+    pc = p_incl[ids_c.long()][None, :]
+    return 1.0 / torch.clamp(pr + pc - pr * pc, min=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -262,16 +466,48 @@ def _extract_triples(rp, ci, val, rows_local, cols_local, e_cap):
 def _edge_scale(rows_local, own, pos, col, rescale_offdiag, is_diag_block):
     """Phase-4 rescale factor per extracted slot (Eq. 24).
 
-    ``rescale_offdiag`` is a scalar (one inclusion probability, Eq. 23) or
+    ``rescale_offdiag`` is a scalar (one inclusion probability, Eq. 23),
     a (b_c,) per-column tensor (serving: requested at p=1, support at
-    p_support). ``is_diag_block`` marks that the row/column vertex sets
-    coincide, so self-loops (local ids equal) stay unrescaled.
+    p_support) or a (b_r, b_c) per-pair matrix (partition mode's cluster
+    constants, walk mode's SAINT 1/q_uv; indexed at ``[own, pos]``).
+    ``is_diag_block`` marks that the row/column vertex sets coincide, so
+    self-loops (local ids equal) stay unrescaled.
     """
     resc = torch.as_tensor(rescale_offdiag, dtype=torch.float32,
                            device=col.device)
-    offdiag = resc[pos] if resc.dim() == 1 else resc.expand(col.shape)
+    if resc.dim() == 2:
+        offdiag = resc[own, pos]
+    elif resc.dim() == 1:
+        offdiag = resc[pos]
+    else:
+        offdiag = resc.expand(col.shape)
     diag = bool(is_diag_block) & (rows_local.long()[own] == col)
     return torch.where(diag, torch.ones_like(offdiag), offdiag)
+
+
+def _scatter_sum(shape: Tuple[int, ...], index: Tuple[torch.Tensor, ...],
+                 values: torch.Tensor, keep: torch.Tensor,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A zero ``dtype`` tensor of ``shape`` with ``values`` added at
+    ``index`` over the slots where ``keep``, as one deterministic sorted
+    accumulation (``index_put_`` with ``accumulate``). The slots not kept
+    go to distinct spare cells past the end of the flat buffer instead of
+    adding zeros to one clamped cell: on the card the accumulation
+    serializes each run of one index, and tens of thousands of padding
+    slots on one cell took milliseconds. The kept cells get the same
+    sums."""
+    n = 1
+    for dim in shape:
+        n *= dim
+    lin = torch.zeros_like(index[0])
+    for idx, dim in zip(index, shape):
+        lin = lin * dim + idx
+    spare = n + torch.arange(lin.shape[0], device=lin.device)
+    flat = torch.zeros((n + lin.shape[0],), dtype=dtype, device=lin.device)
+    flat.index_put_((torch.where(keep, lin, spare),),
+                    torch.where(keep, values, torch.zeros_like(values)).to(
+                        dtype), accumulate=True)
+    return flat[:n].view(shape)
 
 
 def extract_dense_block(
@@ -292,16 +528,14 @@ def extract_dense_block(
     Rescale semantics are in ``_edge_scale``.
     """
     b_r, b_c = rows_local.shape[0], cols_local.shape[0]
-    out = torch.zeros((b_r, b_c), dtype=torch.float32,
-                      device=rows_local.device)
     if ci.shape[0] == 0:                     # empty graph shard
-        return out
+        return torch.zeros((b_r, b_c), dtype=torch.float32,
+                           device=rows_local.device)
     own, pos, member, v, col = _extract_triples(
         rp, ci, val, rows_local, cols_local, e_cap)
     scale = _edge_scale(rows_local, own, pos, col, rescale_offdiag,
                         is_diag_block)
-    contrib = torch.where(member, v * scale, torch.zeros_like(v))
-    return out.index_put_((own, pos), contrib, accumulate=True)
+    return _scatter_sum((b_r, b_c), (own, pos), v * scale, member)
 
 
 def stratified_col_scale(row_range: int, col_range: int, inv_same: float,
@@ -358,16 +592,16 @@ def extract_block_ell(
                          f"({bm}, {bn})")
     n_rb, n_cb = b_r // bm, b_c // bn
     dev = rows_local.device
-    tiles = torch.zeros((n_rb, n_slots, bm, bn), dtype=dtype, device=dev)
     colidx = torch.zeros((n_rb, n_slots), dtype=torch.int32, device=dev)
     if ci.shape[0] == 0:
-        return tiles, colidx
+        return (torch.zeros((n_rb, n_slots, bm, bn), dtype=dtype,
+                            device=dev), colidx)
 
     own, pos, member, v, col = _extract_triples(
         rp, ci, val, rows_local, cols_local, e_cap)
     scale = _edge_scale(rows_local, own, pos, col, rescale_offdiag,
                         is_diag_block)
-    contrib = torch.where(member, v * scale, torch.zeros_like(v)).to(dtype)
+    contrib = torch.where(member, v * scale, torch.zeros_like(v))
 
     rb = own // bm
     cb = pos // bn
@@ -390,9 +624,9 @@ def extract_block_ell(
     ok = member & (slot >= 0) & (slot < n_slots)
     slot_c = slot.clamp(0, n_slots - 1)
 
-    tiles.index_put_((rb, slot_c, own % bm, pos % bn),
-                     torch.where(ok, contrib, torch.zeros_like(contrib)),
-                     accumulate=True)
+    tiles = _scatter_sum((n_rb, n_slots, bm, bn),
+                         (rb, slot_c, own % bm, pos % bn), contrib, ok,
+                         dtype)
     colidx.view(-1).scatter_reduce_(
         0, rb * n_slots + slot_c,
         torch.where(ok, cb, torch.zeros_like(cb)).to(torch.int32),

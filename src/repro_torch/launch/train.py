@@ -9,9 +9,10 @@ plain version). A mesh of more than one rank runs under ``torchrun``, one
 process per rank: NCCL on the cards (rank r on ``cuda:LOCAL_RANK``), gloo
 with ``--device cpu``; ``--overlap ring``, ``--compress``,
 ``--compress-schedule``, ``--bf16-collectives`` and ``--prefetch`` select
-the paper's §V communication and sampling overlaps. The flags of features
-not ported yet raise ``NotImplementedError`` naming their ROADMAP item.
-Examples::
+the paper's §V communication and sampling overlaps; ``--sample-kind
+partition|walk`` the locality samplers (which extract with the plain
+``"torch"`` backend, as the reference's extract with ``"jax"``), and
+``--mmap-dir`` a graph ingested from an mmap shard set. Examples::
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --dataset ogbn-products --vertices 65536 --batch 1024 --steps 100 \\
@@ -19,6 +20,8 @@ Examples::
     PYTHONPATH=src torchrun --nproc_per_node 8 -m repro_torch.launch.train \\
         --device cpu --g 2 --vertices 2048 --batch 256 --steps 8 \\
         --overlap ring --compress int8 --prefetch
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --vertices 2048 --batch 256 --steps 8 --sample-kind partition
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ import torch.distributed as dist
 
 from repro_torch.core import fourd, gcn_model as GM
 from repro_torch.device import resolve_device, use_full_f32_matmul
-from repro_torch.graphs import build_partitioned_graph, get_dataset
+from repro_torch.graphs import (MmapShardedCSR, build_partitioned_graph,
+                                get_dataset)
 from repro_torch.obs import Tracer, set_tracer
 from repro_torch.optim import (AdamW, linear_warmup_cosine,
                                linear_warmup_cosine_epochs)
@@ -63,13 +67,23 @@ def build_argparser() -> argparse.ArgumentParser:
                          "permutation per (seed, epoch, dp)")
     ap.add_argument("--sample-kind", default="stratified",
                     choices=["stratified", "partition", "walk"],
-                    help="sampling family; partition and walk are not "
-                         "ported yet")
-    ap.add_argument("--clusters", type=int, default=0)
-    ap.add_argument("--walk-len", type=int, default=4)
-    ap.add_argument("--walk-k", type=int, default=8)
+                    help="sampling family (all communication-free): "
+                         "'stratified' per-range uniform vertices (Alg. 1); "
+                         "'partition' whole locality clusters "
+                         "(Cluster-GCN); 'walk' GraphSAINT random walks")
+    ap.add_argument("--clusters", type=int, default=0,
+                    help="partition kind: locality clusters per vertex "
+                         "range (0: sized from the per-range batch)")
+    ap.add_argument("--walk-len", type=int, default=4,
+                    help="walk kind: steps per root walk")
+    ap.add_argument("--walk-k", type=int, default=8,
+                    help="walk kind: neighbor-table width (degree cap)")
     ap.add_argument("--mmap-dir", default=None, metavar="DIR",
-                    help="mmap shard ingestion: not ported yet")
+                    help="ingest the graph from an MmapShardedCSR shard "
+                         "set (write one with repro_torch.graphs."
+                         "write_mmap_shards) instead of a synthetic "
+                         "dataset in memory; overrides --dataset and "
+                         "--vertices")
     ap.add_argument("--lr", type=float, default=5e-3)
     ap.add_argument("--dropout", type=float, default=0.2)
     ap.add_argument("--bf16-collectives", action="store_true")
@@ -120,10 +134,6 @@ def main(argv=None):
         raise ValueError(
             "--xla-overlap sets XLA scheduler flags, which have no "
             "counterpart here: the port overlaps with --overlap ring")
-    if args.mmap_dir:
-        raise NotImplementedError(
-            "--mmap-dir: mmap shard ingestion is ROADMAP queue 1, "
-            '"Locality sampling modes and ingestion"')
     device = resolve_device(args.device)
     use_full_f32_matmul()
     launched = "WORLD_SIZE" in os.environ        # under torchrun
@@ -136,14 +146,45 @@ def main(argv=None):
             dist.destroy_process_group()
 
 
+def default_clusters(n: int, batch: int, g: int, gd: int) -> int:
+    """The partition kind's cluster count when ``--clusters`` is 0: the
+    largest q in (8, 4, 2, 1) that divides the per-range batch, clusters of
+    b_local / q vertices, their count rounded up so that the epoch
+    schedule's DP slices divide it."""
+    b_loc = batch // g
+    q = next(q for q in (8, 4, 2, 1) if b_loc % q == 0)
+    cs = b_loc // q
+    n_loc0 = -(-n // g)
+    return -(-(-(-n_loc0 // cs)) // (q * gd)) * (q * gd)
+
+
+def _graph(args):
+    """(partitioned graph, dataset name, edge count): from the mmap shard
+    set of ``--mmap-dir``, else the synthetic stand-in, reordered into
+    clusters for the partition kind."""
+    if args.mmap_dir:
+        shards = MmapShardedCSR.open(args.mmap_dir)
+        if shards.meta["g"] != args.g:
+            raise SystemExit(f"shard set {args.mmap_dir} was written for "
+                             f"g={shards.meta['g']}, not --g {args.g}")
+        return (shards.to_partitioned_graph(), shards.meta["name"],
+                shards.meta["nnz"])
+    ds = get_dataset(args.dataset, scale_vertices=args.vertices,
+                     seed=args.seed)
+    clusters = args.clusters
+    if args.sample_kind == "partition" and clusters == 0:
+        clusters = default_clusters(ds.num_vertices, args.batch, args.g,
+                                    args.gd)
+    return (build_partitioned_graph(ds, g=args.g, clusters=clusters),
+            ds.name, ds.num_edges)
+
+
 def _train(args, device):
+    pg, ds_name, num_edges = _graph(args)
     mesh = fourd.make_mesh_4d(args.gd, args.g, device)
     device = mesh.device
     say = print if mesh.rank == 0 else (lambda *a, **k: None)
 
-    ds = get_dataset(args.dataset, scale_vertices=args.vertices,
-                     seed=args.seed)
-    pg = build_partitioned_graph(ds, g=args.g, clusters=args.clusters)
     cfg = GM.GCNConfig(d_in=pg.feature_dim, d_hidden=args.d_hidden,
                        num_layers=args.layers, num_classes=pg.num_classes,
                        dropout=args.dropout)
@@ -191,7 +232,7 @@ def _train(args, device):
         say(f"resumed: step {int(state.step)} epoch {int(state.epoch)}")
 
     say(f"ScaleGNN (port): mesh {mesh.shape} on {device}  dataset "
-        f"{ds.name} N={pg.n} E={ds.num_edges} batch={args.batch} "
+        f"{ds_name} N={pg.n} E={num_edges} batch={args.batch} "
         f"sample-kind={args.sample_kind} sample-mode={args.sample_mode} "
         f"steps={total_steps} (epochs={args.epochs}, "
         f"{plan.scfg.steps_per_epoch}/epoch) chunk={args.chunk_size}")
@@ -222,7 +263,7 @@ def _train(args, device):
 
     if args.metrics_json and mesh.rank == 0:
         doc = {
-            "run": {"dataset": ds.name, "mesh": mesh.shape,
+            "run": {"dataset": ds_name, "mesh": mesh.shape,
                     "device": str(device), "batch": args.batch,
                     "steps": total_steps, "sample_mode": args.sample_mode,
                     "sample_kind": args.sample_kind,

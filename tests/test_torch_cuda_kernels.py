@@ -607,6 +607,49 @@ def test_cuda_captured_steps_bit_identical_to_eager_steps(cuda, prefetch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind, prefetch", [("partition", False),
+                                            ("partition", True),
+                                            ("walk", False), ("walk", True)])
+def test_cuda_captured_locality_steps_bit_identical_to_eager(cuda, kind,
+                                                             prefetch):
+    """The partition (epoch schedule) and walk kinds: 8 steps of
+    ``Trainer.run`` (captured) and 8 eager ``Trainer.step`` calls from the
+    same init give the same losses and state bits; their extraction is the
+    plain one, their SpMM, dX, tail and draws the kernels."""
+    from repro_torch.core import fourd
+    from repro_torch.core import gcn_model as TM
+    from repro_torch.core.forward import TrainOptions
+    from repro_torch.graphs import build_partitioned_graph
+    from repro_torch.tree import leaves, tree_map
+    ds = make_synthetic_dataset(n=2048, num_classes=4, d_in=16,
+                                avg_degree=8, seed=0)
+    clusters = 32 if kind == "partition" else 0
+    pg = build_partitioned_graph(ds, g=1, clusters=clusters)
+    cfg = TM.GCNConfig(d_in=16, d_hidden=64, num_layers=3, num_classes=4)
+    opts = TrainOptions(spmm_impl="ell", fused_elementwise=True,
+                        extract_impl="torch", dropout=0.3, seed=4,
+                        ell_tile=32, ell_slots=16, sample_kind=kind,
+                        sample_mode="epoch" if kind == "partition"
+                        else "step", clusters=clusters, walk_len=3,
+                        walk_k=6)
+    plan = fourd.build_plan(pg, cfg, fourd.make_mesh_4d(1, 1, cuda),
+                            batch=512, opts=opts)
+    graph = plan.shard_graph(pg)
+    params0 = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                             device=cuda)
+    fresh = lambda: tree_map(lambda t: t.detach().clone(), params0)
+    eager = _card_trainer(plan, 8, prefetch=prefetch)
+    st_e = eager.init_state(fresh(), graph)
+    want = torch.stack([eager.step(st_e, graph) for _ in range(8)])
+    tr = _card_trainer(plan, 8, prefetch=prefetch, chunk=3)
+    st, log = tr.run(tr.init_state(fresh(), graph), graph)
+    assert log.replays == 7
+    assert log.losses == want.cpu().tolist()
+    for a, b in zip(leaves(st), leaves(st_e)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_cuda_eager_step_syncs_nowhere(cuda):
     """``Trainer.step`` with prefetch, under
     ``torch.cuda.set_sync_debug_mode("error")``: no operation of the step

@@ -249,16 +249,21 @@ def test_build_single_and_build_match_direct_extraction(graph):
 
 
 def test_unported_modes_raise():
-    """The locality modes raise, naming their ROADMAP item by its title;
-    DP-sliced permutations need partition mode, as in the reference (the
-    other modes fold the DP index into the key); g > 1 builds on a rank of
-    the mesh (``build_local``), not through the single-device ``build``."""
-    locality = "Locality sampling modes and ingestion"
-    with pytest.raises(NotImplementedError, match=locality):
-        tsmp.SampleConfig(n_pad=64, g=1, batch=8, e_cap=1,
-                          clusters=4).validate()
-    with pytest.raises(NotImplementedError, match=locality):
-        tmb.MinibatchBuilder(tsmp.SampleConfig(64, 1, 8, 1), mode="walk")
+    """What the port still refuses: the locality modes on the fused
+    extraction kernel, whose rescale is a scalar or per column (a per-pair
+    one is a ROADMAP item, named by its title); DP-sliced permutations
+    outside partition mode, as in the reference (the other modes fold the
+    DP index into the key); g > 1 through the single-device ``build``
+    (a rank of the mesh builds with ``build_local``)."""
+    item = "the per-pair rescale inside the extraction kernel"
+    with pytest.raises(ValueError, match=item):
+        tmb.MinibatchBuilder(tsmp.SampleConfig(n_pad=64, g=1, batch=8,
+                                               e_cap=16, clusters=8),
+                             mode="partition", impl="cuda", max_row_nnz=2)
+    with pytest.raises(ValueError, match=item):
+        tmb.MinibatchBuilder(tsmp.SampleConfig(64, 1, 8, 16, walk_len=3,
+                                               walk_k=4),
+                             mode="walk", impl="cuda", max_row_nnz=2)
     with pytest.raises(ValueError, match="requires partition mode"):
         tsmp.SampleConfig(n_pad=64, g=1, batch=8, e_cap=1,
                           dp_groups=2).validate()

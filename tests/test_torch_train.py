@@ -217,18 +217,28 @@ def test_trainer_eval_cadence_and_target_stop(data):
 
 
 def test_unported_options_raise(data):
-    """Options not ported raise, naming their ROADMAP item by its title; a
-    mesh of more than one rank needs a process group (the mesh itself runs
-    in ``test_torch_fourd_dist.py``), reshard_impl="permute" is ported, and
-    an int4 wire the widths cannot pack raises ``ValueError``."""
+    """What the port still refuses: bf16 blocks (``NotImplementedError``);
+    the partition and walk kinds on the fused extraction kernel, naming
+    the ROADMAP item by its title (they run with extract_impl="torch", as
+    the reference's run with "jax"); a mesh of more than one rank without
+    a process group (the mesh itself runs in
+    ``test_torch_fourd_dist.py``); an int4 wire the widths cannot pack.
+    reshard_impl="permute" is ported."""
     ds, jcfg, _ = data
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 8"):
         tfourd.make_mesh_4d(1, 2, "cpu")
-    for kw, item in ((dict(sample_kind="walk"),
-                      "Locality sampling modes and ingestion"),
-                     (dict(block_dtype="bf16"), "bf16")):
-        with pytest.raises(NotImplementedError, match=item):
-            TrainOptions(**kw)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        TrainOptions(block_dtype="bf16")
+    item = "the per-pair rescale inside the extraction kernel"
+    with pytest.raises(ValueError, match=item):
+        _tplan(ds, jcfg, sample_kind="walk", walk_len=3)
+    with pytest.raises(ValueError, match=item):
+        tfourd.build_plan(tbuild(ds, g=1, clusters=16), _tcfg(jcfg),
+                          tfourd.make_mesh_4d(1, 1, "cpu"), batch=BATCH,
+                          opts=TrainOptions(sample_kind="partition",
+                                            extract_impl="cuda"))
+    assert _tplan(ds, jcfg, sample_kind="walk", walk_len=3,
+                  extract_impl="torch").builder.mode == "walk"
     assert TrainOptions(reshard_impl="permute").reshard_impl == "permute"
     with pytest.raises(ValueError, match="even local class width"):
         _tplan(ds, dataclasses.replace(jcfg, num_classes=5),

@@ -21,7 +21,8 @@ that case. A case is ``prior:graph``:
   a training chunk): ``matmul`` (four ``torch.matmul``), ``port`` (the
   two counter kernels) or ``step`` (the port's training step at the
   paper's width on the same graph, batch 4096, prefetch on, captured and
-  replayed by ``Trainer.run``); or ``smoke``, ``chip_smoke.py``'s
+  replayed by ``Trainer.run``; ``stepnp`` the same with prefetch off, as
+  ``chip_smoke.py``'s profiled chunk runs); or ``smoke``, ``chip_smoke.py``'s
   training phase on the same graph up to its profiled chunk of replays
   (the sequence that crashed when it followed the serving phase), and
   ``smoke-matmul``, the same with a ``matmul`` graph captured and
@@ -32,14 +33,18 @@ that case. A case is ``prior:graph``:
   suffix (``matmul-freed``, ``port-freed``, ``step-freed``) captures a
   second graph of the kind after the first and frees it before the
   first's profiled replays, as ``chip_smoke.py``'s training phase frees
-  other runs' graphs before its profiled chunk.
+  other runs' graphs before its profiled chunk. ``step-eval`` runs one
+  full-graph evaluation (the sparse CSR product) between the step's
+  run and its profiled replays, as ``chip_smoke.py``'s training phase
+  does; ``smoke-noeval`` is ``smoke`` with that evaluation left out.
 
 ``--cases prior:graph ...`` runs only those cases; by default each of
 ``matmul``, ``port`` and ``step`` runs after each prior, then the four
 ``smoke`` cases after ``serve``.
 
 Every case that crashes runs again under each of kineto's CUPTI switches
-(``TEARDOWN_CUPTI=0``, ``DISABLE_CUPTI_LAZY_REINIT=1``). The script prints
+(``TEARDOWN_CUPTI=0``, ``DISABLE_CUPTI_LAZY_REINIT=1``), unless
+``--no-switches``. The script prints
 the card's name and power limit, one line per case (the child's exit
 code, and the kernels its replay trace held), the CUPTI-related names
 found in torch's libraries, and one JSON object, also written to the
@@ -59,7 +64,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PRIORS = ("none", "matmul", "port", "serve", "serve-unprofiled")
-GRAPHS = ("matmul", "port", "step")
+GRAPHS = ("matmul", "port", "step", "stepnp")
 SMOKE_CASES = ("serve:smoke", "serve:smoke-matmul", "serve:smoke-old-matmul",
                "serve:smoke-old-port")
 VERTICES = 65536
@@ -101,9 +106,10 @@ def child(prior: str, kind: str) -> int:
     if kind.startswith("smoke"):
         return _smoke_training(torch, kind, lambda k: _replays(
             torch, dev, k, a, port_kernels))
-    base, _, freed = kind.partition("-")
-    replay = _replays(torch, dev, base, a, port_kernels)
-    if freed:                    # another graph of the kind, then freed
+    base, _, suffix = kind.partition("-")
+    replay = _replays(torch, dev, base, a, port_kernels,
+                      eval_between=suffix == "eval")
+    if suffix == "freed":        # another graph of the kind, then freed
         _replays(torch, dev, base, a, port_kernels)
         gc.collect()
         torch.cuda.synchronize()
@@ -112,11 +118,13 @@ def child(prior: str, kind: str) -> int:
     return 0
 
 
-def _replays(torch, dev, kind, a, port_kernels):
+def _replays(torch, dev, kind, a, port_kernels, eval_between=False):
     """A captured graph of ``kind``; returns a call that replays it
-    ``REPLAYS`` times."""
-    if kind == "step":
-        return _step_replays(torch, dev)
+    ``REPLAYS`` times (a step's graph after a full-graph evaluation, with
+    ``eval_between``)."""
+    if kind in ("step", "stepnp"):
+        return _step_replays(torch, dev, eval_between,
+                             prefetch=kind == "step")
     body = {"matmul": lambda: [a @ a for _ in range(4)],
             "port": port_kernels}[kind]
     side = torch.cuda.Stream()              # warm up off the main stream
@@ -203,6 +211,9 @@ def _smoke_training(torch, kind: str, make_replays) -> int:
 
     chip_smoke.log = hook
     chip_smoke.phase_train_nccl = stop
+    if kind == "smoke-noeval":
+        from repro_torch.core import fourd
+        fourd.make_eval_step = lambda plan: (lambda params, graph: 0.0)
     plan, graph, pg = chip_smoke.train_setup(torch, _dataset(),
                                              torch.device("cuda"))
     try:
@@ -214,9 +225,10 @@ def _smoke_training(torch, kind: str, make_replays) -> int:
     return 0
 
 
-def _step_replays(torch, dev):
+def _step_replays(torch, dev, eval_between=False, prefetch=True):
     """A captured training step (``Trainer.run``: a warm-up step, a capture
-    and replays); returns a call that replays ``REPLAYS`` more steps."""
+    and replays), then with ``eval_between`` one full-graph evaluation;
+    returns a call that replays ``REPLAYS`` more steps."""
     from repro_torch.configs.gcn_paper import paper_model
     from repro_torch.core import fourd
     from repro_torch.core import gcn_model as M
@@ -237,10 +249,14 @@ def _step_replays(torch, dev):
     tr = Trainer(plan, AdamW(lr=linear_warmup_cosine(5e-3, 4, 64),
                              weight_decay=1e-4, grad_clip=1.0),
                  TrainLoopConfig(total_steps=8, chunk_size=8,
-                                 prefetch=True),
+                                 prefetch=prefetch),
                  eval_fn=lambda p, g: 0.0)
     state = tr.init_state(params, graph)
     tr.run(state, graph)
+    if eval_between:
+        print(f"[probe] full-graph accuracy "
+              f"{float(fourd.make_eval_step(plan)(state.params, graph)):.6f}"
+              " between the run and the profiled replays", flush=True)
 
     def replay():
         tr.total_steps += REPLAYS
@@ -302,6 +318,9 @@ def main() -> int:
     ap.add_argument("--cases", nargs="*", default=None,
                     help="prior:graph ... (default: all)")
     ap.add_argument("--out", default=None, help="write the JSON here too")
+    ap.add_argument("--no-switches", action="store_true",
+                    help="do not rerun crashed cases under kineto's "
+                         "CUPTI switches")
     args = ap.parse_args()
     if args.case is not None:
         return child(*args.case.split(":"))
@@ -327,7 +346,7 @@ def main() -> int:
     picked = args.cases if args.cases is not None else [
         f"{p}:{g}" for g in GRAPHS for p in PRIORS] + list(SMOKE_CASES)
     cases = [run_case(*c.split(":"), {}) for c in picked]
-    for c in [c for c in cases if c["rc"] != 0]:
+    for c in [c for c in cases if c["rc"] != 0 and not args.no_switches]:
         cases += [run_case(c["prior"], c["graph"], env) for env in SWITCHES]
     out = {"card": card, "torch": torch.__version__,
            "cuda": torch.version.cuda, "cupti_names": names,
