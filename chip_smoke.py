@@ -4,11 +4,11 @@
     python3 chip_smoke.py                      # the full run, one card
     python3 chip_smoke.py --vertices 65536     # a quick run on a smaller graph
 
-Phases, in order (phase 5 and its sub-phases 5b-5e run right after the
-plan is built, before phases 3-4: in a process whose earlier profiler
-sessions traced the kernels, a profiled replay of a captured training step
-crashed the process); any failure ends the script with a non-zero exit
-code:
+Phases, in order (no captured graph is made after the graph that a
+profiled chunk replays and destroyed before that chunk: in a process
+whose earlier profiler sessions traced kernels, that order made the
+profiled replay crash, PERF.md section 7); any failure ends the script
+with a non-zero exit code:
 
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``;
@@ -28,6 +28,18 @@ code:
    training shape behind a flush that reads the 256 MB back, so that the
    L2 holds no dirty lines to write back, and the extraction beside a
    ``fill_`` of a block of its size;
+   The tail's counter route (the keep bits drawn in the kernel from the
+   0-d key ``keep_mask`` takes, the training path's route) is bit for bit
+   the bytes route fed ``keep_mask``'s mask at the three shapes, and timed
+   at the training shape on a cold L2 beside the bytes route plus
+   ``keep_mask``; the tail's backward kernel (``fused_layer_bwd``: dx and a
+   deterministic d_scale) is within 1e-5 of the largest |plain| for dx and
+   d_scale at the three shapes in every case of RMSNorm, ReLU and keep
+   source (none, bytes, counter; the counter bit for bit the bytes mask's),
+   10 calls bit-identical on each route, and timed (counter, RMSNorm,
+   ReLU) at the training shape on a cold L2, at the serving shape and, on
+   its scalar route, at (300, 33), beside its bound, its plain version and
+   the plain version fed a mask (the backward before this kernel);
    The block-ELL SpMM is held against its plain version on a real sampled
    training batch (8192 vertices, 128 x 128 tiles) within 1e-4 of the
    largest output, at the reference's sweep shapes with a ragged d, on a
@@ -68,10 +80,13 @@ code:
    on the 1x1x1x1 mesh for 48 steps: ``Trainer.run`` runs one eager
    warm-up step, captures the step in a CUDA graph and replays it 47
    times. Launch counts are zeroed just before and read just after: the
-   wrappers count the warm-up step's launches and the capture's, and one
-   more chunk of 8 replays under the profiler must run each of the step's
-   device kernels 8 times its per-step count. Then twice more for the
-   spread of ms/step; the first step's loss and gradients and an
+   wrappers count the warm-up step's launches and the capture's (per
+   layer one tail on the counter route and one tail backward; no
+   ``keep_mask``: the tail draws the dropout), and one more chunk of 8
+   replays under the profiler must run each of the step's device kernels
+   8 times its per-step count (``keep_mask_kernel`` 0 times); then twice
+   more for the spread of ms/step, after that chunk. The first step's
+   loss and gradients and an
    eight-step loss trajectory are held against the plain versions on the
    card, and eight captured steps and eight eager ``Trainer.step`` calls
    from one state must give bit-identical losses and params; the loss
@@ -116,7 +131,9 @@ code:
    and the memory the graph holds; one profiled eager chunk beside phase
    5's profiled replays;
 5e. train-samplers — the reference's other samplers, the paper model on
-   the same graph, dropout 0.3, AdamW, the fused tail: partition (the
+   the same graph, dropout 0.3, AdamW, the fused tail (drawing its
+   dropout from the counter: the SAINT and SAGE steps hand the model one
+   key a layer): partition (the
    locality reordering into clusters of 1,024, q = 8 at batch 8192) and
    walk (2,048 roots of 4 vertices, ``walk_k`` 8) through the 4D step
    with the block-ELL SpMM and the plain extraction (their rescale is per
@@ -146,9 +163,9 @@ code:
 
 The last two lines of standard output are one JSON object per kernel
 route (``{"kernels": [...]}``, each with its launches on every path and,
-for the extraction and the tail's vector route, its times at the training
-shape, where the training path launches them, with the serving shape's
-under ``shapes``) and ``{"ok": true, "device": {...}}``. Without a card,
+for the extraction, the tail's routes and its backward, its times at the
+training shape, where the training path launches them, with the other
+shapes' under ``shapes``) and ``{"ok": true, "device": {...}}``. Without a card,
 the script exits non-zero before printing either.
 """
 from __future__ import annotations
@@ -175,6 +192,8 @@ F32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
 
 TAIL_RTOL = 1e-5         # f32 sum of squares in another order
+TAIL_BWD_RTOL = 1e-5     # the tail's backward: dx and d_scale (a sum over
+                         # rows in another order), of the largest |plain|
 SERVE_ATOL = 1e-4        # two GCN forwards: fused vs plain tail and extraction
 SPMM_RTOL = 1e-4         # f32 sums of up to S * bn products in another order
 DX_RTOL = 1e-5           # dX: the same products, summed in another order,
@@ -192,16 +211,25 @@ FLASH_BF16_LSE_ATOL = 1e-4
 LLM_RTOL = 5e-2          # bf16 logits, kernel vs plain path, of max |logit|
 
 # the kernels of the port: the module that counts their launches, the
-# count's name in it, and the route's own count in that module where it has
-# two routes
+# count's name in it, and where the count is split (by route, or by the
+# tail's keep source) the dict of the split and the entry's key in it
 KERNEL_COUNTERS = {
     "extract_dense_fused": ("extract_gather", "LAUNCHES", None),
-    "fused_layer": ("fused_layer", "LAUNCHES", "vector"),
-    "fused_layer_scalar": ("fused_layer", "LAUNCHES", "scalar"),
+    "fused_layer": ("fused_layer", "LAUNCHES", ("ROUTE_LAUNCHES", "vector")),
+    "fused_layer_scalar": ("fused_layer", "LAUNCHES",
+                           ("ROUTE_LAUNCHES", "scalar")),
+    "fused_layer_counter": ("fused_layer", "LAUNCHES",
+                            ("SOURCE_LAUNCHES", "counter")),
+    "fused_layer_bwd": ("fused_layer", "BWD_LAUNCHES",
+                        ("BWD_ROUTE_LAUNCHES", "vector")),
+    "fused_layer_bwd_scalar": ("fused_layer", "BWD_LAUNCHES",
+                               ("BWD_ROUTE_LAUNCHES", "scalar")),
     "spmm_ell": ("spmm_ell", "LAUNCHES", None),
     "spmm_ell_dx": ("spmm_ell", "DX_LAUNCHES", None),
-    "flash_attention": ("flash_attention", "LAUNCHES", "mma"),
-    "flash_attention_f32": ("flash_attention", "LAUNCHES", "f32"),
+    "flash_attention": ("flash_attention", "LAUNCHES",
+                        ("ROUTE_LAUNCHES", "mma")),
+    "flash_attention_f32": ("flash_attention", "LAUNCHES",
+                            ("ROUTE_LAUNCHES", "f32")),
     "hash_keys": ("counter_rng", "HASH_LAUNCHES", None),
     "keep_mask": ("counter_rng", "MASK_LAUNCHES", None)}
 DX_KERNELS = ("dx_scan_kernel", "dx_fill_kernel", "dx_product_kernel")
@@ -217,11 +245,18 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# a layer's launches on a path whose fused tail draws its dropout from the
+# counter (no keep-mask): the tail's forward (vector route, counter source)
+# and its backward
+TAIL_PER_LAYER = ("fused_layer", "fused_layer_counter", "fused_layer_bwd")
+
+
 def step_launches(num_layers: int) -> dict:
     """The wrappers' launches of one training step: one fused extraction
-    (the one block of g = 1) and one permutation hash, one SpMM, its dX,
-    one tail (vector route) and one keep-mask per layer."""
-    per_layer = ("fused_layer", "spmm_ell", "spmm_ell_dx", "keep_mask")
+    (the one block of g = 1) and one permutation hash; per layer one SpMM,
+    its dX, and the tail's forward (vector route, the counter's keep bits)
+    and backward; no keep-mask."""
+    per_layer = ("spmm_ell", "spmm_ell_dx") + TAIL_PER_LAYER
     return {name: (num_layers if name in per_layer else
                    1 if name in ("extract_dense_fused", "hash_keys") else 0)
             for name in KERNEL_COUNTERS}
@@ -235,11 +270,14 @@ def captured_launches(num_layers: int) -> dict:
 
 
 # the device kernels of one training step of the 3-layer plan, by name,
-# and how many run a step (the dX wrapper launches three)
+# and how many run a step (the dX wrapper launches three, the tail's
+# backward two; the tail draws its dropout, so no keep-mask kernel runs)
 STEP_KERNELS = {"extract_dense_kernel": 1, "hash_keys_kernel": 1,
                 "spmm_ell_kernel": 3, "fused_layer_kernel_vec": 3,
-                "keep_mask_kernel": 3, "dx_scan_kernel": 3,
-                "dx_fill_kernel": 3, "dx_product_kernel": 3}
+                "fused_layer_bwd_kernel_vec": 3,
+                "fused_layer_dscale_kernel": 3, "keep_mask_kernel": 0,
+                "dx_scan_kernel": 3, "dx_fill_kernel": 3,
+                "dx_product_kernel": 3}
 
 
 def in_nccl_group(torch, tag: str, body):
@@ -389,24 +427,29 @@ def _kernel_modules() -> dict:
 def zero_launches() -> None:
     """Set every kernel's launch counts to 0 (just before a path runs)."""
     mods = _kernel_modules()
-    for mod, counter, _ in KERNEL_COUNTERS.values():
+    for mod, counter, split in KERNEL_COUNTERS.values():
         setattr(mods[mod], counter, 0)
-        for route in getattr(mods[mod], "ROUTE_LAUNCHES", {}):
-            mods[mod].ROUTE_LAUNCHES[route] = 0
+        if split is not None:
+            parts = getattr(mods[mod], split[0])
+            for k in parts:
+                parts[k] = 0
 
 
 def read_launches() -> dict:
-    """Every kernel's launch count (just after a path ran): a route's own
-    count where the module has routes, which must add up to its total."""
+    """Every kernel's launch count (just after a path ran): a route's (or
+    a keep source's) own count where the count is split, and every split
+    must add up to its total."""
     mods = _kernel_modules()
-    for name, m in mods.items():
-        routes = getattr(m, "ROUTE_LAUNCHES", None)
-        if routes is not None and sum(routes.values()) != m.LAUNCHES:
-            raise AssertionError(f"{name}: route launches {routes} do not "
-                                 f"add up to {m.LAUNCHES}")
-    return {name: (getattr(mods[mod], counter) if route is None
-                   else mods[mod].ROUTE_LAUNCHES[route])
-            for name, (mod, counter, route) in KERNEL_COUNTERS.items()}
+    for mod, counter, split in KERNEL_COUNTERS.values():
+        if split is not None:
+            parts, total = getattr(mods[mod], split[0]), getattr(mods[mod],
+                                                                 counter)
+            if sum(parts.values()) != total:
+                raise AssertionError(f"{mod}.{split[0]} {parts} does not "
+                                     f"add up to {counter} {total}")
+    return {name: (getattr(mods[mod], counter) if split is None
+                   else getattr(mods[mod], split[0])[split[1]])
+            for name, (mod, counter, split) in KERNEL_COUNTERS.items()}
 
 
 def phase_device(torch) -> dict:
@@ -570,16 +613,29 @@ def check_extraction(torch, A, plan, plan_b, train_plan, train_graph, dev,
 
 def check_fused_tail(torch, d_hidden: int, rows: int, dev,
                      flushers) -> list:
-    """The fused-tail kernel against its plain version at the serving
-    shape, at a ragged one and at the training shape (8192 rows, keep-mask
-    of dropout 0.3, residual), with and without mask and residual. Then
-    the vector route timed at the serving shape (residual on, no dropout)
-    back to back and at the training shape (mask and residual) on a cold
-    L2, beside the launch floor at the serving grid, and the scalar route
-    at the ragged shape (300, 33), mask and residual; each timed call must
+    """The fused tail's kernels against their plain versions at the serving
+    shape, at a ragged one and at the training shape (8192 rows, dropout
+    0.3, residual). The forward with a bytes keep-mask, with and without
+    mask and residual; with the counter's keep bits (``dropout_key``),
+    bit for bit the bytes route fed ``keep_mask``'s mask and within
+    TAIL_RTOL of the plain version; the backward (``fused_layer_bwd``) in
+    every case of RMSNorm, ReLU and keep source (none, bytes, counter)
+    within TAIL_BWD_RTOL of the largest |plain| for dx and d_scale, the
+    counter bit for bit the bytes mask's, and 10 calls at the training
+    shape bit-identical. Then the forward's vector route timed at the
+    serving shape (residual on, no dropout) back to back and at the
+    training shape (residual, bytes mask; and the counter) on a cold L2,
+    beside the launch floor at the serving grid, and its scalar route at
+    the ragged shape (300, 33), mask and residual; the backward (counter,
+    RMSNorm, ReLU) at the training shape on a cold L2 and at the serving
+    shape, and its scalar route at the ragged shape. Each timed call must
     take its route. Returns one entry per route."""
+    from repro_torch.core import sampling as smp
+    from repro_torch.kernels import counter_rng as crng
     from repro_torch.kernels import fused_layer as fl
     gen = torch.Generator(device=dev).manual_seed(0)
+    key = smp.key_tensor(smp.step_key(0, 7), dev)
+    rate = 0.3
 
     def case(b, d, mask, res):
         x = torch.randn((b, d), generator=gen, device=dev) * 2.0
@@ -589,18 +645,22 @@ def check_fused_tail(torch, d_hidden: int, rows: int, dev,
         r = torch.randn((b, d), generator=gen, device=dev) if res else None
         return x, s, m, r
 
+    def took(counts, before, route):
+        return counts[route] == before[route] + 1
+
+    shapes = ((rows, d_hidden), (300, 33), (TRAIN_BATCH, d_hidden))
     err = {"vector": 0.0, "scalar": 0.0}
-    for b, d in ((rows, d_hidden), (300, 33), (TRAIN_BATCH, d_hidden)):
+    for b, d in shapes:
         for mask, res, rms in ((False, False, True), (True, True, True),
                                (False, True, True), (True, True, False)):
             x, s, m, r = case(b, d, mask, res)
-            kw = dict(dropout_rate=0.3 if mask else 0.0, eps=1e-6,
+            kw = dict(dropout_rate=rate if mask else 0.0, eps=1e-6,
                       use_rmsnorm=rms, use_relu=True)
             before = dict(fl.ROUTE_LAUNCHES)
             got = fl.fused_layer(x, s, m, r, **kw)
             torch.cuda.synchronize()
-            route = "vector" if fl.ROUTE_LAUNCHES["vector"] \
-                > before["vector"] else "scalar"
+            route = "vector" if took(fl.ROUTE_LAUNCHES, before, "vector") \
+                else "scalar"
             ref = fl.fused_layer_plain(x, s, m, r, **kw)
             case_err = (got - ref).abs().max().item()
             limit = TAIL_RTOL * max(1.0, ref.abs().max().item())
@@ -612,21 +672,102 @@ def check_fused_tail(torch, d_hidden: int, rows: int, dev,
                                      f"{case_err} above {limit}")
             err[route] = max(err[route], case_err)
 
-    # (label, rows, d, mask, flushers, route, the route's kernel)
-    timed = (("serving", rows, d_hidden, False, None, "vector",
+    # the counter's keep bits: the bytes route's output fed keep_mask's
+    # mask, bit for bit
+    err["counter"] = 0.0
+    for b, d in shapes:
+        for res, rms in ((True, True), (False, True), (True, False)):
+            x, s, _, r = case(b, d, False, res)
+            kw = dict(dropout_rate=rate, eps=1e-6, use_rmsnorm=rms,
+                      use_relu=True)
+            before = dict(fl.SOURCE_LAUNCHES)
+            got = fl.fused_layer(x, s, None, r, dropout_key=key, **kw)
+            if not took(fl.SOURCE_LAUNCHES, before, "counter"):
+                raise AssertionError("fused_layer: a key took no counter "
+                                     "launch")
+            same = torch.equal(got, fl.fused_layer(
+                x, s, crng.keep_mask(key, b, d, rate), r, **kw))
+            ref = fl.fused_layer_plain(x, s, None, r, dropout_key=key, **kw)
+            case_err = (got - ref).abs().max().item()
+            limit = TAIL_RTOL * max(1.0, ref.abs().max().item())
+            log(f"[kernels] fused_layer ({b}, {d}) counter keep bits, "
+                f"residual={res} rmsnorm={rms}: the bytes route's bits fed "
+                f"keep_mask {same}; max |kernel - plain| {case_err:.3e} "
+                f"(limit {limit:.3e})")
+            if not (same and case_err <= limit):
+                raise AssertionError(f"fused_layer ({b}, {d}) counter: "
+                                     f"same bits {same}, error {case_err}")
+            err["counter"] = max(err["counter"], case_err)
+
+    # the backward, every flag case and keep source
+    bwd_err = {"vector": 0.0, "scalar": 0.0}
+    for b, d in shapes:
+        for rms in (True, False):
+            for relu in (True, False):
+                for src in ("none", "bytes", "counter"):
+                    x, s, m, _ = case(b, d, src == "bytes", False)
+                    g = torch.randn((b, d), generator=gen, device=dev)
+                    k = key if src == "counter" else None
+                    kw = dict(dropout_rate=0.0 if src == "none" else rate,
+                              eps=1e-6, use_rmsnorm=rms, use_relu=relu)
+                    before = dict(fl.BWD_ROUTE_LAUNCHES)
+                    dx, ds = fl.fused_layer_bwd(g, x, s, m, dropout_key=k,
+                                                **kw)
+                    torch.cuda.synchronize()
+                    route = ("vector" if took(fl.BWD_ROUTE_LAUNCHES, before,
+                                              "vector") else "scalar")
+                    pdx, pds = fl.fused_layer_bwd_plain(g, x, s, m,
+                                                        dropout_key=k, **kw)
+                    e_dx = (dx - pdx).abs().max().item()
+                    e_ds = (ds - pds).abs().max().item()
+                    l_dx = TAIL_BWD_RTOL * pdx.abs().max().item()
+                    l_ds = TAIL_BWD_RTOL * pds.abs().max().item()
+                    same = True
+                    if src == "counter":
+                        km = crng.keep_mask(key, b, d, rate)
+                        same = all(torch.equal(u, v) for u, v in zip(
+                            (dx, ds), fl.fused_layer_bwd(g, x, s, km, **kw)))
+                    log(f"[kernels] fused_layer_bwd ({b}, {d}) keep {src} "
+                        f"rmsnorm={rms} relu={relu}, {route} route: max "
+                        f"|kernel - plain| dx {e_dx:.3e} (limit {l_dx:.3e}),"
+                        f" d_scale {e_ds:.3e} (limit {l_ds:.3e})"
+                        + (f"; the bytes mask's bits {same}"
+                           if src == "counter" else ""))
+                    if not (e_dx <= l_dx and e_ds <= l_ds and same):
+                        raise AssertionError(f"fused_layer_bwd ({b}, {d}) "
+                                             f"{src}: dx {e_dx}, d_scale "
+                                             f"{e_ds}, same bits {same}")
+                    bwd_err[route] = max(bwd_err[route], e_dx, e_ds)
+    for b, d in shapes[1:]:
+        x, s, _, _ = case(b, d, False, False)
+        g = torch.randn((b, d), generator=gen, device=dev)
+        outs = [fl.fused_layer_bwd(g, x, s, None, dropout_key=key,
+                                   dropout_rate=rate) for _ in range(10)]
+        same = all(torch.equal(u, v) for o in outs[1:]
+                   for u, v in zip(o, outs[0]))
+        log(f"[kernels] fused_layer_bwd ({b}, {d}), 10 calls: bit-identical "
+            f"{same}")
+        if not same:
+            raise AssertionError("fused_layer_bwd is not deterministic")
+
+    # (label, rows, d, keep source, flushers, route, the route's kernel)
+    timed = (("serving", rows, d_hidden, "none", None, "vector",
               "fused_layer_kernel_vec"),
-             ("training", TRAIN_BATCH, d_hidden, True, flushers, "vector",
+             ("training", TRAIN_BATCH, d_hidden, "bytes", flushers, "vector",
               "fused_layer_kernel_vec"),
-             ("ragged", 300, 33, True, None, "scalar",
+             ("training_counter", TRAIN_BATCH, d_hidden, "counter", flushers,
+              "vector", "fused_layer_kernel_vec"),
+             ("ragged", 300, 33, "bytes", None, "scalar",
               "fused_layer_kernel("))
-    shapes = {"vector": {}, "scalar": {}}
-    for label, b, d, mask, cold, route, kernel in timed:
-        x, s, m, r = case(b, d, mask, True)
-        kw = dict(dropout_rate=0.3 if mask else 0.0)
+    times = {"vector": {}, "scalar": {}}
+    for label, b, d, src, cold, route, kernel in timed:
+        x, s, m, r = case(b, d, src == "bytes", True)
+        kw = dict(dropout_rate=0.0 if src == "none" else rate,
+                  dropout_key=key if src == "counter" else None)
         call = lambda: fl.fused_layer(x, s, m, r, **kw)
-        before = fl.ROUTE_LAUNCHES[route]
+        before = dict(fl.ROUTE_LAUNCHES)
         call()
-        if fl.ROUTE_LAUNCHES[route] != before + 1:
+        if not took(fl.ROUTE_LAUNCHES, before, route):
             raise AssertionError(f"fused_layer {label} shape: the call did "
                                  f"not take the {route} route")
         written = cold["written"] if cold else None
@@ -636,48 +777,114 @@ def check_fused_tail(torch, d_hidden: int, rows: int, dev,
                            flush=written)
         dev_ms = device_ms(torch, call, kernel, flush=written)
         n_el = b * d
-        # x, the residual and the mask read once, the scale once, out
-        # written once
-        n_bytes = 4 * n_el + 4 * n_el + (n_el if mask else 0) + 4 * d \
-            + 4 * n_el
+        # x, the residual and a bytes mask (or the key) read once, the
+        # scale once, out written once
+        n_bytes = 4 * n_el + 4 * n_el + 4 * d + 4 * n_el + (
+            n_el if src == "bytes" else 8 if src == "counter" else 0)
         n_ops = 7 * n_el       # square-add, scale twice, relu, residual add
         bound = bound_ms(n_bytes, n_ops)
-        shapes[route][label] = {"rows": b, "d": d, "mask": mask,
-                                "bytes": n_bytes, "ms": ms,
-                                "device_ms": dev_ms, "plain_ms": plain_ms,
-                                "bound_ms": bound,
-                                "bound_by": _bound_by(n_bytes, n_ops),
-                                "l2": "written" if cold else "warm"}
-        log(f"[kernels] fused_layer {label} shape ({b}, {d}) residual"
-            f"{', mask' if mask else ''}, {route} route, {n_bytes} B, L2 "
-            f"{shapes[route][label]['l2']}: kernel {ms:.5f} ms per call "
+        times[route][label] = {"rows": b, "d": d, "keep": src,
+                               "bytes": n_bytes, "ms": ms,
+                               "device_ms": dev_ms, "plain_ms": plain_ms,
+                               "bound_ms": bound,
+                               "bound_by": _bound_by(n_bytes, n_ops),
+                               "l2": "written" if cold else "warm"}
+        log(f"[kernels] fused_layer {label} shape ({b}, {d}) residual, keep "
+            f"{src}, {route} route, {n_bytes} B, L2 "
+            f"{times[route][label]['l2']}: kernel {ms:.5f} ms per call "
             f"({dev_ms:.5f} ms on the device, {n_bytes / dev_ms / 1e9:.3f} "
             f"TB/s, {bound / dev_ms:.3f} of the bound), plain "
             f"{plain_ms:.5f} ms, bound {bound:.6f} ms")
         if cold:
             clean_ms = device_ms(torch, call, kernel, flush=cold["clean"])
-            shapes[route][label]["device_ms_clean_l2"] = clean_ms
+            times[route][label]["device_ms_clean_l2"] = clean_ms
             log(f"[kernels] fused_layer {label} shape, diagnostic, L2 clean: "
                 f"{clean_ms:.5f} ms on the device ({bound / clean_ms:.3f} of "
                 f"the bound)")
     grid, threads = -(-rows // fl.ROWS_PER_CTA), 32 * fl.ROWS_PER_CTA
-    serving = shapes["vector"]["serving"]
+    serving = times["vector"]["serving"]
     serving["floor_ms"] = launch_floor_ms(torch, grid, threads)
     log(f"[kernels] empty kernel at the tail's serving grid ({grid} x "
         f"{threads}): {serving['floor_ms']:.5f} ms on the device")
+    training, counter = (times["vector"]["training"],
+                         times["vector"]["training_counter"])
+    mask_ms = device_ms(torch, lambda: crng.keep_mask(key, TRAIN_BATCH,
+                                                      d_hidden, rate),
+                        "keep_mask_kernel")
+    counter["keep_mask_device_ms"] = mask_ms
+    log(f"[kernels] fused_layer training shape, the counter's draw against "
+        f"a mask pass: counter route {counter['device_ms']:.5f} ms on the "
+        f"device, bytes route {training['device_ms']:.5f} ms + keep_mask "
+        f"{mask_ms:.5f} ms = {training['device_ms'] + mask_ms:.5f} ms")
 
-    def entry(name, route, label):
-        at = shapes[route][label]
+    # the backward: (label, rows, d, flushers, route, its kernels)
+    bwd_kernels = ("fused_layer_bwd_kernel_vec", "fused_layer_dscale_kernel")
+    bwd_timed = (("training", TRAIN_BATCH, d_hidden, flushers, "vector",
+                  bwd_kernels),
+                 ("serving", rows, d_hidden, None, "vector", bwd_kernels),
+                 ("ragged", 300, 33, None, "scalar",
+                  ("fused_layer_bwd_kernel(", "fused_layer_dscale_kernel")))
+    bwd_times = {"vector": {}, "scalar": {}}
+    for label, b, d, cold, route, kernels in bwd_timed:
+        x, s, m, _ = case(b, d, True, False)
+        g = torch.randn((b, d), generator=gen, device=dev)
+        kw = dict(dropout_rate=rate)
+        call = lambda: fl.fused_layer_bwd(g, x, s, None, dropout_key=key,
+                                          **kw)
+        before = dict(fl.BWD_ROUTE_LAUNCHES)
+        call()
+        if not took(fl.BWD_ROUTE_LAUNCHES, before, route):
+            raise AssertionError(f"fused_layer_bwd {label} shape: the call "
+                                 f"did not take the {route} route")
+        written = cold["written"] if cold else None
+        ms = time_ms(torch, call, flush=written)
+        plain_ms = time_ms(torch, lambda: fl.fused_layer_bwd_plain(
+            g, x, s, None, dropout_key=key, **kw), flush=written)
+        # the plain backward fed a mask: the training step's backward
+        # before this kernel (the mask drawn in its own pass)
+        plain_mask_ms = time_ms(torch, lambda: fl.fused_layer_bwd_plain(
+            g, x, s, m, **kw), flush=written)
+        dev_ms = device_ms(torch, call, kernels, flush=written)
+        n_el = b * d
+        # g and x read once, dx written once, the scale read and d_scale
+        # written once, the key read
+        n_bytes = 12 * n_el + 8 * d + 8
+        n_ops = 14 * n_el      # the norm, the gate, dot, d_scale, dx
+        bound = bound_ms(n_bytes, n_ops)
+        bwd_times[route][label] = {
+            "rows": b, "d": d, "keep": "counter", "bytes": n_bytes,
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "plain_bytes_mask_ms": plain_mask_ms, "bound_ms": bound,
+            "bound_by": _bound_by(n_bytes, n_ops),
+            "l2": "written" if cold else "warm"}
+        log(f"[kernels] fused_layer_bwd {label} shape ({b}, {d}) rmsnorm, "
+            f"relu, keep counter, {route} route, {n_bytes} B, L2 "
+            f"{bwd_times[route][label]['l2']}: kernel {ms:.5f} ms per call "
+            f"({dev_ms:.5f} ms on the device, {n_bytes / dev_ms / 1e9:.3f} "
+            f"TB/s, {bound / dev_ms:.3f} of the bound), plain {plain_ms:.5f}"
+            f" ms (fed a mask {plain_mask_ms:.5f} ms), bound {bound:.6f} ms")
+
+    def entry(name, route, label, replaces, max_err, at):
         return {"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/fused_layer.cu",
-                "replaces": "src/repro/kernels/fused_layer.py:78",
-                "max_abs_err": err[route],
-                **{k: at[k] for k in ("ms", "device_ms", "plain_ms",
-                                      "bound_ms", "bound_by")},
-                "library_ms": None, "shapes": shapes[route]}
+                "replaces": replaces, "max_abs_err": max_err,
+                **{k: at[route][label][k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+                "library_ms": None, "shapes": at[route]}
 
-    return [entry("fused_layer", "vector", "training"),
-            entry("fused_layer_scalar", "scalar", "ragged")]
+    fwd = "src/repro/kernels/fused_layer.py:78"
+    bwd = ("none: the reference's _fused_bwd (src/repro/kernels/ops.py:99) "
+           "is plain jnp")
+    return [entry("fused_layer", "vector", "training", fwd, err["vector"],
+                  times),
+            entry("fused_layer_scalar", "scalar", "ragged", fwd,
+                  err["scalar"], times),
+            entry("fused_layer_counter", "vector", "training_counter", fwd,
+                  err["counter"], times),
+            entry("fused_layer_bwd", "vector", "training", bwd,
+                  bwd_err["vector"], bwd_times),
+            entry("fused_layer_bwd_scalar", "scalar", "ragged", bwd,
+                  bwd_err["scalar"], bwd_times)]
 
 
 def train_setup(torch, ds, dev):
@@ -1161,11 +1368,8 @@ def phase_serve(torch, np, ds, cfg, n_requests: int) -> dict:
         f"p99 {st['p99_ms']:.4f} ms, {st['device_calls']} device calls, "
         f"occupancy {st['occupancy']:.4f}, launches {launches}")
     # one extraction and one tail per layer for every device call
-    expect = {"extract_dense_fused": st["device_calls"],
-              "fused_layer": cfg.num_layers * st["device_calls"],
-              "fused_layer_scalar": 0, "spmm_ell": 0, "spmm_ell_dx": 0,
-              "flash_attention": 0, "flash_attention_f32": 0,
-              "hash_keys": 0, "keep_mask": 0}
+    expect = _per_step(extract_dense_fused=st["device_calls"],
+                       fused_layer=cfg.num_layers * st["device_calls"])
     if launches != expect or st["device_calls"] == 0:
         raise AssertionError(f"kernel launches {launches} on the main path, "
                              f"expected {expect}")
@@ -1269,7 +1473,7 @@ def device_profile(prof, wall_us: float, what: str,
         log(f"[profile]   inside {sp}: {span_us[sp]:.1f} us of device time "
             f"over {span_n[sp]} ranges")
     return {"busy_us": busy_us, "wall_us": wall_us, "launches": launches,
-            "host_ops": host_ops,
+            "host_ops": host_ops, "span_us": span_us,
             "kernels": {k: sum(count[n] for n in count if k in n)
                         for k in watch}}
 
@@ -1404,20 +1608,10 @@ def phase_train(torch, np, plan, graph, pg) -> dict:
     expect = captured_launches(cfg.num_layers)
     losses = run_log.losses
     first, last = np.mean(losses[:CHUNK]), np.mean(losses[-CHUNK:])
-    # the spread of ms/step: two more runs of 48 steps from the same init
-    spread = [run_log]
-    for _ in range(2):
-        tr = Trainer(plan, make_opt(),
-                     TrainLoopConfig(total_steps=TRAIN_STEPS,
-                                     chunk_size=CHUNK),
-                     eval_fn=lambda p, g: 0.0)
-        spread.append(tr.run(tr.init_state(fresh()), graph)[1])
     log(f"[train] {len(losses)} steps in chunks of {CHUNK}, "
         f"{run_log.replays} of them replays of the captured step (capture "
         f"{run_log.capture_s:.3f} s): {run_log.ms_per_step:.4f} ms/step "
-        f"(three runs: {', '.join(f'{v.ms_per_step:.4f}' for v in spread)};"
-        f" without the capture "
-        f"{', '.join(f'{ms_without_capture(v):.4f}' for v in spread)}), loss "
+        f"(without the capture {ms_without_capture(run_log):.4f}), loss "
         f"{losses[0]:.5f} -> {losses[-1]:.5f} (mean of first 8 {first:.5f},"
         f" last 8 {last:.5f}), launches {launches}, peak device memory "
         f"{peak / 2**30:.3f} GiB")
@@ -1462,6 +1656,22 @@ def phase_train(torch, np, plan, graph, pg) -> dict:
     if chunk_log.replays != CHUNK or seen["kernels"] != want:
         raise AssertionError("the replays did not run the step's kernels")
     del trainer
+    # the spread of ms/step: two more runs of 48 steps from the same init,
+    # after the profiled chunk: a graph captured after the profiled one and
+    # destroyed before its profiled replays made that replay crash
+    # (PERF.md section 7)
+    spread = [run_log]
+    for _ in range(2):
+        tr = Trainer(plan, make_opt(),
+                     TrainLoopConfig(total_steps=TRAIN_STEPS,
+                                     chunk_size=CHUNK),
+                     eval_fn=lambda p, g: 0.0)
+        spread.append(tr.run(tr.init_state(fresh()), graph)[1])
+        del tr
+    log(f"[train] ms/step over {TRAIN_STEPS} steps, three runs: "
+        f"{', '.join(f'{v.ms_per_step:.4f}' for v in spread)} (without the "
+        f"capture {', '.join(f'{ms_without_capture(v):.4f}' for v in spread)}"
+        ")")
     nccl = phase_train_nccl(torch, plan, pg, fresh, make_opt, log8, params8)
     prefetch = phase_train_comm(torch, np, plan, graph, pg, fresh, make_opt,
                                 (log8, params8), (run_log, params48), expect)
@@ -2062,9 +2272,8 @@ def locality_path(torch, np, tag, pg, kind, eval_plan, **opts) -> tuple:
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     per_step = _per_step(hash_keys=1 + s.walk_len,
-                         **dict.fromkeys(("fused_layer", "spmm_ell",
-                                          "spmm_ell_dx", "keep_mask"),
-                                         cfg.num_layers))
+                         **dict.fromkeys(("spmm_ell", "spmm_ell_dx")
+                                         + TAIL_PER_LAYER, cfg.num_layers))
     expect = _times(per_step, 2)
     log(f"[{tag}] {TRAIN_STEPS} steps, {run_log.replays} replays of the "
         f"captured step (capture {run_log.capture_s:.3f} s): "
@@ -2155,10 +2364,9 @@ def phase_train_samplers(torch, np, ds, train_plan, train_graph,
     from repro_torch.core import baselines as TB
     from repro_torch.core import gcn_model as M
     from repro_torch.core import sampling as smp
-    from repro_torch.core.forward import dropout_masks
+    from repro_torch.core.forward import dropout_keys
     from repro_torch.core.minibatch import MinibatchBuilder
     from repro_torch.graphs import build_partitioned_graph
-    from repro_torch.kernels import counter_rng as crng
     from repro_torch.optim import AdamW, linear_warmup_cosine
     from repro_torch.tree import leaves
 
@@ -2220,11 +2428,10 @@ def phase_train_samplers(torch, np, ds, train_plan, train_graph,
         key = smp.key_tensor(smp.step_key(opts.seed, step), dev)
         sb = TB.saint_node_sample(key, rp, ci, val, feats, labels, deg,
                                   n_pad, TRAIN_BATCH, e_cap, builder)
-        masks = dropout_masks(opts, step, L, (TRAIN_BATCH, kcfg.d_hidden),
-                              dev)
+        keys = dropout_keys(opts, step, L, dev)
         return lambda p: M.cross_entropy_loss(
             M.forward(p, sb.adj, sb.feats, cfg, train=True,
-                      keep_masks=masks), sb.labels, sb.loss_weights), sb
+                      dropout_keys=keys), sb.labels, sb.loss_weights), sb
 
     (fk, sb0), (fp, _) = saint_loss(0, kb, kcfg), saint_loss(0, pb, pcfg)
     _first_step_check(torch, "train-saint", *_grad_of(torch, fk, init()),
@@ -2234,8 +2441,8 @@ def phase_train_samplers(torch, np, ds, train_plan, train_graph,
         torch, np, "train-saint",
         lambda p, o, i: descend(opt, p, o, saint_loss(i, kb, kcfg)[0]),
         init(), opt, TRAIN_STEPS, int((sb0.labels >= 0).sum()),
-        _per_step(extract_dense_fused=1, hash_keys=1, fused_layer=L,
-                  keep_mask=L), evaluate)
+        _per_step(extract_dense_fused=1, hash_keys=1,
+                  **dict.fromkeys(TAIL_PER_LAYER, L)), evaluate)
     del sb0
 
     # GraphSAGE neighbor sampler: batch 1024, fan-outs (15, 10, 5)
@@ -2243,11 +2450,10 @@ def phase_train_samplers(torch, np, ds, train_plan, train_graph,
         key = smp.key_tensor(smp.step_key(opts.seed, step), dev)
         sgb = TB.sage_sample(key, rp, ci, feats, labels, n_pad, SAGE_BATCH,
                              SAGE_FANOUTS)
-        masks = [crng.keep_mask(smp.key_tensor(smp.fold_in(key, 100 + li)),
-                                f.shape[0], kcfg.d_hidden, kcfg.dropout)
-                 for li, f in enumerate(sgb.frontiers[:L])]
+        keys = [smp.key_tensor(smp.fold_in(key, 100 + li))
+                for li in range(L)]
         return lambda p: M.cross_entropy_loss(M.sage_forward(
-            p, sgb, cfg, train=True, keep_masks=masks), sgb.labels), sgb
+            p, sgb, cfg, train=True, dropout_keys=keys), sgb.labels), sgb
 
     (fk, sgb0), (fp, _) = sage_loss(0, kcfg), sage_loss(0, pcfg)
     log(f"[train-sage] frontier sizes {[f.shape[0] for f in sgb0.frontiers]}"
@@ -2259,8 +2465,8 @@ def phase_train_samplers(torch, np, ds, train_plan, train_graph,
         torch, np, "train-sage",
         lambda p, o, i: descend(opt, p, o, sage_loss(i, kcfg)[0]),
         init(), opt, TRAIN_STEPS, int((sgb0.labels >= 0).sum()),
-        _per_step(hash_keys=1 + len(SAGE_FANOUTS), fused_layer=L,
-                  keep_mask=L), evaluate)
+        _per_step(hash_keys=1 + len(SAGE_FANOUTS),
+                  **dict.fromkeys(TAIL_PER_LAYER, L)), evaluate)
     del sgb0
     torch.cuda.empty_cache()
 
@@ -2302,7 +2508,7 @@ def fullbatch_path(torch, np, ds, train_plan, train_graph, train_pg,
                 torch, np, "train-fullbatch",
                 lambda p, o, i: step(p, o, graph, i)[2], init(), opt,
                 FULLBATCH_STEPS, int((graph["labels"] >= 0).sum()),
-                _per_step(fused_layer=L, keep_mask=L),
+                _per_step(**dict.fromkeys(TAIL_PER_LAYER, L)),
                 lambda p: eval_plan_eval(torch, kplan, p, graph))
             log(f"[train-fullbatch] {pg.n} vertices"
                 + ("" if pg.n == train_pg.n else
@@ -2386,10 +2592,7 @@ def phase_llm(torch, np, cfg, dev) -> dict:
         f"{st['mid_stream_refills']}; launches {launches}; peak device "
         f"memory {peak / 2**30:.3f} GiB")
     # every prefill layer through the tensor-core route, none through f32
-    expect = {"extract_dense_fused": 0, "fused_layer": 0,
-              "fused_layer_scalar": 0, "spmm_ell": 0, "spmm_ell_dx": 0,
-              "flash_attention": cfg.n_layers * st["prefills"],
-              "flash_attention_f32": 0, "hash_keys": 0, "keep_mask": 0}
+    expect = _per_step(flash_attention=cfg.n_layers * st["prefills"])
     if launches != expect or st["prefills"] != LLM_PROMPTS:
         raise AssertionError(f"kernel launches {launches} on the LLM path "
                              f"({st['prefills']} prefills), expected "
@@ -2514,14 +2717,6 @@ def main() -> int:
                                                             pool)
     dev = torch.device("cuda")
     train_plan, train_graph, train_pg = train_setup(torch, ds, dev)
-    # training first: in a process whose earlier profiler sessions traced
-    # the kernels (phase 3's timings, the serving stream's profile), a
-    # profiled replay of a captured step crashed (PERF.md section 7)
-    by_path, counter_kernels = phase_train(torch, np, train_plan,
-                                           train_graph, train_pg)
-    samplers, _ = phase_train_samplers(torch, np, ds, train_plan,
-                                       train_graph, train_pg)
-    by_path.update(samplers)
     flushers = l2_flushers(torch, dev)
     kernels = [check_extraction(torch, A, plan, plan_b, train_plan,
                                 train_graph, dev, flushers),
@@ -2531,17 +2726,27 @@ def main() -> int:
     kernels.append(check_spmm_ell(torch, train_plan, train_graph, dev))
     kernels.append(check_spmm_ell_dx(torch, train_plan, train_graph, dev))
     kernels.extend(check_flash_attention(torch, np, dev))
+    by_path = {"serve": phase_serve(torch, np, ds, cfg, args.requests)}
+    torch.cuda.empty_cache()
+    train_paths, counter_kernels = phase_train(torch, np, train_plan,
+                                               train_graph, train_pg)
+    by_path.update(train_paths)
     kernels.extend(counter_kernels)
-    by_path["serve"] = phase_serve(torch, np, ds, cfg, args.requests)
+    samplers, _ = phase_train_samplers(torch, np, ds, train_plan,
+                                       train_graph, train_pg)
+    by_path.update(samplers)
     del train_plan, train_graph, train_pg
     torch.cuda.empty_cache()
     by_path["llm"] = phase_llm(torch, np, get_config("tinyllama-1.1b"), dev)
     # each kernel's launches on the path that runs it, each route of the
     # tail and of flash from its own count (the training path's tails take
-    # the vector route and the LLM path runs in bf16: the tail's scalar and
-    # flash's f32 routes read 0)
+    # the vector route and draw from the counter, and the LLM path runs in
+    # bf16: the tail's scalar routes, flash's f32 route and keep_mask read
+    # 0)
     main_path = {"extract_dense_fused": "train", "fused_layer": "train",
-                 "fused_layer_scalar": "train", "spmm_ell": "train",
+                 "fused_layer_scalar": "train",
+                 "fused_layer_counter": "train", "fused_layer_bwd": "train",
+                 "fused_layer_bwd_scalar": "train", "spmm_ell": "train",
                  "spmm_ell_dx": "train", "hash_keys": "train",
                  "keep_mask": "train",
                  "flash_attention": "llm", "flash_attention_f32": "llm"}

@@ -5,7 +5,10 @@ Counterpart of ``repro/core/forward.py``: ``TrainOptions`` (every field,
 the same defaults except ``extract_impl``, which names the port's
 backends), ``wire_format``, ``_dropout_key`` and ``ForwardEngine``. The
 dropout masks are counter-based draws from a key derived from the step,
-which may be a device counter (``kernels/counter_rng.py``). The engine
+which may be a device counter (``kernels/counter_rng.py``); on the card
+the fused tail draws them itself from that key, in its forward and its
+backward kernel, so no mask is written (``ForwardEngine.tail_draws``).
+The engine
 runs the 3D-PMM layer program on this rank's shards of a
 ``fourd.Mesh`` — input projection, L layers of [residual reshard ->
 aggregate -> GEMM -> tail -> rotate], output head — with one all-reduce
@@ -121,24 +124,24 @@ def _dropout_key(opts: TrainOptions, step: smp.Key, layer: int,
     return smp.fold_in(k, step)
 
 
-def _keep_mask(opts: TrainOptions, key: smp.Key, shape: tuple,
-               device: Union[str, torch.device]) -> torch.Tensor:
-    """A (rows, cols) bool keep-mask of ``opts.dropout`` drawn from ``key``
-    on ``device`` (``kernels.counter_rng.keep_mask``: the kernel on the
-    card, its plain version on the CPU)."""
-    rows, cols = shape
-    return crng.keep_mask(smp.key_tensor(key, device), rows, cols,
-                          opts.dropout)
+def dropout_keys(opts: TrainOptions, step: smp.Key, num_layers: int,
+                 device: Union[str, torch.device]) -> List[torch.Tensor]:
+    """The single-device step's dropout keys, one 0-d int64 tensor per
+    layer on ``device``: those ``ForwardEngine`` draws from at block (0, 0)
+    of DP group 0, a pure function of (seed, step, layer)."""
+    return [smp.key_tensor(_dropout_key(opts, step, li), device)
+            for li in range(num_layers)]
 
 
 def dropout_masks(opts: TrainOptions, step: smp.Key, num_layers: int,
                   shape: tuple, device: Union[str, torch.device]
                   ) -> List[torch.Tensor]:
-    """The single-device step's keep-masks, one per layer: those
-    ``ForwardEngine`` draws at block (0, 0) of DP group 0, a pure function
-    of (seed, step, layer)."""
-    return [_keep_mask(opts, _dropout_key(opts, step, li), shape, device)
-            for li in range(num_layers)]
+    """The (rows, cols) bool keep-masks of :func:`dropout_keys`
+    (``kernels.counter_rng.keep_mask``: the kernel on the card, its plain
+    version on the CPU): the bits the fused tail draws from those keys."""
+    rows, cols = shape
+    return [crng.keep_mask(k, rows, cols, opts.dropout)
+            for k in dropout_keys(opts, step, num_layers, device)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,24 +244,42 @@ class ForwardEngine:
             return pmm3d.csr_spmm_local(rp, ci, val, h, self.csr_rows)
         return blk @ h
 
+    def dropout_key(self, step: smp.Key, layer: int, st: pmm3d.PlaneState,
+                    device: torch.device) -> torch.Tensor:
+        """Layer ``layer``'s dropout key (0-d int64) of this rank's block
+        of plane (p, r); ``step`` may be a device counter."""
+        c = self.mesh.coords
+        return smp.key_tensor(_dropout_key(
+            self.opts, step, layer, c[st.rep], c[st.row], c["d"]), device)
+
     def keep_mask(self, step: smp.Key, layer: int, st: pmm3d.PlaneState,
                   shape: tuple, device: torch.device) -> torch.Tensor:
         """Layer ``layer``'s keep-mask of this rank's block of plane
-        (p, r); ``step`` may be a device counter."""
-        c = self.mesh.coords
-        return _keep_mask(self.opts, _dropout_key(
-            self.opts, step, layer, c[st.rep], c[st.row], c["d"]), shape,
-            device)
+        (p, r), drawn from :meth:`dropout_key` (``counter_rng.keep_mask``);
+        ``step`` may be a device counter."""
+        rows, cols = shape
+        return crng.keep_mask(self.dropout_key(step, layer, st, device),
+                              rows, cols, self.opts.dropout)
+
+    def tail_draws(self, device: torch.device) -> bool:
+        """Whether the tail draws the keep bits from the key itself (the
+        fused kernels on the card: no mask pass, no mask in memory) rather
+        than being handed :meth:`keep_mask`'s mask (the unfused tail, and
+        any tail on the CPU, where the tests inject masks)."""
+        return self.opts.fused_elementwise and device.type == "cuda"
 
     def tail(self, conv: torch.Tensor, residual: Optional[torch.Tensor],
              scale: torch.Tensor, st: pmm3d.PlaneState,
-             mask: Optional[torch.Tensor], train: bool) -> torch.Tensor:
+             mask: Optional[torch.Tensor], train: bool,
+             key: Optional[torch.Tensor] = None) -> torch.Tensor:
         """RMSNorm -> ReLU -> dropout -> residual (Eqs. 7-10) on the local
         block: ``conv`` on plane (p, r), RMSNorm reducing over r, the
-        residual already resharded to (p, r)."""
+        residual already resharded to (p, r). The keep bits are ``mask``
+        or, for the fused tail, the dropout ``key``."""
         cfg, opts = self.cfg, self.opts
         residual = residual if cfg.use_residual else None
-        mask = mask if train and opts.dropout > 0 else None
+        dropping = train and opts.dropout > 0
+        mask = mask if dropping else None
         if opts.fused_elementwise:
             from repro_torch.kernels import ops as kops
             whole = not cfg.use_rmsnorm or self.grid_side == 1
@@ -267,6 +288,7 @@ class ForwardEngine:
                 cfg.rms_eps)
             return kops.fused_layer_tail(
                 h, residual, scale, dropout_mask=mask,
+                dropout_key=key if dropping else None,
                 dropout_rate=opts.dropout, eps=cfg.rms_eps,
                 use_rmsnorm=cfg.use_rmsnorm and whole,
                 use_relu=cfg.use_relu)
@@ -374,11 +396,16 @@ class ForwardEngine:
                         st.col, fmt, None)
                 else:
                     conv = ar(part @ layer["w"], st.col, fmt, None)
-            mask = (self.keep_mask(step, li, st, tuple(conv.shape),
-                                   conv.device)
-                    if train and opts.dropout > 0 else None)
+            mask = key = None
+            if train and opts.dropout > 0:
+                if self.tail_draws(conv.device):
+                    key = self.dropout_key(step, li, st, conv.device)
+                else:
+                    mask = self.keep_mask(step, li, st, tuple(conv.shape),
+                                          conv.device)
             with phase("tail"):
-                h = self.tail(conv, res, layer["rms_scale"], st, mask, train)
+                h = self.tail(conv, res, layer["rms_scale"], st, mask, train,
+                              key)
             st = st.rotate()
         # output head (Eq. 11): X (r, c) @ W_out (c, p) -> sum c -> logits
         # (r, p)

@@ -109,17 +109,27 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 def _elementwise_tail(x: torch.Tensor, residual: torch.Tensor,
                       scale: torch.Tensor, cfg: GCNConfig,
                       keep_mask: Optional[torch.Tensor],
-                      train: bool) -> torch.Tensor:
+                      train: bool,
+                      key: Optional[torch.Tensor] = None) -> torch.Tensor:
     """RMSNorm -> ReLU -> Dropout -> Residual (Eqs. 7-10). Dropout applies
-    when training with ``cfg.dropout > 0`` and a keep-mask is given (the
-    JAX model draws it from its dropout key; the port is handed it)."""
-    mask = keep_mask if (train and cfg.dropout > 0) else None
+    when training with ``cfg.dropout > 0`` and a keep-mask or a dropout key
+    is given (the JAX model draws from its dropout key; the port is handed
+    the mask, or the 0-d int64 key of ``counter_rng.keep_mask``, which the
+    fused tail draws from in its kernels and the plain tail through that
+    function)."""
+    dropping = train and cfg.dropout > 0
+    mask = keep_mask if dropping else None
+    key = key if dropping else None
     if cfg.elementwise_impl == "cuda":
         from repro_torch.kernels import ops as kops
         return kops.fused_layer_tail(
             x, residual if cfg.use_residual else None, scale,
-            dropout_mask=mask, dropout_rate=cfg.dropout, eps=cfg.rms_eps,
-            use_rmsnorm=cfg.use_rmsnorm, use_relu=cfg.use_relu)
+            dropout_mask=mask, dropout_key=key, dropout_rate=cfg.dropout,
+            eps=cfg.rms_eps, use_rmsnorm=cfg.use_rmsnorm,
+            use_relu=cfg.use_relu)
+    if key is not None:
+        from repro_torch.kernels import counter_rng as crng
+        mask = crng.keep_mask(key, x.shape[0], x.shape[-1], cfg.dropout)
 
     h = rmsnorm(x, scale, cfg.rms_eps) if cfg.use_rmsnorm else x
     if cfg.use_relu:
@@ -144,25 +154,39 @@ def _spmm(adj, x: torch.Tensor, cfg: GCNConfig) -> torch.Tensor:
     return adj @ x
 
 
+def _per_layer(cfg: GCNConfig, keep_masks, dropout_keys) -> tuple:
+    """(masks, keys), one entry (or None) per layer."""
+    none = [None] * cfg.num_layers
+    for what, got in (("keep-masks", keep_masks),
+                      ("dropout keys", dropout_keys)):
+        if got is not None and len(got) != cfg.num_layers:
+            raise ValueError(f"{len(got)} {what} for {cfg.num_layers} "
+                             "layers")
+    if keep_masks is not None and dropout_keys is not None:
+        raise ValueError("give keep_masks or dropout_keys, not both")
+    return (none if keep_masks is None else keep_masks,
+            none if dropout_keys is None else dropout_keys)
+
+
 def forward(params: Params, adj, x: torch.Tensor,
             cfg: GCNConfig, *, train: bool = False,
-            keep_masks: Optional[Sequence[torch.Tensor]] = None
+            keep_masks: Optional[Sequence[torch.Tensor]] = None,
+            dropout_keys: Optional[Sequence[torch.Tensor]] = None
             ) -> torch.Tensor:
     """Forward pass §III-B. ``adj`` is a dense ``(B, B)`` block, a
     block-ELL ``(tiles, colidx)`` pair or a CSR triple, as
     ``cfg.spmm_impl`` says. Returns logits (B, num_classes).
     ``keep_masks`` holds one (B, d_hidden) bool dropout keep-mask per
-    layer; without it no dropout is applied."""
+    layer, or ``dropout_keys`` one 0-d int64 key per layer, whose
+    ``counter_rng.keep_mask`` bits the tail draws; without either no
+    dropout is applied."""
     h = x @ params["w_in"]                                         # Eq. 4
-    masks = (keep_masks if keep_masks is not None
-             else [None] * cfg.num_layers)
-    if len(masks) != cfg.num_layers:
-        raise ValueError(f"{len(masks)} keep-masks for {cfg.num_layers} "
-                         "layers")
-    for layer, mask in zip(params["layers"], masks):
+    masks, keys = _per_layer(cfg, keep_masks, dropout_keys)
+    for layer, mask, key in zip(params["layers"], masks, keys):
         agg = _spmm(adj, h, cfg)                                   # Eq. 5
         conv = agg @ layer["w"]                                    # Eq. 6
-        h = _elementwise_tail(conv, h, layer["rms_scale"], cfg, mask, train)
+        h = _elementwise_tail(conv, h, layer["rms_scale"], cfg, mask, train,
+                              key)
     return h @ params["w_out"]                                     # Eq. 11
 
 
@@ -195,7 +219,8 @@ def accuracy(logits: torch.Tensor, labels: torch.Tensor,
 
 def sage_forward(params: Params, batch, cfg: GCNConfig, *,
                  train: bool = False,
-                 keep_masks: Optional[Sequence[torch.Tensor]] = None
+                 keep_masks: Optional[Sequence[torch.Tensor]] = None,
+                 dropout_keys: Optional[Sequence[torch.Tensor]] = None
                  ) -> torch.Tensor:
     """SAGE-style forward over a ``baselines.SageBatch``: the parameters
     and layers of :func:`forward`, but layer l aggregates by the mean over
@@ -203,14 +228,13 @@ def sage_forward(params: Params, batch, cfg: GCNConfig, *,
     rescaled induced-subgraph SpMM, walking inward from the outermost
     frontier. The tail is :func:`forward`'s (the fused kernel when
     ``elementwise_impl="cuda"``); ``keep_masks[l]`` is layer l's
-    (|frontier l|, d_hidden) keep-mask. The layer count must equal
-    ``len(batch.neighbors)``."""
+    (|frontier l|, d_hidden) keep-mask, or ``dropout_keys[l]`` its key. The
+    layer count must equal ``len(batch.neighbors)``."""
     from repro_torch.core import baselines as bl
     if cfg.num_layers != len(batch.neighbors):
         raise ValueError(f"{cfg.num_layers} layers for a batch of "
                          f"{len(batch.neighbors)} fan-outs")
-    masks = (keep_masks if keep_masks is not None
-             else [None] * cfg.num_layers)
+    masks, keys = _per_layer(cfg, keep_masks, dropout_keys)
     h = batch.feats @ params["w_in"]
     # layer li consumes frontier li + 1's embeddings and produces frontier
     # li's (its self vertices are the prefix of frontier li + 1)
@@ -220,5 +244,5 @@ def sage_forward(params: Params, batch, cfg: GCNConfig, *,
         agg = bl.sage_aggregate(h, batch.neighbors[li])
         conv = agg @ layer["w"]
         h = _elementwise_tail(conv, h[:n_inner], layer["rms_scale"], cfg,
-                              masks[li], train)
+                              masks[li], train, keys[li])
     return h @ params["w_out"]

@@ -34,10 +34,15 @@ SIGNATURES = {
     # b_r, b_c, max_deg, grid, rows_per_cta, staged, out, stream
     "repro_extract_dense_fused": [_P, _P, _P, _P, _P, _P, _F, _I,
                                   _I, _I, _I, _I, _I, _I, _P, _P],
-    # x, scale, mask|null, res|null, out, rows, d, eps, keep_prob,
-    # use_rmsnorm, use_relu, chunks, stream
-    "repro_fused_layer": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _I,
-                          _P],
+    # x, scale, mask|null, key|null, res|null, out, rows, d, eps,
+    # keep_prob, threshold, use_rmsnorm, use_relu, chunks, stream
+    "repro_fused_layer": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I,
+                          _I, _I, _P],
+    # g, x, scale, mask|null, key|null, dx, partial|null, d_scale, rows, d,
+    # eps, keep_prob, threshold, use_rmsnorm, use_relu, chunks, grid,
+    # rows_per_warp, stream
+    "repro_fused_layer_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
+                              _F, _I, _I, _I, _I, _I, _I, _P],
     # tiles, colidx, x, out, n_rb, n_slots, bm, bn, n_cb, d, bf16, stream
     "repro_spmm_ell": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # tiles, colidx, g, out, work, n_rb, n_slots, bm, bn, n_cb, d, bf16,

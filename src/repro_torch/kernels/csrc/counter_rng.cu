@@ -32,17 +32,14 @@
 
 #include <cstdint>
 
+#include "splitmix64.cuh"
+
 namespace {
+
+using repro::splitmix64;
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 4096;
-
-__device__ __forceinline__ uint64_t splitmix64(uint64_t x) {
-  x += 0x9E3779B97F4A7C15ull;
-  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
-  x = (x ^ (x >> 27)) * 0x94D049BB133111EBull;
-  return x ^ (x >> 31);
-}
 
 __global__ void __launch_bounds__(kThreads) hash_keys_kernel(
     const int64_t* __restrict__ key, long long n, int64_t* __restrict__ out) {
@@ -57,8 +54,7 @@ __global__ void __launch_bounds__(kThreads) hash_keys_kernel(
 
 __device__ __forceinline__ uint32_t keep_byte(uint64_t k, long long i,
                                               uint32_t threshold) {
-  return (splitmix64(k ^ static_cast<uint64_t>(i)) >> 40) < threshold ? 1u
-                                                                      : 0u;
+  return repro::keep_lane(k, static_cast<uint64_t>(i), threshold) ? 1u : 0u;
 }
 
 __global__ void __launch_bounds__(kThreads) keep_mask_kernel(

@@ -3,11 +3,13 @@
 
 The SpMM and the tail are ``torch.autograd.Function``s: the forward is the
 CUDA kernel for CUDA tensors (its plain version for CPU tensors). The
-SpMM's dX is a kernel of its own (``spmm_ell.spmm_ell_dx``: deterministic,
-so a training run repeats bit for bit on the card); the rest of both
-backwards is plain PyTorch in the reference's order of operations, as the
-reference's custom VJPs are plain jnp (``_spmm_bwd``, ``_fused_bwd``) with
-no Pallas kernel. Attention is forward only so far.
+SpMM's dX and the tail's backward (dx and d_scale) are kernels of their
+own (``spmm_ell.spmm_ell_dx``, ``fused_layer.fused_layer_bwd``: both
+deterministic, so a training run repeats bit for bit on the card), though
+the reference's custom VJPs are plain jnp (``_spmm_bwd``, ``_fused_bwd``)
+with no Pallas kernel; the SpMM's dTiles, which no path asks for, is plain
+PyTorch. The tail takes its keep bits as a mask or as the counter key, in
+both directions. Attention is forward only so far.
 """
 from __future__ import annotations
 
@@ -65,51 +67,32 @@ def spmm_ell(tiles: torch.Tensor, colidx: torch.Tensor,
 
 
 class _FusedTail(torch.autograd.Function):
-    """RMSNorm -> ReLU -> dropout -> residual; the mask gets no gradient."""
+    """RMSNorm -> ReLU -> dropout -> residual; the keep bits come from a
+    mask or a counter key (at most one), which get no gradient."""
 
     @staticmethod
-    def forward(ctx, x, scale, mask, residual, dropout_rate, eps,
+    def forward(ctx, x, scale, mask, key, residual, dropout_rate, eps,
                 use_rmsnorm, use_relu):
-        ctx.save_for_backward(x, scale, mask)
+        ctx.save_for_backward(x, scale, mask, key)
         ctx.cfg = (residual is not None, dropout_rate, eps, use_rmsnorm,
                    use_relu)
         return _fused.fused_layer(
             x, scale, mask, residual, dropout_rate=dropout_rate, eps=eps,
-            use_rmsnorm=use_rmsnorm, use_relu=use_relu)
+            use_rmsnorm=use_rmsnorm, use_relu=use_relu, dropout_key=key)
 
     @staticmethod
     def backward(ctx, g):
-        """Recompute the forward up to the ReLU input; d_res is g before
-        the mask, d_scale is summed over rows (zeros without RMSNorm)."""
-        x, scale, mask = ctx.saved_tensors
+        """dx and d_scale from the backward kernel (its plain version on
+        the CPU), which recomputes the forward up to the ReLU's input and
+        redraws the keep bits; d_res is g before the mask."""
+        x, scale, mask, key = ctx.saved_tensors
         has_res, dropout_rate, eps, use_rmsnorm, use_relu = ctx.cfg
-        g = g.float()
-        x32 = x.float()
-        d_res = g if has_res else None
-        if mask is not None:
-            g = torch.where(mask, g / (1.0 - dropout_rate),
-                            torch.zeros_like(g))
-        if use_rmsnorm:
-            ms = torch.mean(torch.square(x32), dim=-1, keepdim=True)
-            inv = torch.rsqrt(ms + eps)
-            normed = x32 * inv
-            pre_relu = normed * scale
-        else:
-            pre_relu = x32
-        if use_relu:
-            g = torch.where(pre_relu > 0, g, torch.zeros_like(g))
-        if use_rmsnorm:
-            d_scale = torch.sum(g * normed, dim=0)
-            gs = g * scale
-            d = x.shape[-1]
-            dot = torch.sum(gs * x32, dim=-1, keepdim=True)
-            dx = inv * gs - x32 * (inv ** 3) * dot / d
-        else:
-            d_scale = torch.zeros_like(scale)
-            dx = g
-        return (dx.to(x.dtype), d_scale.to(scale.dtype), None,
-                None if d_res is None else d_res.to(x.dtype),
-                None, None, None, None)
+        dx, d_scale = _fused.fused_layer_bwd(
+            g.float().contiguous(), x, scale, mask,
+            dropout_rate=dropout_rate, eps=eps, use_rmsnorm=use_rmsnorm,
+            use_relu=use_relu, dropout_key=key)
+        return (dx, d_scale, None, None,
+                g.to(x.dtype) if has_res else None, None, None, None, None)
 
 
 def fused_layer_tail(
@@ -118,17 +101,22 @@ def fused_layer_tail(
     scale: torch.Tensor,
     *,
     dropout_mask: Optional[torch.Tensor] = None,
+    dropout_key: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     eps: float = 1e-6,
     use_rmsnorm: bool = True,
     use_relu: bool = True,
 ) -> torch.Tensor:
     """Fused RMSNorm+ReLU+dropout+residual (paper §V-C) with its autograd
-    rule: the CUDA kernel for CUDA tensors, its plain version for CPU
-    tensors."""
-    rate = float(dropout_rate) if dropout_mask is not None else 0.0
-    return _FusedTail.apply(x, scale, dropout_mask, residual, rate,
-                            float(eps), use_rmsnorm, use_relu)
+    rule: the CUDA kernels for CUDA tensors, their plain versions for CPU
+    tensors. The keep bits come from ``dropout_mask`` (a (B, d) bool
+    keep-mask) or ``dropout_key`` (the 0-d int64 key of
+    ``counter_rng.keep_mask``, drawn inside the kernels, the same bits);
+    giving both raises."""
+    dropped = dropout_mask is not None or dropout_key is not None
+    rate = float(dropout_rate) if dropped else 0.0
+    return _FusedTail.apply(x, scale, dropout_mask, dropout_key, residual,
+                            rate, float(eps), use_rmsnorm, use_relu)
 
 
 # ---------------------------------------------------------------------------

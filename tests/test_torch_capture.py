@@ -418,6 +418,8 @@ def test_step_body_runs_on_the_meta_device(small, monkeypatch, sample_mode):
     for mod, name, plain in ((tspmm, "spmm_ell", tspmm.spmm_ell_plain),
                              (tspmm, "spmm_ell_dx", tspmm.spmm_ell_dx_plain),
                              (tfl, "fused_layer", tfl.fused_layer_plain),
+                             (tfl, "fused_layer_bwd",
+                              tfl.fused_layer_bwd_plain),
                              (teg, "extract_dense_fused",
                               _shape_only_extraction),
                              (crng, "hash_keys", crng.hash_keys_plain),

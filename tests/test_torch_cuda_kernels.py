@@ -245,6 +245,190 @@ def test_cuda_fused_tail_dropout_divides_correctly_rounded(cuda, d,
     np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
+def _key(cuda, key=0xC0FFEE):
+    from repro_torch.core import sampling as tsmp
+    return tsmp.key_tensor(key, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d", [(256, 256), (300, 33), (8192, 256),
+                                 (64, 130), (5, 1)])
+@pytest.mark.parametrize("has_res", [False, True])
+@pytest.mark.parametrize("use_rmsnorm", [True, False])
+def test_cuda_counter_tail_equals_bytes_tail(cuda, b, d, has_res,
+                                            use_rmsnorm):
+    """The forward and the backward with the counter's keep bits
+    (``dropout_key``) against the same calls fed ``keep_mask``'s mask of
+    that key: bit for bit, on both routes; the counter source is counted
+    on its own, once a call."""
+    from repro_torch.kernels import counter_rng as crng
+    x, scale, _, res = _tail_case(b, d, False, has_res)
+    t = lambda a: None if a is None else torch.from_numpy(a).to(cuda)
+    g = torch.randn((b, d), device=cuda)
+    key = _key(cuda, 2 ** 64 - 3)
+    kw = dict(dropout_rate=0.3, eps=1e-6, use_rmsnorm=use_rmsnorm,
+              use_relu=True)
+    mask = crng.keep_mask(key, b, d, 0.3)
+    s0 = dict(tfl.SOURCE_LAUNCHES)
+    got = tfl.fused_layer(t(x), t(scale), None, t(res), dropout_key=key,
+                          **kw)
+    assert tfl.SOURCE_LAUNCHES == {**s0, "counter": s0["counter"] + 1}
+    assert torch.equal(got, tfl.fused_layer(t(x), t(scale), mask, t(res),
+                                            **kw))
+    dx, ds = tfl.fused_layer_bwd(g, t(x), t(scale), None, dropout_key=key,
+                                 **kw)
+    dx2, ds2 = tfl.fused_layer_bwd(g, t(x), t(scale), mask, **kw)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
+def _bwd_err(got, ref, terms=0.0):
+    """dx and d_scale each within 1e-5 of the largest |plain|; for dx at
+    least 1e-5 of ``terms``, the size of the two terms whose difference dx
+    is (inv * g' * scale and x * inv^3 * dot / d): at d = 1 RMSNorm's
+    Jacobian is zero up to eps, and both versions' dx is the rounding of
+    their difference."""
+    for a, w, t in zip(got, ref, (terms, 0.0)):
+        limit = 1e-5 * max(w.abs().max().item(), t)
+        assert (a - w).abs().max().item() <= limit
+
+
+def _bwd_terms(g, x, scale, keep_prob, use_rmsnorm):
+    """The largest inv * |g * scale| / keep_prob (inv = 1 without
+    RMSNorm): the size of dx's terms."""
+    inv = torch.rsqrt(x.square().mean(-1, keepdim=True) + 1e-6) \
+        if use_rmsnorm else 1.0
+    return (inv * (g * scale).abs() / keep_prob).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d", [(256, 256), (300, 33), (8192, 256),
+                                 (64, 130), (5, 1)])
+@pytest.mark.parametrize("source", ["none", "bytes", "counter"])
+@pytest.mark.parametrize("use_rmsnorm,use_relu", [(True, True),
+                                                  (True, False),
+                                                  (False, True),
+                                                  (False, False)])
+def test_cuda_tail_bwd_matches_plain(cuda, b, d, source, use_rmsnorm,
+                                     use_relu):
+    """dx and d_scale of the backward kernel against its plain version
+    within 1e-5 of the largest |plain| (dx at least 1e-5 of its terms'
+    size), on the vector route (d % 4 == 0) and the scalar one, counted
+    once a call on its route; d_scale exact zeros without RMSNorm."""
+    x, scale, mask, _ = _tail_case(b, d, source == "bytes", False)
+    t = lambda a: None if a is None else torch.from_numpy(a).to(cuda)
+    g = torch.randn((b, d), device=cuda)
+    key = _key(cuda) if source == "counter" else None
+    kw = dict(dropout_rate=0.0 if source == "none" else 0.3, eps=1e-6,
+              use_rmsnorm=use_rmsnorm, use_relu=use_relu, dropout_key=key)
+    route = "vector" if d % 4 == 0 else "scalar"
+    n0, r0 = tfl.BWD_LAUNCHES, dict(tfl.BWD_ROUTE_LAUNCHES)
+    got = tfl.fused_layer_bwd(g, t(x), t(scale), t(mask), **kw)
+    torch.cuda.synchronize()
+    assert tfl.BWD_LAUNCHES == n0 + 1
+    assert tfl.BWD_ROUTE_LAUNCHES == {**r0, route: r0[route] + 1}
+    _bwd_err(got, tfl.fused_layer_bwd_plain(g, t(x), t(scale), t(mask),
+                                            **kw),
+             _bwd_terms(g, t(x), t(scale), 1.0 - kw["dropout_rate"],
+                        use_rmsnorm))
+    if not use_rmsnorm:
+        assert not got[1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d", [(8192, 256), (300, 33), (20000, 128)])
+def test_cuda_tail_bwd_is_bit_identical_over_repeated_calls(cuda, b, d):
+    """d_scale is summed in a fixed order (no float atomics): 10 calls give
+    the same bits, on both routes and past 2048 rows (several rows a
+    warp)."""
+    x, scale, _, _ = _tail_case(b, d, False, False)
+    t = lambda a: torch.from_numpy(a).to(cuda)
+    g = torch.randn((b, d), device=cuda)
+    outs = [tfl.fused_layer_bwd(g, t(x), t(scale), None,
+                                dropout_key=_key(cuda), dropout_rate=0.3)
+            for _ in range(10)]
+    for o in outs[1:]:
+        assert torch.equal(o[0], outs[0][0]) and torch.equal(o[1],
+                                                             outs[0][1])
+    _bwd_err(outs[0], tfl.fused_layer_bwd_plain(
+        g, t(x), t(scale), None, dropout_key=_key(cuda), dropout_rate=0.3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("odd", ["g", "x", "mask"])
+def test_cuda_tail_bwd_odd_offset_view_takes_scalar_route(cuda, odd):
+    """A contiguous view one element into its storage is not aligned for
+    the vector route: the backward takes the scalar route and matches the
+    plain version."""
+    x, scale, mask, _ = (None if a is None else torch.from_numpy(a).to(cuda)
+                         for a in _tail_case(96, 256, True, False))
+    views = {"g": torch.randn((96, 256), device=cuda), "x": x, "mask": mask}
+    a = views[odd]
+    flat = torch.zeros(a.numel() + 1, dtype=a.dtype, device=cuda)
+    flat[1:] = a.reshape(-1)
+    views[odd] = flat[1:].view(a.shape)
+    r0 = dict(tfl.BWD_ROUTE_LAUNCHES)
+    got = tfl.fused_layer_bwd(views["g"], views["x"], scale, views["mask"],
+                              dropout_rate=0.3)
+    assert tfl.BWD_ROUTE_LAUNCHES == {**r0, "scalar": r0["scalar"] + 1}
+    _bwd_err(got, tfl.fused_layer_bwd_plain(views["g"], x, scale, mask,
+                                            dropout_rate=0.3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_res", [False, True])
+def test_cuda_tail_autograd_runs_the_bwd_kernel(cuda, has_res):
+    """``ops.fused_layer_tail`` with a key on the card: one forward and one
+    backward launch, no keep-mask; the gradients of x, scale and the
+    residual against autograd through the plain version (1e-5 of the
+    largest)."""
+    from repro_torch.kernels import counter_rng as crng
+    x, scale, _, res = _tail_case(512, 256, False, True)
+    w = torch.randn((512, 256), device=cuda)
+    key = _key(cuda)
+    grads = []
+    for fn in ("kernel", "plain"):
+        tx, ts, tr = (torch.from_numpy(a).to(cuda).requires_grad_(True)
+                      for a in (x, scale, res))
+        counts = (tfl.LAUNCHES, tfl.BWD_LAUNCHES, crng.MASK_LAUNCHES)
+        if fn == "kernel":
+            y = tops.fused_layer_tail(tx, tr if has_res else None, ts,
+                                      dropout_key=key, dropout_rate=0.3)
+        else:
+            y = tfl.fused_layer_plain(tx, ts, None,
+                                      tr if has_res else None,
+                                      dropout_key=key, dropout_rate=0.3)
+        (y * w).sum().backward()
+        if fn == "kernel":
+            assert (tfl.LAUNCHES, tfl.BWD_LAUNCHES, crng.MASK_LAUNCHES) == (
+                counts[0] + 1, counts[1] + 1, counts[2])
+        grads.append([tx.grad, ts.grad] + ([tr.grad] if has_res else []))
+    _bwd_err(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+def test_cuda_tail_bwd_entry_point_rejects_bad_launch_shape(cuda):
+    """The backward's C entry point launches nothing, and returns 1
+    (cudaErrorInvalidValue), for chunks outside 0-8 or a grid that does
+    not cover the rows."""
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    g = torch.ones((64, 8), device=cuda)
+    scale = torch.ones(8, device=cuda)
+    dx = torch.full((64, 8), 7.0, device=cuda)
+    part = torch.zeros((64, 8), device=cuda)
+    ds = torch.full((8,), 7.0, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for chunks, grid, rpw in ((9, 8, 1), (-1, 8, 1), (1, 1, 1), (1, 7, 1),
+                              (1, 8, 0), (0, 0, 8)):
+        rc = lib.repro_fused_layer_bwd(
+            g.data_ptr(), g.data_ptr(), scale.data_ptr(), None, None,
+            dx.data_ptr(), part.data_ptr(), ds.data_ptr(), 64, 8, 1e-6, 1.0,
+            0, 1, 1, chunks, grid, rpw, stream)
+        assert rc == 1, (chunks, grid, rpw)
+    torch.cuda.synchronize()
+    assert bool((dx == 7.0).all()) and bool((ds == 7.0).all())
+
+
 @pytest.mark.cuda
 def test_cuda_extraction_entry_point_rejects_bad_launch_shape(cuda):
     """The C entry point launches nothing, and returns 1
@@ -277,6 +461,17 @@ def test_cuda_wrappers_reject_bad_inputs(cuda):
         tfl.fused_layer(x.double(), torch.zeros(8, device=cuda), None, None)
     with pytest.raises(ValueError, match="x must"):
         tfl.fused_layer(x.t(), torch.zeros(4, device=cuda), None, None)
+    with pytest.raises(ValueError, match="g must"):
+        tfl.fused_layer_bwd(x[:2], x, torch.zeros(8, device=cuda), None)
+    with pytest.raises(ValueError, match="dropout_key"):
+        tfl.fused_layer(x, torch.zeros(8, device=cuda), None, None,
+                        dropout_key=torch.zeros(1, dtype=torch.int64,
+                                                device=cuda))
+    with pytest.raises(ValueError, match="not both"):
+        tfl.fused_layer_bwd(x, x, torch.zeros(8, device=cuda),
+                            torch.ones((4, 8), dtype=torch.bool,
+                                       device=cuda),
+                            dropout_key=_key(cuda), dropout_rate=0.3)
     i = torch.zeros(4, dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="rp"):
         teg.extract_dense_fused(i, i, torch.zeros(4, device=cuda), i, i,

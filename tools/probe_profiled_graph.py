@@ -29,18 +29,29 @@ that case. A case is ``prior:graph``:
   replayed under the profiler just before that chunk, and
   ``smoke-old-matmul`` / ``smoke-old-port``, with a ``matmul`` or
   ``port`` graph captured before the phase's 48-step run (before the
-  step's graph) and replayed under the profiler there. A ``-freed``
+  step's graph) and replayed under the profiler there; ``smoke-no8``,
+  ``smoke-nospread`` and ``smoke-bare``, the phase with its 8-step run,
+  its two spread runs, or all three run as eager steps instead (no
+  captured graph made and freed before the profiled chunk; the phase's
+  checks see the same losses). ``traced-freed`` captures the training
+  step's graph (as ``step``), replays it under a first profiler session
+  whose trace is kept alive, destroys that graph and captures a second
+  one, and replays that under a second session: a graph destroyed
+  between two profiler sessions while kineto still holds the first
+  one's activity records. A ``-freed``
   suffix (``matmul-freed``, ``port-freed``, ``step-freed``) captures a
   second graph of the kind after the first and frees it before the
-  first's profiled replays, as ``chip_smoke.py``'s training phase frees
-  other runs' graphs before its profiled chunk. ``step-eval`` runs one
-  full-graph evaluation (the sparse CSR product) between the step's
-  run and its profiled replays, as ``chip_smoke.py``'s training phase
-  does; ``smoke-noeval`` is ``smoke`` with that evaluation left out.
+  first's profiled replays, as ``chip_smoke.py``'s training phase freed
+  its spread runs' graphs before its profiled chunk until that order
+  was found to crash. ``step-eval`` runs one full-graph evaluation (the
+  sparse CSR product) between the step's run and its profiled replays,
+  as ``chip_smoke.py``'s training phase does; ``step-freed-eval`` does
+  both, the evaluation first; ``smoke-noeval`` is ``smoke`` with that
+  evaluation left out.
 
-``--cases prior:graph ...`` runs only those cases; by default each of
-``matmul``, ``port`` and ``step`` runs after each prior, then the four
-``smoke`` cases after ``serve``.
+``--cases prior:graph ...`` runs only those cases, each ``--runs`` times
+(once by default); by default each of ``matmul``, ``port`` and ``step``
+runs after each prior, then the four ``smoke`` cases after ``serve``.
 
 Every case that crashes runs again under each of kineto's CUPTI switches
 (``TEARDOWN_CUPTI=0``, ``DISABLE_CUPTI_LAZY_REINIT=1``), unless
@@ -106,10 +117,12 @@ def child(prior: str, kind: str) -> int:
     if kind.startswith("smoke"):
         return _smoke_training(torch, kind, lambda k: _replays(
             torch, dev, k, a, port_kernels))
+    if kind == "traced-freed":
+        return _traced_freed(torch, dev)
     base, _, suffix = kind.partition("-")
     replay = _replays(torch, dev, base, a, port_kernels,
-                      eval_between=suffix == "eval")
-    if suffix == "freed":        # another graph of the kind, then freed
+                      eval_between="eval" in suffix)
+    if "freed" in suffix:        # another graph of the kind, then freed
         _replays(torch, dev, base, a, port_kernels)
         gc.collect()
         torch.cuda.synchronize()
@@ -166,9 +179,10 @@ class _Done(Exception):
     pass
 
 
-def _profile_replays(torch, replay) -> int:
+def _profile_replays(torch, replay, keep: bool = False):
     """``replay()`` under a profiler session (CPU and CUDA activity);
-    returns the trace's device events."""
+    returns the trace's device events (with ``keep``, with the profiler
+    object, whose records then outlive the session)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -176,8 +190,9 @@ def _profile_replays(torch, replay) -> int:
                              ProfilerActivity.CUDA]) as prof:
         replay()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False))
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False))
+    return (n, prof) if keep else n
 
 
 def _smoke_training(torch, kind: str, make_replays) -> int:
@@ -211,6 +226,28 @@ def _smoke_training(torch, kind: str, make_replays) -> int:
 
     chip_smoke.log = hook
     chip_smoke.phase_train_nccl = stop
+    # the phase's Trainer.run calls: the 8-step run (8 steps), the 48-step
+    # run (the first of 48), two spread runs (the later ones of 48) and the
+    # profiled chunk (56); a cut call runs eagerly
+    cut = {"smoke-no8": {"8-step"}, "smoke-nospread": {"spread"},
+           "smoke-bare": {"8-step", "spread"}}.get(kind, set())
+    if cut:
+        from repro_torch.train import Trainer
+        run, runs48 = Trainer.run, []
+
+        def eager_or_captured(self, state, graph, **kw):
+            what = "8-step" if self.total_steps == chip_smoke.CHUNK else None
+            if self.total_steps == chip_smoke.TRAIN_STEPS:
+                runs48.append(1)
+                what = "spread" if len(runs48) > 1 else None
+            if what not in cut:
+                return run(self, state, graph, **kw)
+            self._captures = lambda: False
+            state, lg = run(self, state, graph, **kw)
+            lg.replays = len(lg.losses) - 1    # as a captured run reports
+            print(f"[probe] the {what} run ran eagerly", flush=True)
+            return state, lg
+        Trainer.run = eager_or_captured
     if kind == "smoke-noeval":
         from repro_torch.core import fourd
         fourd.make_eval_step = lambda plan: (lambda params, graph: 0.0)
@@ -222,6 +259,23 @@ def _smoke_training(torch, kind: str, make_replays) -> int:
         pass
     print("[probe] the profiled chunk of replays ran", flush=True)
     print(json.dumps({"device_events": None}), flush=True)
+    return 0
+
+
+def _traced_freed(torch, dev) -> int:
+    """A step graph replayed under a profiler session whose trace stays
+    alive; that graph destroyed; a second step graph captured and replayed
+    under a second session."""
+    replay = _step_replays(torch, dev)
+    first = _profile_replays(torch, replay, keep=True)
+    del replay
+    gc.collect()
+    torch.cuda.synchronize()
+    print("[probe] the first step graph destroyed, its trace held",
+          flush=True)
+    n = _profile_replays(torch, _step_replays(torch, dev))
+    print(json.dumps({"device_events": [first[0], n]}), flush=True)
+    del first
     return 0
 
 
@@ -317,6 +371,8 @@ def main() -> int:
     ap.add_argument("--case", default=None, help="prior:graph (child)")
     ap.add_argument("--cases", nargs="*", default=None,
                     help="prior:graph ... (default: all)")
+    ap.add_argument("--runs", type=int, default=1,
+                    help="runs of each case")
     ap.add_argument("--out", default=None, help="write the JSON here too")
     ap.add_argument("--no-switches", action="store_true",
                     help="do not rerun crashed cases under kineto's "
@@ -345,9 +401,17 @@ def main() -> int:
           f"CUPTI names in its libraries: {names}", flush=True)
     picked = args.cases if args.cases is not None else [
         f"{p}:{g}" for g in GRAPHS for p in PRIORS] + list(SMOKE_CASES)
-    cases = [run_case(*c.split(":"), {}) for c in picked]
+    cases = [run_case(*c.split(":"), {}) for c in picked
+             for _ in range(args.runs)]
     for c in [c for c in cases if c["rc"] != 0 and not args.no_switches]:
         cases += [run_case(c["prior"], c["graph"], env) for env in SWITCHES]
+    crashes: dict = {}
+    for c in cases:
+        tag = f"{c['prior']}:{c['graph']} {c['env'] or ''}".strip()
+        n, bad = crashes.get(tag, (0, 0))
+        crashes[tag] = (n + 1, bad + (c["rc"] != 0))
+    for tag, (n, bad) in crashes.items():
+        print(f"[probe] {tag}: {bad} of {n} runs failed", flush=True)
     out = {"card": card, "torch": torch.__version__,
            "cuda": torch.version.cuda, "cupti_names": names,
            "cases": cases}

@@ -17,6 +17,15 @@ power limit, and the seconds each run spent capturing a CUDA graph (0 on
 a tree that captures none; ms/step includes them, as the reference's
 includes its compile). Alternate the trees (parent, change, change,
 parent) on one machine: hosts differ between machines.
+
+With ``--profile`` it then profiles, in this order, one more chunk of 8
+replays of the last run's captured step (a step's device time, the device
+busy share and each kernel's time by name) and one chunk of 8 eager
+``Trainer.step`` calls, from which it sums the device time of the kernels
+launched inside the tail's autograd node (``_FusedTailBackward``): a
+chunk's tail backward, whatever kernels a tree runs there. The replays are
+profiled first: a profiled replay after another profiler session of the
+process can crash (ROADMAP queue 3).
 """
 from __future__ import annotations
 
@@ -33,6 +42,8 @@ def main() -> int:
     ap.add_argument("--src", required=True, help="the tree's src directory")
     ap.add_argument("--vertices", type=int, default=2_449_029)
     ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--profile", action="store_true",
+                    help="profile a chunk of replays, then an eager chunk")
     args = ap.parse_args()
 
     import torch
@@ -75,12 +86,47 @@ def main() -> int:
                      TrainLoopConfig(total_steps=48, chunk_size=8),
                      eval_fn=lambda p, g: 0.0)
         params = tree_map(lambda t: t.detach().clone(), params0)
-        _, log = tr.run(tr.init_state(params), graph)
+        state, log = tr.run(tr.init_state(params), graph)
         ms.append(log.ms_per_step)
         capture_s.append(getattr(log, "capture_s", 0.0))
-    print(json.dumps({"src": args.src, "ms_per_step": ms,
-                      "capture_s": capture_s, "last_loss": log.losses[-1]}))
+    out = {"src": args.src, "ms_per_step": ms, "capture_s": capture_s,
+           "last_loss": log.losses[-1]}
+    if args.profile:
+        out.update(profile(torch, tr, state, graph))
+    print(json.dumps(out))
     return 0
+
+
+def profile(torch, tr, state, graph, steps: int = 8) -> dict:
+    """A step's device time from ``steps`` profiled replays, then the
+    device time inside ``_FusedTailBackward`` over ``steps`` profiled eager
+    steps (``chip_smoke.device_profile`` reads both traces)."""
+    from torch.profiler import ProfilerActivity, profile as prof_
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import device_profile
+    out = {}
+    for kind in ("replays", "eager"):
+        torch.cuda.synchronize()
+        with prof_(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            if kind == "replays":
+                tr.total_steps += steps
+                tr.run(state, graph)
+            else:
+                for _ in range(steps):
+                    tr.step(state, graph)
+            torch.cuda.synchronize()
+            wall_us = (time.monotonic() - t0) * 1e6
+        seen = device_profile(prof, wall_us, f"{steps} steps, {kind}",
+                              spans=("_FusedTailBackward",))
+        out[f"{kind}_device_ms_per_step"] = seen["busy_us"] / steps / 1e3
+        out[f"{kind}_busy_share"] = seen["busy_us"] / seen["wall_us"]
+        if kind == "eager":
+            out["tail_backward_us_per_chunk"] = seen["span_us"][
+                "_FusedTailBackward"]
+    return out
 
 
 if __name__ == "__main__":
