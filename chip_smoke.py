@@ -173,7 +173,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import math
 import os
 import statistics
 import subprocess
@@ -452,12 +451,17 @@ def read_launches() -> dict:
             for name, (mod, counter, split) in KERNEL_COUNTERS.items()}
 
 
-def phase_device(torch) -> dict:
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device(torch) -> dict:
+    log(card_line())
     name = torch.cuda.get_device_name(0)
     log(f"[device] torch.cuda.get_device_name(0) = {name}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
@@ -477,22 +481,6 @@ def phase_build() -> None:
 def _bound_by(n_bytes: float, n_ops: float) -> str:
     return ("bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / F32_OPS_PER_S
             else "operations")
-
-
-def _extraction_cost(rp, ids, b_c: int, max_deg: int,
-                     per_column: bool, nnz: int) -> tuple:
-    """Bytes and operations of one extraction: the rows, their two row
-    pointers, the edges walked (column and value), the sampled columns
-    (and their scales) read once and the dense block written once; a
-    binary search of each walked edge among the columns and a multiply and
-    an add for each nonzero placed."""
-    b_r = ids.shape[0]
-    ids = ids.long()
-    walked = int((rp[ids + 1] - rp[ids]).clamp(max=max_deg).sum())
-    n_bytes = (4 * b_r + 8 * b_r + 8 * walked + 4 * b_c
-               + (4 * b_c if per_column else 0) + 4 * b_r * b_c)
-    n_ops = walked * (math.ceil(math.log2(max(b_c, 2))) + 1) + 2 * nnz
-    return walked, n_bytes, n_ops
 
 
 def check_extraction(torch, A, plan, plan_b, train_plan, train_graph, dev,
@@ -559,9 +547,11 @@ def check_extraction(torch, A, plan, plan_b, train_plan, train_graph, dev,
             *graph_csr, rows, rows, **kw), flush=written)
         dev_ms = device_ms(torch, call, "extract_dense_kernel", flush=written)
         b = rows.shape[0]
-        walked, n_bytes, n_ops = _extraction_cost(
-            graph_csr[0], rows, b, kw["max_deg"],
-            isinstance(kw["col_scale"], torch.Tensor), nnz[case])
+        # the wrapper's own count (eg.extract_dense_cost): the edges
+        # walked, the nonzeros placed
+        n_ops, n_bytes = eg.extract_dense_cost(*graph_csr, rows, rows,
+                                               out=call(), **kw)
+        walked = eg.edges_walked(graph_csr[0], rows, kw["max_deg"])
         bound = bound_ms(n_bytes, n_ops)
         shapes[label] = {"b_r": b, "b_c": b, "edges": walked,
                          "bytes": n_bytes, "ms": ms, "device_ms": dev_ms,
@@ -776,12 +766,9 @@ def check_fused_tail(torch, d_hidden: int, rows: int, dev,
                                                                **kw),
                            flush=written)
         dev_ms = device_ms(torch, call, kernel, flush=written)
-        n_el = b * d
         # x, the residual and a bytes mask (or the key) read once, the
-        # scale once, out written once
-        n_bytes = 4 * n_el + 4 * n_el + 4 * d + 4 * n_el + (
-            n_el if src == "bytes" else 8 if src == "counter" else 0)
-        n_ops = 7 * n_el       # square-add, scale twice, relu, residual add
+        # scale once, out written once (the wrapper's fused_layer_cost)
+        n_ops, n_bytes = fl.fused_layer_cost(x, s, m, r, **kw)
         bound = bound_ms(n_bytes, n_ops)
         times[route][label] = {"rows": b, "d": d, "keep": src,
                                "bytes": n_bytes, "ms": ms,
@@ -845,11 +832,10 @@ def check_fused_tail(torch, d_hidden: int, rows: int, dev,
         plain_mask_ms = time_ms(torch, lambda: fl.fused_layer_bwd_plain(
             g, x, s, m, **kw), flush=written)
         dev_ms = device_ms(torch, call, kernels, flush=written)
-        n_el = b * d
         # g and x read once, dx written once, the scale read and d_scale
-        # written once, the key read
-        n_bytes = 12 * n_el + 8 * d + 8
-        n_ops = 14 * n_el      # the norm, the gate, dot, d_scale, dx
+        # written once, the key read (the wrapper's fused_layer_bwd_cost)
+        n_ops, n_bytes = fl.fused_layer_bwd_cost(g, x, s, None,
+                                                 dropout_key=key, **kw)
         bound = bound_ms(n_bytes, n_ops)
         bwd_times[route][label] = {
             "rows": b, "d": d, "keep": "counter", "bytes": n_bytes,
@@ -1030,13 +1016,12 @@ def check_spmm_ell(torch, plan, graph, dev) -> dict:
     dense_ms = time_ms(torch, lambda: torch.matmul(dense_adj, h))
     # every tile is read once (padding included, to find it), x and out
     # once; the products this batch needs are those of its nonzeros, so
-    # the bound is the bytes'; beside it the bound over the live tiles and
-    # over every slot (PR 13's count)
-    n_bytes = 4 * tiles.numel() + 4 * colidx.numel() + 4 * h.numel() \
-        + 4 * n_rb * bm * d
+    # the bound is the bytes' (the wrapper's spmm_ell_cost); beside it the
+    # bound over the live tiles and over every slot (the first port's
+    # count)
+    n_ops, n_bytes = sp.spmm_ell_cost(tiles, colidx, h)
     nz_tiles = int(keep.sum())
     nnz = int(torch.count_nonzero(tiles))
-    n_ops = 2 * nnz * d
     live_ops = 2 * nz_tiles * bm * bn * d
     padded_ops = 2 * n_rb * n_slots * bm * bn * d
     bound = bound_ms(n_bytes, n_ops)
@@ -1155,11 +1140,11 @@ def check_spmm_ell_dx(torch, plan, graph, dev) -> dict:
                 - first).abs().max().item()
     # every tile read once (padding included, to find it), g read once,
     # dX written once; the products this batch needs are those of its
-    # nonzeros; beside it the bound over the live tiles
-    n_bytes = 4 * (tiles.numel() + colidx.numel() + g.numel() + n_rows * d)
+    # nonzeros (the wrapper's spmm_ell_dx_cost); beside it the bound over
+    # the live tiles
+    n_ops, n_bytes = sp.spmm_ell_dx_cost(tiles, colidx, g, n_rows)
     keep = tiles.abs().sum((2, 3)) > 0
     nz_tiles = int(keep.sum())
-    n_ops = 2 * int(torch.count_nonzero(tiles)) * d
     live_ops = 2 * nz_tiles * bm * bn * d
     bound = bound_ms(n_bytes, n_ops)
     live_bound = bound_ms(n_bytes, live_ops)
@@ -1188,20 +1173,6 @@ FLASH_SWEEP = [(64, 64, 4, 2, 32, True, None),
                (128, 128, 8, 2, 16, True, 32),
                (64, 100, 2, 1, 32, False, None),
                (256, 256, 2, 2, 64, True, None)]
-
-
-def _flash_costs(q, k, causal, window):
-    """Bytes (q, k, v read once, out and lse written once) and operations
-    (2 * hd for q.k and 2 * hd for p.v over the (query, key) pairs that
-    this mask lets through) of one attention call."""
-    from repro_torch.kernels.flash_attention import attention_mask
-    b, sq, h, hd = q.shape
-    t, kv = k.shape[1], k.shape[2]
-    elt = q.element_size()
-    n_bytes = elt * (2 * b * sq * h * hd + 2 * b * t * kv * hd) \
-        + 4 * b * h * sq
-    pairs = int(attention_mask(sq, t, causal, window, q.device).sum())
-    return n_bytes, 4 * hd * pairs * b * h
 
 
 def check_flash_attention(torch, np, dev) -> list:
@@ -1287,7 +1258,7 @@ def check_flash_attention(torch, np, dev) -> list:
                    - fa.flash_attention(q, k, v, True)[0].float()
                    ).abs().max().item()
         library_ms = time_ms(torch, sdpa, reps=reps, inner=inner)
-        n_bytes, n_ops = _flash_costs(q, k, True, None)
+        n_ops, n_bytes = fa.flash_attention_cost(q, k, v, True, None)
         bound = bound_ms(n_bytes, n_ops, peak)
         by = "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / peak \
             else "operations"
@@ -1672,6 +1643,8 @@ def phase_train(torch, np, plan, graph, pg) -> dict:
         f"{', '.join(f'{v.ms_per_step:.4f}' for v in spread)} (without the "
         f"capture {', '.join(f'{ms_without_capture(v):.4f}' for v in spread)}"
         ")")
+    phase_instruments(torch, plan, graph, pg, fresh, make_opt,
+                      seen["busy_us"] / CHUNK / 1e3)
     nccl = phase_train_nccl(torch, plan, pg, fresh, make_opt, log8, params8)
     prefetch = phase_train_comm(torch, np, plan, graph, pg, fresh, make_opt,
                                 (log8, params8), (run_log, params48), expect)
@@ -1679,6 +1652,139 @@ def phase_train(torch, np, plan, graph, pg) -> dict:
                                           make_opt, (run_log, params48))
     return {"train": launches, "train_nccl": nccl,
             "train_prefetch": prefetch}, counter_kernels
+
+
+DRYRUN_TIMEOUT_S = 600
+
+
+def phase_instruments(torch, plan, graph, pg, fresh, make_opt,
+                      step_device_ms: float) -> None:
+    """The instruments on the training path; captures no graph. One eager
+    ``Trainer.step`` of phase 5's plan (its seeds, step 0) walked on the
+    card (``launch.roofline.analyze_step``), and the same step walked on
+    the CPU (the plan on a CPU mesh with ``draw_in_tail``, so that the
+    engine hands the tail its dropout key as on the card): equal FLOPs and
+    bytes. Its roofline
+    bound beside phase 5's device time a step (the profiled chunk's busy
+    time over its steps), their ratio, and the FLOPs over that time at the
+    float32 peak. Then the collectives of one eager step in a NCCL group of
+    world size 1, sampling under ``assert_no_collectives``; then the
+    production dry run (``python -m repro_torch.launch.dryrun --gnn``, both
+    meshes) in a child process that sees no card: both records ``ok``."""
+    from repro_torch.core import fourd
+    from repro_torch.launch.roofline import (PEAK_FLOPS_F32, analyze_step,
+                                             roofline_terms)
+    from repro_torch.obs import comm
+    from repro_torch.train import Trainer, TrainLoopConfig
+    from repro_torch.tree import tree_map
+
+    def walk(plan_, graph_, params):
+        tr = Trainer(plan_, make_opt(),
+                     TrainLoopConfig(total_steps=1, chunk_size=1),
+                     eval_fn=lambda p, g: 0.0)
+        return analyze_step(tr.step, tr.init_state(params), graph_)
+
+    t0 = time.monotonic()
+    card = walk(plan, graph, fresh())
+    torch.cuda.synchronize()
+    t_card = time.monotonic() - t0
+    cpu_plan = dataclasses.replace(
+        fourd.build_plan(pg, plan.cfg, fourd.make_mesh_4d(1, 1, "cpu"),
+                         batch=TRAIN_BATCH, opts=plan.opts),
+        draw_in_tail=True)
+    t0 = time.monotonic()
+    cpu = walk(cpu_plan, cpu_plan.shard_graph(pg),
+               tree_map(lambda t: t.cpu(), fresh()))
+    t_cpu = time.monotonic() - t0
+    same = (card["flops"], card["bytes"]) == (cpu["flops"], cpu["bytes"])
+    log(f"[instruments] one eager training step walked on the card "
+        f"({t_card:.2f} s): {card['flops']:.0f} FLOPs, {card['bytes']:.0f} "
+        f"bytes ({card['bytes_copy']:.0f} more in copies), upper bound "
+        f"{card['upper_bound']}; on the CPU ({t_cpu:.2f} s): "
+        f"{cpu['flops']:.0f} FLOPs, {cpu['bytes']:.0f} bytes; equal {same}")
+    for name, k in sorted(card["kernels"].items()):
+        log(f"[instruments]   {name}: {k['launches']} launches, "
+            f"{k['flops']:.0f} operations, {k['bytes']:.0f} bytes (CPU "
+            f"walk {cpu['kernels'].get(name)})")
+    if not same:
+        raise AssertionError("the step walked on the card and on the CPU "
+                             "counts different work")
+    terms = roofline_terms(card)
+    bound_ms = terms["t_bound_s"] * 1e3
+    share = bound_ms / step_device_ms
+    mfu = card["flops"] / (step_device_ms * 1e-3 * PEAK_FLOPS_F32)
+    log(f"[instruments] {card_line()}: the step's compute term "
+        f"{terms['t_compute_s'] * 1e3:.6f} ms (f32, 67e12 FLOP/s), memory "
+        f"term {terms['t_memory_s'] * 1e3:.6f} ms (3.35e12 B/s), bound "
+        f"{bound_ms:.6f} ms ({terms['dominant']}) against phase 5's "
+        f"{step_device_ms:.6f} ms of device time a step: roofline share "
+        f"{share:.4f}, f32 MFU {mfu:.4f}")
+    if not 0.0 < share <= 1.0:
+        raise AssertionError(f"roofline share {share}: the walk counts too "
+                             "little work (or none)")
+
+    def body():
+        mesh = fourd.make_mesh_4d(1, 1)
+        mplan = fourd.build_plan(pg, plan.cfg, mesh, batch=TRAIN_BATCH,
+                                 opts=plan.opts)
+        mgraph = mplan.shard_graph(pg)
+        sampling = comm.assert_no_collectives(
+            fourd.make_loss_fn(mplan).sample, mgraph, 0, what="sampling")
+        tr = Trainer(mplan, make_opt(),
+                     TrainLoopConfig(total_steps=1, chunk_size=1),
+                     eval_fn=lambda p, g: 0.0)
+        rep = comm.comm_report(tr.step, tr.init_state(
+            mplan.shard_params(fresh())), mgraph)
+        torch.cuda.synchronize()
+        return sampling, rep
+
+    sampling, rep = in_nccl_group(torch, "instr", body)
+    scopes = {sc: rep.bytes_for_scope(sc)
+              for sc in ("reshard", "spmm", "gemm", "tail", "transpose")}
+    log(f"[instruments] one eager step's collectives in a NCCL group of one "
+        f"rank: sampling {sampling} (c10d ops dispatched "
+        f"{sampling.dispatched}); step {rep}; bytes by scope {scopes}, "
+        f"by dtype {rep.bytes_by_dtype()}; c10d ops dispatched "
+        f"{rep.dispatched}")
+    if rep.counts["all-reduce"] == 0 or rep.counts["all-to-all"] \
+            or rep.counts["reduce-scatter"]:
+        raise AssertionError(f"unexpected collective set {rep.counts}")
+    if rep.dispatched_kinds() != rep.kinds():
+        raise AssertionError(f"c10d ops {rep.dispatched} of kinds no call "
+                             f"site reported ({rep.kinds()})")
+
+    out_dir = ROOT / "experiments" / "dryrun"
+    for old in out_dir.glob("scalegnn_gcn_*.json"):
+        old.unlink()
+    t0 = time.monotonic()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--gnn"],
+        cwd=ROOT, capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                 PYTHONPATH=str(ROOT / "src")))
+    recs = {m: json.loads((out_dir / f"scalegnn_gcn_{m}.json").read_text())
+            for m in ("single", "multi")
+            if (out_dir / f"scalegnn_gcn_{m}.json").exists()}
+    for m, rec in recs.items():
+        if rec["status"] != "ok":
+            log(f"[instruments] dry run {m}: {rec.get('error')}")
+            continue
+        mem = rec["memory"]
+        log(f"[instruments] dry run {m}, rank {rec['rank']} of "
+            f"{rec['n_devices']} (counts on the meta device, not times): "
+            f"{rec['flops_per_device']:.0f} FLOPs and "
+            f"{rec['bytes_per_device']:.0f} bytes a rank, collective bytes "
+            f"{ {k: v for k, v in rec['collective_bytes_per_device'].items() if v} }"
+            f", arguments {mem['argument_bytes'] / 2**30:.3f} GiB, temp "
+            f"{mem['temp_bytes'] / 2**30:.3f} GiB, sampling collectives "
+            f"{rec['sampling_collectives']}, upper bound "
+            f"{rec['loop_aware']['upper_bound']}")
+    log(f"[instruments] dry run of both meshes in {time.monotonic() - t0:.1f}"
+        f" s, exit code {r.returncode}")
+    if r.returncode != 0 or len(recs) != 2 or any(
+            rec["status"] != "ok" for rec in recs.values()):
+        raise AssertionError(f"the dry run failed:\n{r.stdout[-3000:]}\n"
+                             f"{r.stderr[-3000:]}")
 
 
 def phase_train_nccl(torch, plan, pg, fresh, make_opt, want_log,
@@ -1969,11 +2075,12 @@ def check_counter_rng(torch, plan, dev) -> list:
     out = []
     for name, call, plain, lib, n_bytes in (
             ("hash_keys", lambda: crng.hash_keys(k, n),
-             lambda: crng.hash_keys_plain(k, n), None, 8 * n + 8),
+             lambda: crng.hash_keys_plain(k, n), None,
+             crng.hash_keys_cost(k, n)[1]),
             ("keep_mask", lambda: crng.keep_mask(k, rows, cols, rate),
              lambda: crng.keep_mask_plain(k, rows, cols, rate),
              lambda: torch.rand((rows, cols), device=dev) < 1.0 - rate,
-             rows * cols + 8)):
+             crng.keep_mask_cost(k, rows, cols, rate)[1])):
         ms = time_ms(torch, call)
         dev_ms = device_ms(torch, call, f"{name}_kernel")
         plain_ms = time_ms(torch, plain)

@@ -9,7 +9,9 @@ of the reference's registry raises, naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
+from typing import Dict
 
 from repro_torch.models.config import ModelConfig
 
@@ -25,6 +27,22 @@ ARCH_IDS = (
     "internlm2-1.8b",
     "mamba2-780m",
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str           # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 _PORTED = ("tinyllama-1.1b", "qwen2-0.5b")
 

@@ -156,6 +156,7 @@ class ForwardEngine:
     mesh: Any
     backend: str = "dense"
     csr_rows: int = 0
+    draw_in_tail: Optional[bool] = None   # None: by the device (tail_draws)
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -177,12 +178,13 @@ class ForwardEngine:
 
     @classmethod
     def from_options(cls, cfg: GCNConfig, opts: TrainOptions, mesh, *,
-                     backend: Optional[str] = None,
-                     csr_rows: int = 0) -> "ForwardEngine":
+                     backend: Optional[str] = None, csr_rows: int = 0,
+                     draw_in_tail: Optional[bool] = None) -> "ForwardEngine":
         """The aggregation backend follows the mini-batch block format
         (``opts.spmm_impl``) unless given (eval passes ``"csr"``)."""
         return cls(cfg=cfg, opts=opts, mesh=mesh,
-                   backend=backend or opts.spmm_impl, csr_rows=csr_rows)
+                   backend=backend or opts.spmm_impl, csr_rows=csr_rows,
+                   draw_in_tail=draw_in_tail)
 
     @property
     def grid_side(self) -> int:
@@ -263,10 +265,17 @@ class ForwardEngine:
 
     def tail_draws(self, device: torch.device) -> bool:
         """Whether the tail draws the keep bits from the key itself (the
-        fused kernels on the card: no mask pass, no mask in memory) rather
-        than being handed :meth:`keep_mask`'s mask (the unfused tail, and
-        any tail on the CPU, where the tests inject masks)."""
-        return self.opts.fused_elementwise and device.type == "cuda"
+        fused kernels on the card, and on the meta device, which walks the
+        card's step: no mask pass, no mask in memory) rather than being
+        handed :meth:`keep_mask`'s mask (the unfused tail, and any tail on
+        the CPU, where the tests inject masks). ``draw_in_tail`` sets the
+        fused tail's route whatever the device (a CPU walk of the card's
+        step)."""
+        if not self.opts.fused_elementwise:
+            return False
+        if self.draw_in_tail is not None:
+            return self.draw_in_tail
+        return device.type != "cpu"
 
     def tail(self, conv: torch.Tensor, residual: Optional[torch.Tensor],
              scale: torch.Tensor, st: pmm3d.PlaneState,
@@ -406,7 +415,8 @@ class ForwardEngine:
             with phase("tail"):
                 h = self.tail(conv, res, layer["rms_scale"], st, mask, train,
                               key)
-            st = st.rotate()
+            with phase("rotate"):
+                st = st.rotate()
         # output head (Eq. 11): X (r, c) @ W_out (c, p) -> sum c -> logits
         # (r, p)
         logits = ar(h @ params["w_out"], st.col, fmts[-1], "head")

@@ -52,6 +52,7 @@ from repro_torch.core.forward import ForwardEngine, TrainOptions
 from repro_torch.core.minibatch import Minibatch, MinibatchBuilder
 from repro_torch.device import resolve_device
 from repro_torch.graphs.partition import PartitionedGraph, build_walk_tables
+from repro_torch.obs import comm
 from repro_torch.tree import (Path, flatten_with_paths, leaves, map_with_path,
                                unflatten)
 
@@ -94,8 +95,16 @@ class Mesh:
             dist.all_reduce(torch.zeros(1, device=self.device))
 
 
+# the backend a mesh on each device type runs over: the meta device is the
+# dry run's (``launch/dryrun.py``), one rank of a fake process group
+_BACKENDS = {"cuda": "nccl", "cpu": "gloo", "meta": "cpu:fake,meta:fake"}
+
+
 def _mesh_device(device) -> torch.device:
-    """``None`` means this process's card, ``cuda:LOCAL_RANK``."""
+    """``None`` means this process's card, ``cuda:LOCAL_RANK``; ``"meta"``
+    is the dry run's device (shapes only)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
@@ -106,7 +115,9 @@ def make_mesh_4d(g_d: int, g: int,
                  device: Union[str, torch.device, None] = None) -> Mesh:
     """The paper's 4D grid G_d x g x g x g on the initialised process group
     (its world size must be G_d g^3), or the single device 1x1x1x1 without
-    one. Every rank creates the same groups in the same order."""
+    one. Every rank creates the same groups in the same order. NCCL runs a
+    mesh on the cards, gloo one on the CPU, and the fake backend
+    (``"cpu:fake,meta:fake"``) one on the meta device."""
     shape = dict(zip(AXES_4D, (g_d, g, g, g)))
     n = g_d * g ** 3
     dev = _mesh_device(device)
@@ -120,7 +131,7 @@ def make_mesh_4d(g_d: int, g: int,
     if dist.get_world_size() != n:
         raise ValueError(f"a {g_d}x{g}x{g}x{g} mesh needs {n} ranks, the "
                          f"process group has {dist.get_world_size()}")
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    backend = _BACKENDS[dev.type]
     if dist.get_backend() != backend:
         raise ValueError(f"a mesh on {dev} runs over {backend}, the process "
                          f"group uses {dist.get_backend()}")
@@ -197,6 +208,8 @@ class FourDPlan:
     opts: TrainOptions
     builder: MinibatchBuilder
     num_classes_padded: int
+    # the fused tail's dropout route (``ForwardEngine.draw_in_tail``)
+    draw_in_tail: Optional[bool] = None
 
     @property
     def grid_side(self) -> int:
@@ -211,7 +224,8 @@ class FourDPlan:
         """The layer-loop executor of this plan (``core/forward.py``)."""
         return ForwardEngine.from_options(
             model_config(self.cfg, self.opts), self.opts, self.mesh,
-            backend=backend, csr_rows=csr_rows)
+            backend=backend, csr_rows=csr_rows,
+            draw_in_tail=self.draw_in_tail)
 
     # -- shards of parameter-shaped trees -------------------------------------
 
@@ -308,6 +322,7 @@ class FourDPlan:
             if axis.group is None or not idx:
                 continue
             buf = torch.cat([flat[k].reshape(-1) for k in idx])
+            comm.record("all-reduce", buf)
             dist.all_reduce(buf, group=axis.group)
             for k, part in zip(idx, buf.split([flat[k].numel()
                                                for k in idx])):
@@ -326,10 +341,20 @@ class FourDPlan:
             if axis.group is None or not idx:
                 continue
             buf = torch.stack([sq[k] for k in idx])
+            comm.record("all-reduce", buf)
             dist.all_reduce(buf, group=axis.group)
             for k, v in zip(idx, buf.unbind()):
                 sq[k] = v
         return sum(sq)
+
+    def plane_blocks(self) -> Tuple[Tuple[int, int], ...]:
+        """The (i, j) CSR block of each rotation plane on this rank: blocks
+        (z, x), (y, z), (x, y) of the layer program's planes."""
+        c, st, out = self.mesh.coords, pmm3d.initial_state(), []
+        for _ in range(3):
+            out.append(tuple(c[a] for a in st.adj_plane))
+            st = st.rotate()
+        return tuple(out)
 
     def shard_graph(self, pg: PartitionedGraph) -> Dict[str, Any]:
         """This rank's graph arrays on the plan's device: ``adj``, the CSR
@@ -343,14 +368,10 @@ class FourDPlan:
         # a read-only mmap shard is copied (np.require "W"), not aliased
         t = lambda a: torch.from_numpy(np.require(a, requirements="CW")).to(
             self.device)
-        st, blocks, adj = pmm3d.initial_state(), {}, []
-        for _ in range(3):
-            i, j = (c[a] for a in st.adj_plane)
-            if (i, j) not in blocks:
-                blocks[(i, j)] = (t(pg.block_rp[i, j]), t(pg.block_ci[i, j]),
-                                  t(pg.block_val[i, j]))
-            adj.append(blocks[(i, j)])
-            st = st.rotate()
+        planes = self.plane_blocks()
+        blocks = {(i, j): (t(pg.block_rp[i, j]), t(pg.block_ci[i, j]),
+                           t(pg.block_val[i, j])) for i, j in set(planes)}
+        adj = [blocks[ij] for ij in planes]
         d_loc = pg.feature_dim // g
         r_f = c[pmm3d.state_after_layers(self.cfg.num_layers).row]
         out = {"adj": tuple(adj),

@@ -41,6 +41,13 @@ int4 with FP32 row scales) and return the quantization residual that the
 error-feedback carry re-injects next step; their backwards have the
 transpose structure of the uncompressed collective, every hop quantized
 at the forward's width and without error feedback.
+
+Every collective here reports itself to the collective ledger
+(``obs.comm``: a no-op unless one is recording): an all-reduce and an
+all-gather at their call, a point-to-point hop at :func:`_post` (its wait
+at :func:`_wait`), under the rings' scopes ``ring_rs``, ``ring_ag``,
+``ring_rs_q`` and ``ring_ag_q`` (the reference's ``named_scope`` names)
+and, in a backward, under the scope its forward ran in.
 """
 from __future__ import annotations
 
@@ -53,6 +60,7 @@ import torch.distributed as dist
 
 from repro_torch.core.precision import (WIRE_BITS, dequantize,
                                         dequantize_add, psum_fp32, quantize)
+from repro_torch.obs import comm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +129,7 @@ def pmax(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     the tangent before ``pmax``, which has no differentiation rule)."""
     y = x.detach().clone(memory_format=torch.contiguous_format)
     if axis.group is not None:
+        comm.record("all-reduce", y)
         dist.all_reduce(y, op=dist.ReduceOp.MAX, group=axis.group)
     return y
 
@@ -128,6 +137,7 @@ def pmax(x: torch.Tensor, axis: Axis) -> torch.Tensor:
 def _gather(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
              for _ in range(axis.size)]
+    comm.record("all-gather", x, times=axis.size)
     dist.all_gather(parts, x.contiguous(), group=axis.group)
     return torch.cat(parts, dim)
 
@@ -140,11 +150,14 @@ class AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, dim):
         ctx.axis, ctx.dim, ctx.n = axis, dim, x.shape[dim]
+        ctx.scope = comm.current_scope()
         return _gather(x.detach(), axis, dim)
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
+        with comm.restore(ctx.scope):
+            comm.record("all-reduce", g)
         dist.all_reduce(g, group=ctx.axis.group)
         return g.narrow(ctx.dim, ctx.axis.index * ctx.n, ctx.n), None, None
 
@@ -163,33 +176,36 @@ class Permute(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dst, src):
-        ctx.dst, ctx.src = dst, src
+        ctx.dst, ctx.src, ctx.scope = dst, src, comm.current_scope()
         return _exchange(x.detach(), dst, src)
 
     @staticmethod
     def backward(ctx, g):
-        return _exchange(g, ctx.src, ctx.dst), None, None
+        with comm.restore(ctx.scope):
+            return _exchange(g, ctx.src, ctx.dst), None, None
 
 
 def _post(xs: Sequence[torch.Tensor], dst: int, src: int):
     """Post the sends of ``xs`` to global rank ``dst`` and the receives of
     the same shapes from ``src`` in one batch, without waiting; one tag
-    per tensor."""
+    per tensor. The ledger counts it as one hop (``obs.comm``)."""
     xs = [x.contiguous() for x in xs]
     outs = [torch.empty_like(x) for x in xs]
     ops = []
     for tag, (x, out) in enumerate(zip(xs, outs)):
         ops += [dist.P2POp(dist.isend, x, dst, tag=tag),
                 dist.P2POp(dist.irecv, out, src, tag=tag)]
-    return outs, dist.batch_isend_irecv(ops)
+    hop = comm.record_hop(xs)
+    return outs, dist.batch_isend_irecv(ops), hop
 
 
 def _wait(pending) -> List[torch.Tensor]:
     """The received tensors of a :func:`_post`, once its requests are
     done."""
-    outs, reqs = pending
+    outs, reqs, hop = pending
     for req in reqs:
         req.wait()
+    comm.hop_done(hop)
     return outs
 
 
@@ -366,10 +382,11 @@ def _ring_reduce_scatter(chunks: torch.Tensor, axis: Axis) -> torch.Tensor:
     ``(idx + 1) % g`` of the (g, ...) stack holds the complete sum."""
     g, idx = axis.size, axis.index
     nxt, prv = axis.neighbours()
-    for s in range(g - 1):
-        recv = _exchange(chunks[(idx - s) % g], nxt, prv)
-        k = (idx - 1 - s) % g
-        chunks[k] = chunks[k] + recv
+    with comm.scope("ring_rs"):
+        for s in range(g - 1):
+            recv = _exchange(chunks[(idx - s) % g], nxt, prv)
+            k = (idx - 1 - s) % g
+            chunks[k] = chunks[k] + recv
     return chunks
 
 
@@ -383,19 +400,21 @@ def _assemble(outs: List[Any], rows: int) -> Any:
 
 def _ring_all_gather_consume(first: torch.Tensor, first_ix: int,
                              axis: Axis, decode: Callable,
-                             consume: Callable, payload: Sequence) -> list:
+                             consume: Callable, payload: Sequence,
+                             scope: str = "ring_ag") -> list:
     """The all-gather phase of a ring: ``payload`` (this rank's complete
     chunk as it travels) circulates g - 1 hops; each hop's sends and
     receives are posted before ``consume`` of the chunk in hand and waited
     on after it, so the transfer overlaps that compute. ``decode`` turns a
     received payload into the chunk. Returns the consumed chunks in chunk
-    order."""
+    order; the hops record under ``scope``."""
     g, idx = axis.size, axis.index
     nxt, prv = axis.neighbours()
     outs: list = [None] * g
     cur, ix = first, first_ix
     for s in range(g - 1):
-        pending = _post(payload, nxt, prv)
+        with comm.scope(scope):
+            pending = _post(payload, nxt, prv)
         outs[ix] = consume(cur)
         payload = _wait(pending)
         cur, ix = decode(payload), (idx - s) % g
@@ -433,13 +452,14 @@ class RingPsum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, axis, bf16):
-        ctx.axis, ctx.bf16 = axis, bf16
+        ctx.axis, ctx.bf16, ctx.scope = axis, bf16, comm.current_scope()
         return ring_psum_chunked(x.detach(), axis, lambda c: c, bf16=bf16)
 
     @staticmethod
     def backward(ctx, g):
-        return (ring_psum_chunked(g, ctx.axis, lambda c: c, bf16=ctx.bf16),
-                None, None)
+        with comm.restore(ctx.scope):
+            return (ring_psum_chunked(g, ctx.axis, lambda c: c,
+                                      bf16=ctx.bf16), None, None)
 
 
 def ring_psum(x: torch.Tensor, axis: Axis, *,
@@ -461,10 +481,11 @@ class RingPsumGemm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, part, w, axis, bf16):
         w = w.detach()
-        agg, conv = ring_psum_chunked(part.detach(), axis,
-                                      lambda c: (c, c @ w), bf16=bf16)
+        ctx.axis, ctx.bf16, ctx.scope = axis, bf16, comm.current_scope()
+        with comm.scope("ring_gemm"):
+            agg, conv = ring_psum_chunked(part.detach(), axis,
+                                          lambda c: (c, c @ w), bf16=bf16)
         ctx.save_for_backward(agg, w)
-        ctx.axis, ctx.bf16 = axis, bf16
         return conv
 
     @staticmethod
@@ -472,7 +493,9 @@ class RingPsumGemm(torch.autograd.Function):
         agg, w = ctx.saved_tensors
         dagg = dconv @ w.T
         dw = agg.T @ dconv
-        dpart = ring_psum_chunked(dagg, ctx.axis, lambda c: c, bf16=ctx.bf16)
+        with comm.restore(ctx.scope):
+            dpart = ring_psum_chunked(dagg, ctx.axis, lambda c: c,
+                                      bf16=ctx.bf16)
         return dpart, dw, None, None
 
 
@@ -493,9 +516,10 @@ def _ring_gather(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     nxt, prv = axis.neighbours()
     out: list = [None] * g
     out[idx] = cur = x.contiguous()
-    for s in range(g - 1):
-        cur = _exchange(cur, nxt, prv)
-        out[(idx - 1 - s) % g] = cur
+    with comm.scope("ring_ag"):
+        for s in range(g - 1):
+            cur = _exchange(cur, nxt, prv)
+            out[(idx - 1 - s) % g] = cur
     return torch.cat(out, dim)
 
 
@@ -506,11 +530,13 @@ class RingAllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, dim):
         ctx.axis, ctx.dim, ctx.n = axis, dim, x.shape[dim]
+        ctx.scope = comm.current_scope()
         return _ring_gather(x.detach(), axis, dim)
 
     @staticmethod
     def backward(ctx, g):
-        full = ring_psum_chunked(g.contiguous(), ctx.axis, lambda c: c)
+        with comm.restore(ctx.scope):
+            full = ring_psum_chunked(g.contiguous(), ctx.axis, lambda c: c)
         return (full.narrow(ctx.dim, ctx.axis.index * ctx.n, ctx.n), None,
                 None)
 
@@ -554,7 +580,8 @@ def ring_psum_q(x: torch.Tensor, axis: Axis, bits: int, ef: torch.Tensor,
         v = acc[k]
         q, sc = quantize(v, bits)
         resid[k] = resid[k] + dequantize_add(v, q, sc, bits, -1)
-        qr, scr = _wait(_post([q, sc], nxt, prv))
+        with comm.scope("ring_rs_q"):
+            qr, scr = _wait(_post([q, sc], nxt, prv))
         k = (idx - 1 - s) % g
         acc[k] = dequantize_add(acc[k], qr, scr, bits)
     own_ix = (idx + 1) % g
@@ -564,7 +591,7 @@ def ring_psum_q(x: torch.Tensor, axis: Axis, bits: int, ef: torch.Tensor,
     resid[own_ix] = resid[own_ix] + dequantize_add(own, q, sc, bits, -1)
     outs = _ring_all_gather_consume(
         own_rec, own_ix, axis, lambda p: dequantize(p[0], p[1], bits),
-        consume, [q, sc])
+        consume, [q, sc], scope="ring_ag_q")
     rows = x.shape[0]
     return (_assemble(outs, rows),
             resid.reshape((-1,) + tuple(resid.shape[2:]))[:rows])
@@ -599,7 +626,8 @@ def ring_reduce_scatter_q(v: torch.Tensor, axis: Axis, bits: int, *,
     # the ring shifted by one, so that rank idx ends with chunk idx
     for s in range(g - 1):
         q, sc = quantize(acc[(idx - s - 1) % g], bits)
-        qr, scr = _wait(_post([q, sc], nxt, prv))
+        with comm.scope("ring_rs_q"):
+            qr, scr = _wait(_post([q, sc], nxt, prv))
         k = (idx - s - 2) % g
         acc[k] = dequantize_add(acc[k], qr, scr, bits)
     return acc[idx]
@@ -612,14 +640,16 @@ class CompressedPsum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, ef, axis, bits):
-        ctx.axis, ctx.bits = axis, bits
+        ctx.axis, ctx.bits, ctx.scope = axis, bits, comm.current_scope()
         y, r = ring_psum_q(x.detach(), axis, bits, ef)
         ctx.mark_non_differentiable(r)
         return y, r
 
     @staticmethod
     def backward(ctx, dy, _dr):
-        dx, _ = ring_psum_q(dy, ctx.axis, ctx.bits, torch.zeros_like(dy))
+        with comm.restore(ctx.scope):
+            dx, _ = ring_psum_q(dy, ctx.axis, ctx.bits,
+                                torch.zeros_like(dy))
         return dx, None, None, None
 
 
@@ -641,10 +671,11 @@ class CompressedPsumGemm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, part, w, ef, axis, bits):
         w = w.detach()
-        (agg, conv), r = ring_psum_q(part.detach(), axis, bits, ef,
-                                     on_chunk=lambda c: (c, c @ w))
+        ctx.axis, ctx.bits, ctx.scope = axis, bits, comm.current_scope()
+        with comm.scope("ring_gemm"):
+            (agg, conv), r = ring_psum_q(part.detach(), axis, bits, ef,
+                                         on_chunk=lambda c: (c, c @ w))
         ctx.save_for_backward(agg, w)
-        ctx.axis, ctx.bits = axis, bits
         ctx.mark_non_differentiable(r)
         return conv, r
 
@@ -653,8 +684,9 @@ class CompressedPsumGemm(torch.autograd.Function):
         agg, w = ctx.saved_tensors
         dagg = dconv @ w.T
         dw = agg.T @ dconv
-        dpart, _ = ring_psum_q(dagg, ctx.axis, ctx.bits,
-                               torch.zeros_like(dagg))
+        with comm.restore(ctx.scope):
+            dpart, _ = ring_psum_q(dagg, ctx.axis, ctx.bits,
+                                   torch.zeros_like(dagg))
         return dpart, dw, None, None, None
 
 
@@ -678,6 +710,7 @@ class ReshardCompressed(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, ef, mesh, from_state, to_plane, bits, impl):
         ctx.meta = (mesh, from_state, to_plane, bits, impl, tuple(t.shape))
+        ctx.scope = comm.current_scope()
         tc = (t.detach() + ef).to(torch.float32)
         q, sc = quantize(tc, bits)
         resid = dequantize_add(tc, q, sc, bits, -1)
@@ -700,6 +733,11 @@ class ReshardCompressed(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, _dr):
+        with comm.restore(ctx.scope):
+            return ReshardCompressed._backward(ctx, dout)
+
+    @staticmethod
+    def _backward(ctx, dout):
         mesh, from_state, to_plane, bits, impl, (br, bc) = ctx.meta
         if impl == "permute":
             dst, src, stays = _permute_ranks(mesh, from_state)

@@ -40,6 +40,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.obs import comm
+
 # wire formats of the compressible collectives, weakest to strongest;
 # "none" is the FP32 wire (subject to bf16_collectives)
 WIRE_FORMATS = ("none", "bf16", "int8", "int4")
@@ -56,14 +58,17 @@ class AllReduce(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, axis):
-        ctx.axis = axis
+        ctx.axis, ctx.scope = axis, comm.current_scope()
         y = x.detach().clone(memory_format=torch.contiguous_format)
+        comm.record("all-reduce", y)
         dist.all_reduce(y, group=axis.group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
+        with comm.restore(ctx.scope):
+            comm.record("all-reduce", g)
         dist.all_reduce(g, group=ctx.axis.group)
         return g, None
 

@@ -14,9 +14,12 @@ graph that replays the training step draws the current step's numbers:
 * :func:`keep_mask` — the dropout keep-mask, lane ``i = row * cols + col``
   kept when ``(fold_in(key, i) >> 40) * 2^-24 < float32(1 - rate)``.
 
-Each launches ``csrc/counter_rng.cu`` for a CUDA key and runs its plain
+Each launches ``csrc/counter_rng.cu`` for a CUDA key, runs its plain
 version (``hash_keys_plain``, ``keep_mask_plain``: the same bits in int64
-tensor ops, about a dozen launches each) for a CPU one.
+tensor ops, about a dozen launches each) for a CPU one and returns an
+output of the right shape on the meta device. ``hash_keys_cost`` and
+``keep_mask_cost`` count their bytes (the key read, the output written;
+their 64-bit integer work has no rate in the card's table).
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _observe
 
 # kernel launches so far (a run zeroes them to show that a path used the
 # kernels)
@@ -88,16 +91,30 @@ def keep_mask_plain(key: torch.Tensor, rows: int, cols: int,
     return (u < keep_threshold(rate)).reshape(rows, cols)
 
 
+def hash_keys_cost(key: torch.Tensor, n: int, *, out=None) -> tuple:
+    """(operations, bytes) of :func:`hash_keys`: the key read, n int64
+    written (integer work, counted as no floating-point operation)."""
+    return 0, 8 * n + 8
+
+
+def keep_mask_cost(key: torch.Tensor, rows: int, cols: int, rate: float, *,
+                   out=None) -> tuple:
+    """(operations, bytes) of :func:`keep_mask`: the key read, the bool
+    mask written."""
+    return 0, rows * cols + 8
+
+
+@_observe.counted(hash_keys_cost)
 def hash_keys(key: torch.Tensor, n: int) -> torch.Tensor:
     """(n,) int64 ``fold_in(key, i)``: the kernel for a CUDA key, the plain
     version for a CPU one."""
     _check_key(key, "hash_keys")
     if key.device.type == "cpu":
         return hash_keys_plain(key, n)
-    if key.device.type != "cuda":
+    if key.device.type not in ("cuda", "meta"):
         raise ValueError(f"hash_keys: unsupported device {key.device}")
     out = torch.empty((n,), dtype=torch.int64, device=key.device)
-    if n == 0:
+    if n == 0 or key.device.type == "meta":
         return out
     rc = _build.load().repro_hash_keys(
         key.data_ptr(), n, out.data_ptr(),
@@ -108,6 +125,7 @@ def hash_keys(key: torch.Tensor, n: int) -> torch.Tensor:
     return out
 
 
+@_observe.counted(keep_mask_cost)
 def keep_mask(key: torch.Tensor, rows: int, cols: int,
               rate: float) -> torch.Tensor:
     """(rows, cols) bool keep-mask of dropout ``rate``: the kernel for a
@@ -116,10 +134,10 @@ def keep_mask(key: torch.Tensor, rows: int, cols: int,
     threshold = keep_threshold(rate)
     if key.device.type == "cpu":
         return keep_mask_plain(key, rows, cols, rate)
-    if key.device.type != "cuda":
+    if key.device.type not in ("cuda", "meta"):
         raise ValueError(f"keep_mask: unsupported device {key.device}")
     out = torch.empty((rows, cols), dtype=torch.bool, device=key.device)
-    if rows * cols == 0:
+    if rows * cols == 0 or key.device.type == "meta":
         return out
     rc = _build.load().repro_keep_mask(
         key.data_ptr(), rows * cols, threshold, out.data_ptr(),

@@ -11,7 +11,9 @@ sizes the grid).
 
 :func:`extract_dense_fused` launches the kernel for CUDA tensors and runs
 :func:`extract_dense_plain`, the same function in plain PyTorch, for CPU
-tensors. On graphs without duplicate edges both equal
+tensors; on the meta device it returns a block of the right shape and
+computes nothing. :func:`extract_dense_cost` counts its work. On graphs
+without duplicate edges both equal
 ``core.sampling.extract_dense_block`` bit for bit; where a row repeats an
 edge, the kernel sums ``val * scale`` per edge and the plain version scales
 the sum, so they agree up to rounding.
@@ -20,9 +22,11 @@ from __future__ import annotations
 
 from typing import Union
 
+import math
+
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _observe
 
 # kernel launches so far (a run zeroes it to show that a path used the kernel)
 LAUNCHES = 0
@@ -93,6 +97,40 @@ def extract_dense_plain(rp: torch.Tensor, ci: torch.Tensor,
     return acc * _lane_scale(rows, cols.long(), col_scale, diag)
 
 
+def edges_walked(rp: torch.Tensor, rows: torch.Tensor, max_deg: int) -> int:
+    """The CSR edges the kernel walks for ``rows`` (at most ``max_deg`` a
+    row; a host read), ``max_deg`` a row on the meta device."""
+    if rows.device.type == "meta":
+        return rows.shape[0] * max_deg
+    r = rows.long()
+    return int((rp[r + 1] - rp[r]).clamp(max=max_deg).sum())
+
+
+def extract_dense_cost(rp: torch.Tensor, ci: torch.Tensor,
+                       val: torch.Tensor, rows: torch.Tensor,
+                       cols: torch.Tensor, *,
+                       col_scale: Union[torch.Tensor, float], diag: bool,
+                       max_deg: int, out=None) -> tuple:
+    """(operations, bytes) of :func:`extract_dense_fused` on these inputs:
+    the rows, their two row pointers, the edges walked (column and value),
+    the sampled columns (and their scales) read once and the dense block
+    written once; a binary search of each walked edge among the columns,
+    and a multiply and an add for each nonzero placed (``out``'s). The
+    edges walked are read on the host; on the meta device every row walks
+    ``max_deg`` edges and every walked edge is placed."""
+    b_r, b_c = rows.shape[0], cols.shape[0]
+    walked = edges_walked(rp, rows, max_deg)
+    if rows.device.type == "meta":
+        placed = min(walked, b_r * b_c)
+    else:
+        placed = walked if out is None else int(torch.count_nonzero(out))
+    per_column = isinstance(col_scale, torch.Tensor)
+    n_bytes = (4 * b_r + 8 * b_r + 8 * walked + 4 * b_c
+               + (4 * b_c if per_column else 0) + 4 * b_r * b_c)
+    n_ops = walked * (math.ceil(math.log2(max(b_c, 2))) + 1) + 2 * placed
+    return n_ops, n_bytes
+
+
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
            device: torch.device) -> None:
     if t.device != device or t.dtype != dtype or t.dim() != ndim \
@@ -103,6 +141,7 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
             f"{t.device}")
 
 
+@_observe.counted(extract_dense_cost)
 def extract_dense_fused(rp: torch.Tensor, ci: torch.Tensor,
                         val: torch.Tensor, rows: torch.Tensor,
                         cols: torch.Tensor, *,
@@ -118,7 +157,7 @@ def extract_dense_fused(rp: torch.Tensor, ci: torch.Tensor,
                                    col_scale=col_scale, diag=diag,
                                    max_deg=max_deg)
     dev = rows.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"extract_dense_fused: unsupported device {dev}")
     for t, name, dtype in ((rp, "rp", torch.int32), (ci, "ci", torch.int32),
                            (val, "val", torch.float32),
@@ -137,7 +176,7 @@ def extract_dense_fused(rp: torch.Tensor, ci: torch.Tensor,
     if max_deg < 0:
         raise ValueError(f"extract_dense_fused: max_deg={max_deg} < 0")
     out = torch.empty((b_r, b_c), dtype=torch.float32, device=dev)
-    if b_r == 0 or b_c == 0:
+    if b_r == 0 or b_c == 0 or dev.type == "meta":
         return out
     grid, rows_per_cta, staged = launch_config(
         b_r, b_c, scale_ptr is not None,

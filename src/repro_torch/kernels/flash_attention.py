@@ -11,7 +11,8 @@ with a causal mask (``k_pos <= q_pos``), an optional sliding window
 kernel (``csrc/flash_attention.cu``) for CUDA tensors, and
 :func:`flash_attention_plain` — the dense masked softmax in float32, as the
 reference's oracle ``ref.flash_attention_ref`` computes it, plus the lse —
-for CPU tensors. q head ``h`` reads kv head ``h // (H / KV)``. The kernel
+for CPU tensors; on the meta device it returns outputs of the right shape
+and computes nothing. :func:`flash_attention_cost` counts its work. q head ``h`` reads kv head ``h // (H / KV)``. The kernel
 takes hd in {16, 32, 64, 128} and float32 or bfloat16; any Sq and T. It
 has two routes, one per type: bfloat16 runs both products on the tensor
 cores (``flash_attention_mma_kernel``, ``mma.sync`` with float32
@@ -26,7 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _observe
 
 # kernel launches so far, of both routes (a run zeroes it to show that a path
 # used the kernel), and each route's own: "mma" for bfloat16, "f32"
@@ -73,6 +74,21 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype), lse
 
 
+def flash_attention_cost(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, causal: bool = True,
+                         window: Optional[int] = None, *, out=None) -> tuple:
+    """(operations, bytes) of :func:`flash_attention`: 2 * hd for q.k and
+    2 * hd for p.v over the (query, key) pairs that the mask lets through
+    (counted on the CPU, whatever the device); q, k and v read once, out
+    and the lse written once."""
+    b, sq, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    n_bytes = q.element_size() * (2 * b * sq * h * hd + 2 * b * t * kv * hd) \
+        + 4 * b * h * sq
+    pairs = int(attention_mask(sq, t, causal, window, "cpu").sum())
+    return 4 * hd * pairs * b * h, n_bytes
+
+
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
            device: torch.device) -> None:
     if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
@@ -83,6 +99,7 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
             f"{t.device}")
 
 
+@_observe.counted(flash_attention_cost)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -90,7 +107,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window)
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {dev}")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: q and k must be 4-D, got "
@@ -109,14 +126,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, "q", q.dtype, (b, sq, h, hd), dev)
     _check(k, "k", q.dtype, (b, t, kv, hd), dev)
     _check(v, "v", q.dtype, (b, t, kv, hd), dev)
-    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16
-                                         for x in (q, k, v)):
+    if q.dtype == torch.bfloat16 and dev.type == "cuda" \
+            and any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("flash_attention: bfloat16 q, k and v must start "
                          "on a 16-byte boundary (the kernel copies 16 bytes "
                          "at a time)")
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-    if b == 0 or sq == 0 or h == 0:
+    if b == 0 or sq == 0 or h == 0 or dev.type == "meta":
         return out, lse
     if t == 0:                       # no key to see: the kernel's empty rows
         out.zero_()

@@ -22,7 +22,10 @@ same routes, deterministic (no float atomics); the reference's backward
 :func:`fused_layer_bwd` launch their kernels for CUDA tensors and run
 :func:`fused_layer_plain` and :func:`fused_layer_bwd_plain`, the same
 functions in plain PyTorch (a counter key drawn by
-``counter_rng.keep_mask_plain``), for CPU tensors. The autograd rule is
+``counter_rng.keep_mask_plain``), for CPU tensors; on the meta device they
+return outputs of the right shape and compute nothing.
+:func:`fused_layer_cost` and :func:`fused_layer_bwd_cost` count their work
+(each input read once, each output written once). The autograd rule is
 ``kernels.ops.fused_layer_tail``.
 """
 from __future__ import annotations
@@ -31,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _observe
 from repro_torch.kernels import counter_rng as crng
 
 # kernel launches so far (a run zeroes them to show that a path used the
@@ -146,6 +149,48 @@ def fused_layer_bwd_plain(g: torch.Tensor, x: torch.Tensor,
     return dx.to(x.dtype), d_scale.to(scale.dtype)
 
 
+def _keep_bytes(dropout_mask, dropout_key) -> int:
+    """Bytes of the keep bits' source: the bool mask, or the 8-byte key."""
+    if dropout_key is not None:
+        return 8
+    return 0 if dropout_mask is None else dropout_mask.numel()
+
+
+def fused_layer_cost(x: torch.Tensor, scale: torch.Tensor,
+                     dropout_mask: Optional[torch.Tensor],
+                     residual: Optional[torch.Tensor], *,
+                     dropout_rate: float = 0.0, eps: float = 1e-6,
+                     use_rmsnorm: bool = True, use_relu: bool = True,
+                     dropout_key: Optional[torch.Tensor] = None,
+                     out=None) -> tuple:
+    """(operations, bytes) of :func:`fused_layer`: per element the
+    RMSNorm's square-add and two products, the ReLU, the dropout and the
+    residual add (7 with every part on); x, the scale, the residual and
+    the keep source read once, the output written once."""
+    n_el = x.numel()
+    per = (4 * use_rmsnorm + use_relu
+           + (dropout_mask is not None or dropout_key is not None)
+           + (residual is not None))
+    n_bytes = (4 * n_el * (2 + (residual is not None)) + 4 * scale.numel()
+               + _keep_bytes(dropout_mask, dropout_key))
+    return per * n_el, n_bytes
+
+
+def fused_layer_bwd_cost(g: torch.Tensor, x: torch.Tensor,
+                         scale: torch.Tensor,
+                         dropout_mask: Optional[torch.Tensor], *,
+                         dropout_rate: float = 0.0, eps: float = 1e-6,
+                         use_rmsnorm: bool = True, use_relu: bool = True,
+                         dropout_key: Optional[torch.Tensor] = None,
+                         out=None) -> tuple:
+    """(operations, bytes) of :func:`fused_layer_bwd`: 14 per element (the
+    norm recomputed, the gate, the row's dot, d_scale's sum and dx); g, x,
+    the scale and the keep source read once, dx and d_scale written once."""
+    n_el = x.numel()
+    return 14 * n_el, (12 * n_el + 8 * scale.numel()
+                       + _keep_bytes(dropout_mask, dropout_key))
+
+
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
            device: torch.device) -> None:
     if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
@@ -161,10 +206,10 @@ def _check_launch(x: torch.Tensor, scale: torch.Tensor,
                   dropout_key: Optional[torch.Tensor],
                   dropout_rate: float) -> tuple:
     """The checks both kernels share: (b, d) of a 2-D float32 ``x`` on the
-    card, its (d,) scale, a (b, d) bool mask or a 0-d int64 key (not
-    both) with a rate in [0, 1)."""
+    card (or the meta device), its (d,) scale, a (b, d) bool mask or a 0-d
+    int64 key (not both) with a rate in [0, 1)."""
     dev = x.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"fused_layer: unsupported device {dev}")
     if x.dim() != 2:
         raise ValueError(f"fused_layer: x must be 2-D, got {tuple(x.shape)}")
@@ -198,6 +243,7 @@ def _threshold(dropout_key, dropout_rate: float) -> int:
         else 0
 
 
+@_observe.counted(fused_layer_cost)
 def fused_layer(x: torch.Tensor, scale: torch.Tensor,
                 dropout_mask: Optional[torch.Tensor],
                 residual: Optional[torch.Tensor], *,
@@ -219,7 +265,7 @@ def fused_layer(x: torch.Tensor, scale: torch.Tensor,
     if residual is not None:
         _check(residual, "residual", torch.float32, (b, d), dev)
     out = torch.empty_like(x)
-    if b == 0 or d == 0:
+    if b == 0 or d == 0 or dev.type == "meta":
         return out
     mask_ptr, key_ptr, source = _source(dropout_mask, dropout_key)
     res_ptr = None if residual is None else residual.data_ptr()
@@ -240,6 +286,7 @@ def fused_layer(x: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+@_observe.counted(fused_layer_bwd_cost)
 def fused_layer_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
                     dropout_mask: Optional[torch.Tensor], *,
                     dropout_rate: float = 0.0, eps: float = 1e-6,
@@ -263,6 +310,8 @@ def fused_layer_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
     if b == 0 or d == 0:
         return dx, torch.zeros_like(scale)
     d_scale = torch.empty_like(scale)
+    if dev.type == "meta":
+        return dx, d_scale
     mask_ptr, key_ptr, _ = _source(dropout_mask, dropout_key)
     chunks = vector_chunks(d, [g.data_ptr(), x.data_ptr(), scale.data_ptr(),
                                dx.data_ptr()], mask_ptr)

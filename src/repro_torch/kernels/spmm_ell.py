@@ -12,13 +12,17 @@ from::
 x[colidx[i, s]*bn : +bn]`` in float32, output in x's type: the CUDA kernel
 (``csrc/spmm_ell.cu``) for CUDA tensors, :func:`spmm_ell_plain` — the same
 function in plain PyTorch, slot by slot as the reference's oracle sums —
-for CPU tensors. The kernel finds padding from the tiles themselves, not
+for CPU tensors, and on the meta device only its output's shape and type
+(the counterpart of a Pallas call's abstract evaluation). The kernel finds padding from the tiles themselves, not
 from ``colidx``, and skips every all-zero 32 x 32 chunk of a tile: for
 finite x the same function (a non-finite x under a skipped chunk no longer
 turns the output to NaN). :func:`spmm_ell_dx` is its input gradient
 ``A^T @ g`` (the reference's ``_spmm_bwd`` is plain jnp): a deterministic
 kernel (``csrc/spmm_ell_dx.cu``) over the same live chunks, with
-:func:`spmm_ell_dx_plain` beside it. The layout helpers (:func:`dense_to_block_ell`,
+:func:`spmm_ell_dx_plain` beside it. :func:`spmm_ell_cost` and
+:func:`spmm_ell_dx_cost` count their work: the products of the tiles'
+nonzeros (every slot on the meta device, where no value is known), each
+input byte read once and the output written once. The layout helpers (:func:`dense_to_block_ell`,
 :func:`dense_to_block_ell_ranked`, :func:`ell_to_dense`,
 :func:`block_density`) are plain PyTorch and give the reference's layouts
 bit for bit.
@@ -29,7 +33,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _observe
 
 # kernel launches so far, of the product and of its input gradient (a run
 # zeroes them to show that a path used the kernels)
@@ -55,6 +59,41 @@ def spmm_ell_plain(tiles: torch.Tensor, colidx: torch.Tensor,
     return acc.reshape(n_rb * bm, d).to(x.dtype)
 
 
+def _nonzeros(tiles: torch.Tensor) -> int:
+    """The tiles' nonzeros (a host read), every slot on the meta
+    device."""
+    if tiles.device.type == "meta":
+        return tiles.numel()
+    return int(torch.count_nonzero(tiles))
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def spmm_ell_cost(tiles: torch.Tensor, colidx: torch.Tensor,
+                  x: torch.Tensor, *, out=None) -> tuple:
+    """(operations, bytes) of :func:`spmm_ell`: a multiply and an add per
+    nonzero of the tiles and column of x; every tile (padding included,
+    to find it), colidx and x read once, the output written once."""
+    n_rb, _, bm, _ = tiles.shape
+    d = x.shape[1]
+    return (2 * _nonzeros(tiles) * d,
+            _nbytes(tiles) + _nbytes(colidx) + _nbytes(x)
+            + n_rb * bm * d * x.element_size())
+
+
+def spmm_ell_dx_cost(tiles: torch.Tensor, colidx: torch.Tensor,
+                     g: torch.Tensor, n_rows_x: int, *, out=None) -> tuple:
+    """(operations, bytes) of :func:`spmm_ell_dx`: a multiply and an add
+    per nonzero of the tiles and column of g; every tile, colidx and g
+    read once, dX written once."""
+    d = g.shape[1]
+    return (2 * _nonzeros(tiles) * d,
+            _nbytes(tiles) + _nbytes(colidx) + _nbytes(g)
+            + n_rows_x * d * g.element_size())
+
+
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
            device: torch.device) -> None:
     if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
@@ -65,6 +104,7 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
             f"{t.device}")
 
 
+@_observe.counted(spmm_ell_cost)
 def spmm_ell(tiles: torch.Tensor, colidx: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` for the block-ELL ``A = (tiles, colidx)``; ``x`` has
@@ -73,7 +113,7 @@ def spmm_ell(tiles: torch.Tensor, colidx: torch.Tensor,
     if x.device.type == "cpu":
         return spmm_ell_plain(tiles, colidx, x)
     dev = x.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"spmm_ell: unsupported device {dev}")
     if tiles.dim() != 4 or x.dim() != 2:
         raise ValueError(f"spmm_ell: tiles must be 4-D and x 2-D, got "
@@ -94,6 +134,8 @@ def spmm_ell(tiles: torch.Tensor, colidx: torch.Tensor,
         return out
     if n_x == 0:
         raise ValueError("spmm_ell: x has no rows for the column blocks")
+    if dev.type == "meta":
+        return out
     lib = _build.load()
     rc = lib.repro_spmm_ell(
         tiles.data_ptr(), colidx.data_ptr(), x.data_ptr(), out.data_ptr(),
@@ -124,6 +166,7 @@ def spmm_ell_dx_plain(tiles: torch.Tensor, colidx: torch.Tensor,
     return dx.reshape(n_rows_x, d).to(g.dtype)
 
 
+@_observe.counted(spmm_ell_dx_cost)
 def spmm_ell_dx(tiles: torch.Tensor, colidx: torch.Tensor, g: torch.Tensor,
                 n_rows_x: int) -> torch.Tensor:
     """The SpMM's input gradient ``dX = A^T @ g`` (``n_rows_x = n_cb * bn``
@@ -134,7 +177,7 @@ def spmm_ell_dx(tiles: torch.Tensor, colidx: torch.Tensor, g: torch.Tensor,
     if g.device.type == "cpu":
         return spmm_ell_dx_plain(tiles, colidx, g, n_rows_x)
     dev = g.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"spmm_ell_dx: unsupported device {dev}")
     if tiles.dim() != 4 or g.dim() != 2:
         raise ValueError(f"spmm_ell_dx: tiles must be 4-D and g 2-D, got "
@@ -155,7 +198,7 @@ def spmm_ell_dx(tiles: torch.Tensor, colidx: torch.Tensor, g: torch.Tensor,
     _check(colidx, "colidx", torch.int32, (n_rb, n_slots), dev)
     _check(g, "g", g.dtype, (n_rb * bm, d), dev)
     out = torch.empty((n_rows_x, d), dtype=g.dtype, device=dev)
-    if n_rows_x == 0 or d == 0:
+    if n_rows_x == 0 or d == 0 or dev.type == "meta":
         return out
     n_cb, n_t = n_rows_x // bn, n_rb * n_slots
     # pair counts and starts of each column block, the pair list, each

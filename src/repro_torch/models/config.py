@@ -126,6 +126,17 @@ class ModelConfig:
             total += n_cross * (self._attn_params() + 2 * d)
         return total
 
+    def num_active_params(self) -> int:
+        """Active parameters per token (MoE: only top-k experts count)."""
+        if self.moe is None:
+            return self.num_params()
+        full_ffn = self._mlp_params(True)
+        active_ffn = full_ffn * self.moe.top_k / self.moe.num_experts
+        if self.moe.shared_expert:
+            active_ffn += self._mlp_params(False)
+        inactive = (full_ffn - active_ffn) * self.n_layers
+        return int(self.num_params() - inactive)
+
     def _attn_params(self) -> int:
         d, hq = self.d_model, self.n_heads * self.hd
         hkv = self.n_kv_heads * self.hd

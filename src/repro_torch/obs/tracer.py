@@ -7,7 +7,9 @@ one shared no-op context when disabled; the span stack is thread-local
 is lock-protected; a span opened inside another records under the joined
 path (``"chunk/eval"``). :func:`phase` also opens a
 ``torch.profiler.record_function`` range, so the phase names label a
-profiler trace (the reference's ``jax.named_scope``); ``trace_dir``
+profiler trace (the reference's ``jax.named_scope``), and a scope of the
+collective ledger (``obs.comm``), so the collectives inside are
+attributed to the phase; ``trace_dir``
 captures a ``torch.profiler`` trace between ``start_profile`` and
 ``stop_profile``. A span measures host wall time: CUDA work launched
 inside it may still be running when it closes.
@@ -20,6 +22,9 @@ import time
 from typing import Dict, Optional
 
 import torch
+
+from repro_torch.obs import comm
+
 
 class _NullSpan:
     """The shared disabled-mode span: no state, no clock, no allocation."""
@@ -153,20 +158,24 @@ def set_tracer(tracer: Tracer) -> Tracer:
 
 
 class _PhaseCtx:
-    """A ``record_function`` range + a global-tracer span in one context."""
+    """A ``record_function`` range, a global-tracer span and a ledger
+    scope in one context."""
 
-    __slots__ = ("_rf", "_sp")
+    __slots__ = ("_rf", "_sp", "_sc")
 
     def __init__(self, name: str):
         self._rf = torch.profiler.record_function(name)
         self._sp = _GLOBAL.span(name)
+        self._sc = comm.scope(name)
 
     def __enter__(self):
         self._rf.__enter__()
         self._sp.__enter__()
+        self._sc.__enter__()
         return self
 
     def __exit__(self, *exc) -> bool:
+        self._sc.__exit__(*exc)
         self._sp.__exit__(*exc)
         return bool(self._rf.__exit__(*exc))
 

@@ -13,6 +13,12 @@ variant in turn in one launch of 8 gloo ranks (rank r at the row-major
 (d, x, y, z) coordinates, the reference's device r), with the reference's
 ids injected, and writes the same.
 
+The collective ledger rides on the same processes: the reference's
+``comm_report`` of three one-collective programs, of sampling at both
+meshes and of its compiled loss and grad at (1, 2) under none, int8 and
+int4 (``ref_comm.json``), and each rank's ledger of the same
+(``comm_rank{r}.json``, with the ring's overlap scores).
+
 Limits. The ring, the bf16 wires and ``"none"``: PR 16's, against the
 reference's ``"none"`` path (the ring) or its own bf16 counterpart (a bf16
 wire): losses within 1e-5 relative; every gradient leaf and the AdamW step
@@ -108,8 +114,11 @@ def run(name, gd, g, kw):
             return losses.mean(), (losses, {{}})
         losses, new_ef = loss_fn(p, graph, step, ef=ef)
         return losses.mean(), (losses, new_ef)
-    (_, (losses, new_ef)), grads = jax.jit(
-        jax.value_and_grad(mean, has_aux=True))(params)
+    step_fn = jax.jit(jax.value_and_grad(mean, has_aux=True))
+    (_, (losses, new_ef)), grads = step_fn(params)
+    if name in ("1x2_none", "1x2_int8", "1x2_int4"):
+        # the collective ledger's yardstick: this compiled loss and grad
+        comm["grad_" + name[4:]] = rep(comm_report(step_fn, params))
     out = {{"ids": np.stack([np.asarray(plan.builder.sample_ids(0, None, d))
                             for d in range(gd)]),
            "losses": np.asarray(losses)}}
@@ -128,9 +137,54 @@ def run(name, gd, g, kw):
     np.savez(f"{{out_dir}}/ref_{{name}}.npz", **out)
 
 
+# the collective ledger: the three one-collective programs of
+# tests/test_fourd_multidevice.py, sampling at both meshes, and one loss
+# and grad at (1, 2) under none, int8 and int4 (run's compiled step; the
+# uniform int4 wire is run for its report only)
+import json
+from functools import partial
+from jax.sharding import PartitionSpec as P
+from repro.core import pipeline as PL
+from repro.core.compat import shard_map
+from repro.obs import comm_report
+
+
+def rep(r):
+    return {{"counts": r.counts, "bytes": r.bytes,
+            "by_dtype": r.bytes_by_dtype(),
+            "reshard": r.bytes_for_scope("reshard"),
+            "sites": [[op.kind, op.bytes, op.op_name] for op in r.sites]}}
+
+
+comm = {{}}
 for name, kw in VARIANTS.items():
     run("1x2_" + name, 1, 2, kw)
 run("2x1_none", 2, 1, {{}})
+run("1x2_int4", 1, 2, dict(compress="int4"))
+mesh = fourd.make_mesh_4d(1, 2)
+sm = partial(shard_map, mesh=mesh, check_vma=False)
+x = jnp.ones((64, 32), jnp.float32)       # local block (32, 32)
+for name, f, ins, outs in (
+        ("psum_z", lambda a: jax.lax.psum(a, "z"), P("z", None),
+         P(None, None)),
+        ("gather_x", lambda a: jax.lax.all_gather(a, "x", tiled=True),
+         P("x", None), P(None, None)),
+        ("perm_y", lambda a: jax.lax.ppermute(a, "y", perm=[(0, 1), (1, 0)]),
+         P("y", None), P("y", None))):
+    comm[name] = rep(comm_report(jax.jit(sm(f, in_specs=(ins,),
+                                            out_specs=outs)), x))
+cfg = M.GCNConfig(d_in=D_IN, d_hidden=D_H, num_layers=LAYERS,
+                  num_classes=CLASSES, dropout=0.0)
+for gd, g in ((2, 1), (1, 2)):
+    plan = fourd.build_plan(build_partitioned_graph(ds, g=g), cfg,
+                            fourd.make_mesh_4d(gd, g), batch=BATCH,
+                            opts=fourd.TrainOptions(dropout=0.0))
+    sample_fn, _ = PL.make_pipeline_fns(plan)
+    graph = plan.shard_graph(build_partitioned_graph(ds, g=g))
+    comm[f"sample_{{gd}}x{{g}}"] = rep(comm_report(
+        lambda g_: sample_fn(g_, jnp.zeros((), jnp.int32)), graph))
+with open(f"{{out_dir}}/ref_comm.json", "w") as f:
+    json.dump(comm, f)
 print("PASS")
 """).format(consts=(N, D_IN, D_H, LAYERS, BATCH, TILE, CLASSES),
             variants=VARIANTS)
@@ -302,21 +356,215 @@ def test_first_step_ef_residuals_match_reference(runs, variant):
 
 
 # ---------------------------------------------------------------------------
+# The collective ledger against the reference's comm_report
+# ---------------------------------------------------------------------------
+
+def _comm(runs):
+    import json
+    ref_dir, out_dir = runs
+    with open(ref_dir / "ref_comm.json") as f:
+        ref = json.load(f)
+    port = []
+    for r in range(8):
+        with open(out_dir / f"comm_rank{r}.json") as f:
+            port.append(json.load(f))
+    return ref, port
+
+
+@pytest.mark.parametrize("name", ["psum_z", "gather_x", "perm_y"])
+def test_ledger_counts_the_reference_primitives(runs, name):
+    """The three one-collective programs of the reference's
+    ``test_fourd_multidevice.py`` (a psum over z, a tiled all-gather over
+    x, a permutation over y, each of a local (32, 32) f32 block): the
+    port's counts and bytes on every rank equal the reference's
+    ``comm_report``; the c10d ops the recording saw dispatched are of the
+    kind the call site reported."""
+    ref, port = _comm(runs)
+    for r in range(8):
+        assert port[r][name]["counts"] == ref[name]["counts"], (r, name)
+        assert port[r][name]["bytes"] == ref[name]["bytes"], (r, name)
+        assert port[r][name]["dispatched_kinds"] == port[r][name][
+            "kinds"], (r, port[r][name]["dispatched"])
+    assert ref[name]["bytes"] == {
+        "psum_z": {"all-reduce": 4096}, "gather_x": {"all-gather": 8192},
+        "perm_y": {"collective-permute": 4096}}[name] | {
+        k: 0 for k in ref[name]["bytes"] if k not in {
+            "psum_z": "all-reduce", "gather_x": "all-gather",
+            "perm_y": "collective-permute"}[name]}
+
+
+def test_sampling_issues_no_collective(runs):
+    """The paper's claim, in both packages: sampling and extraction issue
+    zero collectives at (G_d, g) = (2, 1) and (1, 2), on every rank and
+    under every variant this file runs: no call site reports one, and no
+    c10d op is dispatched."""
+    ref, port = _comm(runs)
+    for key in ("sample_2x1", "sample_1x2"):
+        assert sum(ref[key]["counts"].values()) == 0, key
+    for r in range(8):
+        names = [k for k in port[r] if k.startswith("sample_")]
+        assert len(names) == len(VARIANTS) + (r < 2), (r, names)
+        for k in names:
+            assert sum(port[r][k]["counts"].values()) == 0, (r, k)
+            assert port[r][k]["dispatched"] == {}, (r, k)
+
+
+LAYER_PHASES = ("reshard", "spmm", "gemm", "tail")
+
+
+def _split(sites, kind):
+    """(count, bytes) of ``kind`` by (direction, layer phase or ""): the
+    direction is "T" inside a transposed (backward) op, else "F"."""
+    out = {}
+    for k, b, name, *_ in sites:
+        if k != kind:
+            continue
+        parts = name.split("/")
+        key = ("T" if "transpose" in name else "F",
+               next((p for p in parts if p in LAYER_PHASES), ""))
+        c, tot = out.get(key, (0, 0))
+        out[key] = (c + 1, tot + b)
+    return out
+
+
+@pytest.mark.parametrize("mode", ["none", "int8", "int4"])
+def test_loss_and_grad_ledger_against_reference(runs, mode):
+    """One loss and grad at (1, 2): the port's collectives (the same on
+    every rank) against the reference's compiled ``value_and_grad``, kind
+    by kind, with
+    each difference named and its size pinned:
+
+    * collective-permute: the same bytes; the reference sends a quantized
+      hop's int8 payload and its f32 scales as two ``ppermute``s, the port
+      both in one ``batch_isend_irecv`` (one hop), so the reference counts
+      one permute per element type of each port hop;
+    * all-gather: the port gathers the per-group loss over the d axis
+      (size 1 here) once more, 4 bytes; XLA drops a gather over one
+      device;
+    * the reshard's transposed all-gathers: the reference reduce-scatters
+      (a shard's bytes), the port all-reduces the gathered cotangent and
+      keeps its slice (g = 2 times the bytes), as many of each;
+    * all-reduce in each layer phase (spmm, gemm, tail; forward and
+      backward): the same count; the reference's bytes are the port's
+      plus what XLA's all-reduce combiner merged into them from outside
+      the phases (a layer weight's gradient, a 4-byte scalar);
+    * all-reduce outside the layer phases (the input projection, the head,
+      the loss's FP32 reductions, the gradient sums over the axes that
+      replicate each parameter): XLA's combiner merges reductions, and the
+      port sums every gradient over d too, an axis of one rank here,
+      whose all-reduce XLA drops; so the reference counts fewer, and its
+      bytes there plus the merged ones above are at most the port's."""
+    ref, port = _comm(runs)
+    got, want = port[0][f"grad_{mode}"], ref[f"grad_{mode}"]
+    for r in range(1, 8):
+        assert port[r][f"grad_{mode}"]["counts"] == got["counts"], r
+        assert port[r][f"grad_{mode}"]["bytes"] == got["bytes"], r
+    for r in range(8):       # no kind ran that no call site reported
+        rep = port[r][f"grad_{mode}"]
+        assert rep["dispatched_kinds"] == rep["kinds"], (r, rep["dispatched"])
+    gc, gb, wc, wb = got["counts"], got["bytes"], want["counts"], \
+        want["bytes"]
+    # collective-permute
+    perm = "collective-permute"
+    assert gb[perm] == wb[perm], (gb, wb)
+    assert wc[perm] == sum(s[3] for s in got["sites"] if s[0] == perm), (
+        gc, wc)
+    # all-gather: the loss over d, once more
+    assert (gc["all-gather"] - wc["all-gather"],
+            gb["all-gather"] - wb["all-gather"]) == (1, 4), (gc, wc)
+    assert gc["all-to-all"] == wc["all-to-all"] == 0
+    # the reshard's transposed gathers
+    g_ar, w_ar = _split(got["sites"], "all-reduce"), _split(want["sites"],
+                                                           "all-reduce")
+    w_rs = _split(want["sites"], "reduce-scatter")
+    t_res = g_ar.pop(("T", "reshard"), (0, 0))
+    assert gc["reduce-scatter"] == 0
+    assert (t_res[0], t_res[1]) == (wc["reduce-scatter"],
+                                    2 * wb["reduce-scatter"]), (t_res, w_rs)
+    # layer phases: the same count, the combiner's surplus on top
+    merged = 0
+    for key in sorted(set(g_ar) | set(w_ar)):
+        if key[1] == "":
+            continue
+        (c1, b1), (c2, b2) = g_ar.get(key, (0, 0)), w_ar.get(key, (0, 0))
+        assert c1 == c2 and b2 >= b1, (key, g_ar, w_ar)
+        merged += b2 - b1
+    # outside them: fewer in the reference, no more bytes
+    (c1, b1), (c2, b2) = (
+        [sum(v[i] for k, v in d.items() if k[1] == "") for i in (0, 1)]
+        for d in (g_ar, w_ar))
+    assert c2 <= c1 and b2 + merged <= b1, (c1, b1, c2, b2, merged)
+
+
+def test_compressed_wire_bytes(runs):
+    """§V's claim on the port's own step, as the reference's
+    ``test_compress.py`` asserts it: the int8 reshard sends at most a
+    quarter of the f32 one's bytes, int8's s8 bytes exceed its f32 bytes,
+    and int4's s8 bytes are half of int8's."""
+    _, port = _comm(runs)
+    for r in range(8):
+        none, i8, i4 = (port[r][f"grad_{m}"] for m in ("none", "int8",
+                                                       "int4"))
+        assert i8["reshard"] <= 0.25 * none["reshard"], (r, i8, none)
+        assert i8["by_dtype"]["s8"] > i8["by_dtype"]["f32"], r
+        assert 2 * i4["by_dtype"]["s8"] == i8["by_dtype"]["s8"], r
+
+
+def test_ring_hops_overlap_their_gemm(runs):
+    """Under the ring, every all-gather hop that the pipelined reduce +
+    GEMM posts before a chunk's GEMM has at least one compute launch
+    before its wait (the structural property; the reference's own overlap
+    tests fail under jax 0.9.0), on every rank; one such hop a layer at
+    g = 2."""
+    from repro_torch.obs.comm import CollectiveSite, OverlapReport
+    _, port = _comm(runs)
+    for r in range(8):
+        rep = OverlapReport(tuple(
+            CollectiveSite(name, slack)
+            for name, slack in port[r]["overlap_ring"]))
+        fwd = [s for s in rep.for_scope("ring_gemm", "ring_ag")
+               if "transpose" not in s.op_name]
+        assert len(fwd) == LAYERS, (r, str(rep))
+        assert all(s.concurrent >= 1 for s in fwd), (r, str(rep))
+
+
+# ---------------------------------------------------------------------------
 # The rank worker
 # ---------------------------------------------------------------------------
 
 def _worker(ref_dir, out_dir):
-    """One rank: every run of ``RUNS`` in turn."""
+    """One rank: every run of ``RUNS`` in turn, and the collective
+    ledger's reports of them (``comm_rank{r}.json``)."""
     import datetime
+    import json
 
     import torch.distributed as dist
 
     from repro_torch import optim as topt
     from repro_torch.core import fourd
     from repro_torch.core import gcn_model as TM
+    from repro_torch.core import pmm3d
+    from repro_torch.core.precision import psum
     from repro_torch.graphs import (build_partitioned_graph,
                                     make_synthetic_dataset)
+    from repro_torch.obs import comm
     from repro_torch.tree import leaves
+
+    ledger = {}
+
+    def rep(r):
+        return {"counts": r.counts, "bytes": r.bytes,
+                "by_dtype": r.bytes_by_dtype(),
+                "reshard": r.bytes_for_scope("reshard"),
+                "sites": [[op.kind, op.bytes, op.op_name, len(op.dtype_bytes)]
+                          for op in r.sites],
+                "dispatched": r.dispatched,
+                "dispatched_kinds": r.dispatched_kinds(),
+                "kinds": r.kinds()}
+
+    def save_ledger():
+        with open(os.path.join(out_dir, f"comm_rank{rank}.json"), "w") as f:
+            json.dump(ledger, f)
 
     torch.set_num_threads(1)
     rank = int(os.environ["RANK"])
@@ -337,6 +585,19 @@ def _worker(ref_dir, out_dir):
                 rank=rank, world_size=world,
                 timeout=datetime.timedelta(seconds=120))
             mesh = fourd.make_mesh_4d(gd, g, "cpu")
+            if world == 8:
+                # the three one-collective programs of the reference's
+                # test_fourd_multidevice.py, on a local (32, 32) block
+                x = torch.ones((32, 32))
+                y = mesh.axis("y")
+                dst, src = y.neighbours()
+                for name, fn in (
+                        ("psum_z", lambda: psum(x, mesh.axis("z"))),
+                        ("gather_x", lambda: pmm3d.all_gather(
+                            x, mesh.axis("x"))),
+                        ("perm_y", lambda: pmm3d.Permute.apply(x, dst,
+                                                               src))):
+                    ledger[name] = rep(comm.comm_report(fn))
         kw = dict(VARIANTS[variant])
         if kw.get("spmm_impl") == "ell":
             kw.update(extract_impl="cuda", ell_tile=TILE,
@@ -359,6 +620,27 @@ def _worker(ref_dir, out_dir):
         ids = torch.from_numpy(ref["ids"][mesh.coords["d"]])
         loss_fn = fourd.make_loss_fn(plan)
         ef = fourd.make_ef(plan)
+        ledger[f"sample_{mesh_name}_{variant}"] = rep(comm.comm_report(
+            loss_fn.sample, graph, 0))
+        if mesh_name == "1x2" and variant in ("none", "int8"):
+            grad_plans = {variant: (plan, loss_fn, ef)}
+            if variant == "int8":       # the uniform int4 wire too
+                p4 = fourd.build_plan(pg, cfg, mesh, batch=BATCH,
+                                      opts=fourd.TrainOptions(
+                                          compress="int4"))
+                grad_plans["int4"] = (p4, fourd.make_loss_fn(p4),
+                                      fourd.make_ef(p4))
+            for mode, (pl, lf, e) in grad_plans.items():
+                ledger[f"grad_{mode}"] = rep(comm.comm_report(
+                    fourd.value_and_grad, lf, pl.shard_params(
+                        TM.params_from_numpy(tree, device="cpu")),
+                    graph, 0, ids=ids, ef=e))
+        if mesh_name == "1x2" and variant == "ring":
+            ov = comm.overlap_report(fourd.value_and_grad, loss_fn, fresh(),
+                                     graph, 0, ids=ids)
+            ledger["overlap_ring"] = [[s.op_name, s.slack]
+                                      for s in ov.sites]
+        save_ledger()
         out = {}
         if ef is None:
             out["losses"] = loss_fn(fresh(), graph, 0, ids=ids).numpy()

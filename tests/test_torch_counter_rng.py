@@ -113,11 +113,12 @@ def test_wrappers_count_no_launch_on_the_cpu_and_reject_meta():
     crng.hash_keys(_key(1), 10)
     crng.keep_mask(_key(1), 4, 4, 0.5)
     assert (crng.HASH_LAUNCHES, crng.MASK_LAUNCHES) == (h0, m0)
+    # a meta key: outputs of the right shape and type, no launch
     meta = torch.zeros((), dtype=torch.int64, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        crng.hash_keys(meta, 10)
-    with pytest.raises(ValueError, match="unsupported device"):
-        crng.keep_mask(meta, 4, 4, 0.5)
+    h, m = crng.hash_keys(meta, 10), crng.keep_mask(meta, 4, 4, 0.5)
+    assert (h.device.type, h.shape, h.dtype) == ("meta", (10,), torch.int64)
+    assert (m.device.type, m.shape, m.dtype) == ("meta", (4, 4), torch.bool)
+    assert (crng.HASH_LAUNCHES, crng.MASK_LAUNCHES) == (h0, m0)
     with pytest.raises(ValueError, match="0-d int64"):
         crng.hash_keys(torch.zeros(1, dtype=torch.int64), 10)
 

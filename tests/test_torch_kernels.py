@@ -231,10 +231,17 @@ def test_cpu_tensors_never_count_launches(graph):
 
 
 def test_wrappers_reject_other_devices():
+    # meta inputs take the shape-only route; an input on another device
+    # than the others is rejected
     x = torch.empty((4, 8), device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        tfl.fused_layer(x, torch.empty(8, device="meta"), None, None)
+    assert tfl.fused_layer(x, torch.empty(8, device="meta"), None,
+                           None).shape == (4, 8)
+    with pytest.raises(ValueError, match="on meta"):
+        tfl.fused_layer(x, torch.empty(8), None, None)
     i = torch.empty(4, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        teg.extract_dense_fused(i, i, torch.empty(4, device="meta"), i, i,
-                                col_scale=1.0, diag=True, max_deg=2)
+    assert teg.extract_dense_fused(
+        i, i, torch.empty(4, device="meta"), i, i, col_scale=1.0, diag=True,
+        max_deg=2).shape == (4, 4)
+    with pytest.raises(ValueError, match="on meta"):
+        teg.extract_dense_fused(i, i, torch.empty(4), i, i, col_scale=1.0,
+                                diag=True, max_deg=2)

@@ -184,6 +184,12 @@ def test_spmm_ell_on_cpu_counts_no_launch_and_rejects_meta():
     n0 = tspmm.LAUNCHES
     tspmm.spmm_ell(tt, tc, torch.from_numpy(x))
     assert tspmm.LAUNCHES == n0
-    with pytest.raises(ValueError, match="unsupported device"):
-        tspmm.spmm_ell(tt.to("meta"), tc.to("meta"),
-                       torch.from_numpy(x).to("meta"))
+    # the meta route: the output's shape and type, no launch; a tensor on
+    # another device than x's is rejected
+    out = tspmm.spmm_ell(tt.to("meta"), tc.to("meta"),
+                         torch.from_numpy(x).to("meta"))
+    assert out.device.type == "meta" and out.shape == (dense.shape[0],
+                                                       x.shape[1])
+    assert tspmm.LAUNCHES == n0
+    with pytest.raises(ValueError, match="on meta"):
+        tspmm.spmm_ell(tt.to("meta"), tc, torch.from_numpy(x).to("meta"))

@@ -271,6 +271,25 @@ def test_trainer_through_the_counter_equals_the_masks(small, monkeypatch,
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def test_tail_draws_on_meta_and_where_the_plan_says():
+    """The meta device walks the card's route (the fused tail draws); a
+    plan's ``draw_in_tail`` sets the fused tail's route on any device, and
+    the unfused tail takes masks whatever it says."""
+    cfg = TM.GCNConfig(d_in=4, d_hidden=8, num_layers=1, num_classes=2)
+    fused = tforward.ForwardEngine(
+        cfg=cfg, opts=tforward.TrainOptions(dropout=0.3,
+                                            fused_elementwise=True),
+        mesh=tfourd.make_mesh_4d(1, 1, "cpu"))
+    assert fused.tail_draws(torch.device("meta"))
+    for route in (True, False):
+        forced = dataclasses.replace(fused, draw_in_tail=route)
+        assert all(forced.tail_draws(torch.device(d)) is route
+                   for d in ("cpu", "meta", "cuda"))
+        unfused = dataclasses.replace(forced, opts=tforward.TrainOptions(
+            dropout=0.3))
+        assert not unfused.tail_draws(torch.device("cuda"))
+
+
 def test_tail_draws_only_when_fused_on_the_card():
     """The engine hands the tail a key only for the fused tail on the
     card; the unfused tail and any CPU tail get keep-masks."""
