@@ -56,6 +56,13 @@ with a non-zero exit code:
    padding layout and in bf16 (5e-2), and timed beside its bound, its
    plain version and the path it replaced (a batched GEMM over every slot
    and an ``index_add_``); no single library call computes it;
+   The routes of ``block_dtype="bf16"`` at the training shape: the
+   extraction's bf16 block bit for bit its plain version and the float32
+   block's cast (timed on a cold L2), the SpMM with the batch's bf16 tiles
+   and a float32 h (1e-4) and its dX with a float32 cotangent (1e-5,
+   bit-identical over 10 calls), each also on the top-k padding layout,
+   each timed beside its bound, its plain version and the float32 route's
+   device time in the same call;
    The flash-attention kernel is held against its plain version (out and
    lse) at the reference's five sweep shapes on both routes, f32 (CUDA
    cores, 1e-4 absolute) and bf16 (tensor cores: out per element within
@@ -73,6 +80,20 @@ with a non-zero exit code:
    read just after, and every served logit row is recomputed by a second engine
    on the same card with the plain ``"torch"`` implementations and must
    match (atol 1e-4);
+4b. serve-mesh — serving over the mesh (``serve/distributed.py``): the
+   same engine with ``force_distributed=True`` in a NCCL group of world
+   size 1 (rank 0 broadcasts each device call's plan and gathers the
+   logits) and the single-device engine serve the same replayed stream,
+   every logit within 1e-5 of the largest; the assembly and extraction of
+   a micro-batch report and dispatch no collective, and one request's
+   ledger holds the plan's broadcast, the logits' gather and the forward's
+   PMM collectives, none under ``extract``; counts zeroed before the
+   stream and read after;
+4c. serve-driver — ``ServingDriver`` in front of the GNN engine: 8
+   submitter threads split the 400 Zipf requests (a future each); every
+   micro-batch the driver's pump ran, executed again directly on the
+   engine, gives each result within 1e-6 of the largest |logit| (its bits
+   printed); req/s, p50/p99 and the starvation flushes;
 5. train   — the training path: ``Trainer`` trains ``paper_model
    ("ogbn-products")`` on the same graph with the block-ELL SpMM and its
    dX kernel, the fused tail and the fused extraction (batch 8192, AdamW
@@ -150,6 +171,15 @@ with a non-zero exit code:
    the loss falls; ms/step, a step's device time from one profiled
    chunk, labelled vertices per second, peak memory and the full-graph
    accuracy after its steps;
+5f. train-bf16 — phase 5's cell with ``block_dtype="bf16"``: the first
+   step within 1e-5 (loss) and 1e-4 (gradients) of the plain versions on
+   the same bf16 blocks, its loss beside phase 5's; 48 steps of
+   ``Trainer.run`` with every wrapper at its count on the bf16 routes
+   (bf16 block, bf16 tiles with float32 operands), the loss falling; one
+   profiled chunk of 8 replays (each kernel 8 times its count, the route
+   kernels' bf16 instances) for a step's device time beside phase 5's; 8
+   captured and 8 eager steps bit for bit; one eager step walked: its
+   bytes, bound and roofline share beside phase 5's (fewer bytes);
 6. llm     — LLM serving: tinyllama-1.1b at its published width (22
    layers, d_model 2048, 32/4 heads, vocab 32000, bf16, seeded random
    weights) behind the port's ``LLMEngine`` (8 slots, prompts padded to
@@ -159,7 +189,10 @@ with a non-zero exit code:
    and its f32 route never; then on 4 of
    the prompts a prefill and 8 decode steps through the kernel and
    through the plain attention, fed the same tokens, must give logits
-   within 5e-2 of the largest |logit|; then one profiled wave.
+   within 5e-2 of the largest |logit|; then one profiled wave;
+6b. llm-driver — the same engine behind ``ServingDriver``: a wave of 8
+   prompts from 4 threads, each prompt's tokens those of the engine's
+   direct run of the wave.
 
 The last two lines of standard output are one JSON object per kernel
 route (``{"kernels": [...]}``, each with its launches on every path and,
@@ -213,7 +246,10 @@ LLM_RTOL = 5e-2          # bf16 logits, kernel vs plain path, of max |logit|
 # count's name in it, and where the count is split (by route, or by the
 # tail's keep source) the dict of the split and the entry's key in it
 KERNEL_COUNTERS = {
-    "extract_dense_fused": ("extract_gather", "LAUNCHES", None),
+    "extract_dense_fused": ("extract_gather", "LAUNCHES",
+                            ("ROUTE_LAUNCHES", "f32")),
+    "extract_dense_fused_bf16": ("extract_gather", "LAUNCHES",
+                                 ("ROUTE_LAUNCHES", "bf16")),
     "fused_layer": ("fused_layer", "LAUNCHES", ("ROUTE_LAUNCHES", "vector")),
     "fused_layer_scalar": ("fused_layer", "LAUNCHES",
                            ("ROUTE_LAUNCHES", "scalar")),
@@ -223,8 +259,12 @@ KERNEL_COUNTERS = {
                         ("BWD_ROUTE_LAUNCHES", "vector")),
     "fused_layer_bwd_scalar": ("fused_layer", "BWD_LAUNCHES",
                                ("BWD_ROUTE_LAUNCHES", "scalar")),
-    "spmm_ell": ("spmm_ell", "LAUNCHES", None),
-    "spmm_ell_dx": ("spmm_ell", "DX_LAUNCHES", None),
+    "spmm_ell": ("spmm_ell", "LAUNCHES", ("ROUTE_LAUNCHES", "f32")),
+    "spmm_ell_bf16_f32": ("spmm_ell", "LAUNCHES",
+                          ("ROUTE_LAUNCHES", "bf16_f32")),
+    "spmm_ell_dx": ("spmm_ell", "DX_LAUNCHES", ("DX_ROUTE_LAUNCHES", "f32")),
+    "spmm_ell_dx_bf16_f32": ("spmm_ell", "DX_LAUNCHES",
+                             ("DX_ROUTE_LAUNCHES", "bf16_f32")),
     "flash_attention": ("flash_attention", "LAUNCHES",
                         ("ROUTE_LAUNCHES", "mma")),
     "flash_attention_f32": ("flash_attention", "LAUNCHES",
@@ -250,22 +290,26 @@ def log(msg: str) -> None:
 TAIL_PER_LAYER = ("fused_layer", "fused_layer_counter", "fused_layer_bwd")
 
 
-def step_launches(num_layers: int) -> dict:
+def step_launches(num_layers: int, bf16: bool = False) -> dict:
     """The wrappers' launches of one training step: one fused extraction
     (the one block of g = 1) and one permutation hash; per layer one SpMM,
     its dX, and the tail's forward (vector route, the counter's keep bits)
-    and backward; no keep-mask."""
-    per_layer = ("spmm_ell", "spmm_ell_dx") + TAIL_PER_LAYER
+    and backward; no keep-mask. With ``bf16`` blocks the extraction, the
+    SpMM and its dX take their bf16 routes (bf16 tiles, f32 operands)."""
+    ext, spmm, dx = (("extract_dense_fused_bf16", "spmm_ell_bf16_f32",
+                      "spmm_ell_dx_bf16_f32") if bf16 else
+                     ("extract_dense_fused", "spmm_ell", "spmm_ell_dx"))
+    per_layer = (spmm, dx) + TAIL_PER_LAYER
     return {name: (num_layers if name in per_layer else
-                   1 if name in ("extract_dense_fused", "hash_keys") else 0)
+                   1 if name in (ext, "hash_keys") else 0)
             for name in KERNEL_COUNTERS}
 
 
-def captured_launches(num_layers: int) -> dict:
+def captured_launches(num_layers: int, bf16: bool = False) -> dict:
     """The wrappers' launches of a run of ``Trainer.run`` on the card: the
     warm-up step's and the capture's. The replays relaunch the captured
     kernels from the graph, without the wrappers."""
-    return {k: 2 * n for k, n in step_launches(num_layers).items()}
+    return {k: 2 * n for k, n in step_launches(num_layers, bf16).items()}
 
 
 # the device kernels of one training step of the 3-layer plan, by name,
@@ -277,6 +321,11 @@ STEP_KERNELS = {"extract_dense_kernel": 1, "hash_keys_kernel": 1,
                 "fused_layer_dscale_kernel": 3, "keep_mask_kernel": 0,
                 "dx_scan_kernel": 3, "dx_fill_kernel": 3,
                 "dx_product_kernel": 3}
+# the device kernels whose names carry their route's types: under
+# block_dtype="bf16" each is the bf16 instance (a __nv_bfloat16 template
+# argument), under f32 none is
+BF16_ROUTE_KERNELS = ("extract_dense_kernel", "spmm_ell_kernel",
+                      "dx_scan_kernel", "dx_product_kernel")
 
 
 def in_nccl_group(torch, tag: str, body):
@@ -1166,6 +1215,146 @@ def check_spmm_ell_dx(torch, plan, graph, dev) -> dict:
             "atomic_path_ms": atomic_ms, "library_ms": None}
 
 
+def check_bf16_routes(torch, plan, graph, dev, flushers) -> list:
+    """The routes of ``block_dtype="bf16"`` at the training shape, each
+    against its plain version on the card: the extraction's bf16 block
+    (bit for bit, and the float32 block's cast; timed on a cold L2), the
+    SpMM with the batch's bf16 tiles and a float32 h (1e-4 of the largest
+    output) and its dX with a float32 cotangent (1e-5 of the largest
+    |dX|, bit-identical over 10 calls), each on the top-k padding layout
+    too; each timed beside its bound (the wrapper's cost function: 2-byte
+    output or tiles), its plain version and the float32 route's device
+    time in the same call. No single PyTorch call computes bf16 tiles
+    times a float32 operand (``library_ms`` null)."""
+    from repro_torch.kernels import extract_gather as eg
+    from repro_torch.kernels import spmm_ell as sp
+    bf16 = torch.bfloat16
+    builder = plan.builder
+    csr = list(graph["adj"][0])
+    ids = builder.sample_ids(0, None, 0, device=dev)[0]
+    kw = dict(col_scale=builder.rescale_constants()[0], diag=True,
+              max_deg=builder.max_row_nnz)
+    got = eg.extract_dense_fused(*csr, ids, ids, dtype=bf16, **kw)
+    torch.cuda.synchronize()
+    ref = eg.extract_dense_plain(*csr, ids, ids, dtype=bf16, **kw)
+    f32 = eg.extract_dense_fused(*csr, ids, ids, **kw)
+    nnz = int(torch.count_nonzero(ref))
+    bitwise = torch.equal(got, ref) and torch.equal(got, f32.to(bf16))
+    log(f"[kernels] extract_dense_fused bf16 training batch: "
+        f"({ids.shape[0]}, {ids.shape[0]}) nnz {nnz}, bit-identical to the "
+        f"plain bf16 block and to the float32 block's cast {bitwise}")
+    if not bitwise or nnz == 0 or got.dtype != bf16:
+        raise AssertionError("extract_dense_fused bf16: kernel and plain "
+                             "version differ (or the block is empty)")
+    written = flushers["written"]
+    call = lambda: eg.extract_dense_fused(*csr, ids, ids, dtype=bf16, **kw)
+    call32 = lambda: eg.extract_dense_fused(*csr, ids, ids, **kw)
+    ms = time_ms(torch, call, flush=written)
+    plain_ms = time_ms(torch, lambda: eg.extract_dense_plain(
+        *csr, ids, ids, dtype=bf16, **kw), flush=written)
+    dev_ms = device_ms(torch, call, "extract_dense_kernel", flush=written)
+    dev32 = device_ms(torch, call32, "extract_dense_kernel", flush=written)
+    n_ops, n_bytes = eg.extract_dense_cost(*csr, ids, ids, dtype=bf16,
+                                           out=got, **kw)
+    bound = bound_ms(n_bytes, n_ops)
+    log(f"[kernels] extract_dense_fused bf16 training shape, {n_bytes} B, "
+        f"L2 written: kernel {ms:.5f} ms per call ({dev_ms:.5f} ms on the "
+        f"device, {bound / dev_ms:.3f} of the bound), plain {plain_ms:.5f} "
+        f"ms, bound {bound:.6f} ms; the float32 route {dev32:.5f} ms on the "
+        f"device in the same call")
+    rows = [{"name": "extract_dense_fused_bf16", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/extract_gather.cu",
+             "replaces": "src/repro/kernels/extract_gather.py:101",
+             "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+             "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": _bound_by(n_bytes, n_ops), "library_ms": None,
+             "f32_route_device_ms": dev32}]
+    del got, ref, f32
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    mb = builder.build(*graph["adj"][0], graph["features"],
+                       graph["labels"], 0)
+    tiles = mb.adj[0][0].to(bf16)            # the bf16 batch's tiles
+    colidx = mb.adj[0][1]
+    d = plan.cfg.d_hidden
+    n_rb, n_slots, bm, bn = tiles.shape
+    h = torch.randn((TRAIN_BATCH, d), generator=gen, device=dev)
+    g = torch.randn((n_rb * bm, d), generator=gen, device=dev)
+    layout = [[3, None, 1, None, 2], [2, None, 0, 1, None], [None] * 5]
+    pt = torch.randn((3, 5, 128, 128), generator=gen, device=dev)
+    pc = torch.zeros((3, 5), dtype=torch.int32, device=dev)
+    for i, row in enumerate(layout):
+        for slot, cb in enumerate(row):
+            if cb is None:
+                pt[i, slot] = 0.0
+            else:
+                pc[i, slot] = cb
+    pt = pt.to(bf16)
+    px = torch.randn((4 * 128, d), generator=gen, device=dev)
+
+    def compare(name, fn, plain, args, rtol):
+        out = fn(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        err = (out - want).abs().max().item()
+        limit = rtol * max(want.abs().max().item(), 1e-30)
+        log(f"[kernels] {name}: bf16 tiles {tuple(args[0].shape)}, f32 "
+            f"operand: max |kernel - plain| {err:.3e} (limit {limit:.3e})")
+        if not err <= limit or out.dtype != torch.float32:
+            raise AssertionError(f"{name}: error {err} above {limit} (or "
+                                 f"dtype {out.dtype})")
+        return err, out
+
+    err_f, _ = compare("spmm_ell bf16_f32 training batch", sp.spmm_ell,
+                       sp.spmm_ell_plain, (tiles, colidx, h), SPMM_RTOL)
+    err_f = max(err_f, compare("spmm_ell bf16_f32 top-k padding layout",
+                               sp.spmm_ell, sp.spmm_ell_plain,
+                               (pt, pc, px), SPMM_RTOL)[0])
+    err_b, first = compare("spmm_ell_dx bf16_f32 training batch",
+                           sp.spmm_ell_dx, sp.spmm_ell_dx_plain,
+                           (tiles, colidx, g, TRAIN_BATCH), DX_RTOL)
+    err_b = max(err_b, compare(
+        "spmm_ell_dx bf16_f32 top-k padding layout", sp.spmm_ell_dx,
+        sp.spmm_ell_dx_plain, (pt, pc, torch.randn(
+            (3 * 128, d), generator=gen, device=dev), 4 * 128), DX_RTOL)[0])
+    same = all(torch.equal(sp.spmm_ell_dx(tiles, colidx, g, TRAIN_BATCH),
+                           first) for _ in range(9))
+    log(f"[kernels] spmm_ell_dx bf16_f32 training batch, 10 calls: "
+        f"bit-identical {same}")
+    if not same:
+        raise AssertionError("spmm_ell_dx bf16_f32: repeated calls differ")
+
+    t32 = tiles.float()
+    for name, fn, plain, args, args32, kernels, cost, err, src, repl in (
+            ("spmm_ell_bf16_f32", sp.spmm_ell, sp.spmm_ell_plain,
+             (tiles, colidx, h), (t32, colidx, h), "spmm_ell_kernel",
+             sp.spmm_ell_cost, err_f, "spmm_ell.cu",
+             "src/repro/kernels/spmm_ell.py:69"),
+            ("spmm_ell_dx_bf16_f32", sp.spmm_ell_dx, sp.spmm_ell_dx_plain,
+             (tiles, colidx, g, TRAIN_BATCH), (t32, colidx, g, TRAIN_BATCH),
+             DX_KERNELS, sp.spmm_ell_dx_cost, err_b, "spmm_ell_dx.cu",
+             "src/repro/kernels/ops.py:36")):
+        ms = time_ms(torch, lambda: fn(*args))
+        plain_ms = time_ms(torch, lambda: plain(*args))
+        dev_ms = device_ms(torch, lambda: fn(*args), kernels)
+        dev32 = device_ms(torch, lambda: fn(*args32), kernels)
+        n_ops, n_bytes = cost(*args)
+        bound = bound_ms(n_bytes, n_ops)
+        log(f"[kernels] {name} training shape: {n_rb} row-blocks x "
+            f"{n_slots} slots of ({bm}, {bn}) bf16 tiles, d {d}, {n_bytes} "
+            f"B, {n_ops} ops: kernel {ms:.5f} ms per call ({dev_ms:.5f} ms "
+            f"on the device, {bound / dev_ms:.3f} of the bound), plain "
+            f"{plain_ms:.5f} ms, bound {bound:.6f} ms; the float32 route on "
+            f"the same values {dev32:.5f} ms on the device in the same call")
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/kernels/csrc/{src}",
+                     "replaces": repl, "max_abs_err": err, "ms": ms,
+                     "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": _bound_by(n_bytes, n_ops),
+                     "library_ms": None, "f32_route_device_ms": dev32})
+    return rows
+
+
 # the reference's sweep (tests/test_kernels_flash.py), B = 2:
 # (sq, t, h, kv, hd, causal, window)
 FLASH_SWEEP = [(64, 64, 4, 2, 32, True, None),
@@ -1320,8 +1509,7 @@ def phase_serve(torch, np, ds, cfg, n_requests: int) -> dict:
 
     eng.backend.execute = recording_execute
 
-    zipf = np.minimum(np.random.default_rng(7).zipf(1.3, size=n_requests),
-                      ds.num_vertices) - 1
+    zipf = _zipf_stream(np, n_requests, ds.num_vertices)
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     t0 = time.monotonic()
@@ -1390,6 +1578,210 @@ def profile_stream(torch, eng, zipf) -> None:
                    f"{eng.stats()['device_calls']} device calls")
 
 
+def _zipf_stream(np, n_requests: int, n_vertices: int):
+    """Phase 4's request stream: Zipf(1.3) single vertices, seed 7."""
+    return np.minimum(np.random.default_rng(7).zipf(1.3, size=n_requests),
+                      n_vertices) - 1
+
+
+def _replay_stream(eng, zipf) -> list:
+    """The stream through a replay engine on a virtual clock (50 us between
+    arrivals): the same batches on any engine; the logits of each
+    request."""
+    eng.reset_stats()
+    rids, t = [], 0.0
+    for v in zipf:
+        rids.append(eng.submit([int(v)], now=t))
+        eng.pump(now=t)
+        t += 5e-5
+    eng.drain(now=t)
+    return [eng.poll(r, now=t) for r in rids]
+
+
+def phase_serve_mesh(torch, np, ds, cfg, n_requests: int) -> dict:
+    """Phase 4b: serving over the mesh (``serve/distributed.py``) at world
+    size 1 over NCCL, ``force_distributed=True``, at phase 4's
+    configuration (the fused extraction and tail): the same replayed
+    stream through the single-device engine and through the mesh engine
+    (the plan broadcast and the logits gathered by rank 0 of a NCCL group
+    of one), every logit within 1e-5 of the largest |logit| of the single
+    engine's; the mesh engine's assembly and extraction report and
+    dispatch no collective, and one request's ledger holds the broadcast,
+    the gather and the forward's all-reduces only. Returns the launch
+    counts of the mesh engine's stream."""
+    from repro_torch.core import gcn_model as M
+    from repro_torch.obs import comm
+    from repro_torch.serve import (InferenceEngine, ServeOptions,
+                                   plan_batch_ranges)
+
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    zipf = _zipf_stream(np, n_requests, ds.num_vertices)
+    opts = dict(extract_impl="cuda", replay=True)
+    single = InferenceEngine(params, cfg, ds.adj_norm, ds.features,
+                             ServeOptions(**opts))
+    single.predict([0], now=0.0)
+    want = _replay_stream(single, zipf)
+    single_calls = single.device_calls
+    del single
+    torch.cuda.empty_cache()
+
+    def body():
+        t0 = time.monotonic()
+        eng = InferenceEngine(params, cfg, ds.adj_norm, ds.features,
+                              ServeOptions(force_distributed=True, **opts))
+        build_s = time.monotonic() - t0
+        eng.predict([0], now=0.0)
+        back = eng.backend
+        plan = plan_batch_ranges(zipf[:1], back.spec, back._pools,
+                                 back._n_pad_plan)
+        dev = back.device
+        assembly = comm.comm_report(
+            back._dist.assemble, back._graph_sh,
+            torch.from_numpy(plan.batch_ids).to(dev),
+            torch.from_numpy(plan.col_scale).to(dev))
+        ledger = comm.comm_report(eng.predict, [int(zipf[1])], now=0.0)
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.monotonic()
+        got = _replay_stream(eng, zipf)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        launches = read_launches()
+        st = eng.stats()
+        eng.close()
+        return got, launches, st, assembly, ledger, dt, build_s
+
+    got, launches, st, assembly, ledger, dt, build_s = in_nccl_group(
+        torch, "serve", body)
+    worst = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+    scale = max(float(np.abs(b).max()) for b in want)
+    bitwise = all(np.array_equal(a, b) for a, b in zip(got, want))
+    log(f"[serve-mesh] mesh engine (force_distributed, NCCL world size 1) "
+        f"built in {build_s:.2f} s; {len(got)} requests in {dt:.4f} s over "
+        f"{st['device_calls']} device calls (single engine "
+        f"{single_calls}): max |mesh - single| {worst:.3e} of the largest "
+        f"|logit| {scale:.3e}, bit-identical {bitwise}; launches "
+        f"{launches}")
+    log(f"[serve-mesh] assembly and extraction of one micro-batch: "
+        f"{assembly}, c10d ops dispatched {assembly.dispatched}; one "
+        f"request: {ledger}, scopes "
+        f"{sorted({op.op_name for op in ledger.sites})}, c10d ops "
+        f"dispatched {ledger.dispatched}")
+    if not worst <= 1e-5 * scale or st["device_calls"] != single_calls:
+        raise AssertionError(f"the mesh engine's logits differ from the "
+                             f"single engine's by {worst}")
+    assembly.assert_no_collectives("serving's assembly and extraction")
+    if (ledger.counts.get("broadcast"), ledger.counts.get("gather")) != \
+            (1, 1) or ledger.counts["all-reduce"] == 0 \
+            or ledger.for_scope("extract") \
+            or ledger.dispatched_kinds() != ledger.kinds():
+        raise AssertionError(f"unexpected collectives of one request: "
+                             f"{ledger}")
+    expect = _per_step(extract_dense_fused=st["device_calls"],
+                       fused_layer=cfg.num_layers * st["device_calls"])
+    if launches != expect:
+        raise AssertionError(f"kernel launches {launches} on the mesh "
+                             f"serving path, expected {expect}")
+    return launches
+
+
+DRIVER_THREADS = 8
+
+
+def phase_serve_driver(torch, np, ds, cfg, n_requests: int) -> dict:
+    """Phase 4c: the threaded driver (``ServingDriver``) in front of the
+    GNN engine: 8 submitter threads split phase 4's 400 Zipf requests, a
+    future each; then every micro-batch the driver's pump ran is executed
+    again directly on the engine, and every result must be its bits.
+    Reports req/s, p50 and p99 and the starvation flushes; returns the
+    launch counts of the threaded stream."""
+    import threading
+
+    from repro_torch.core import gcn_model as M
+    from repro_torch.serve import InferenceEngine, ServeOptions, ServingDriver
+
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    eng = InferenceEngine(params, cfg, ds.adj_norm, ds.features,
+                          ServeOptions(extract_impl="cuda"))
+    eng.predict([0])
+    eng.reset_stats()
+    groups = []
+    execute = eng.backend.execute
+
+    def recording_execute(group, now):
+        groups.append(group)
+        return execute(group, now)
+
+    eng.backend.execute = recording_execute
+    # each submitter learns its request's id from the engine's submit,
+    # which the driver calls in the submitting thread
+    local = threading.local()
+    submit = eng.submit
+
+    def recording_submit(payload, now=None, **kw):
+        local.rid = submit(payload, now, **kw)
+        return local.rid
+
+    eng.submit = recording_submit
+    zipf = _zipf_stream(np, n_requests, ds.num_vertices)
+    parts = np.array_split(zipf, DRIVER_THREADS)
+    futs, errs = {}, []
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.monotonic()
+    with ServingDriver(eng) as drv:
+        def worker(i):
+            try:
+                for v in parts[i]:
+                    fut = drv.submit([int(v)])
+                    futs[local.rid] = fut
+            except Exception as exc:
+                errs.append(exc)
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(DRIVER_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        results = {rid: f.result(timeout=120) for rid, f in futs.items()}
+        dt = time.monotonic() - t0
+        st = drv.stats()
+        flushes = drv.starvation_flushes
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if errs or len(results) != len(zipf):
+        raise AssertionError(f"driver stream: {len(results)} of {len(zipf)} "
+                             f"results, errors {errs}")
+    eng.backend.execute = execute
+    checked, worst, bitwise = 0, 0.0, True
+    for group in groups:
+        for c in execute(group, 0.0):
+            row = results[c.rid][c.pos]
+            worst = max(worst, float(np.abs(row - c.value).max()))
+            bitwise &= bool(np.array_equal(row, c.value))
+            checked += 1
+    log(f"[serve-driver] {len(results)} requests from {DRIVER_THREADS} "
+        f"threads in {dt:.4f} s: {len(results) / dt:.1f} req/s, p50 "
+        f"{st['p50_ms']:.4f} ms, p99 {st['p99_ms']:.4f} ms, "
+        f"{st['device_calls']} device calls, starvation flushes {flushes}, "
+        f"in flight at most {st['inflight_high_water']}; launches "
+        f"{launches}")
+    scale = max(float(np.abs(r).max()) for r in results.values())
+    log(f"[serve-driver] {checked} rows against the engine's direct "
+        f"execution of the same micro-batches: max |diff| {worst:.3e} of "
+        f"the largest |logit| {scale:.3e}, bit-identical {bitwise}")
+    if not worst <= 1e-6 * scale or checked != len(results):
+        raise AssertionError("results through the driver differ from the "
+                             "engine's direct execution")
+    expect = _per_step(extract_dense_fused=st["device_calls"],
+                       fused_layer=cfg.num_layers * st["device_calls"])
+    if launches != expect:
+        raise AssertionError(f"kernel launches {launches} through the "
+                             f"driver, expected {expect}")
+    return launches
+
+
 def device_profile(prof, wall_us: float, what: str,
                    watch: tuple = (), spans: tuple = ()) -> dict:
     """The device's busy share of ``wall_us`` and its top six operations,
@@ -1446,7 +1838,8 @@ def device_profile(prof, wall_us: float, what: str,
     return {"busy_us": busy_us, "wall_us": wall_us, "launches": launches,
             "host_ops": host_ops, "span_us": span_us,
             "kernels": {k: sum(count[n] for n in count if k in n)
-                        for k in watch}}
+                        for k in watch},
+            "names": {k: sorted(n for n in count if k in n) for k in watch}}
 
 
 def plain_loss(params, mb, cfg, masks):
@@ -1643,15 +2036,20 @@ def phase_train(torch, np, plan, graph, pg) -> dict:
         f"{', '.join(f'{v.ms_per_step:.4f}' for v in spread)} (without the "
         f"capture {', '.join(f'{ms_without_capture(v):.4f}' for v in spread)}"
         ")")
-    phase_instruments(torch, plan, graph, pg, fresh, make_opt,
-                      seen["busy_us"] / CHUNK / 1e3)
+    if any("bfloat16" in n for k in BF16_ROUTE_KERNELS
+           for n in seen["names"][k]):
+        raise AssertionError(f"a bf16 route ran in the f32 step: "
+                             f"{seen['names']}")
+    figures = phase_instruments(torch, plan, graph, pg, fresh, make_opt,
+                                seen["busy_us"] / CHUNK / 1e3)
+    figures["first_loss"] = lk.item()
     nccl = phase_train_nccl(torch, plan, pg, fresh, make_opt, log8, params8)
     prefetch = phase_train_comm(torch, np, plan, graph, pg, fresh, make_opt,
                                 (log8, params8), (run_log, params48), expect)
     counter_kernels = phase_train_capture(torch, np, plan, graph, fresh,
                                           make_opt, (run_log, params48))
     return {"train": launches, "train_nccl": nccl,
-            "train_prefetch": prefetch}, counter_kernels
+            "train_prefetch": prefetch}, counter_kernels, figures
 
 
 DRYRUN_TIMEOUT_S = 600
@@ -1722,6 +2120,9 @@ def phase_instruments(torch, plan, graph, pg, fresh, make_opt,
     if not 0.0 < share <= 1.0:
         raise AssertionError(f"roofline share {share}: the walk counts too "
                              "little work (or none)")
+    figures = {"step_device_ms": step_device_ms, "walk_flops": card["flops"],
+               "walk_bytes": card["bytes"], "bound_ms": bound_ms,
+               "share": share, "mfu": mfu}
 
     def body():
         mesh = fourd.make_mesh_4d(1, 1)
@@ -1785,6 +2186,7 @@ def phase_instruments(torch, plan, graph, pg, fresh, make_opt,
             rec["status"] != "ok" for rec in recs.values()):
         raise AssertionError(f"the dry run failed:\n{r.stdout[-3000:]}\n"
                              f"{r.stderr[-3000:]}")
+    return figures
 
 
 def phase_train_nccl(torch, plan, pg, fresh, make_opt, want_log,
@@ -2210,6 +2612,162 @@ def phase_train_capture(torch, np, plan, graph, fresh, make_opt,
 
 
 # phase 5e: the reference's other samplers at the training shape
+def phase_train_bf16(torch, np, plan, graph, pg, f32: dict) -> dict:
+    """Phase 5f: phase 5's train cell with ``block_dtype="bf16"`` (the
+    same model, graph, batch, options and init): the first step against
+    the plain versions on the same bf16 blocks (loss 1e-5, gradients 1e-4)
+    and its loss beside the float32 step's; 48 steps of ``Trainer.run``
+    (a warm-up step, a capture, 47 replays) with every wrapper at its
+    count on the bf16 routes, the loss falling; one profiled chunk of 8
+    replays (each step's device kernels, the bf16 instances of the route
+    kernels) for a step's device time beside phase 5's; 8 captured and 8
+    eager steps from one state, bit for bit; and one eager step walked
+    (``launch.roofline.analyze_step``): its bytes, bound and roofline
+    share beside phase 5's. Returns the launch counts of the 48 steps."""
+    from repro_torch.core import fourd
+    from repro_torch.core import gcn_model as M
+    from repro_torch.core.forward import dropout_masks
+    from repro_torch.launch.roofline import analyze_step, roofline_terms
+    from repro_torch.optim import AdamW, linear_warmup_cosine
+    from repro_torch.train import Trainer, TrainLoopConfig
+    from repro_torch.tree import leaves, tree_map, unflatten
+
+    dev, cfg = plan.device, plan.cfg
+    opts = dataclasses.replace(plan.opts, block_dtype="bf16")
+    bplan = fourd.build_plan(pg, cfg, plan.mesh, batch=TRAIN_BATCH,
+                             opts=opts)
+    params0 = M.init_params(cfg, torch.Generator().manual_seed(0),
+                            device=dev)
+    fresh = lambda: tree_map(lambda t: t.detach().clone(), params0)
+    make_opt = lambda: AdamW(lr=linear_warmup_cosine(5e-3, 20, TRAIN_STEPS),
+                             weight_decay=1e-4, grad_clip=1.0)
+    plain_builder = dataclasses.replace(bplan.builder, impl="torch")
+    mcfg = fourd.model_config(cfg, opts)
+
+    # 1. the first step, kernels against plain versions on the same blocks
+    kb = bplan.builder.build(*graph["adj"][0], graph["features"],
+                             graph["labels"], 0)
+    pb = plain_builder.build(*graph["adj"][0], graph["features"],
+                             graph["labels"], 0)
+    same_batch = kb.adj[0][0].dtype == torch.bfloat16 and all(
+        torch.equal(a, b) for a, b in zip(kb.adj[0], pb.adj[0]))
+    lk, gk = fourd.value_and_grad(fourd.make_loss_fn(bplan), fresh(), graph,
+                                  0)
+    for t in leaves(params := fresh()):
+        t.requires_grad_(True)
+    masks = dropout_masks(opts, 0, cfg.num_layers,
+                          (TRAIN_BATCH, cfg.d_hidden), dev)
+    loss_p = plain_loss(params, pb, mcfg, masks)
+    gp = unflatten(params, list(torch.autograd.grad(loss_p,
+                                                    leaves(params))))
+    log(f"[train-bf16] the bf16 batch: tiles {tuple(kb.adj[0][0].shape)} "
+        f"{kb.adj[0][0].dtype}, the fused and the plain extraction "
+        f"bit-identical {same_batch}")
+    if not same_batch:
+        raise AssertionError("the bf16 blocks of the kernel and plain "
+                             "paths differ")
+    _first_step_check(torch, "train-bf16", lk.item(), gk, loss_p.item(), gp)
+    rel = abs(lk.item() - f32["first_loss"]) / abs(f32["first_loss"])
+    log(f"[train-bf16] first step's loss {lk.item():.7f} beside the float32 "
+        f"step's {f32['first_loss']:.7f} (rel {rel:.3e})")
+
+    # 2. the main path: 48 steps, a warm-up, a capture and 47 replays
+    trainer = Trainer(bplan, make_opt(),
+                      TrainLoopConfig(total_steps=TRAIN_STEPS,
+                                      chunk_size=CHUNK),
+                      eval_fn=lambda p, g: 0.0)
+    state = trainer.init_state(fresh())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    state, run_log = trainer.run(state, graph)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    expect = captured_launches(cfg.num_layers, bf16=True)
+    log(f"[train-bf16] {len(run_log.losses)} steps, {run_log.replays} "
+        f"replays (capture {run_log.capture_s:.3f} s): "
+        f"{run_log.ms_per_step:.4f} ms/step (without the capture "
+        f"{ms_without_capture(run_log):.4f}), launches {launches}, peak "
+        f"device memory {peak / 2**30:.3f} GiB")
+    if launches != expect or run_log.replays != TRAIN_STEPS - 1:
+        raise AssertionError(f"kernel launches {launches} and "
+                             f"{run_log.replays} replays on the bf16 path, "
+                             f"expected {expect} and {TRAIN_STEPS - 1}")
+    _loss_falls("train-bf16", run_log.losses, np)
+
+    # 3. a chunk of replays of the graph just captured, under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    trainer.total_steps = TRAIN_STEPS + CHUNK
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        _, chunk_log = trainer.run(state, graph)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    seen = device_profile(
+        prof, wall_us, f"one chunk of {CHUNK} bf16 training steps, "
+        f"{chunk_log.replays} replays", watch=tuple(STEP_KERNELS),
+        spans=("sample", "extract", "_SpmmEllBackward"))
+    want = {k: n * CHUNK for k, n in STEP_KERNELS.items()}
+    routes_bf16 = all(seen["names"][k] and all("bfloat16" in n for n in
+                                               seen["names"][k])
+                      for k in BF16_ROUTE_KERNELS)
+    log(f"[train-bf16] kernels in the profiled replays: {seen['kernels']} "
+        f"(expected {want}); the route kernels' instances "
+        f"{ {k: seen['names'][k] for k in BF16_ROUTE_KERNELS} }")
+    if chunk_log.replays != CHUNK or seen["kernels"] != want \
+            or not routes_bf16:
+        raise AssertionError("the bf16 replays did not run the step's "
+                             "kernels on their bf16 routes")
+    dev_ms = seen["busy_us"] / CHUNK / 1e3
+    del trainer
+
+    # 4. captured against eager, 8 steps from one state
+    tr8 = Trainer(bplan, make_opt(),
+                  TrainLoopConfig(total_steps=CHUNK, chunk_size=CHUNK),
+                  eval_fn=lambda p, g: 0.0)
+    st8, log8 = tr8.run(tr8.init_state(fresh()), graph)
+    del tr8
+    tre = Trainer(bplan, make_opt(),
+                  TrainLoopConfig(total_steps=CHUNK, chunk_size=CHUNK),
+                  eval_fn=lambda p, g: 0.0)
+    ste = tre.init_state(fresh())
+    eager8 = eager_run(torch, tre, ste, graph, CHUNK)[0]
+    same = eager8 == log8.losses and all(
+        torch.equal(a, b) for a, b in zip(leaves(st8.params),
+                                          leaves(ste.params)))
+    log(f"[train-bf16] 8 steps from one state, captured ({log8.replays} "
+        f"replays) and eager: losses and params bit-identical {same}")
+    if not same or log8.replays != CHUNK - 1:
+        raise AssertionError("8 captured and 8 eager bf16 steps differ")
+
+    # 5. one eager step walked from the init, as phase 5's was
+    trw = Trainer(bplan, make_opt(),
+                  TrainLoopConfig(total_steps=1, chunk_size=1),
+                  eval_fn=lambda p, g: 0.0)
+    walk = analyze_step(trw.step, trw.init_state(fresh()), graph)
+    torch.cuda.synchronize()
+    terms = roofline_terms(walk)
+    bound = terms["t_bound_s"] * 1e3
+    share = bound / dev_ms
+    log(f"[train-bf16] {card_line()}: one eager bf16 step walked: "
+        f"{walk['flops']:.0f} FLOPs, {walk['bytes']:.0f} bytes, bound "
+        f"{bound:.6f} ms ({terms['dominant']}) against {dev_ms:.6f} ms of "
+        f"device time a step: roofline share {share:.4f}; the float32 step "
+        f"(phase 5, this run): {f32['walk_bytes']:.0f} bytes, bound "
+        f"{f32['bound_ms']:.6f} ms, {f32['step_device_ms']:.6f} ms a step, "
+        f"share {f32['share']:.4f}")
+    for name, k in sorted(walk["kernels"].items()):
+        log(f"[train-bf16]   {name}: {k['launches']} launches, "
+            f"{k['flops']:.0f} operations, {k['bytes']:.0f} bytes")
+    if not 0.0 < share <= 1.0 or walk["bytes"] >= f32["walk_bytes"]:
+        raise AssertionError(f"the bf16 step's walk: share {share}, bytes "
+                             f"{walk['bytes']} (float32 "
+                             f"{f32['walk_bytes']})")
+    return launches
+
+
 CLUSTER_SIZE = 1024      # partition: vertices per cluster (q = 8 at 8192)
 WALK_LEN, WALK_K = 3, 8  # walk: 2048 roots of 4 vertices at 8192
 SAGE_BATCH = 1024
@@ -2774,6 +3332,58 @@ def phase_llm(torch, np, cfg, dev) -> dict:
     device_profile(prof, wall_us, f"one wave of {opts.slots} prompts "
                    f"({st['prefills']} prefills, {st['decode_steps']} "
                    f"decode steps)", watch=("flash_attention_mma_kernel",))
+    return launches, phase_llm_driver(torch, np, eng, prompts[:opts.slots])
+
+
+def phase_llm_driver(torch, np, eng, prompts) -> dict:
+    """Phase 6b: the threaded driver in front of the LLM engine: a wave of
+    prompts submitted from 4 threads, each prompt's tokens equal to the
+    engine's direct run of the same wave. Returns the launch counts of the
+    driven wave."""
+    import threading
+
+    from repro_torch.serve import ServingDriver
+    direct = eng.generate(prompts)
+    eng.reset_stats()
+    torch.cuda.synchronize()
+    zero_launches()
+    futs, errs, n_threads = {}, [], 4
+    t0 = time.monotonic()
+    with ServingDriver(eng) as drv:
+        def worker(i):
+            try:
+                for k in range(i, len(prompts), n_threads):
+                    futs[k] = drv.submit(prompts[k])
+            except Exception as exc:
+                errs.append(exc)
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        outs = {k: f.result(timeout=600) for k, f in futs.items()}
+        dt = time.monotonic() - t0
+        st = drv.stats()
+        flushes = drv.starvation_flushes
+    torch.cuda.synchronize()
+    launches = read_launches()
+    same = not errs and len(outs) == len(prompts) and all(
+        np.array_equal(outs[k], direct[k]) for k in range(len(prompts)))
+    n_tok = sum(len(o) for o in outs.values())
+    log(f"[llm-driver] {len(outs)} prompts from {n_threads} threads in "
+        f"{dt:.4f} s: {n_tok} tokens, {n_tok / dt:.1f} tok/s, "
+        f"{st['prefills']} prefills, {st['decode_steps']} decode steps, "
+        f"starvation flushes {flushes}; every prompt's tokens those of the "
+        f"direct run {same}; launches {launches}")
+    if not same:
+        raise AssertionError(f"tokens through the driver differ from the "
+                             f"direct run (errors {errs})")
+    expect = _per_step(flash_attention=eng.cfg.n_layers * st["prefills"])
+    if launches != expect or st["prefills"] != len(prompts):
+        raise AssertionError(f"kernel launches {launches} through the "
+                             f"driver, expected {expect}")
     return launches
 
 
@@ -2829,28 +3439,44 @@ def main() -> int:
                                 train_graph, dev, flushers),
                *check_fused_tail(torch, cfg.d_hidden, spec.total, dev,
                                  flushers)]
+    kernels.extend(check_bf16_routes(torch, train_plan, train_graph, dev,
+                                     flushers))
     del flushers
     kernels.append(check_spmm_ell(torch, train_plan, train_graph, dev))
     kernels.append(check_spmm_ell_dx(torch, train_plan, train_graph, dev))
+    torch.cuda.empty_cache()
     kernels.extend(check_flash_attention(torch, np, dev))
     by_path = {"serve": phase_serve(torch, np, ds, cfg, args.requests)}
     torch.cuda.empty_cache()
-    train_paths, counter_kernels = phase_train(torch, np, train_plan,
-                                               train_graph, train_pg)
+    by_path["serve_mesh"] = phase_serve_mesh(torch, np, ds, cfg,
+                                             args.requests)
+    by_path["serve_driver"] = phase_serve_driver(torch, np, ds, cfg,
+                                                 args.requests)
+    torch.cuda.empty_cache()
+    train_paths, counter_kernels, f32_step = phase_train(
+        torch, np, train_plan, train_graph, train_pg)
     by_path.update(train_paths)
     kernels.extend(counter_kernels)
     samplers, _ = phase_train_samplers(torch, np, ds, train_plan,
                                        train_graph, train_pg)
     by_path.update(samplers)
+    torch.cuda.empty_cache()
+    by_path["train_bf16"] = phase_train_bf16(torch, np, train_plan,
+                                             train_graph, train_pg, f32_step)
     del train_plan, train_graph, train_pg
     torch.cuda.empty_cache()
-    by_path["llm"] = phase_llm(torch, np, get_config("tinyllama-1.1b"), dev)
+    by_path["llm"], by_path["llm_driver"] = phase_llm(
+        torch, np, get_config("tinyllama-1.1b"), dev)
     # each kernel's launches on the path that runs it, each route of the
     # tail and of flash from its own count (the training path's tails take
     # the vector route and draw from the counter, and the LLM path runs in
     # bf16: the tail's scalar routes, flash's f32 route and keep_mask read
     # 0)
-    main_path = {"extract_dense_fused": "train", "fused_layer": "train",
+    main_path = {"extract_dense_fused": "train",
+                 "extract_dense_fused_bf16": "train_bf16",
+                 "spmm_ell_bf16_f32": "train_bf16",
+                 "spmm_ell_dx_bf16_f32": "train_bf16",
+                 "fused_layer": "train",
                  "fused_layer_scalar": "train",
                  "fused_layer_counter": "train", "fused_layer_bwd": "train",
                  "fused_layer_bwd_scalar": "train", "spmm_ell": "train",

@@ -29,6 +29,10 @@ def _key(path) -> str:
 
 
 def _to_numpy(leaf: torch.Tensor) -> np.ndarray:
+    # numpy has no bfloat16: a bf16 leaf (the prefetch carry's blocks under
+    # block_dtype="bf16") is stored as its exact float32 values
+    if leaf.dtype == torch.bfloat16:
+        leaf = leaf.float()
     return leaf.detach().cpu().numpy()
 
 
@@ -105,6 +109,6 @@ def load_checkpoint(directory: str, step: int, example_tree: Any,
                     f"losslessly into {want} — the checkpoint was written "
                     "under a different dtype regime")
             arr = cast
-        return torch.from_numpy(np.array(arr)).to(leaf.device)
+        return torch.from_numpy(np.array(arr)).to(leaf.device, leaf.dtype)
 
     return map_with_path(restore, example_tree), step

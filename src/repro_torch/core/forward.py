@@ -27,8 +27,10 @@ when the feature dim is whole on the rank (g = 1, or RMSNorm off), else
 the distributed RMSNorm (an FP32 all-reduce) followed by the kernel
 without its norm. At 1x1x1x1 every all-reduce is the identity and the
 engine computes exactly ``core.gcn_model.forward`` (a bf16 wire keeps its
-casts). Values the port cannot honour yet raise ``NotImplementedError``
-naming their ROADMAP item.
+casts). With ``block_dtype="bf16"`` the adjacency blocks are bf16 (rounded
+once, at the end of the extraction) and everything downstream stays
+float32, as JAX's promotion has it in the reference: the dense product
+upcasts the block, the ELL kernels take bf16 tiles with a float32 operand.
 """
 from __future__ import annotations
 
@@ -66,7 +68,7 @@ class TrainOptions:
     clusters: int = 0                  # partition: clusters per range
     walk_len: int = 4                  # walk: steps per root
     walk_k: int = 8                    # walk: neighbor-table width
-    block_dtype: str = "f32"           # "f32" ("bf16")
+    block_dtype: str = "f32"           # "f32" | "bf16" (the blocks)
     spmm_impl: str = "dense"           # "dense" | "ell" (block-ELL kernel)
     ell_tile: int = 128                # (bm = bn) tile side
     ell_slots: int = 16                # max nonzero col-tiles per row-block
@@ -76,10 +78,6 @@ class TrainOptions:
     compress_schedule: str = "uniform"  # "uniform" | "variable"
 
     def __post_init__(self):
-        if self.block_dtype == "bf16":
-            raise NotImplementedError(
-                "block_dtype='bf16' is not ported: the extraction writes "
-                "float32 blocks")
         for name, value, allowed in (
                 ("reshard_impl", self.reshard_impl, ("gather", "permute")),
                 ("overlap_impl", self.overlap_impl, OVERLAPS),
@@ -87,7 +85,7 @@ class TrainOptions:
                 ("sample_kind", self.sample_kind,
                  ("stratified", "partition", "walk")),
                 ("sample_mode", self.sample_mode, ("step", "epoch")),
-                ("block_dtype", self.block_dtype, ("f32",)),
+                ("block_dtype", self.block_dtype, ("f32", "bf16")),
                 ("spmm_impl", self.spmm_impl, ("dense", "ell")),
                 ("extract_impl", self.extract_impl, ("torch", "cuda")),
                 ("compress_schedule", self.compress_schedule,
@@ -237,14 +235,16 @@ class ForwardEngine:
 
     def aggregate_local(self, blk: Any, h: torch.Tensor) -> torch.Tensor:
         """The local A @ H partial product, before the row-axis
-        all-reduce."""
+        all-reduce. A bf16 block meets a float32 ``h`` as JAX promotes the
+        pair: the ELL kernels take the tiles as they are (their
+        bf16-tile / f32 route), the dense product upcasts the block."""
         if self.backend == "ell":
             from repro_torch.kernels import ops as kops
             return kops.spmm_ell(blk[0], blk[1], h)
         if self.backend == "csr":
             rp, ci, val = blk
             return pmm3d.csr_spmm_local(rp, ci, val, h, self.csr_rows)
-        return blk @ h
+        return blk.to(h.dtype) @ h
 
     def dropout_key(self, step: smp.Key, layer: int, st: pmm3d.PlaneState,
                     device: torch.device) -> torch.Tensor:

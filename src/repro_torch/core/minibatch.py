@@ -16,7 +16,11 @@ backend:
   ``kernels.spmm_ell.dense_to_block_ell_ranked``; its plain PyTorch
   version runs for CPU tensors.
 
-Both backends give identical blocks in both formats. The fused kernel
+Both backends give identical blocks in both formats and both block types
+(``block_dtype`` float32 or bfloat16: the values are computed in float32
+and rounded once at the end, as the reference's fused kernel does; on
+graphs without duplicate edges the bf16 block is the float32 block's cast).
+The fused kernel
 rescales by a scalar or per column only, so the locality modes, whose
 rescale is per pair, need ``"torch"``, as the reference's need its
 ``"jax"`` backend; a per-pair rescale inside the kernel is ROADMAP queue
@@ -86,6 +90,7 @@ class MinibatchBuilder:
     schedule: str = "step"            # 'step' | 'epoch' (without-replacement)
     fmt: BlockFormat = BlockFormat.DENSE
     impl: str = "torch"               # 'torch' | 'cuda'
+    block_dtype: torch.dtype = torch.float32  # of the extracted blocks
     ell_tile: int = 128               # (bm = bn) tile side
     ell_slots: int = 16               # max nonzero col-tiles per row-block
     max_row_nnz: int = 0              # per-row nnz bound (cuda)
@@ -114,6 +119,9 @@ class MinibatchBuilder:
                 "extract_impl='torch', as the reference needs 'jax' "
                 '(ROADMAP queue 1, "the per-pair rescale inside the '
                 'extraction kernel")')
+        if self.block_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"block_dtype={self.block_dtype}: float32 or "
+                             "bfloat16")
         if self.impl == "cuda" and self.max_row_nnz <= 0:
             raise ValueError("the fused extraction needs the per-row edge "
                              "bound (max_row_nnz)")
@@ -125,9 +133,11 @@ class MinibatchBuilder:
         return cls(scfg=scfg, mode=opts.sample_kind,
                    schedule=opts.sample_mode,
                    fmt=BlockFormat.from_spmm_impl(opts.spmm_impl),
-                   impl=opts.extract_impl, ell_tile=opts.ell_tile,
-                   ell_slots=opts.ell_slots, max_row_nnz=max_row_nnz,
-                   seed=opts.seed)
+                   impl=opts.extract_impl,
+                   block_dtype=(torch.bfloat16 if opts.block_dtype == "bf16"
+                                else torch.float32),
+                   ell_tile=opts.ell_tile, ell_slots=opts.ell_slots,
+                   max_row_nnz=max_row_nnz, seed=opts.seed)
 
     # -- phase 1: sampling ---------------------------------------------------
 
@@ -238,9 +248,10 @@ class MinibatchBuilder:
                       col_scale: Union[torch.Tensor, float], diag: bool,
                       e_cap: Optional[int] = None,
                       fmt: Optional[BlockFormat] = None):
-        """Extract ONE rescaled float32 block in the configured format and
-        backend: a dense ``(b_r, b_c)`` tensor or a block-ELL ``(tiles,
-        colidx)`` pair. ``col_scale`` is the off-diagonal rescale, a scalar
+        """Extract ONE rescaled block in the configured format, backend and
+        type (``block_dtype``): a dense ``(b_r, b_c)`` tensor or a
+        block-ELL ``(tiles, colidx)`` pair. ``col_scale`` is the
+        off-diagonal rescale, a scalar
         (training, Eq. 23), a (b_c,) per-column tensor (serving) or a
         (b_r, b_c) per-pair matrix (the locality modes: ``"torch"`` only);
         ``diag``
@@ -261,7 +272,7 @@ class MinibatchBuilder:
             from repro_torch.kernels.extract_gather import extract_dense_fused
             dense = extract_dense_fused(
                 rp, ci, val, rows_local, cols_local, col_scale=col_scale,
-                diag=diag, max_deg=self.max_row_nnz)
+                diag=diag, max_deg=self.max_row_nnz, dtype=self.block_dtype)
             if fmt is BlockFormat.DENSE:
                 return dense
             from repro_torch.kernels.spmm_ell import dense_to_block_ell_ranked
@@ -271,10 +282,12 @@ class MinibatchBuilder:
             return smp.extract_block_ell(
                 rp, ci, val, rows_local, cols_local, e_cap,
                 rescale_offdiag=col_scale, is_diag_block=diag,
-                bm=self.ell_tile, bn=self.ell_tile, n_slots=self.ell_slots)
+                bm=self.ell_tile, bn=self.ell_tile, n_slots=self.ell_slots,
+                dtype=self.block_dtype)
         return smp.extract_dense_block(
             rp, ci, val, rows_local, cols_local, e_cap,
-            rescale_offdiag=col_scale, is_diag_block=diag)
+            rescale_offdiag=col_scale, is_diag_block=diag,
+            dtype=self.block_dtype)
 
     # -- the training path (one rank of the mesh) ----------------------------
 

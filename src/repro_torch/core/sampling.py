@@ -490,7 +490,8 @@ def _scatter_sum(shape: Tuple[int, ...], index: Tuple[torch.Tensor, ...],
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """A zero ``dtype`` tensor of ``shape`` with ``values`` added at
     ``index`` over the slots where ``keep``, as one deterministic sorted
-    accumulation (``index_put_`` with ``accumulate``). The slots not kept
+    accumulation (``index_put_`` with ``accumulate``) in float32, rounded
+    once to ``dtype`` at the end. The slots not kept
     go to distinct spare cells past the end of the flat buffer instead of
     adding zeros to one clamped cell: on the card the accumulation
     serializes each run of one index, and tens of thousands of padding
@@ -503,11 +504,12 @@ def _scatter_sum(shape: Tuple[int, ...], index: Tuple[torch.Tensor, ...],
     for idx, dim in zip(index, shape):
         lin = lin * dim + idx
     spare = n + torch.arange(lin.shape[0], device=lin.device)
-    flat = torch.zeros((n + lin.shape[0],), dtype=dtype, device=lin.device)
+    flat = torch.zeros((n + lin.shape[0],), dtype=torch.float32,
+                       device=lin.device)
     flat.index_put_((torch.where(keep, lin, spare),),
                     torch.where(keep, values, torch.zeros_like(values)).to(
-                        dtype), accumulate=True)
-    return flat[:n].view(shape)
+                        torch.float32), accumulate=True)
+    return flat[:n].view(shape).to(dtype)
 
 
 def extract_dense_block(
@@ -520,8 +522,10 @@ def extract_dense_block(
     *,
     rescale_offdiag: Union[torch.Tensor, float] = 1.0,
     is_diag_block: bool = False,
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Extract the dense (b_r, b_c) float32 sampled block of a CSR shard.
+    """Extract the dense (b_r, b_c) sampled block of a CSR shard, summed in
+    float32 and rounded once to ``dtype``.
 
     ``e_cap`` must bound the total nnz of the sampled rows; entries beyond it
     are dropped (choose ``e_cap = b_r * max_row_nnz`` for exactness).
@@ -529,13 +533,13 @@ def extract_dense_block(
     """
     b_r, b_c = rows_local.shape[0], cols_local.shape[0]
     if ci.shape[0] == 0:                     # empty graph shard
-        return torch.zeros((b_r, b_c), dtype=torch.float32,
+        return torch.zeros((b_r, b_c), dtype=dtype,
                            device=rows_local.device)
     own, pos, member, v, col = _extract_triples(
         rp, ci, val, rows_local, cols_local, e_cap)
     scale = _edge_scale(rows_local, own, pos, col, rescale_offdiag,
                         is_diag_block)
-    return _scatter_sum((b_r, b_c), (own, pos), v * scale, member)
+    return _scatter_sum((b_r, b_c), (own, pos), v * scale, member, dtype)
 
 
 def stratified_col_scale(row_range: int, col_range: int, inv_same: float,

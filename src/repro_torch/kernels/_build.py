@@ -31,9 +31,9 @@ _L = ctypes.c_longlong
 # c_void_p, or ctypes would pass them as 32-bit ints); all return an int
 SIGNATURES = {
     # rp, ci, val, rows, cols, col_scale|null, scalar_scale, diag,
-    # b_r, b_c, max_deg, grid, rows_per_cta, staged, out, stream
+    # b_r, b_c, max_deg, grid, rows_per_cta, staged, bf16_out, out, stream
     "repro_extract_dense_fused": [_P, _P, _P, _P, _P, _P, _F, _I,
-                                  _I, _I, _I, _I, _I, _I, _P, _P],
+                                  _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # x, scale, mask|null, key|null, res|null, out, rows, d, eps,
     # keep_prob, threshold, use_rmsnorm, use_relu, chunks, stream
     "repro_fused_layer": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I,
@@ -43,9 +43,9 @@ SIGNATURES = {
     # rows_per_warp, stream
     "repro_fused_layer_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                               _F, _I, _I, _I, _I, _I, _I, _P],
-    # tiles, colidx, x, out, n_rb, n_slots, bm, bn, n_cb, d, bf16, stream
+    # tiles, colidx, x, out, n_rb, n_slots, bm, bn, n_cb, d, route, stream
     "repro_spmm_ell": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # tiles, colidx, g, out, work, n_rb, n_slots, bm, bn, n_cb, d, bf16,
+    # tiles, colidx, g, out, work, n_rb, n_slots, bm, bn, n_cb, d, route,
     # stream
     "repro_spmm_ell_dx": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _P],

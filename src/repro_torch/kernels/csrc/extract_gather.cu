@@ -43,7 +43,19 @@
 // reference's (0 + v) * s. With duplicate edges a cell gets the sum of
 // v_i * s in the order the atomics land, which differs from (sum v_i) * s
 // by rounding only (within 1e-6 of the largest |output|, tested).
+//
+// The bf16 route (the reference's `dtype=bfloat16`, the training step's
+// `block_dtype="bf16"`): the same kernel, templated on the output type,
+// writes a bfloat16 block, half the bytes of the float32 one that bounds
+// it. Each value is v * s in float32, rounded once to nearest even and
+// added into the zeroed bf16 cell with the native bf16 atomicAdd; where a
+// cell receives one value that is exactly the reference's cast of
+// (0 + v) * s, bit for bit. With duplicate edges every add rounds, so the
+// cell is within a bf16 ulp or so of the largest output (tested). There is
+// no float32 scratch block and no convert pass: that would write the bytes
+// this route exists to save.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -78,20 +90,45 @@ __device__ __forceinline__ void stage_async(T* __restrict__ s,
   for (int j = done + threadIdx.x; j < n; j += kThreads) s[j] = __ldg(g + j);
 }
 
-// n zeros at p (4-byte aligned) by the whole CTA: a scalar head up to
-// 16-byte alignment, float4 stores, a scalar tail
-__device__ __forceinline__ void zero_fill(float* __restrict__ p, size_t n) {
+using bf16 = __nv_bfloat16;
+
+// a zero, and v (computed in float32) added into a zeroed output cell: a
+// float32 add, or v rounded once to bf16 and a bf16 add
+template <typename T>
+__device__ __forceinline__ T zero_value();
+template <>
+__device__ __forceinline__ float zero_value<float>() {
+  return 0.0f;
+}
+template <>
+__device__ __forceinline__ bf16 zero_value<bf16>() {
+  return __float2bfloat16(0.0f);
+}
+__device__ __forceinline__ void add_value(float* p, float v) {
+  atomicAdd(p, v);
+}
+__device__ __forceinline__ void add_value(bf16* p, float v) {
+  atomicAdd(p, __float2bfloat16(v));
+}
+
+// n zeros of T at p (sizeof(T)-aligned) by the whole CTA: a scalar head up
+// to 16-byte alignment, 16-byte stores, a scalar tail
+template <typename T>
+__device__ __forceinline__ void zero_fill(T* __restrict__ p, size_t n) {
+  constexpr size_t kPer16 = 16 / sizeof(T);
   const size_t to_align =
-      ((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15) >> 2;
+      ((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15) / sizeof(T);
   const size_t head = to_align < n ? to_align : n;
-  if (threadIdx.x < head) p[threadIdx.x] = 0.0f;
-  const size_t n4 = (n - head) >> 2;
-  float4* body = reinterpret_cast<float4*>(p + head);
-  const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const T zero = zero_value<T>();
+  if (threadIdx.x < head) p[threadIdx.x] = zero;
+  const size_t n16 = (n - head) / kPer16;
+  uint4* body = reinterpret_cast<uint4*>(p + head);
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll 8
-  for (size_t j = threadIdx.x; j < n4; j += kThreads) body[j] = z;
-  const size_t tail = head + (n4 << 2);
-  if (tail + threadIdx.x < n) p[tail + threadIdx.x] = 0.0f;
+  for (size_t j = threadIdx.x; j < n16; j += kThreads) body[j] = z;
+  const size_t tail = head + n16 * kPer16;
+  // at most kPer16 - 1 (< kThreads) elements remain
+  if (tail + threadIdx.x < n) p[tail + threadIdx.x] = zero;
 }
 
 // first position in cols[0, n) whose column is >= c
@@ -139,7 +176,7 @@ __device__ __forceinline__ void load_edges(RowEdges& re, const int* ci,
 }
 
 // the values of a row's loaded edges into its zeroed output row
-template <bool kStaged>
+template <bool kStaged, typename TO>
 struct Placer {
   const int* cols;           // staged or global, sorted
   const float* scale;        // staged or global; null: scalar for all
@@ -147,7 +184,7 @@ struct Placer {
   int b_c, diag;
 
   __device__ __forceinline__ void operator()(const RowEdges& re,
-                                             float* orow) const {
+                                             TO* orow) const {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = re.c[h];
@@ -157,19 +194,19 @@ struct Placer {
         const float s = (diag && c == re.row)
                             ? 1.0f
                             : (scale != nullptr ? scale[pos] : scalar);
-        atomicAdd(orow + pos, re.v[h] * s);
+        add_value(orow + pos, re.v[h] * s);
       }
     }
   }
 };
 
-template <bool kStaged>
+template <bool kStaged, typename TO>
 __global__ void __launch_bounds__(kThreads) extract_dense_kernel(
     const int* __restrict__ rp, const int* __restrict__ ci,
     const float* __restrict__ val, const int* __restrict__ rows,
     const int* __restrict__ cols, const float* __restrict__ col_scale,
     float scalar_scale, int diag, int b_r, int b_c, int max_deg,
-    int rows_per_cta, float* __restrict__ out) {
+    int rows_per_cta, TO* __restrict__ out) {
   extern __shared__ __align__(16) int smem[];
   const int lo = blockIdx.x * rows_per_cta;
   const int hi = min(lo + rows_per_cta, b_r);
@@ -187,7 +224,7 @@ __global__ void __launch_bounds__(kThreads) extract_dense_kernel(
   if (ra < hi) load_extent(a, rp, rows, ra, max_deg);
   if (rb < hi) load_extent(b, rp, rows, rb, max_deg);
 
-  Placer<kStaged> place{cols, col_scale, scalar_scale, b_c, diag};
+  Placer<kStaged, TO> place{cols, col_scale, scalar_scale, b_c, diag};
   if (kStaged) {           // copies in flight during the zero-fill
     stage_async(smem, cols, b_c);
     place.cols = smem;
@@ -206,7 +243,7 @@ __global__ void __launch_bounds__(kThreads) extract_dense_kernel(
 
   for (int k = 0; k < 2 && ra + k * groups < hi; ++k) {
     RowEdges re = k == 0 ? a : b;
-    float* orow = out + static_cast<size_t>(ra + k * groups) * b_c;
+    TO* orow = out + static_cast<size_t>(ra + k * groups) * b_c;
     for (int e0 = 0; e0 < re.cnt; e0 += 2 * gsize) {
       if (e0 > 0) load_edges(re, ci, val, e0, t, gsize);
       place(re, orow);
@@ -214,27 +251,13 @@ __global__ void __launch_bounds__(kThreads) extract_dense_kernel(
   }
 }
 
-}  // namespace
-
-// col_scale is a (b_c,) float32 vector or null, in which case every column
-// takes scalar_scale. `grid` CTAs of 8 warps take `rows_per_cta` (1 to 16)
-// consecutive rows each and must cover the b_r rows; `staged` stages the
-// columns (and col_scale, from a 16-byte boundary) in shared memory, at
-// most 48 KB in all, else they are read from global memory. Returns the
-// launch's cudaError_t: 0 on success, 1 (cudaErrorInvalidValue), without a
-// launch, for rows_per_cta outside 1-16 or a grid that leaves rows out.
-extern "C" int repro_extract_dense_fused(
-    const void* rp, const void* ci, const void* val, const void* rows,
-    const void* cols, const void* col_scale, float scalar_scale, int diag,
-    int b_r, int b_c, int max_deg, int grid, int rows_per_cta, int staged,
-    void* out, void* stream) {
-  if (rows_per_cta < 1 || rows_per_cta > 16 ||
-      static_cast<long long>(grid) * rows_per_cta < b_r) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto kernel =
-      staged ? extract_dense_kernel<true> : extract_dense_kernel<false>;
+template <typename TO>
+int launch(const void* rp, const void* ci, const void* val, const void* rows,
+           const void* cols, const void* col_scale, float scalar_scale,
+           int diag, int b_r, int b_c, int max_deg, int grid,
+           int rows_per_cta, int staged, void* out, cudaStream_t st) {
+  const auto kernel = staged ? extract_dense_kernel<true, TO>
+                             : extract_dense_kernel<false, TO>;
   const size_t smem =
       !staged ? 0
       : col_scale != nullptr
@@ -245,6 +268,35 @@ extern "C" int repro_extract_dense_fused(
       static_cast<const float*>(val), static_cast<const int*>(rows),
       static_cast<const int*>(cols), static_cast<const float*>(col_scale),
       scalar_scale, diag, b_r, b_c, max_deg, rows_per_cta,
-      static_cast<float*>(out));
+      static_cast<TO*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// col_scale is a (b_c,) float32 vector or null, in which case every column
+// takes scalar_scale. `grid` CTAs of 8 warps take `rows_per_cta` (1 to 16)
+// consecutive rows each and must cover the b_r rows; `staged` stages the
+// columns (and col_scale, from a 16-byte boundary) in shared memory, at
+// most 48 KB in all, else they are read from global memory. The block `out`
+// is float32 (bf16_out == 0) or bfloat16 (bf16_out == 1). Returns the
+// launch's cudaError_t: 0 on success, 1 (cudaErrorInvalidValue), without a
+// launch, for rows_per_cta outside 1-16 or a grid that leaves rows out.
+extern "C" int repro_extract_dense_fused(
+    const void* rp, const void* ci, const void* val, const void* rows,
+    const void* cols, const void* col_scale, float scalar_scale, int diag,
+    int b_r, int b_c, int max_deg, int grid, int rows_per_cta, int staged,
+    int bf16_out, void* out, void* stream) {
+  if (rows_per_cta < 1 || rows_per_cta > 16 ||
+      static_cast<long long>(grid) * rows_per_cta < b_r) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16_out
+             ? launch<bf16>(rp, ci, val, rows, cols, col_scale, scalar_scale,
+                            diag, b_r, b_c, max_deg, grid, rows_per_cta,
+                            staged, out, st)
+             : launch<float>(rp, ci, val, rows, cols, col_scale,
+                             scalar_scale, diag, b_r, b_c, max_deg, grid,
+                             rows_per_cta, staged, out, st);
 }

@@ -47,6 +47,15 @@
 // bn or d is not a multiple of 16 bytes, or a pointer is not 16-byte
 // aligned, both passes use plain loads. bfloat16 tiles and x are staged as
 // they are and converted on their way into the FMAs.
+//
+// Routes. The kernel is templated on the tile type and the operand type
+// (x and out) apart: all float32, all bfloat16, and bfloat16 tiles with a
+// float32 x and output -- the reference's `block_dtype="bf16"` training
+// step, where `jnp.dot(tile, x, preferred_element_type=float32)` promotes
+// the bf16 tile and the output keeps x's type. On that route the scan reads
+// 2-byte tiles (half the bytes that bound it: 67 MB at the training shape),
+// each tile element is converted to float32 in registers, and the products
+// stay float32 FMAs (no TF32), so it is held to the f32 route's 1e-4.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,13 +86,12 @@ template <typename T>
 __host__ __device__ constexpr int a_stride() {
   return kTK + vec<T>();
 }
-// the mask, then the tile chunks and the x chunks, double-buffered
-template <typename T>
+// the mask, then the tile chunks (TA) and the x chunks (TX), double-buffered
+template <typename TA, typename TX>
 __host__ __device__ constexpr size_t smem_bytes() {
   return kMaskWords * sizeof(uint32_t) +
-         (2 * static_cast<size_t>(kTM) * a_stride<T>() +
-          2 * static_cast<size_t>(kTK) * kTN) *
-             sizeof(T);
+         2 * static_cast<size_t>(kTM) * a_stride<TA>() * sizeof(TA) +
+         2 * static_cast<size_t>(kTK) * kTN * sizeof(TX);
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -138,21 +146,23 @@ __device__ __forceinline__ bool nonzero16(const uint4& u) {
   return ((u.x | u.y | u.z | u.w) & kMagnitude) != 0;
 }
 
-template <typename T, bool kVec>
+// tiles of type TA; x and out of type TX
+template <typename TA, typename TX, bool kVec>
 __global__ void __launch_bounds__(kThreads) spmm_ell_kernel(
-    const T* __restrict__ tiles, const int* __restrict__ colidx,
-    const T* __restrict__ x, T* __restrict__ out, int n_slots, int bm,
+    const TA* __restrict__ tiles, const int* __restrict__ colidx,
+    const TX* __restrict__ x, TX* __restrict__ out, int n_slots, int bm,
     int bn, int n_cb, int d, int row_tiles) {
-  constexpr int V = vec<T>();
-  constexpr int AS = a_stride<T>();
+  constexpr int V = vec<TA>();                     // a tile piece
+  constexpr int VX = vec<TX>();                    // an x piece
+  constexpr int AS = a_stride<TA>();
   constexpr int kRowPieces = kTK / V;              // pieces in a chunk row
   constexpr int kChunkPieces = kTM * kRowPieces;   // pieces in a chunk
   constexpr int kAPieces = kChunkPieces / kThreads;  // a thread's share
-  constexpr int kXPieces = kTK * kTN / V / kThreads;
+  constexpr int kXPieces = kTK * kTN / VX / kThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint32_t* mask = reinterpret_cast<uint32_t*>(smem_raw);  // [kMaskWords]
-  T* s_a = reinterpret_cast<T*>(mask + kMaskWords);         // [2][kTM][AS]
-  T* s_x = s_a + 2 * kTM * AS;                              // [2][kTK][kTN]
+  TA* s_a = reinterpret_cast<TA*>(mask + kMaskWords);       // [2][kTM][AS]
+  TX* s_x = reinterpret_cast<TX*>(s_a + 2 * kTM * AS);      // [2][kTK][kTN]
 
   const int i = blockIdx.x / row_tiles;           // row-block
   const int r0 = (blockIdx.x % row_tiles) * kTM;  // first row in it
@@ -162,7 +172,7 @@ __global__ void __launch_bounds__(kThreads) spmm_ell_kernel(
   const int warp = tid >> 5;  // rows warp * 8 + {0..7}
   const int k_chunks = (bn + kTK - 1) / kTK;
   const int n_chunks = n_slots * k_chunks;
-  const T* tiles_i = tiles + static_cast<size_t>(i) * n_slots * bm * bn;
+  const TA* tiles_i = tiles + static_cast<size_t>(i) * n_slots * bm * bn;
 
   // piece q of chunk c: its row in the strip, its first column in the tile
   // and its address (slot c / k_chunks, columns from (c % k_chunks) * kTK)
@@ -177,23 +187,23 @@ __global__ void __launch_bounds__(kThreads) spmm_ell_kernel(
 #pragma unroll
     for (int p = 0; p < kAPieces; ++p) {
       int r, col;
-      const T* src = a_piece(c, tid + p * kThreads, r, col);
+      const TA* src = a_piece(c, tid + p * kThreads, r, col);
       const bool in = r0 + r < bm && col < bn;
-      stage_piece<T, kVec>(s_a + (buf * kTM + r) * AS + (col % kTK),
-                           in ? src : tiles, in ? min(V, bn - col) : 0);
+      stage_piece<TA, kVec>(s_a + (buf * kTM + r) * AS + (col % kTK),
+                            in ? src : tiles, in ? min(V, bn - col) : 0);
     }
     int cb = colidx[static_cast<size_t>(i) * n_slots + c / k_chunks];
     cb = min(max(cb, 0), n_cb - 1);
     const int k0 = (c % k_chunks) * kTK;
-    const T* xb = x + (static_cast<size_t>(cb) * bn + k0) * d + j0;
+    const TX* xb = x + (static_cast<size_t>(cb) * bn + k0) * d + j0;
 #pragma unroll
     for (int p = 0; p < kXPieces; ++p) {
       const int e = tid + p * kThreads;
-      const int k = e / (kTN / V), n = (e % (kTN / V)) * V;
+      const int k = e / (kTN / VX), n = (e % (kTN / VX)) * VX;
       const bool in = k0 + k < bn && j0 + n < d;
-      stage_piece<T, kVec>(s_x + (buf * kTK + k) * kTN + n,
-                           in ? xb + static_cast<size_t>(k) * d + n : x,
-                           in ? min(V, d - j0 - n) : 0);
+      stage_piece<TX, kVec>(s_x + (buf * kTK + k) * kTN + n,
+                            in ? xb + static_cast<size_t>(k) * d + n : x,
+                            in ? min(VX, d - j0 - n) : 0);
     }
   };
 
@@ -219,21 +229,21 @@ __global__ void __launch_bounds__(kThreads) spmm_ell_kernel(
         for (int j = 0; j < kScanBatch; ++j) {
           const int e = base + tid + j * kThreads;
           int r, col;
-          const T* src = a_piece(c0 + e / kChunkPieces, e % kChunkPieces, r,
-                                 col);
+          const TA* src = a_piece(c0 + e / kChunkPieces, e % kChunkPieces,
+                                  r, col);
           raw[j] = e < n_items && r0 + r < bm && col < bn
                        ? __ldg(reinterpret_cast<const uint4*>(src))
                        : make_uint4(0u, 0u, 0u, 0u);
         }
 #pragma unroll
-        for (int j = 0; j < kScanBatch; ++j) nz[j] = nonzero16<T>(raw[j]);
+        for (int j = 0; j < kScanBatch; ++j) nz[j] = nonzero16<TA>(raw[j]);
       } else {
 #pragma unroll
         for (int j = 0; j < kScanBatch; ++j) {
           const int e = base + tid + j * kThreads;
           int r, col;
-          const T* src = a_piece(c0 + e / kChunkPieces, e % kChunkPieces, r,
-                                 col);
+          const TA* src = a_piece(c0 + e / kChunkPieces, e % kChunkPieces,
+                                  r, col);
           nz[j] = false;
           if (e < n_items && r0 + r < bm)
             for (int v = 0; v < V && col + v < bn; ++v)
@@ -267,8 +277,8 @@ __global__ void __launch_bounds__(kThreads) spmm_ell_kernel(
       cp_async_commit();
       cp_async_wait<1>();  // chunk cur has landed
       __syncthreads();
-      const T* a = s_a + buf * kTM * AS;
-      const T* xs = s_x + buf * kTK * kTN;
+      const TA* a = s_a + buf * kTM * AS;
+      const TX* xs = s_x + buf * kTK * kTN;
 #pragma unroll
       for (int k = 0; k < kTK; k += 4) {
         float av[8][4];
@@ -300,7 +310,7 @@ __global__ void __launch_bounds__(kThreads) spmm_ell_kernel(
   for (int m = 0; m < 8; ++m) {
     const int rr = r0 + warp * 8 + m;
     if (rr >= bm) continue;
-    T* orow = out + (static_cast<size_t>(i) * bm + rr) * d;
+    TX* orow = out + (static_cast<size_t>(i) * bm + rr) * d;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const int jj = j0 + (n / 4) * (kTN / 2) + lane * 4 + n % 4;
@@ -309,52 +319,62 @@ __global__ void __launch_bounds__(kThreads) spmm_ell_kernel(
   }
 }
 
-template <typename T, bool kVec>
+template <typename TA, typename TX, bool kVec>
 int launch(const void* tiles, const void* colidx, const void* x, void* out,
            int n_rb, int n_slots, int bm, int bn, int n_cb, int d,
            cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T>();
-  auto kernel = spmm_ell_kernel<T, kVec>;
+  constexpr size_t smem = smem_bytes<TA, TX>();
+  auto kernel = spmm_ell_kernel<TA, TX, kVec>;
   static bool opted_in = false;
   const cudaError_t e = opt_in(kernel, smem, opted_in);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int row_tiles = (bm + kTM - 1) / kTM;
   const dim3 grid(n_rb * row_tiles, (d + kTN - 1) / kTN);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(tiles), static_cast<const int*>(colidx),
-      static_cast<const T*>(x), static_cast<T*>(out), n_slots, bm, bn, n_cb,
+      static_cast<const TA*>(tiles), static_cast<const int*>(colidx),
+      static_cast<const TX*>(x), static_cast<TX*>(out), n_slots, bm, bn, n_cb,
       d, row_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename TA, typename TX>
 int dispatch(const void* tiles, const void* colidx, const void* x, void* out,
              int n_rb, int n_slots, int bm, int bn, int n_cb, int d,
              cudaStream_t stream) {
-  constexpr int V = vec<T>();
   const bool aligned =
-      bn % V == 0 && d % V == 0 &&
+      bn % vec<TA>() == 0 && d % vec<TX>() == 0 &&
       (reinterpret_cast<uintptr_t>(tiles) | reinterpret_cast<uintptr_t>(x)) %
               16 ==
           0;
-  return aligned ? launch<T, true>(tiles, colidx, x, out, n_rb, n_slots, bm,
-                                   bn, n_cb, d, stream)
-                 : launch<T, false>(tiles, colidx, x, out, n_rb, n_slots, bm,
-                                    bn, n_cb, d, stream);
+  return aligned ? launch<TA, TX, true>(tiles, colidx, x, out, n_rb, n_slots,
+                                        bm, bn, n_cb, d, stream)
+                 : launch<TA, TX, false>(tiles, colidx, x, out, n_rb,
+                                         n_slots, bm, bn, n_cb, d, stream);
 }
 
 }  // namespace
 
-// tiles (n_rb, n_slots, bm, bn), x (n_cb * bn, d) and out (n_rb * bm, d) are
-// all float32 (bf16 == 0) or all bfloat16 (bf16 == 1); colidx is (n_rb,
-// n_slots) int32. Returns the launch's cudaError_t (0 on success).
+// tiles (n_rb, n_slots, bm, bn), x (n_cb * bn, d) and out (n_rb * bm, d);
+// colidx is (n_rb, n_slots) int32. `route` names the types: 0 all float32,
+// 1 all bfloat16, 2 bfloat16 tiles with float32 x and out. Returns the
+// launch's cudaError_t (0 on success; cudaErrorInvalidValue, without a
+// launch, for another route).
 extern "C" int repro_spmm_ell(const void* tiles, const void* colidx,
                               const void* x, void* out, int n_rb,
                               int n_slots, int bm, int bn, int n_cb, int d,
-                              int bf16, void* stream) {
+                              int route, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(tiles, colidx, x, out, n_rb, n_slots,
-                                        bm, bn, n_cb, d, st)
-              : dispatch<float>(tiles, colidx, x, out, n_rb, n_slots, bm, bn,
-                                n_cb, d, st);
+  switch (route) {
+    case 0:
+      return dispatch<float, float>(tiles, colidx, x, out, n_rb, n_slots, bm,
+                                    bn, n_cb, d, st);
+    case 1:
+      return dispatch<bf16, bf16>(tiles, colidx, x, out, n_rb, n_slots, bm,
+                                  bn, n_cb, d, st);
+    case 2:
+      return dispatch<bf16, float>(tiles, colidx, x, out, n_rb, n_slots, bm,
+                                   bn, n_cb, d, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -7,8 +7,13 @@
 //   dX[cb*bn : +bn] += tiles[rb, s]^T @ G[rb*bm : +bm]   for colidx[rb, s] == cb
 //
 // in float32, with tiles (n_rb, S, bm, bn), colidx (n_rb, S) int32 (clamped
-// into [0, n_cb)) and G (n_rb*bm, d); dX (n_cb*bn, d) has G's type (float32,
-// or bfloat16 with bfloat16 tiles). It replaces PyTorch's batched GEMM over
+// into [0, n_cb)) and G (n_rb*bm, d); dX (n_cb*bn, d) has G's type. Three
+// routes, the forward's: all float32, all bfloat16, and bfloat16 tiles with a
+// float32 G and dX (the `block_dtype="bf16"` training step: the reference's
+// `_spmm_bwd` promotes the bf16 tile in `tiles[i, s].T @ g` and returns
+// `dx.astype(x.dtype)`, float32). On that route the scan reads 2-byte tiles
+// and each tile element becomes float32 in registers before the float32
+// FMAs. It replaces PyTorch's batched GEMM over
 // every slot followed by `index_add_`, whose float atomics made a training
 // run on the card differ from run to run.
 //
@@ -76,13 +81,13 @@ template <typename T>
 __host__ __device__ constexpr int a_stride() {
   return kChunk + vec<T>();
 }
-// the live-item list, then the tile chunks and the G chunks, double-buffered
-template <typename T>
+// the live-item list, then the tile chunks (TA) and the G chunks (TG),
+// double-buffered
+template <typename TA, typename TG>
 __host__ __device__ constexpr size_t product_smem_bytes() {
   return kWindow * sizeof(int) +
-         (2 * static_cast<size_t>(kChunk) * a_stride<T>() +
-          2 * static_cast<size_t>(kChunk) * kTN) *
-             sizeof(T);
+         2 * static_cast<size_t>(kChunk) * a_stride<TA>() * sizeof(TA) +
+         2 * static_cast<size_t>(kChunk) * kTN * sizeof(TG);
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -245,24 +250,25 @@ __global__ void __launch_bounds__(kFillThreads) dx_fill_kernel(
 }
 
 // 3. the product: CTA (column block cb, strip of 32 tile columns, 256
-// features)
-template <typename T, bool kVec>
+// features); tiles of type TA, G and dX of type TG
+template <typename TA, typename TG, bool kVec>
 __global__ void __launch_bounds__(kThreads) dx_product_kernel(
-    const T* __restrict__ tiles, const T* __restrict__ g,
+    const TA* __restrict__ tiles, const TG* __restrict__ g,
     const uint8_t* __restrict__ flags, const int* __restrict__ counts,
     const int* __restrict__ starts, const int* __restrict__ pairs,
-    T* __restrict__ out, int n_slots, int bm, int bn, int d, int kc_n,
+    TG* __restrict__ out, int n_slots, int bm, int bn, int d, int kc_n,
     int cc_n) {
-  constexpr int V = vec<T>();
-  constexpr int AS = a_stride<T>();
+  constexpr int V = vec<TA>();                                // a tile piece
+  constexpr int VG = vec<TG>();                               // a G piece
+  constexpr int AS = a_stride<TA>();
   constexpr int kRowPieces = kChunk / V;                      // in a chunk row
   constexpr int kAPieces = kChunk * kRowPieces / kThreads;    // a thread's
-  constexpr int kGPieces = kChunk * kTN / V / kThreads;
+  constexpr int kGPieces = kChunk * kTN / VG / kThreads;
   constexpr int kWarps = kThreads / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int* list = reinterpret_cast<int*>(smem_raw);              // [kWindow]
-  T* s_a = reinterpret_cast<T*>(list + kWindow);             // [2][32][AS]
-  T* s_g = s_a + 2 * kChunk * AS;                            // [2][32][kTN]
+  TA* s_a = reinterpret_cast<TA*>(list + kWindow);           // [2][32][AS]
+  TG* s_g = reinterpret_cast<TG*>(s_a + 2 * kChunk * AS);    // [2][32][kTN]
   __shared__ int s_warp[kWarps];
 
   const int cb = blockIdx.x / cc_n;
@@ -278,26 +284,26 @@ __global__ void __launch_bounds__(kThreads) dx_product_kernel(
   auto stage = [&](int item, int buf) {
     const int t = item / kc_n, k0 = (item % kc_n) * kChunk;
     const int rb = t / n_slots;
-    const T* tile = tiles + static_cast<size_t>(t) * bm * bn;
+    const TA* tile = tiles + static_cast<size_t>(t) * bm * bn;
 #pragma unroll
     for (int p = 0; p < kAPieces; ++p) {
       const int q = tid + p * kThreads;
       const int r = q / kRowPieces, col = (q % kRowPieces) * V;
       const bool in = k0 + r < bm && c0 + col < bn;
-      stage_piece<T, kVec>(
+      stage_piece<TA, kVec>(
           s_a + (buf * kChunk + r) * AS + col,
           in ? tile + static_cast<size_t>(k0 + r) * bn + c0 + col : tiles,
           in ? min(V, bn - c0 - col) : 0);
     }
-    const T* gb = g + (static_cast<size_t>(rb) * bm + k0) * d + j0;
+    const TG* gb = g + (static_cast<size_t>(rb) * bm + k0) * d + j0;
 #pragma unroll
     for (int p = 0; p < kGPieces; ++p) {
       const int e = tid + p * kThreads;
-      const int k = e / (kTN / V), n = (e % (kTN / V)) * V;
+      const int k = e / (kTN / VG), n = (e % (kTN / VG)) * VG;
       const bool in = k0 + k < bm && j0 + n < d;
-      stage_piece<T, kVec>(s_g + (buf * kChunk + k) * kTN + n,
-                           in ? gb + static_cast<size_t>(k) * d + n : g,
-                           in ? min(V, d - j0 - n) : 0);
+      stage_piece<TG, kVec>(s_g + (buf * kChunk + k) * kTN + n,
+                            in ? gb + static_cast<size_t>(k) * d + n : g,
+                            in ? min(VG, d - j0 - n) : 0);
     }
   };
 
@@ -344,8 +350,8 @@ __global__ void __launch_bounds__(kThreads) dx_product_kernel(
       cp_async_commit();
       cp_async_wait<1>();  // item c has landed
       __syncthreads();
-      const T* a = s_a + buf * kChunk * AS;
-      const T* gs = s_g + buf * kChunk * kTN;
+      const TA* a = s_a + buf * kChunk * AS;
+      const TG* gs = s_g + buf * kChunk * kTN;
 #pragma unroll 8
       for (int k = 0; k < kChunk; ++k) {
         // tile row k, columns warp*8.. (this warp's 8 output rows), and
@@ -377,7 +383,7 @@ __global__ void __launch_bounds__(kThreads) dx_product_kernel(
   for (int m = 0; m < 8; ++m) {
     const int rr = c0 + warp * 8 + m;
     if (rr >= bn) continue;
-    T* orow = out + (static_cast<size_t>(cb) * bn + rr) * d;
+    TG* orow = out + (static_cast<size_t>(cb) * bn + rr) * d;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const int jj = j0 + (n / 4) * (kTN / 2) + lane * 4 + n % 4;
@@ -386,7 +392,7 @@ __global__ void __launch_bounds__(kThreads) dx_product_kernel(
   }
 }
 
-template <typename T, bool kVec>
+template <typename TA, typename TG, bool kVec>
 int launch(const void* tiles, const void* colidx, const void* g, void* out,
            void* work, int n_rb, int n_slots, int bm, int bn, int n_cb, int d,
            cudaStream_t stream) {
@@ -400,12 +406,12 @@ int launch(const void* tiles, const void* colidx, const void* g, void* out,
   int* pairs = starts + n_cb;
   uint8_t* live = reinterpret_cast<uint8_t*>(pairs + n_t);
   uint8_t* flags = live + n_t;
-  const T* tl = static_cast<const T*>(tiles);
+  const TA* tl = static_cast<const TA*>(tiles);
   const int* ci = static_cast<const int*>(colidx);
   cudaError_t e = cudaMemsetAsync(counts, 0, sizeof(int) * n_cb, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (n_t > 0) {
-    dx_scan_kernel<T, kVec><<<n_t, kThreads, 0, stream>>>(
+    dx_scan_kernel<TA, kVec><<<n_t, kThreads, 0, stream>>>(
         tl, ci, flags, live, counts, bm, bn, n_cb, cc_n, chunks);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -415,49 +421,58 @@ int launch(const void* tiles, const void* colidx, const void* g, void* out,
                                                     n_cb);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  constexpr size_t smem = product_smem_bytes<T>();
-  auto kernel = dx_product_kernel<T, kVec>;
+  constexpr size_t smem = product_smem_bytes<TA, TG>();
+  auto kernel = dx_product_kernel<TA, TG, kVec>;
   static bool opted_in = false;
   e = opt_in(kernel, smem, opted_in);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(n_cb * cc_n, (d + kTN - 1) / kTN);
   kernel<<<grid, kThreads, smem, stream>>>(
-      tl, static_cast<const T*>(g), flags, counts, starts, pairs,
-      static_cast<T*>(out), n_slots, bm, bn, d, kc_n, cc_n);
+      tl, static_cast<const TG*>(g), flags, counts, starts, pairs,
+      static_cast<TG*>(out), n_slots, bm, bn, d, kc_n, cc_n);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename TA, typename TG>
 int dispatch(const void* tiles, const void* colidx, const void* g, void* out,
              void* work, int n_rb, int n_slots, int bm, int bn, int n_cb,
              int d, cudaStream_t stream) {
-  constexpr int V = vec<T>();
   const bool aligned =
-      bn % V == 0 && d % V == 0 &&
+      bn % vec<TA>() == 0 && d % vec<TG>() == 0 &&
       (reinterpret_cast<uintptr_t>(tiles) | reinterpret_cast<uintptr_t>(g)) %
               16 ==
           0;
-  return aligned ? launch<T, true>(tiles, colidx, g, out, work, n_rb, n_slots,
-                                   bm, bn, n_cb, d, stream)
-                 : launch<T, false>(tiles, colidx, g, out, work, n_rb,
-                                    n_slots, bm, bn, n_cb, d, stream);
+  return aligned ? launch<TA, TG, true>(tiles, colidx, g, out, work, n_rb,
+                                        n_slots, bm, bn, n_cb, d, stream)
+                 : launch<TA, TG, false>(tiles, colidx, g, out, work, n_rb,
+                                         n_slots, bm, bn, n_cb, d, stream);
 }
 
 }  // namespace
 
-// tiles (n_rb, n_slots, bm, bn), g (n_rb * bm, d) and out (n_cb * bn, d) are
-// all float32 (bf16 == 0) or all bfloat16 (bf16 == 1); colidx is (n_rb,
-// n_slots) int32. work holds 4 * (2 * n_cb + T) + T + T * chunks bytes
-// (T = n_rb * n_slots tiles, chunks = ceil(bm / 32) * ceil(bn / 32) <= 1024),
-// 4-byte aligned. Returns the first failing call's cudaError_t (0 on
-// success).
+// tiles (n_rb, n_slots, bm, bn), g (n_rb * bm, d) and out (n_cb * bn, d);
+// colidx is (n_rb, n_slots) int32. `route` names the types, as the
+// forward's: 0 all float32, 1 all bfloat16, 2 bfloat16 tiles with float32 g
+// and out. work holds 4 * (2 * n_cb + T) + T + T * chunks bytes (T = n_rb *
+// n_slots tiles, chunks = ceil(bm / 32) * ceil(bn / 32) <= 1024), 4-byte
+// aligned. Returns the first failing call's cudaError_t (0 on success;
+// cudaErrorInvalidValue, without a launch, for another route).
 extern "C" int repro_spmm_ell_dx(const void* tiles, const void* colidx,
                                  const void* g, void* out, void* work,
                                  int n_rb, int n_slots, int bm, int bn,
-                                 int n_cb, int d, int bf16, void* stream) {
+                                 int n_cb, int d, int route, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(tiles, colidx, g, out, work, n_rb,
-                                        n_slots, bm, bn, n_cb, d, st)
-              : dispatch<float>(tiles, colidx, g, out, work, n_rb, n_slots,
-                                bm, bn, n_cb, d, st);
+  switch (route) {
+    case 0:
+      return dispatch<float, float>(tiles, colidx, g, out, work, n_rb,
+                                    n_slots, bm, bn, n_cb, d, st);
+    case 1:
+      return dispatch<bf16, bf16>(tiles, colidx, g, out, work, n_rb, n_slots,
+                                  bm, bn, n_cb, d, st);
+    case 2:
+      return dispatch<bf16, float>(tiles, colidx, g, out, work, n_rb,
+                                   n_slots, bm, bn, n_cb, d, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -17,6 +17,12 @@ without duplicate edges both equal
 ``core.sampling.extract_dense_block`` bit for bit; where a row repeats an
 edge, the kernel sums ``val * scale`` per edge and the plain version scales
 the sum, so they agree up to rounding.
+
+The block is float32 or, with ``dtype=torch.bfloat16`` (the training
+step's ``block_dtype="bf16"``, the reference's ``dtype`` argument), bf16:
+the values are computed in float32 and rounded once, so on graphs without
+duplicate edges the bf16 block is the float32 block cast to bf16, bit for
+bit; the kernel writes it directly, half the bytes.
 """
 from __future__ import annotations
 
@@ -28,8 +34,11 @@ import torch
 
 from repro_torch.kernels import _build, _observe
 
-# kernel launches so far (a run zeroes it to show that a path used the kernel)
+# kernel launches so far (a run zeroes them to show that a path used the
+# kernel), in all and by the block's type
 LAUNCHES = 0
+ROUTE_LAUNCHES = {"f32": 0, "bf16": 0}
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 THREADS = 256                # threads a CTA has: 8 warps
 CTAS_PER_SM = 4              # the grid aimed at: 4 CTAs an SM, ...
@@ -73,14 +82,15 @@ def extract_dense_plain(rp: torch.Tensor, ci: torch.Tensor,
                         val: torch.Tensor, rows: torch.Tensor,
                         cols: torch.Tensor, *,
                         col_scale: Union[torch.Tensor, float], diag: bool,
-                        max_deg: int) -> torch.Tensor:
+                        max_deg: int,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The kernel's function in plain PyTorch: a per-edge ``searchsorted``
-    over the rows' first ``max_deg`` edges, summed per cell, times the lane
-    scale (the kernel's ``acc * lane_scale``)."""
+    over the rows' first ``max_deg`` edges, summed per cell in float32,
+    times the lane scale (the kernel's ``acc * lane_scale``), rounded once
+    to ``dtype``."""
     b_r, b_c = rows.shape[0], cols.shape[0]
     if b_r == 0 or b_c == 0:
-        return torch.zeros((b_r, b_c), dtype=torch.float32,
-                           device=rows.device)
+        return torch.zeros((b_r, b_c), dtype=dtype, device=rows.device)
     rows = rows.long()
     start = rp.long()[rows]
     cnt = (rp.long()[rows + 1] - start).clamp(max=max_deg)
@@ -94,7 +104,7 @@ def extract_dense_plain(rp: torch.Tensor, ci: torch.Tensor,
     acc = torch.zeros((b_r, b_c), dtype=torch.float32, device=rows.device)
     acc.index_put_((own[hit], pos[hit]), val[src][hit].float(),
                    accumulate=True)
-    return acc * _lane_scale(rows, cols.long(), col_scale, diag)
+    return (acc * _lane_scale(rows, cols.long(), col_scale, diag)).to(dtype)
 
 
 def edges_walked(rp: torch.Tensor, rows: torch.Tensor, max_deg: int) -> int:
@@ -110,12 +120,14 @@ def extract_dense_cost(rp: torch.Tensor, ci: torch.Tensor,
                        val: torch.Tensor, rows: torch.Tensor,
                        cols: torch.Tensor, *,
                        col_scale: Union[torch.Tensor, float], diag: bool,
-                       max_deg: int, out=None) -> tuple:
+                       max_deg: int, dtype: torch.dtype = torch.float32,
+                       out=None) -> tuple:
     """(operations, bytes) of :func:`extract_dense_fused` on these inputs:
     the rows, their two row pointers, the edges walked (column and value),
     the sampled columns (and their scales) read once and the dense block
-    written once; a binary search of each walked edge among the columns,
-    and a multiply and an add for each nonzero placed (``out``'s). The
+    written once (2 bytes a cell in bf16); a binary search of each walked
+    edge among the columns, and a multiply and an add for each nonzero
+    placed (``out``'s). The
     edges walked are read on the host; on the meta device every row walks
     ``max_deg`` edges and every walked edge is placed."""
     b_r, b_c = rows.shape[0], cols.shape[0]
@@ -125,8 +137,9 @@ def extract_dense_cost(rp: torch.Tensor, ci: torch.Tensor,
     else:
         placed = walked if out is None else int(torch.count_nonzero(out))
     per_column = isinstance(col_scale, torch.Tensor)
+    out_bytes = torch.empty((), dtype=dtype).element_size()
     n_bytes = (4 * b_r + 8 * b_r + 8 * walked + 4 * b_c
-               + (4 * b_c if per_column else 0) + 4 * b_r * b_c)
+               + (4 * b_c if per_column else 0) + out_bytes * b_r * b_c)
     n_ops = walked * (math.ceil(math.log2(max(b_c, 2))) + 1) + 2 * placed
     return n_ops, n_bytes
 
@@ -146,24 +159,29 @@ def extract_dense_fused(rp: torch.Tensor, ci: torch.Tensor,
                         val: torch.Tensor, rows: torch.Tensor,
                         cols: torch.Tensor, *,
                         col_scale: Union[torch.Tensor, float],
-                        diag: bool, max_deg: int) -> torch.Tensor:
-    """The dense rescaled ``(b_r, b_c)`` float32 block of the sampled rows
-    ``rows`` and sorted distinct columns ``cols`` (int32), straight from
-    the CSR triple (int32 ``rp``/``ci``, float32 ``val``). ``col_scale`` is
-    a float or a ``(b_c,)`` float32 tensor; ``diag`` marks coinciding row
-    and column vertex sets."""
+                        diag: bool, max_deg: int,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The dense rescaled ``(b_r, b_c)`` block of the sampled rows ``rows``
+    and sorted distinct columns ``cols`` (int32), straight from the CSR
+    triple (int32 ``rp``/``ci``, float32 ``val``), in ``dtype`` (float32
+    or bfloat16; computed in float32, rounded once). ``col_scale`` is a
+    float or a ``(b_c,)`` float32 tensor; ``diag`` marks coinciding row and
+    column vertex sets."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"extract_dense_fused: dtype must be float32 or "
+                         f"bfloat16, got {dtype}")
     if rows.device.type == "cpu":
         return extract_dense_plain(rp, ci, val, rows, cols,
                                    col_scale=col_scale, diag=diag,
-                                   max_deg=max_deg)
+                                   max_deg=max_deg, dtype=dtype)
     dev = rows.device
     if dev.type not in ("cuda", "meta"):
         raise ValueError(f"extract_dense_fused: unsupported device {dev}")
-    for t, name, dtype in ((rp, "rp", torch.int32), (ci, "ci", torch.int32),
-                           (val, "val", torch.float32),
-                           (rows, "rows", torch.int32),
-                           (cols, "cols", torch.int32)):
-        _check(t, name, dtype, 1, dev)
+    for t, name, want in ((rp, "rp", torch.int32), (ci, "ci", torch.int32),
+                          (val, "val", torch.float32),
+                          (rows, "rows", torch.int32),
+                          (cols, "cols", torch.int32)):
+        _check(t, name, want, 1, dev)
     b_r, b_c = rows.shape[0], cols.shape[0]
     if isinstance(col_scale, torch.Tensor):
         _check(col_scale, "col_scale", torch.float32, 1, dev)
@@ -175,7 +193,7 @@ def extract_dense_fused(rp: torch.Tensor, ci: torch.Tensor,
         scale_ptr, scalar = None, float(col_scale)
     if max_deg < 0:
         raise ValueError(f"extract_dense_fused: max_deg={max_deg} < 0")
-    out = torch.empty((b_r, b_c), dtype=torch.float32, device=dev)
+    out = torch.empty((b_r, b_c), dtype=dtype, device=dev)
     if b_r == 0 or b_c == 0 or dev.type == "meta":
         return out
     grid, rows_per_cta, staged = launch_config(
@@ -185,9 +203,11 @@ def extract_dense_fused(rp: torch.Tensor, ci: torch.Tensor,
     rc = lib.repro_extract_dense_fused(
         rp.data_ptr(), ci.data_ptr(), val.data_ptr(), rows.data_ptr(),
         cols.data_ptr(), scale_ptr, scalar, int(bool(diag)), b_r, b_c,
-        int(max_deg), grid, rows_per_cta, int(staged), out.data_ptr(),
+        int(max_deg), grid, rows_per_cta, int(staged),
+        int(dtype == torch.bfloat16), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "extract_dense_fused")
     global LAUNCHES
     LAUNCHES += 1
+    ROUTE_LAUNCHES[_DTYPES[dtype]] += 1
     return out

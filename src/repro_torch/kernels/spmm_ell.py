@@ -9,7 +9,10 @@ from::
     colidx : (n_rb, S)         int32   (padding: a zero tile at block 0)
 
 :func:`spmm_ell` computes ``out[i*bm:(i+1)*bm] = sum_s tiles[i, s] @
-x[colidx[i, s]*bn : +bn]`` in float32, output in x's type: the CUDA kernel
+x[colidx[i, s]*bn : +bn]`` in float32, output in x's type, on three routes:
+all float32, all bfloat16, and bfloat16 tiles with a float32 x (the
+``block_dtype="bf16"`` training step's, as the reference promotes the
+tile): the CUDA kernel
 (``csrc/spmm_ell.cu``) for CUDA tensors, :func:`spmm_ell_plain` — the same
 function in plain PyTorch, slot by slot as the reference's oracle sums —
 for CPU tensors, and on the meta device only its output's shape and type
@@ -35,12 +38,31 @@ import torch
 
 from repro_torch.kernels import _build, _observe
 
-# kernel launches so far, of the product and of its input gradient (a run
-# zeroes them to show that a path used the kernels)
+# kernel launches so far, of the product and of its input gradient, in all
+# and by route (a run zeroes them to show that a path used the kernels)
 LAUNCHES = 0
 DX_LAUNCHES = 0
+ROUTE_LAUNCHES = {"f32": 0, "bf16": 0, "bf16_f32": 0}
+DX_ROUTE_LAUNCHES = {"f32": 0, "bf16": 0, "bf16_f32": 0}
 
-_DTYPES = (torch.float32, torch.bfloat16)
+# (tile type, operand type) -> (route, the C entry points' route code)
+_ROUTES = {(torch.float32, torch.float32): ("f32", 0),
+           (torch.bfloat16, torch.bfloat16): ("bf16", 1),
+           (torch.bfloat16, torch.float32): ("bf16_f32", 2)}
+
+
+def route_of(tiles: torch.Tensor, x: torch.Tensor, name: str = "spmm_ell",
+             operand: str = "x") -> Tuple[str, int]:
+    """The route of a tile type and an operand type: all float32, all
+    bfloat16, or bfloat16 tiles with a float32 operand; raises on any
+    other pair."""
+    try:
+        return _ROUTES[(tiles.dtype, x.dtype)]
+    except KeyError:
+        raise ValueError(
+            f"{name}: tiles and {operand} must be all float32, all bfloat16, "
+            f"or bfloat16 tiles with a float32 {operand}; got {tiles.dtype} "
+            f"and {x.dtype}") from None
 
 
 def spmm_ell_plain(tiles: torch.Tensor, colidx: torch.Tensor,
@@ -108,8 +130,8 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
 def spmm_ell(tiles: torch.Tensor, colidx: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` for the block-ELL ``A = (tiles, colidx)``; ``x`` has
-    ``n_cb * bn`` rows. float32, or bfloat16 tiles and x with float32
-    accumulation."""
+    ``n_cb * bn`` rows. float32 accumulation, output in x's type; the tiles
+    and x all float32, all bfloat16, or bfloat16 tiles with a float32 x."""
     if x.device.type == "cpu":
         return spmm_ell_plain(tiles, colidx, x)
     dev = x.device
@@ -123,10 +145,8 @@ def spmm_ell(tiles: torch.Tensor, colidx: torch.Tensor,
     if bm <= 0 or bn <= 0 or n_x % bn != 0:
         raise ValueError(f"spmm_ell: x has {n_x} rows, not a multiple of "
                          f"bn={bn} (bm={bm})")
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"spmm_ell: x must be float32 or bfloat16, got "
-                         f"{x.dtype}")
-    _check(tiles, "tiles", x.dtype, (n_rb, n_slots, bm, bn), dev)
+    route, code = route_of(tiles, x)
+    _check(tiles, "tiles", tiles.dtype, (n_rb, n_slots, bm, bn), dev)
     _check(colidx, "colidx", torch.int32, (n_rb, n_slots), dev)
     _check(x, "x", x.dtype, (n_x, d), dev)
     out = torch.empty((n_rb * bm, d), dtype=x.dtype, device=dev)
@@ -139,11 +159,12 @@ def spmm_ell(tiles: torch.Tensor, colidx: torch.Tensor,
     lib = _build.load()
     rc = lib.repro_spmm_ell(
         tiles.data_ptr(), colidx.data_ptr(), x.data_ptr(), out.data_ptr(),
-        n_rb, n_slots, bm, bn, n_x // bn, d, int(x.dtype == torch.bfloat16),
+        n_rb, n_slots, bm, bn, n_x // bn, d, code,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "spmm_ell")
     global LAUNCHES
     LAUNCHES += 1
+    ROUTE_LAUNCHES[route] += 1
     return out
 
 
@@ -172,8 +193,9 @@ def spmm_ell_dx(tiles: torch.Tensor, colidx: torch.Tensor, g: torch.Tensor,
     """The SpMM's input gradient ``dX = A^T @ g`` (``n_rows_x = n_cb * bn``
     rows): the deterministic CUDA kernel (``csrc/spmm_ell_dx.cu``, no
     float atomics, all-zero 32 x 32 chunks skipped) for CUDA tensors, its
-    plain version for CPU tensors. float32, or bfloat16 tiles and g, with
-    float32 accumulation."""
+    plain version for CPU tensors. float32 accumulation, dX in g's type;
+    the forward's routes: all float32, all bfloat16, or bfloat16 tiles
+    with a float32 g."""
     if g.device.type == "cpu":
         return spmm_ell_dx_plain(tiles, colidx, g, n_rows_x)
     dev = g.device
@@ -191,10 +213,8 @@ def spmm_ell_dx(tiles: torch.Tensor, colidx: torch.Tensor, g: torch.Tensor,
     if chunks > 1024:
         raise ValueError(f"spmm_ell_dx: ({bm}, {bn}) tiles hold {chunks} "
                          "32 x 32 chunks, more than 1024")
-    if g.dtype not in _DTYPES:
-        raise ValueError(f"spmm_ell_dx: g must be float32 or bfloat16, got "
-                         f"{g.dtype}")
-    _check(tiles, "tiles", g.dtype, (n_rb, n_slots, bm, bn), dev)
+    route, code = route_of(tiles, g, "spmm_ell_dx", "g")
+    _check(tiles, "tiles", tiles.dtype, (n_rb, n_slots, bm, bn), dev)
     _check(colidx, "colidx", torch.int32, (n_rb, n_slots), dev)
     _check(g, "g", g.dtype, (n_rb * bm, d), dev)
     out = torch.empty((n_rows_x, d), dtype=g.dtype, device=dev)
@@ -208,12 +228,12 @@ def spmm_ell_dx(tiles: torch.Tensor, colidx: torch.Tensor, g: torch.Tensor,
     lib = _build.load()
     rc = lib.repro_spmm_ell_dx(
         tiles.data_ptr(), colidx.data_ptr(), g.data_ptr(), out.data_ptr(),
-        work.data_ptr(), n_rb, n_slots, bm, bn, n_cb, d,
-        int(g.dtype == torch.bfloat16),
+        work.data_ptr(), n_rb, n_slots, bm, bn, n_cb, d, code,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "spmm_ell_dx")
     global DX_LAUNCHES
     DX_LAUNCHES += 1
+    DX_ROUTE_LAUNCHES[route] += 1
     return out
 
 
@@ -249,12 +269,16 @@ def dense_to_block_ell_ranked(adj: torch.Tensor, bm: int, bn: int,
     """Dense -> block-ELL with the direct extraction's slot layout
     (``core.sampling.extract_block_ell``): slot s of a row-block holds its
     s-th smallest non-empty column-block; blocks past ``n_slots`` are
-    dropped. Fixed-shape work with no read on the host (a CUDA graph can
+    dropped. The tiles keep the block's type (a bf16 block gives bf16
+    tiles); a tile's liveness sums ``abs`` in float32, as the reference
+    does. Fixed-shape work with no read on the host (a CUDA graph can
     capture it): slot s's column-block is where the running count of
     non-empty blocks first reaches s + 1."""
     blocks = _blocks(adj, bm, bn)
     n_rb, n_cb = blocks.shape[:2]
-    cum = torch.cumsum(blocks.float().abs().sum(dim=(2, 3)) > 0, dim=1)
+    # the liveness sum in float32 without a float32 copy of the block
+    cum = torch.cumsum(blocks.abs().sum(dim=(2, 3), dtype=torch.float32)
+                       > 0, dim=1)
     s = torch.arange(n_slots, device=adj.device)
     cb = torch.searchsorted(cum, (s + 1).repeat(n_rb, 1))
     valid = s < cum[:, -1:]

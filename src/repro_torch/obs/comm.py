@@ -57,6 +57,13 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
+# the kinds only the port's serving over a mesh sends, which XLA has no
+# instruction for (the reference's controller places the plan on every
+# device and reads the logits back): rank 0's plan broadcast and its
+# gather of the logits (``serve/distributed.py``); a report lists them
+# only where they occur, so every other report keys as the reference's
+SERVE_KINDS = ("broadcast", "gather")
+KINDS = COLLECTIVES + SERVE_KINDS
 
 # the namespaces of the dispatcher's collective ops, and the kind of each
 # op the port's collectives dispatch (a hop is a send and a receive)
@@ -66,7 +73,8 @@ C10D_KINDS = {"allreduce_": "all-reduce", "allgather_": "all-gather",
               "reduce_scatter_": "reduce-scatter",
               "_reduce_scatter_base_": "reduce-scatter",
               "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
-              "send": "collective-permute", "recv_": "collective-permute"}
+              "send": "collective-permute", "recv_": "collective-permute",
+              "broadcast_": "broadcast", "gather_": "gather"}
 
 _DTYPE_NAMES = {torch.float64: "f64", torch.float32: "f32",
                 torch.float16: "f16", torch.bfloat16: "bf16",
@@ -110,7 +118,7 @@ class CommReport:
 
     def kinds(self) -> Tuple[str, ...]:
         """Collective kinds that appear, in canonical order."""
-        return tuple(k for k in COLLECTIVES if self.counts.get(k, 0) > 0)
+        return tuple(k for k in KINDS if self.counts.get(k, 0) > 0)
 
     def for_scope(self, *substrings: str) -> Tuple[CommOp, ...]:
         """Collectives whose scope path contains ALL the substrings."""
@@ -135,8 +143,8 @@ class CommReport:
         (an op ``C10D_KINDS`` does not know keeps its own name, after
         them)."""
         seen = {C10D_KINDS.get(op, op) for op in self.dispatched}
-        return tuple(k for k in COLLECTIVES if k in seen) + tuple(
-            sorted(seen - set(COLLECTIVES)))
+        return tuple(k for k in KINDS if k in seen) + tuple(
+            sorted(seen - set(KINDS)))
 
     def assert_no_collectives(self, what: str = "program") -> "CommReport":
         """The paper's central invariant, as one assert: nothing reported,
@@ -149,7 +157,7 @@ class CommReport:
 
     def __str__(self) -> str:
         rows = [f"  {k:20s} count={self.counts[k]:4d} "
-                f"bytes={self.bytes[k]}" for k in COLLECTIVES
+                f"bytes={self.bytes[k]}" for k in KINDS
                 if self.counts.get(k, 0)]
         return ("CommReport(no collectives)" if not rows
                 else "CommReport(\n" + "\n".join(rows) + "\n)")
@@ -230,8 +238,8 @@ class Ledger:
         counts = dict.fromkeys(COLLECTIVES, 0)
         byts = dict.fromkeys(COLLECTIVES, 0)
         for op in self.ops:
-            counts[op.kind] += 1
-            byts[op.kind] += op.bytes
+            counts[op.kind] = counts.get(op.kind, 0) + 1
+            byts[op.kind] = byts.get(op.kind, 0) + op.bytes
         return CommReport(counts=counts, bytes=byts, sites=tuple(self.ops),
                           dispatched=dict(self.dispatched))
 

@@ -1,6 +1,6 @@
-"""Online inference on one GPU: the model-agnostic serving core over the
-GCN classification backend and the LLM backend (counterpart of
-``repro/serve``)::
+"""Online inference: the model-agnostic serving core over the GCN
+classification backend (one GPU, or the 4D mesh) and the LLM backend, and
+the threaded driver in front of either (counterpart of ``repro/serve``)::
 
     engine = InferenceEngine(params, cfg, dataset.adj_norm,
                              dataset.features, ServeOptions())
@@ -8,6 +8,9 @@ GCN classification backend and the LLM backend (counterpart of
 
     llm = LLMEngine(model, cfg, LLMServeOptions(slots=8))
     tokens = llm.generate([[1, 17, 42]])
+
+    with ServingDriver(engine) as drv:        # from any thread
+        logits = drv.submit([17, 42]).result(timeout=5)
 """
 from repro_torch.serve.assembler import (AssemblySpec, BatchPlan,
                                          ShardedBatchPlan, make_builder,
@@ -18,6 +21,11 @@ from repro_torch.serve.batcher import (MicroBatch, MicroBatcher,
                                        RequestQueue, WorkItem)
 from repro_torch.serve.cache import EmbeddingCache
 from repro_torch.serve.core import ServingCore
+from repro_torch.serve.distributed import (DistributedServePlan,
+                                           build_serve_plan, make_serve_mesh,
+                                           partition_for_serving,
+                                           serve_worker)
+from repro_torch.serve.driver import ServingDriver
 from repro_torch.serve.engine import GNNBackend, InferenceEngine, ServeOptions
 from repro_torch.serve.llm_engine import LLMBackend, LLMEngine, LLMServeOptions
 from repro_torch.serve.protocol import (Completion, EngineBackend,
@@ -30,5 +38,7 @@ __all__ = [
     "plan_batch_ranges",
     "EmbeddingCache", "Overloaded", "ServingCore", "Completion",
     "EngineBackend", "GNNBackend", "InferenceEngine", "ServeOptions",
-    "LLMBackend", "LLMEngine", "LLMServeOptions",
+    "LLMBackend", "LLMEngine", "LLMServeOptions", "ServingDriver",
+    "DistributedServePlan", "build_serve_plan", "make_serve_mesh",
+    "partition_for_serving", "serve_worker",
 ]

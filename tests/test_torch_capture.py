@@ -229,7 +229,8 @@ def _fresh(small):
 
 
 CASES = [dict(), dict(prefetch=True),
-         dict(prefetch=True, compress="int8", sample_mode="epoch")]
+         dict(prefetch=True, compress="int8", sample_mode="epoch"),
+         dict(prefetch=True, block_dtype="bf16")]
 
 
 def _eager(small, plan, prefetch, steps=6):
@@ -241,7 +242,8 @@ def _eager(small, plan, prefetch, steps=6):
 
 
 @pytest.mark.parametrize("case", CASES, ids=["plain", "prefetch",
-                                             "prefetch-int8-epoch"])
+                                             "prefetch-int8-epoch",
+                                             "prefetch-bf16-blocks"])
 def test_run_in_chunks_equals_the_eager_steps(small, case):
     """6 steps of ``Trainer.run`` in chunks of 4 (a remainder chunk) and 6
     ``Trainer.step`` calls: losses and every state leaf bit for bit, the

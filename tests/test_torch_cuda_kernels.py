@@ -445,7 +445,7 @@ def test_cuda_extraction_entry_point_rejects_bad_launch_shape(cuda):
     for grid, rows_per_cta in ((1, 17), (1, 0), (1, 4), (3, 2)):
         rc = lib.repro_extract_dense_fused(
             rp.data_ptr(), ci.data_ptr(), val.data_ptr(), ids.data_ptr(),
-            ids.data_ptr(), None, 1.0, 1, 8, 8, 1, grid, rows_per_cta, 1,
+            ids.data_ptr(), None, 1.0, 1, 8, 8, 1, grid, rows_per_cta, 1, 0,
             out.data_ptr(), stream)
         assert rc == 1, (grid, rows_per_cta)
     torch.cuda.synchronize()
@@ -719,6 +719,266 @@ def test_cuda_spmm_ell_dx_rejects_bad_inputs(cuda):
         tspmm.spmm_ell_dx(tiles, colidx, g.half(), 16)
 
 
+# ---------------------------------------------------------------------------
+# The bf16 routes of block_dtype="bf16": the extraction's bf16 block, and
+# the SpMM's and dX's bf16 tiles with a float32 operand
+# ---------------------------------------------------------------------------
+
+def _bf16_ulp(x: float) -> float:
+    """One bf16 unit in the last place at magnitude x (8 bits of
+    precision)."""
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("diag", [True, False])
+@pytest.mark.parametrize("per_col", [True, False])
+def test_cuda_extraction_bf16_bitmatches_plain(graph, cuda, diag, per_col):
+    """The bf16 route: bit for bit its plain version (float32 values
+    rounded once), which is the float32 block's cast, at every max_deg;
+    counted on its own route."""
+    rows, cols, scale = _extraction_case(graph, diag, per_col)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (graph.indptr, graph.indices, graph.data, rows, cols)]
+    sc = (torch.from_numpy(scale).to(cuda) if isinstance(scale, np.ndarray)
+          else scale)
+    for max_deg in (graph.max_row_nnz(), 3, 0):
+        n0 = teg.ROUTE_LAUNCHES["bf16"]
+        got = teg.extract_dense_fused(*args, col_scale=sc, diag=diag,
+                                      max_deg=max_deg, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert teg.ROUTE_LAUNCHES["bf16"] == n0 + 1
+        assert got.dtype == torch.bfloat16
+        ref = teg.extract_dense_plain(*args, col_scale=sc, diag=diag,
+                                      max_deg=max_deg, dtype=torch.bfloat16)
+        assert torch.equal(got, ref)
+        f32 = teg.extract_dense_fused(*args, col_scale=sc, diag=diag,
+                                      max_deg=max_deg)
+        assert torch.equal(got, f32.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b_r,b_c,diag,odd_cols", [
+    (8192, 8192, True, False), (256, 40000, False, False),
+    (300, 1027, False, True)])
+def test_cuda_extraction_bf16_large_and_ragged_bitmatch_plain(
+        big_graph, cuda, b_r, b_c, diag, odd_cols):
+    """The training shape, columns searched in global memory, and b_c =
+    1027 (bf16 rows start off 16-byte alignment: a scalar head and tail
+    around the 16-byte zero stores), bit for bit."""
+    rng = np.random.default_rng(b_c)
+    cols_np = np.sort(rng.choice(big_graph.n_rows, size=b_c,
+                                 replace=False)).astype(np.int32)
+    rows_np = cols_np if diag else np.sort(rng.choice(
+        big_graph.n_rows, size=b_r, replace=False)).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (big_graph.indptr, big_graph.indices, big_graph.data)]
+    rows = torch.from_numpy(rows_np).to(cuda)
+    cols = torch.from_numpy(cols_np).to(cuda)
+    if odd_cols:
+        flat = torch.zeros(b_c + 1, dtype=torch.int32, device=cuda)
+        flat[1:] = cols
+        cols = flat[1:]
+    kw = dict(col_scale=3.7, diag=diag, max_deg=big_graph.max_row_nnz(),
+              dtype=torch.bfloat16)
+    got = teg.extract_dense_fused(*args, rows, cols, **kw)
+    torch.cuda.synchronize()
+    ref = teg.extract_dense_plain(*args, rows, cols, **kw)
+    assert torch.count_nonzero(ref) > 0
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("diag", [True, False])
+def test_cuda_extraction_bf16_duplicate_edges_within_an_ulp(graph, cuda,
+                                                            diag):
+    """Departure 2 on the bf16 route: where a row repeats an edge every
+    bf16 atomic add rounds, so a repeated cell is within one bf16 ulp of
+    the largest |output| of the plain version (sum in float32, round
+    once)."""
+    indptr, indices, data = graph.indptr, graph.indices, graph.data
+    rp, ci, val = [0], [], []
+    for r in range(graph.n_rows):
+        lo, hi = indptr[r], indptr[r + 1]
+        ci.extend(indices[lo:hi].tolist() + indices[lo:min(hi, lo + 2)]
+                  .tolist())
+        val.extend(data[lo:hi].tolist() + (data[lo:min(hi, lo + 2)] * 0.37)
+                   .tolist())
+        rp.append(len(ci))
+    csr = [torch.tensor(a, dtype=t, device=cuda)
+           for a, t in ((rp, torch.int32), (ci, torch.int32),
+                        (val, torch.float32))]
+    rows, cols, scale = _extraction_case(graph, diag, True)
+    args = [*csr, torch.from_numpy(rows).to(cuda),
+            torch.from_numpy(cols).to(cuda)]
+    kw = dict(col_scale=torch.from_numpy(scale).to(cuda), diag=diag,
+              max_deg=int(np.diff(rp).max()), dtype=torch.bfloat16)
+    got = teg.extract_dense_fused(*args, **kw)
+    torch.cuda.synchronize()
+    ref = teg.extract_dense_plain(*args, **kw).float()
+    err = (got.float() - ref).abs().max().item()
+    assert err <= _bf16_ulp(ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm,bn,n_rb,n_cb,d", [
+    (8, 8, 4, 4, 16), (16, 32, 2, 4, 64), (32, 16, 4, 2, 8),
+    (8, 128, 2, 2, 128), (128, 128, 4, 8, 256), (8, 8, 4, 4, 37),
+    (8, 12, 3, 3, 20)])
+@pytest.mark.parametrize("density", [0.2, 0.7])
+def test_cuda_spmm_ell_bf16_tiles_f32_x_matches_plain(cuda, bm, bn, n_rb,
+                                                      n_cb, d, density):
+    """bf16 tiles with a float32 x: a float32 output within 1e-4 of the
+    largest |output| of the plain version (the tile converted to float32,
+    float32 FMAs); bn = 12 takes the plain-load path (12 bf16 are not whole
+    16-byte pieces). Counted on its own route."""
+    tiles, colidx, x = (t.to(cuda) for t in _ell_case(bm, bn, n_rb, n_cb, d,
+                                                      density))
+    tiles = tiles.to(torch.bfloat16)
+    n0 = tspmm.ROUTE_LAUNCHES["bf16_f32"]
+    got = tspmm.spmm_ell(tiles, colidx, x)
+    torch.cuda.synchronize()
+    assert tspmm.ROUTE_LAUNCHES["bf16_f32"] == n0 + 1
+    assert got.dtype == torch.float32
+    ref = tspmm.spmm_ell_plain(tiles, colidx, x)
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-4 * max(1.0, ref.abs().max().item())
+    # the f32 route on the same values gives the same products
+    same = tspmm.spmm_ell(tiles.float(), colidx, x)
+    assert (same - got).abs().max().item() <= 1e-4 * max(
+        1.0, ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm,bn,d", [(128, 128, 256), (16, 32, 37),
+                                     (8, 8, 16)])
+def test_cuda_spmm_ell_bf16_tiles_skip_padding_in_any_slot(cuda, bm, bn, d):
+    """The padding layout on the bf16-tile / f32 route: 1e-4 of the
+    largest output, the all-padding row-block exactly zero."""
+    tiles, colidx, x = _padded_ell_case(bm, bn, d, torch.float32, cuda)
+    tiles = tiles.to(torch.bfloat16)
+    got = tspmm.spmm_ell(tiles, colidx, x)
+    torch.cuda.synchronize()
+    ref = tspmm.spmm_ell_plain(tiles, colidx, x)
+    assert got.dtype == torch.float32
+    assert (got - ref).abs().max().item() <= 1e-4 * max(
+        1.0, ref.abs().max().item())
+    assert torch.count_nonzero(got[2 * bm:]) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_spmm_ell_bf16_tiles_padding_ignores_non_finite_x(cuda):
+    """Departure 1 on the bf16-tile route: a skipped padding tile reads no
+    x."""
+    tiles, colidx, x = _padded_ell_case(32, 32, 64, torch.float32, cuda)
+    tiles = tiles.to(torch.bfloat16)
+    x[:32] = float("inf")
+    got = tspmm.spmm_ell(tiles, colidx, x)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got[:32]).all()
+    assert not torch.isfinite(got[32:64]).all()
+    assert torch.count_nonzero(got[64:]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm,bn,n_rb,n_cb,d", [
+    (8, 8, 4, 4, 16), (16, 32, 2, 4, 64), (32, 16, 4, 2, 8),
+    (128, 128, 4, 8, 256), (8, 8, 4, 4, 37), (128, 128, 3, 5, 300),
+    (8, 12, 3, 3, 20)])
+@pytest.mark.parametrize("density", [0.2, 0.7])
+def test_cuda_spmm_ell_dx_bf16_tiles_f32_g_matches_plain(cuda, bm, bn, n_rb,
+                                                         n_cb, d, density):
+    """dX = A^T g with bf16 tiles and a float32 g: a float32 dX within 1e-5
+    of the largest |dX| of the plain version, bit-identical over repeated
+    calls; counted on its own route."""
+    tiles, colidx, _ = (t.to(cuda) for t in _ell_case(bm, bn, n_rb, n_cb, d,
+                                                      density))
+    tiles = tiles.to(torch.bfloat16)
+    g = _dx_grad(n_rb * bm, d, torch.float32, cuda)
+    n0 = tspmm.DX_ROUTE_LAUNCHES["bf16_f32"]
+    got = tspmm.spmm_ell_dx(tiles, colidx, g, n_cb * bn)
+    torch.cuda.synchronize()
+    assert tspmm.DX_ROUTE_LAUNCHES["bf16_f32"] == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == (n_cb * bn, d)
+    assert _dx_err(got, tspmm.spmm_ell_dx_plain(tiles, colidx, g,
+                                                n_cb * bn)) <= 1e-5
+    for _ in range(3):
+        assert torch.equal(tspmm.spmm_ell_dx(tiles, colidx, g, n_cb * bn),
+                           got)
+
+
+@pytest.mark.cuda
+def test_cuda_spmm_ell_dx_bf16_tiles_padding(cuda):
+    """The padding layout on the bf16-tile / f32 route (1e-5; the column
+    block no tile points at exactly zero), and a row-block of padding only
+    reads no g: inf there leaves dX finite."""
+    tiles, colidx, _ = _padded_ell_case(32, 32, 64, torch.float32, cuda)
+    tiles = tiles.to(torch.bfloat16)
+    g = _dx_grad(3 * 32, 64, torch.float32, cuda)
+    got = tspmm.spmm_ell_dx(tiles, colidx, g, 5 * 32)
+    torch.cuda.synchronize()
+    assert _dx_err(got, tspmm.spmm_ell_dx_plain(tiles, colidx, g,
+                                                5 * 32)) <= 1e-5
+    assert torch.count_nonzero(got[4 * 32:]) == 0
+    g[64:] = float("inf")
+    got = tspmm.spmm_ell_dx(tiles, colidx, g, 4 * 32)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.cuda
+def test_cuda_spmm_ell_bf16_tiles_autograd_runs_the_dx_kernel(cuda):
+    """``ops.spmm_ell`` with bf16 tiles and a float32 x that requires grad:
+    the forward and dX kernels on the bf16-tile route, dX float32 within
+    1e-5 of autograd through the plain version; the tiles get no
+    gradient."""
+    tiles, colidx, x = (t.to(cuda) for t in _ell_case(32, 32, 3, 4, 24, 0.5,
+                                                      seed=2))
+    tiles = tiles.to(torch.bfloat16)
+    w = torch.randn((96, 24), device=cuda)
+    grads = []
+    n0 = tspmm.DX_ROUTE_LAUNCHES["bf16_f32"]
+    for fn in (tops.spmm_ell, tspmm.spmm_ell_plain):
+        xx = x.clone().requires_grad_(True)
+        (fn(tiles, colidx, xx) * w).sum().backward()
+        grads.append(xx.grad)
+    assert tspmm.DX_ROUTE_LAUNCHES["bf16_f32"] == n0 + 1
+    assert grads[0].dtype == torch.float32
+    assert _dx_err(grads[0], grads[1]) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_wrappers_reject_other_pairs(cuda):
+    """The routes are exactly: all float32, all bfloat16, bf16 tiles with a
+    float32 operand; the extraction writes float32 or bfloat16."""
+    tiles, colidx, x = (t.to(cuda) for t in _ell_case(8, 8, 2, 2, 8, 0.7))
+    with pytest.raises(ValueError, match="bfloat16 tiles with a float32"):
+        tspmm.spmm_ell(tiles, colidx, x.bfloat16())
+    with pytest.raises(ValueError, match="bfloat16 tiles with a float32"):
+        tspmm.spmm_ell_dx(tiles, colidx, _dx_grad(16, 8, torch.bfloat16,
+                                                  cuda), 16)
+    i = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        teg.extract_dense_fused(i, i, torch.zeros(4, device=cuda), i, i,
+                                col_scale=1.0, diag=True, max_deg=2,
+                                dtype=torch.float16)
+    # the C entry points launch nothing for a route code they do not know
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    out = torch.full((16, 8), 7.0, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert lib.repro_spmm_ell(tiles.data_ptr(), colidx.data_ptr(),
+                              x.data_ptr(), out.data_ptr(), 2, tiles.shape[1],
+                              8, 8, 2, 8, 3, stream) == 1
+    work = torch.empty((1 << 12,), dtype=torch.uint8, device=cuda)
+    assert lib.repro_spmm_ell_dx(tiles.data_ptr(), colidx.data_ptr(),
+                                 x.data_ptr(), out.data_ptr(),
+                                 work.data_ptr(), 2, tiles.shape[1], 8, 8, 2,
+                                 8, 3, stream) == 1
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+
+
 def _card_trainer(plan, steps, ckpt_dir=None, prefetch=False, chunk=2):
     from repro_torch import optim as topt
     from repro_torch.train import Trainer, TrainLoopConfig
@@ -797,6 +1057,33 @@ def test_cuda_captured_steps_bit_identical_to_eager_steps(cuda, prefetch):
     st, log = tr.run(tr.init_state(fresh(), graph), graph)
     assert log.replays == 7 and st.step.device.type == "cuda"
     assert log.losses == want.cpu().tolist()
+    for a, b in zip(leaves(st), leaves(st_e)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefetch", [False, True])
+def test_cuda_captured_bf16_steps_bit_identical_to_eager_steps(cuda,
+                                                               prefetch):
+    """``block_dtype="bf16"``: 8 captured steps (the bf16 blocks and the
+    prefetched bf16 tiles graph buffers) and 8 eager steps from the same
+    init, bit for bit; the steps ran the bf16 routes of the extraction,
+    the SpMM and its dX, and the loss stays finite."""
+    from repro_torch.tree import leaves
+    plan, graph, fresh = _card_plan(cuda, block_dtype="bf16")
+    eager = _card_trainer(plan, 8, prefetch=prefetch)
+    st_e = eager.init_state(fresh(), graph)
+    n0 = (teg.ROUTE_LAUNCHES["bf16"], tspmm.ROUTE_LAUNCHES["bf16_f32"],
+          tspmm.DX_ROUTE_LAUNCHES["bf16_f32"])
+    want = torch.stack([eager.step(st_e, graph) for _ in range(8)])
+    assert (teg.ROUTE_LAUNCHES["bf16"] > n0[0]
+            and tspmm.ROUTE_LAUNCHES["bf16_f32"] > n0[1]
+            and tspmm.DX_ROUTE_LAUNCHES["bf16_f32"] > n0[2])
+    tr = _card_trainer(plan, 8, prefetch=prefetch, chunk=3)
+    st, log = tr.run(tr.init_state(fresh(), graph), graph)
+    assert log.replays == 7
+    assert log.losses == want.cpu().tolist()
+    assert np.all(np.isfinite(log.losses))
     for a, b in zip(leaves(st), leaves(st_e)):
         assert torch.equal(a, b)
 

@@ -261,9 +261,33 @@ def test_engine_without_device_needs_a_card(served, monkeypatch):
 @pytest.mark.parametrize("opts", [dict(mesh_shape=(2, 2, 2)),
                                   dict(mesh_dp=2),
                                   dict(force_distributed=True)])
-def test_mesh_serving_is_not_ported_yet(served, opts):
-    with pytest.raises(NotImplementedError, match="serve/distributed.py"):
-        _port_engine(served, **opts)
+def test_mesh_serving_is_not_ported_yet(served, opts, tmp_path):
+    """Serving over the mesh (the name is the one this test had while it
+    pinned the refusal): a mesh of more than one rank without a process
+    group raises and names ``torchrun``; ``force_distributed`` on one gloo
+    rank runs the whole mesh path (plan broadcast, rank-0 gather) and
+    equals the single-device engine."""
+    import torch.distributed as dist
+    if not opts.get("force_distributed"):
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node"):
+            _port_engine(served, slots=8, support=56, **opts)
+        return
+    single = _port_engine(served, slots=8, support=56, max_delay_ms=1.0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = _port_engine(served, slots=8, support=56, max_delay_ms=1.0,
+                            **opts)
+        assert mesh.backend._dist.mesh.groups is not None
+        rng = np.random.default_rng(0)
+        for _ in range(3):
+            req = rng.integers(0, N, size=5).tolist()
+            np.testing.assert_allclose(mesh.predict(req),
+                                       single.predict(req), rtol=1e-5,
+                                       atol=1e-6)
+        mesh.close()
+    finally:
+        dist.destroy_process_group()
 
 
 def test_port_imports_neither_jax_nor_repro():

@@ -217,18 +217,15 @@ def test_trainer_eval_cadence_and_target_stop(data):
 
 
 def test_unported_options_raise(data):
-    """What the port still refuses: bf16 blocks (``NotImplementedError``);
-    the partition and walk kinds on the fused extraction kernel, naming
-    the ROADMAP item by its title (they run with extract_impl="torch", as
-    the reference's run with "jax"); a mesh of more than one rank without
-    a process group (the mesh itself runs in
-    ``test_torch_fourd_dist.py``); an int4 wire the widths cannot pack.
-    reshard_impl="permute" is ported."""
+    """What the port still refuses: the partition and walk kinds on the
+    fused extraction kernel, naming the ROADMAP item by its title (they
+    run with extract_impl="torch", as the reference's run with "jax"); a
+    mesh of more than one rank without a process group (the mesh itself
+    runs in ``test_torch_fourd_dist.py``); an int4 wire the widths cannot
+    pack. reshard_impl="permute" and block_dtype="bf16" are ported."""
     ds, jcfg, _ = data
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 8"):
         tfourd.make_mesh_4d(1, 2, "cpu")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        TrainOptions(block_dtype="bf16")
     item = "the per-pair rescale inside the extraction kernel"
     with pytest.raises(ValueError, match=item):
         _tplan(ds, jcfg, sample_kind="walk", walk_len=3)

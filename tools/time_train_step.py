@@ -18,6 +18,13 @@ a tree that captures none; ms/step includes them, as the reference's
 includes its compile). Alternate the trees (parent, change, change,
 parent) on one machine: hosts differ between machines.
 
+``--block-dtype`` lists the block types to run in turn in one process on
+the one graph, e.g. ``f32,bf16,bf16,f32`` (``TrainOptions.block_dtype``;
+a tree older than the bf16 blocks takes ``f32`` only). After each entry's
+runs it times ``--chunks`` more chunks of 8 replays of its last captured
+step with CUDA events (the replays' host enqueue included) and prints
+their median ms a step with the entry's ms/step.
+
 With ``--profile`` it then profiles, in this order, one more chunk of 8
 replays of the last run's captured step (a step's device time, the device
 busy share and each kernel's time by name) and one chunk of 8 eager
@@ -44,6 +51,10 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--profile", action="store_true",
                     help="profile a chunk of replays, then an eager chunk")
+    ap.add_argument("--block-dtype", default="f32",
+                    help="block types to run in turn, comma-separated")
+    ap.add_argument("--chunks", type=int, default=5,
+                    help="chunks of 8 replays timed after each entry")
     args = ap.parse_args()
 
     import torch
@@ -70,31 +81,59 @@ def main() -> int:
     pg = build_partitioned_graph(get_dataset(
         "ogbn-products", scale_vertices=args.vertices), g=1)
     cfg = paper_model("ogbn-products")
-    opts = fourd.TrainOptions(spmm_impl="ell", fused_elementwise=True,
-                              extract_impl="cuda", dropout=0.3,
-                              ell_tile=128, ell_slots=32)
-    plan = fourd.build_plan(pg, cfg, fourd.make_mesh_4d(1, 1, dev),
-                            batch=8192, opts=opts)
-    graph = plan.shard_graph(pg)
+    mesh = fourd.make_mesh_4d(1, 1, dev)
+    graph = None
     params0 = M.init_params(cfg, torch.Generator().manual_seed(0),
                             device=dev)
-    print(f"set-up {time.monotonic() - t0:.1f} s", flush=True)
-    ms, capture_s = [], []
-    for _ in range(args.runs):
-        tr = Trainer(plan, AdamW(lr=linear_warmup_cosine(5e-3, 20, 48),
-                                 weight_decay=1e-4, grad_clip=1.0),
-                     TrainLoopConfig(total_steps=48, chunk_size=8),
-                     eval_fn=lambda p, g: 0.0)
-        params = tree_map(lambda t: t.detach().clone(), params0)
-        state, log = tr.run(tr.init_state(params), graph)
-        ms.append(log.ms_per_step)
-        capture_s.append(getattr(log, "capture_s", 0.0))
-    out = {"src": args.src, "ms_per_step": ms, "capture_s": capture_s,
-           "last_loss": log.losses[-1]}
-    if args.profile:
-        out.update(profile(torch, tr, state, graph))
-    print(json.dumps(out))
+    for block_dtype in args.block_dtype.split(","):
+        opts = fourd.TrainOptions(spmm_impl="ell", fused_elementwise=True,
+                                  extract_impl="cuda", dropout=0.3,
+                                  ell_tile=128, ell_slots=32,
+                                  block_dtype=block_dtype)
+        plan = fourd.build_plan(pg, cfg, mesh, batch=8192, opts=opts)
+        if graph is None:
+            graph = plan.shard_graph(pg)
+            print(f"set-up {time.monotonic() - t0:.1f} s", flush=True)
+        ms, capture_s = [], []
+        for _ in range(args.runs):
+            tr = Trainer(plan, AdamW(lr=linear_warmup_cosine(5e-3, 20, 48),
+                                     weight_decay=1e-4, grad_clip=1.0),
+                         TrainLoopConfig(total_steps=48, chunk_size=8),
+                         eval_fn=lambda p, g: 0.0)
+            params = tree_map(lambda t: t.detach().clone(), params0)
+            state, log = tr.run(tr.init_state(params), graph)
+            ms.append(log.ms_per_step)
+            capture_s.append(getattr(log, "capture_s", 0.0))
+        out = {"src": args.src, "block_dtype": block_dtype,
+               "ms_per_step": ms, "capture_s": capture_s,
+               "last_loss": log.losses[-1],
+               "replay_ms_per_step": replay_ms(torch, tr, state, graph,
+                                               args.chunks)}
+        if args.profile:
+            out.update(profile(torch, tr, state, graph))
+        print(json.dumps(out), flush=True)
+        del tr, state
     return 0
+
+
+def replay_ms(torch, tr, state, graph, chunks: int, steps: int = 8
+              ) -> float:
+    """The median over ``chunks`` chunks of ``steps`` replays of the
+    trainer's captured step of their CUDA-event time a step (the replays'
+    host enqueue and the losses' read included)."""
+    import statistics
+    times = []
+    for _ in range(chunks):
+        tr.total_steps += steps
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        tr.run(state, graph)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / steps)
+    return statistics.median(times)
 
 
 def profile(torch, tr, state, graph, steps: int = 8) -> dict:
