@@ -72,7 +72,16 @@ with a non-zero exit code:
    is timed at the serving shape and at (8, 2048, 32, 64), the f32 route
    at the serving shape, each beside its bound and
    ``scaled_dot_product_attention`` on the same tensors (``library_ms``,
-   a yardstick the port never calls);
+   a yardstick the port never calls); both routes are also timed at the
+   LLM training shapes (bf16 (4, 2048, 32/4, 64), f32 (2, 2048, ...));
+   The flash-attention backward (``flash_attention_bwd``: a dq kernel and
+   a dk/dv kernel, no float atomics) is held against its plain version:
+   dq, dk and dv within 5e-2 (bf16) and 1e-4 (f32) of each one's largest
+   |plain| at the training shapes, at hd 128 with internlm2-1.8b's 16/8
+   heads, under a window, non-causal with a T that is no multiple of 64,
+   a second call the same bits; each route timed at its training shape
+   beside its bound, its plain version and the backward of
+   ``scaled_dot_product_attention`` (autograd, without its forward);
 4. serve   — the serving path: the port's ``InferenceEngine`` at the
    paper's width (d_hidden 256, 3 layers, seeded random weights) serves a
    Zipf(1.3) stream of single-vertex requests with both of its kernels on;
@@ -192,7 +201,19 @@ with a non-zero exit code:
    within 5e-2 of the largest |logit|; then one profiled wave;
 6b. llm-driver — the same engine behind ``ServingDriver``: a wave of 8
    prompts from 4 threads, each prompt's tokens those of the engine's
-   direct run of the wave.
+   direct run of the wave;
+7. llm-train — LLM training at tinyllama-1.1b's published width (seeded
+   weights, ``TokenStream`` batches): (a) one bf16 gradient of
+   ``lm_loss(forward_train(...))`` on 4 x 2048 tokens through the flash
+   kernels and through the plain attention (loss within 1e-2 relative,
+   every gradient leaf within 5e-2 of its largest |plain|; the forward's
+   and the backward's bf16 routes once a layer each, counts zeroed just
+   before); (b) in float32, the reference's training dtype: the first
+   step of 2 x 2048 within 1e-5 (loss) and 1e-4 (each leaf) of the plain
+   route, then ``launch.train_transformer.train`` for 16 eager AdamW
+   steps (the loss falls; both f32 routes once a layer a step); ms/step,
+   tokens/s, peak memory and MFU ((6 N tokens + attention) over 67
+   TFLOP/s).
 
 The last two lines of standard output are one JSON object per kernel
 route (``{"kernels": [...]}``, each with its launches on every path and,
@@ -241,6 +262,8 @@ FLASH_ATOL = 1e-4        # f32 attention, sums in another order
 FLASH_BF16_OUT_RTOL = 1e-2
 FLASH_BF16_LSE_ATOL = 1e-4
 LLM_RTOL = 5e-2          # bf16 logits, kernel vs plain path, of max |logit|
+FLASH_BWD_RTOL = 1e-4    # f32 dq, dk, dv, of each one's largest |plain|
+LLM_LOSS_BF16_RTOL = 1e-2  # a bf16 full-width loss, kernels vs plain
 
 # the kernels of the port: the module that counts their launches, the
 # count's name in it, and where the count is split (by route, or by the
@@ -269,6 +292,10 @@ KERNEL_COUNTERS = {
                         ("ROUTE_LAUNCHES", "mma")),
     "flash_attention_f32": ("flash_attention", "LAUNCHES",
                             ("ROUTE_LAUNCHES", "f32")),
+    "flash_attention_bwd": ("flash_attention", "BWD_LAUNCHES",
+                            ("BWD_ROUTE_LAUNCHES", "mma")),
+    "flash_attention_bwd_f32": ("flash_attention", "BWD_LAUNCHES",
+                                ("BWD_ROUTE_LAUNCHES", "f32")),
     "hash_keys": ("counter_rng", "HASH_LAUNCHES", None),
     "keep_mask": ("counter_rng", "MASK_LAUNCHES", None)}
 DX_KERNELS = ("dx_scan_kernel", "dx_fill_kernel", "dx_product_kernel")
@@ -1370,8 +1397,9 @@ def check_flash_attention(torch, np, dev) -> list:
     1e-4; bf16 out per element within 1e-2 of 1 + |plain| and at most 5e-2,
     lse within 1e-4), and in bf16 at the LLM serving shape and at hd 128;
     then the
-    bf16 route timed at the serving shape and at a long one, the f32 route
-    at the serving shape, beside the bound and SDPA on the same tensors.
+    bf16 route timed at the serving shape, a long one and the LLM training
+    shape (4, 2048), the f32 route at the serving shape and the training
+    shape (2, 2048), beside the bound and SDPA on the same tensors.
     Returns one entry per route."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1426,7 +1454,11 @@ def check_flash_attention(torch, np, dev) -> list:
               BF16_TC_OPS_PER_S),
              ("long", 8, 2048, torch.bfloat16, "flash_attention_mma_kernel",
               BF16_TC_OPS_PER_S),
+             ("train", 4, 2048, torch.bfloat16, "flash_attention_mma_kernel",
+              BF16_TC_OPS_PER_S),
              ("serving", 1, 512, torch.float32, "flash_attention_kernel<",
+              F32_OPS_PER_S),
+             ("train", 2, 2048, torch.float32, "flash_attention_kernel<",
               F32_OPS_PER_S))
     shapes = {torch.float32: {}, torch.bfloat16: {}}
     for label, b, s, dtype, kernel, peak in timed:
@@ -1464,19 +1496,149 @@ def check_flash_attention(torch, np, dev) -> list:
                                 "bound_by": by, "library_ms": library_ms}
         del q, k, v, qh, kh, vh
 
-    def entry(name, dtype):
-        serving = shapes[dtype]["serving"]
+    # each route's figures at the shape of the path that launches it most:
+    # bf16 LLM serving, f32 LLM training
+    def entry(name, dtype, at):
+        main = shapes[dtype][at]
         return {"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                 "replaces": "src/repro/kernels/flash_attention.py:110",
                 "max_abs_err": err[dtype],
-                **{key: serving[key] for key in
+                **{key: main[key] for key in
                    ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")},
                 "shapes": shapes[dtype]}
 
-    return [entry("flash_attention", torch.bfloat16),
-            entry("flash_attention_f32", torch.float32)]
+    return [entry("flash_attention", torch.bfloat16, "serving"),
+            entry("flash_attention_f32", torch.float32, "train")]
+
+
+# the backward's shapes (b, sq, t, h, kv, hd, causal, window, dtype): the
+# LLM training shapes (bf16 4 x 2048 and f32 2 x 2048 of tinyllama-1.1b's
+# 32/4 heads), hd 128 at internlm2-1.8b's 16/8 heads in both types, a
+# window, a non-causal call and a T that is no multiple of the 64-key block
+FLASH_BWD_SHAPES = [
+    ("train", 4, 2048, 2048, 32, 4, 64, True, None, "bfloat16"),
+    ("train", 2, 2048, 2048, 32, 4, 64, True, None, "float32"),
+    ("internlm2 hd 128", 2, 1024, 1024, 16, 8, 128, True, None, "bfloat16"),
+    ("internlm2 hd 128", 1, 512, 512, 16, 8, 128, True, None, "float32"),
+    ("window", 2, 1000, 1000, 8, 2, 64, True, 256, "bfloat16"),
+    ("window", 1, 500, 500, 8, 2, 64, True, 128, "float32"),
+    ("non-causal, ragged T", 2, 300, 333, 8, 2, 32, False, None,
+     "bfloat16"),
+    ("non-causal, ragged T", 1, 200, 333, 8, 2, 16, False, None,
+     "float32"),
+]
+
+
+def check_flash_attention_bwd(torch, np, dev) -> list:
+    """The flash-attention backward kernels against their plain version on
+    the card: dq, dk and dv at FLASH_BWD_SHAPES, bf16 within 5e-2 and f32
+    within 1e-4 of each one's largest |plain|, and a second call's bits
+    equal to the first's; then each route timed at its training shape
+    beside its bound, its plain version and the backward of
+    ``scaled_dot_product_attention`` (``is_causal``, ``enable_gqa``: a
+    yardstick the port never calls), timed by autograd without its
+    forward. Returns one entry per route."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(5)
+
+    def make(b, sq, t, h, kv, hd, dtype, causal, window):
+        mk = lambda *s: torch.from_numpy(
+            rng.normal(size=s).astype(np.float32)).to(dev, dtype)
+        q, k, v = mk(b, sq, h, hd), mk(b, t, kv, hd), mk(b, t, kv, hd)
+        out, lse = fa.flash_attention(q, k, v, causal, window)
+        return q, k, v, out, lse, mk(b, sq, h, hd)
+
+    err = {"bfloat16": 0.0, "float32": 0.0}
+    shapes = {"bfloat16": {}, "float32": {}}
+    for label, b, sq, t, h, kv, hd, causal, window, dname in \
+            FLASH_BWD_SHAPES:
+        dtype = getattr(torch, dname)
+        args = make(b, sq, t, h, kv, hd, dtype, causal, window)
+        got = fa.flash_attention_bwd(*args, causal, window)
+        again = fa.flash_attention_bwd(*args, causal, window)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        ref = fa.flash_attention_bwd_plain(*args, causal, window)
+        limit = BF16_TOL if dtype == torch.bfloat16 else FLASH_BWD_RTOL
+        rel = [(a.float() - r.float()).abs().max().item()
+               / max(r.float().abs().max().item(), 1e-30)
+               for a, r in zip(got, ref)]
+        log(f"[kernels] flash_attention_bwd {label}: q ({b}, {sq}, {h}, "
+            f"{hd}), kv ({b}, {t}, {kv}, {hd}) {dname}, causal={causal}, "
+            f"window={window}: dq, dk, dv within {rel[0]:.3e}, "
+            f"{rel[1]:.3e}, {rel[2]:.3e} of their largest |plain| (limit "
+            f"{limit}); a second call the same bits: {same}")
+        if not (max(rel) <= limit and same
+                and all(a.dtype == dtype for a in got)):
+            raise AssertionError(f"flash_attention_bwd {label} {dname}: "
+                                 f"{rel}, same bits {same}")
+        err[dname] = max(err[dname], max(
+            (a.float() - r.float()).abs().max().item()
+            for a, r in zip(got, ref)))
+        if label != "train":
+            continue
+        del got, again, ref
+        torch.cuda.empty_cache()
+        kernels = (("flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel")
+                   if dtype == torch.bfloat16 else
+                   ("flash_bwd_dq_kernel<", "flash_bwd_dkdv_kernel<"))
+        peak = BF16_TC_OPS_PER_S if dtype == torch.bfloat16 \
+            else F32_OPS_PER_S
+        call = lambda: fa.flash_attention_bwd(*args, causal, window)
+        ms = time_ms(torch, call, reps=5, inner=3, warmup=2)
+        dev_ms = device_ms(torch, call, kernels, n=10)
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+            *args, causal, window), reps=3, inner=1, warmup=1)
+        q, k, v, _, _, dout = args
+        leaves = [x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v)]                      # (B, H, S, hd)
+        sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                  enable_gqa=True)
+        sdpa_dout = dout.transpose(1, 2)
+        library_ms = time_ms(torch, lambda: torch.autograd.grad(
+            sdpa_out, leaves, sdpa_dout, retain_graph=True), reps=5,
+            inner=3, warmup=2)
+        lib_err = max((a.transpose(1, 2).float() - c.float()).abs().max()
+                      .item() for a, c in zip(torch.autograd.grad(
+                          sdpa_out, leaves, sdpa_dout, retain_graph=True),
+                          call()))
+        n_ops, n_bytes = fa.flash_attention_bwd_cost(*args, causal, window)
+        bound = bound_ms(n_bytes, n_ops, peak)
+        by = "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / peak \
+            else "operations"
+        log(f"[kernels] flash_attention_bwd {label} shape, {kernels}: "
+            f"{dname}, {n_bytes} B, {n_ops} ops: kernels {ms:.5f} ms per "
+            f"call ({dev_ms:.5f} ms on the device, "
+            f"{n_ops / dev_ms / 1e9:.2f} TFLOP/s, {bound / dev_ms:.3f} of "
+            f"the bound), plain {plain_ms:.5f} ms, bound {bound:.6f} ms "
+            f"({by}); the backward of scaled_dot_product_attention "
+            f"{library_ms:.5f} ms (max |diff| {lib_err:.3e})")
+        shapes[dname][label] = {"q": [b, sq, h, hd], "kv": [b, t, kv, hd],
+                                "ms": ms, "device_ms": dev_ms,
+                                "plain_ms": plain_ms, "bound_ms": bound,
+                                "bound_by": by, "library_ms": library_ms}
+        del args, leaves, sdpa_out, sdpa_dout, q, k, v, dout
+        torch.cuda.empty_cache()
+
+    def entry(name, dname):
+        train = shapes[dname]["train"]
+        return {"name": name, "route": "cuda",
+                "source":
+                    "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                # no pallas_call: the reference's _fa_bwd, plain jnp
+                # (through layers._flash_bwd)
+                "replaces": "src/repro/kernels/ops.py:190",
+                "max_abs_err": err[dname],
+                **{key: train[key] for key in
+                   ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")},
+                "shapes": shapes[dname]}
+
+    return [entry("flash_attention_bwd", "bfloat16"),
+            entry("flash_attention_bwd_f32", "float32")]
 
 
 def phase_serve(torch, np, ds, cfg, n_requests: int) -> dict:
@@ -2784,19 +2946,20 @@ def _times(counts: dict, k: int) -> dict:
     return {name: n * k for name, n in counts.items()}
 
 
-def _first_step_check(torch, tag, loss_k, grads_k, loss_p, grads_p):
-    """The first step's loss within LOSS_RTOL and every gradient leaf
-    within GRAD_RTOL of its max |.| of the plain versions' step."""
+def _first_step_check(torch, tag, loss_k, grads_k, loss_p, grads_p,
+                      loss_rtol=LOSS_RTOL, grad_rtol=GRAD_RTOL):
+    """The first step's loss within ``loss_rtol`` and every gradient leaf
+    within ``grad_rtol`` of its max |.| of the plain versions' step."""
     from repro_torch.tree import leaves
     rel = abs(loss_k - loss_p) / abs(loss_p)
-    worst = max((a - b).abs().max().item() / max(b.abs().max().item(),
-                                                   1e-30)
+    worst = max((a.float() - b.float()).abs().max().item()
+                / max(b.float().abs().max().item(), 1e-30)
                 for a, b in zip(leaves(grads_k), leaves(grads_p)))
     log(f"[{tag}] first step, kernels vs plain versions: loss "
-        f"{loss_k:.7f} vs {loss_p:.7f} (rel {rel:.3e}, limit {LOSS_RTOL}), "
+        f"{loss_k:.7f} vs {loss_p:.7f} (rel {rel:.3e}, limit {loss_rtol}), "
         f"worst gradient leaf {worst:.3e} of its max |.| (limit "
-        f"{GRAD_RTOL})")
-    if not (rel <= LOSS_RTOL and worst <= GRAD_RTOL):
+        f"{grad_rtol})")
+    if not (rel <= loss_rtol and worst <= grad_rtol):
         raise AssertionError(f"{tag}: kernel and plain first steps differ")
 
 
@@ -3387,6 +3550,145 @@ def phase_llm_driver(torch, np, eng, prompts) -> dict:
     return launches
 
 
+LLM_TRAIN_BF16_BATCH = 4
+LLM_TRAIN_F32_BATCH = 2
+LLM_TRAIN_SEQ = 2048
+LLM_TRAIN_STEPS = 16
+
+
+def phase_llm_train(torch, np, cfg, dev) -> dict:
+    """Phase 7: LLM training at ``cfg``'s published width (tinyllama-1.1b).
+    (a) one bf16 ``loss_and_grads`` on a 4 x 2048 ``TokenStream`` batch
+    through the kernels and through the plain attention: the loss within
+    1e-2 relative, every gradient leaf within 5e-2 of its largest |plain|,
+    the flash forward's and backward's bf16 routes once a layer each;
+    (b) the same widths in float32 (the dtypes the reference trains in):
+    the first step of 2 x 2048 within 1e-5 (loss) and 1e-4 (each leaf) of
+    the plain route on the same weights and batch, then
+    ``train_transformer.train`` for 16 eager steps (the loss falls), the
+    f32 routes of both kernels once a layer a step; ms/step, tokens/s,
+    peak memory and MFU. Returns the launch counts of (a) and (b)."""
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train_transformer as TTR
+    from repro_torch.models import transformer as TT
+
+    def batch(b):
+        stream = TokenStream(vocab_size=cfg.vocab, batch=b,
+                             seq_len=LLM_TRAIN_SEQ, seed=0, coherence=0.8)
+        return tuple(torch.from_numpy(a).to(dev) for a in stream.batch_at(0))
+
+    def timed_grads(model, c, toks, tgts, impl):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = TTR.loss_and_grads(model, toks, tgts, c,
+                                         attn_impl=impl)
+        loss = loss.item()
+        return loss, grads, (time.perf_counter() - t0) * 1e3
+
+    # (a) bf16, one gradient
+    model = TT.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev, trainable=True)
+    toks, tgts = batch(LLM_TRAIN_BF16_BATCH)
+    TTR.loss_and_grads(model, toks[:, :128], tgts[:, :128], cfg)  # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    loss_k, grads_k, ms_k = timed_grads(model, cfg, toks, tgts, "cuda")
+    bf16_launches = read_launches()
+    loss_p, grads_p, ms_p = timed_grads(model, cfg, toks, tgts, "torch")
+    log(f"[llm-train] (a) {cfg.name} bf16, one gradient of {toks.shape[0]} "
+        f"x {toks.shape[1]} tokens: {ms_k:.1f} ms through the kernels, "
+        f"{ms_p:.1f} ms through the plain attention; launches "
+        f"{bf16_launches}")
+    expect = _per_step(flash_attention=cfg.n_layers,
+                       flash_attention_bwd=cfg.n_layers)
+    if bf16_launches != expect:
+        raise AssertionError(f"launches {bf16_launches} in a bf16 gradient, "
+                             f"expected {expect}")
+    _first_step_check(torch, "llm-train", loss_k, grads_k, loss_p, grads_p,
+                      LLM_LOSS_BF16_RTOL, BF16_TOL)
+    del model, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # (b) f32: the first step against plain, then 16 steps of train()
+    c32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    model = TT.init_params(c32, torch.Generator(device=dev).manual_seed(0),
+                           dev, trainable=True)
+    toks, tgts = batch(LLM_TRAIN_F32_BATCH)
+    loss_k, grads_k, _ = timed_grads(model, c32, toks, tgts, "cuda")
+    loss_p, grads_p, _ = timed_grads(model, c32, toks, tgts, "torch")
+    _first_step_check(torch, "llm-train", loss_k, grads_k, loss_p, grads_p)
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    zero_launches()
+    run = TTR.train(c32, steps=LLM_TRAIN_STEPS, batch=LLM_TRAIN_F32_BATCH,
+                    seq=LLM_TRAIN_SEQ, seed=0, device=dev, params=model,
+                    log=lambda m: log(f"[llm-train] {m}"), log_every=4)
+    launches = read_launches()
+    expect = _per_step(
+        flash_attention_f32=c32.n_layers * LLM_TRAIN_STEPS,
+        flash_attention_bwd_f32=c32.n_layers * LLM_TRAIN_STEPS)
+    if launches != expect:
+        raise AssertionError(f"launches {launches} in {LLM_TRAIN_STEPS} "
+                             f"f32 steps, expected {expect}")
+    if abs(run.losses[0] - loss_k) > LOSS_RTOL * abs(loss_k):
+        raise AssertionError(f"train()'s first loss {run.losses[0]} is not "
+                             f"the checked step's {loss_k}")
+    tokens = LLM_TRAIN_F32_BATCH * LLM_TRAIN_SEQ
+    q = torch.empty((LLM_TRAIN_F32_BATCH, LLM_TRAIN_SEQ, c32.n_heads,
+                     c32.hd), device="meta")
+    kv = torch.empty((LLM_TRAIN_F32_BATCH, LLM_TRAIN_SEQ, c32.n_kv_heads,
+                      c32.hd), device="meta")
+    attn_ops = c32.n_layers * (fa.flash_attention_cost(q, kv, kv)[0]
+                               + fa.flash_attention_bwd_cost(
+                                   q, kv, kv, q, None, q)[0])
+    step_ops = 6 * run.n_params * tokens + attn_ops
+    mfu = step_ops / (run.ms_per_step / 1e3) / F32_OPS_PER_S
+    log(f"[llm-train] (b) {c32.name} float32, {LLM_TRAIN_STEPS} steps of "
+        f"{LLM_TRAIN_F32_BATCH} x {LLM_TRAIN_SEQ} tokens: "
+        f"{run.ms_per_step:.3f} ms/step, {run.tokens_per_s:.1f} tokens/s, "
+        f"peak device memory {run.peak_bytes / 2**30:.3f} GiB, "
+        f"{run.n_params} parameters; 6 N tokens + attention = "
+        f"{step_ops / 1e12:.4f} TFLOP a step (attention "
+        f"{attn_ops / 1e12:.4f}), MFU {mfu:.4f} of 67 TFLOP/s f32; losses "
+        f"{[round(x, 5) for x in run.losses]}; launches {launches}")
+    _loss_falls("llm-train", run.losses, np)
+    profile_llm_step(torch, model, c32, *batch(LLM_TRAIN_F32_BATCH))
+    del model, run
+    torch.cuda.empty_cache()
+    return bf16_launches, launches
+
+
+def profile_llm_step(torch, model, cfg, toks, tgts) -> None:
+    """Where an f32 training step's time goes: one more step (gradient and
+    AdamW update, with fresh moments) under the profiler, after the
+    counted run: the device's busy share, its top kernels, the GEMMs and
+    the flash kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train_transformer as TTR
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import AdamW, linear_warmup_cosine
+    tree = TT.param_tree(model)
+    opt = AdamW(lr=linear_warmup_cosine(3e-3, 10, LLM_TRAIN_STEPS),
+                grad_clip=1.0)
+    state = opt.init(tree)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, grads = TTR.loss_and_grads(model, toks, tgts, cfg)
+        opt.update(tree, grads, state)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device_profile(prof, wall_us, f"one {cfg.name} float32 training step "
+                   f"of {toks.shape[0]} x {toks.shape[1]} tokens",
+                   watch=("gemm", "flash_attention_kernel<",
+                          "flash_bwd_dq_kernel<", "flash_bwd_dkdv_kernel<"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--vertices", type=int, default=2_449_029,
@@ -3446,6 +3748,7 @@ def main() -> int:
     kernels.append(check_spmm_ell_dx(torch, train_plan, train_graph, dev))
     torch.cuda.empty_cache()
     kernels.extend(check_flash_attention(torch, np, dev))
+    kernels.extend(check_flash_attention_bwd(torch, np, dev))
     by_path = {"serve": phase_serve(torch, np, ds, cfg, args.requests)}
     torch.cuda.empty_cache()
     by_path["serve_mesh"] = phase_serve_mesh(torch, np, ds, cfg,
@@ -3467,10 +3770,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["llm"], by_path["llm_driver"] = phase_llm(
         torch, np, get_config("tinyllama-1.1b"), dev)
+    torch.cuda.empty_cache()
+    by_path["llm_train_bf16"], by_path["llm_train"] = phase_llm_train(
+        torch, np, get_config("tinyllama-1.1b"), dev)
     # each kernel's launches on the path that runs it, each route of the
     # tail and of flash from its own count (the training path's tails take
-    # the vector route and draw from the counter, and the LLM path runs in
-    # bf16: the tail's scalar routes, flash's f32 route and keep_mask read
+    # the vector route and draw from the counter; LLM serving runs flash in
+    # bf16, LLM training both its routes, forward and backward, the f32
+    # routes over its 16 steps: the tail's scalar routes and keep_mask read
     # 0)
     main_path = {"extract_dense_fused": "train",
                  "extract_dense_fused_bf16": "train_bf16",
@@ -3482,7 +3789,10 @@ def main() -> int:
                  "fused_layer_bwd_scalar": "train", "spmm_ell": "train",
                  "spmm_ell_dx": "train", "hash_keys": "train",
                  "keep_mask": "train",
-                 "flash_attention": "llm", "flash_attention_f32": "llm"}
+                 "flash_attention": "llm",
+                 "flash_attention_f32": "llm_train",
+                 "flash_attention_bwd": "llm_train_bf16",
+                 "flash_attention_bwd_f32": "llm_train"}
     for k in kernels:
         k["launches_by_path"] = {p: counts[k["name"]]
                                  for p, counts in by_path.items()}

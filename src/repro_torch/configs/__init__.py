@@ -4,8 +4,8 @@ transformer registry (``--arch <id>``, counterpart of
 
 Each transformer module exposes ``config()`` (the published numbers, cited
 in its docstring) and ``smoke()`` (a reduced same-family variant for the
-CPU tests). The port has the dense models it serves so far; every other id
-of the reference's registry raises, naming the ROADMAP item that ports it.
+CPU tests). The port has the reference's dense models; every other id of
+the reference's registry raises, naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -44,7 +44,8 @@ INPUT_SHAPES: Dict[str, InputShape] = {
     "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
 }
 
-_PORTED = ("tinyllama-1.1b", "qwen2-0.5b")
+_PORTED = ("tinyllama-1.1b", "qwen2-0.5b", "internlm2-1.8b",
+           "command-r-plus-104b")
 
 # the part of ROADMAP queue 1, "The LLM stack beyond the dense serving
 # path", that ports each id
@@ -55,8 +56,6 @@ _TODO = {
     "mamba2-780m": "SSM and hybrid",
     "llama-3.2-vision-90b": "VLM and audio",
     "whisper-base": "VLM and audio",
-    "command-r-plus-104b": "the other dense configs",
-    "internlm2-1.8b": "the other dense configs",
 }
 
 

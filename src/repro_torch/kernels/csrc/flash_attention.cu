@@ -71,6 +71,7 @@
 #include <cstdint>
 
 #include "async_copy.cuh"
+#include "mma_fragments.cuh"
 
 namespace {
 
@@ -84,18 +85,6 @@ constexpr int kRowsPerWarp = kRows / kWarps;  // 16
 // ---------------------------------------------------------------------------
 
 constexpr int kKtStride = kKeys + 1;          // transposed K, padded row
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 template <int HD>
 constexpr size_t smem_floats() {
@@ -273,42 +262,11 @@ __global__ void __launch_bounds__(kWarps * 32) flash_attention_kernel(
 // bfloat16 route: tensor cores (mma.sync)
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
-
-// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, float32 accumulation
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> one bf16x2 register, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// shared-memory row of HD bf16, padded by 16 bytes: ldmatrix's 8 rows land
-// on 8 distinct 16-byte bank groups for every HD in {16, 32, 64, 128}
-template <int HD>
-__host__ __device__ constexpr int mma_stride() {
-  return HD + 8;
-}
 // the q tile, then K and V double-buffered
 template <int HD>
 __host__ __device__ constexpr size_t mma_smem_bytes() {
   return static_cast<size_t>(kRows + 4 * kKeys) * mma_stride<HD>() *
          sizeof(bf16);
-}
-
-// 2^x on the special-function unit (2^-inf = 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // at hd <= 64 registers are capped at 128 a thread: four CTAs on an SM
@@ -379,9 +337,7 @@ __global__ void __launch_bounds__(kWarps * 32, HD <= 64 ? 4 : 1)
   uint32_t qf[kDSteps][4];
 #pragma unroll
   for (int ds = 0; ds < kDSteps; ++ds)
-    ldmatrix_x4(qf[ds], smem_addr(qs + (warp * 16 + (lane & 7) +
-                                        ((lane >> 3) & 1) * 8) * S +
-                                  ds * 16 + (lane >> 4) * 8));
+    load_a(qf[ds], qs + warp * 16 * S + ds * 16, S, lane);
 
   // the warp's rows, this lane's two of them (g and g + 8), their state
   const int w_first = q0 + warp * 16, w_last = w_first + 15;
@@ -420,9 +376,7 @@ __global__ void __launch_bounds__(kWarps * 32, HD <= 64 ? 4 : 1)
 #pragma unroll
         for (int np = 0; np < kNTiles / 2; ++np) {
           uint32_t kf[4];
-          ldmatrix_x4(kf, smem_addr(kbuf + (np * 16 + (lane & 7) +
-                                            (lane >> 4) * 8) * S +
-                                    ds * 16 + ((lane >> 3) & 1) * 8));
+          load_b(kf, kbuf + np * 16 * S + ds * 16, S, lane);
           mma_bf16(s[2 * np], qf[ds], kf[0], kf[1]);
           mma_bf16(s[2 * np + 1], qf[ds], kf[2], kf[3]);
         }
@@ -481,16 +435,12 @@ __global__ void __launch_bounds__(kWarps * 32, HD <= 64 ? 4 : 1)
       // o += p . v: the score accumulators are the A fragments of p, in bf16
 #pragma unroll
       for (int kk = 0; kk < kNTiles / 2; ++kk) {
-        const uint32_t pf[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        uint32_t pf[4];
+        pack_a(pf, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
         for (int dp = 0; dp < kDSteps; ++dp) {
           uint32_t vf[4];
-          ldmatrix_x4_trans(vf, smem_addr(vbuf + (kk * 16 + (lane & 7) +
-                                                  ((lane >> 3) & 1) * 8) * S +
-                                          dp * 16 + (lane >> 4) * 8));
+          load_b_trans(vf, vbuf + kk * 16 * S + dp * 16, S, lane);
           mma_bf16(o[2 * dp], pf, vf[0], vf[1]);
           mma_bf16(o[2 * dp + 1], pf, vf[2], vf[3]);
         }

@@ -9,7 +9,10 @@ deterministic, so a training run repeats bit for bit on the card), though
 the reference's custom VJPs are plain jnp (``_spmm_bwd``, ``_fused_bwd``)
 with no Pallas kernel; the SpMM's dTiles, which no path asks for, is plain
 PyTorch. The tail takes its keep bits as a mask or as the counter key, in
-both directions. Attention is forward only so far.
+both directions. Attention saves (q, k, v, out, lse), as the reference's
+``_fa_fwd`` does, and its backward is a deterministic kernel of its own
+(``flash_attention.flash_attention_bwd``), where the reference's ``_fa_bwd``
+is plain jnp.
 """
 from __future__ import annotations
 
@@ -120,22 +123,40 @@ def fused_layer_tail(
 
 
 # ---------------------------------------------------------------------------
-# Flash attention (forward only)
+# Flash attention
 # ---------------------------------------------------------------------------
 
-_FLASH_BWD_TODO = ("the flash-attention backward (ops._fa_bwd and "
-                   "layers._flash_bwd of the JAX package) is not ported yet: "
-                   'ROADMAP queue 1, "The LLM stack beyond the dense serving '
-                   'path" (LLM training)')
+
+class _FlashAttention(torch.autograd.Function):
+    """out of grouped-query attention; saves (q, k, v, out, lse) and
+    recomputes the scores in the backward. ``plain`` takes the plain
+    forward and backward on any device (``attn_impl="torch"``), else the
+    kernels (their plain versions for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, plain):
+        fwd = _flash.flash_attention_plain if plain else _flash.flash_attention
+        out, lse = fwd(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (causal, window, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, plain = ctx.cfg
+        bwd = (_flash.flash_attention_bwd_plain if plain
+               else _flash.flash_attention_bwd)
+        dq, dk, dv = bwd(q, k, v, out, lse, dout.contiguous(), causal,
+                         window)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """Grouped-query attention with a running softmax; returns ``out``
-    (B, Sq, H, hd) in q's type: the CUDA kernel for CUDA tensors, its plain
-    version for CPU tensors. No autograd rule yet: an input that requires
-    grad raises."""
-    if any(t.requires_grad for t in (q, k, v)) and torch.is_grad_enabled():
-        raise NotImplementedError(_FLASH_BWD_TODO)
-    return _flash.flash_attention(q, k, v, causal, window)[0]
+                    causal: bool = True, window: Optional[int] = None, *,
+                    plain: bool = False) -> torch.Tensor:
+    """Grouped-query attention with a running softmax and its autograd
+    rule; returns ``out`` (B, Sq, H, hd) in q's type: the CUDA kernels
+    (forward and backward) for CUDA tensors, their plain versions for CPU
+    tensors or, with ``plain``, on any device."""
+    return _FlashAttention.apply(q, k, v, causal, window, plain)

@@ -10,9 +10,12 @@ Full-sequence attention (:func:`blockwise_attention`) goes through
 ``kernels.ops.flash_attention`` — the CUDA flash kernel for CUDA tensors —
 where the reference runs its jnp running-softmax scan; the two compute the
 same function (``tests/test_kernels_flash.py`` holds the reference's Pallas
-kernel and its scan equal). Every function that reaches it takes
-``attn_impl``: ``"cuda"`` (the default) goes through the kernel's wrapper,
-``"torch"`` calls the plain version directly on any device. Single-token
+kernel and its scan equal). Gradients flow through it: the forward saves
+(q, k, v, out, lse) and the backward recomputes the scores, as the
+reference's custom VJP does. Every function that reaches it takes
+``attn_impl``: ``"cuda"`` (the default) goes through the kernels' wrappers
+(forward and backward), ``"torch"`` through their plain versions on any
+device. Single-token
 decode attention (:func:`decode_attention`) is plain PyTorch in float32,
 as the reference's is plain jnp.
 """
@@ -24,7 +27,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import flash_attention_plain
 
 ATTN_IMPLS = ("cuda", "torch")
 
@@ -101,19 +103,22 @@ def blockwise_attention(
     q_offset: int = 0,
     attn_impl: str = "cuda",
 ) -> torch.Tensor:
-    """Running-softmax attention, (B, Sq, H, hd) in q's type. The kernel
-    stages its own blocks of 64 keys, so the reference's ``kv_block`` is
-    not an argument. ``q_offset`` other than 0 and the reference's
-    q-chunked path (``_Q_CHUNK``) are not ported: its serving path uses
-    neither."""
+    """Running-softmax attention, (B, Sq, H, hd) in q's type, with its
+    autograd rule. The kernels stage their own blocks of 64 keys, so the
+    reference's ``kv_block`` is not an argument. ``q_offset`` other than 0
+    and the reference's q-chunked path (``_Q_CHUNK``) are not ported: only
+    the reference's dry run sets them, and they go with its LLM
+    combinations (ROADMAP queue 1, "The LLM stack beyond the dense serving
+    path", models/sharding.py and data/pipeline.py)."""
     _check_impl(attn_impl)
     if q_offset != 0:
-        raise NotImplementedError("blockwise_attention: q_offset != 0 is not "
-                                  "ported (the reference's serving path "
-                                  "uses 0)")
-    if attn_impl == "torch":
-        return flash_attention_plain(q, k, v, causal, window)[0]
-    return ops.flash_attention(q, k, v, causal, window)
+        raise NotImplementedError(
+            "blockwise_attention: q_offset != 0 is not ported: only the "
+            "reference's dry run sets it (ROADMAP queue 1, \"The LLM stack "
+            "beyond the dense serving path\", models/sharding.py and "
+            "data/pipeline.py)")
+    return ops.flash_attention(q, k, v, causal, window,
+                               plain=attn_impl == "torch")
 
 
 def decode_attention(

@@ -1,5 +1,6 @@
 """Dense decoder-only transformer: init, weights from the reference, the
-full-sequence forward and the slot-indexed KV cache of LLM serving.
+full-sequence forward (for serving and, with gradients, for training), the
+LM loss and the slot-indexed KV cache of LLM serving.
 
 Counterpart of ``repro/models/transformer.py`` for the ``dense`` family
 (llama-style: pre-norm attention and MLP blocks, RoPE, GQA; qwen2's QKV
@@ -10,10 +11,11 @@ The model is an ``nn.Module`` (:class:`Transformer`) holding one
 :class:`DenseBlock` per layer, where the reference stacks every layer leaf
 with a leading L dim and scans over it; the public functions keep the
 reference's names and arguments (``params`` is the module). Weights carry
-no gradient: this slice serves, and LLM training is still to be ported.
+no gradient unless built with ``trainable=True``; :func:`param_tree` lays
+them out in the reference's pytree order for the optimizer.
 
-Full-sequence attention goes through the CUDA flash kernel
-(``attn_impl="cuda"``, the default) or its plain version
+Full-sequence attention goes through the CUDA flash kernels, forward and
+backward (``attn_impl="cuda"``, the default), or their plain versions
 (``attn_impl="torch"``); decode attention is plain PyTorch in float32 on
 both. Unlike the reference, which returns a new cache, the KV pool is
 updated in place: :func:`prefill_into_slot` and :func:`decode_step_slots`
@@ -53,8 +55,9 @@ def _check_family(cfg: ModelConfig) -> None:
             f'{LLM_ITEM} ({_FAMILY_TODO.get(cfg.family, cfg.family)})')
 
 
-def _pdict(leaves: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+def _pdict(leaves: Mapping[str, torch.Tensor],
+           trainable: bool) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=trainable)
                              for k, v in leaves.items()})
 
 
@@ -63,12 +66,12 @@ class DenseBlock(nn.Module):
     -> MLP -> residual."""
 
     def __init__(self, attn: Mapping, norm1: Mapping, norm2: Mapping,
-                 mlp: Mapping):
+                 mlp: Mapping, trainable: bool = False):
         super().__init__()
-        self.attn = _pdict(attn)
-        self.norm1 = _pdict(norm1)
-        self.norm2 = _pdict(norm2)
-        self.mlp = _pdict(mlp)
+        self.attn = _pdict(attn, trainable)
+        self.norm1 = _pdict(norm1, trainable)
+        self.norm2 = _pdict(norm2, trainable)
+        self.mlp = _pdict(mlp, trainable)
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, *, attn_impl: str = "cuda",
@@ -81,18 +84,19 @@ class DenseBlock(nn.Module):
 
 class Transformer(nn.Module):
     """The model: embedding, the blocks, the final norm and the LM head
-    (absent with tied embeddings)."""
+    (absent with tied embeddings). With ``trainable`` every weight requires
+    grad (the blocks are built with the same flag)."""
 
     def __init__(self, cfg: ModelConfig, embed: torch.Tensor,
                  final_norm: Mapping, lm_head: Optional[torch.Tensor],
-                 blocks: list):
+                 blocks: list, trainable: bool = False):
         super().__init__()
         _check_family(cfg)
         self.cfg = cfg
-        self.embed = nn.Parameter(embed, requires_grad=False)
-        self.final_norm = _pdict(final_norm)
+        self.embed = nn.Parameter(embed, requires_grad=trainable)
+        self.final_norm = _pdict(final_norm, trainable)
         self.lm_head = (None if lm_head is None
-                        else nn.Parameter(lm_head, requires_grad=False))
+                        else nn.Parameter(lm_head, requires_grad=trainable))
         self.blocks = nn.ModuleList(blocks)
 
     @property
@@ -112,11 +116,12 @@ def _norm_leaves(cfg: ModelConfig, d: int, dev) -> dict:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: Optional[Union[str, torch.device]] = None
-                ) -> Transformer:
+                device: Optional[Union[str, torch.device]] = None, *,
+                trainable: bool = False) -> Transformer:
     """Random weights as the reference draws them: N(0, 0.02) matrices
     (drawn in float32 on the generator's device, then cast), unit norm
-    scales and zero biases. ``device`` None means the card."""
+    scales and zero biases. ``device`` None means the card; ``trainable``
+    makes every weight require grad."""
     _check_family(cfg)
     dev = resolve_device(device)
     use_full_f32_matmul()
@@ -144,19 +149,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                {"w1": dense(d, f), "b1": zeros(f), "w2": dense(f, d),
                 "b2": zeros(d)})
         blocks.append(DenseBlock(attn, _norm_leaves(cfg, d, dev),
-                                 _norm_leaves(cfg, d, dev), mlp))
+                                 _norm_leaves(cfg, d, dev), mlp, trainable))
     return Transformer(cfg, embed, _norm_leaves(cfg, d, dev), lm_head,
-                       blocks)
+                       blocks, trainable)
 
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig,
-                      device: Optional[Union[str, torch.device]] = None
-                      ) -> Transformer:
+                      device: Optional[Union[str, torch.device]] = None, *,
+                      trainable: bool = False) -> Transformer:
     """The model holding the values of the reference's parameter pytree,
     given as numpy arrays: ``embed``, ``final_norm``, ``lm_head`` (unless
     tied) and ``blocks.{attn, norm1, norm2, mlp}`` stacked with a leading
     L dim. A bfloat16 leaf becomes float32 exactly, and the cast to
-    ``cfg.param_dtype`` gives back the same bits."""
+    ``cfg.param_dtype`` gives back the same bits. ``trainable`` as in
+    :func:`init_params`."""
     _check_family(cfg)
     dev = resolve_device(device)
     use_full_f32_matmul()
@@ -169,12 +175,12 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
     layer = lambda group, i: {k: t(np.asarray(v)[i])
                               for k, v in blk[group].items()}
     blocks = [DenseBlock(layer("attn", i), layer("norm1", i),
-                         layer("norm2", i), layer("mlp", i))
+                         layer("norm2", i), layer("mlp", i), trainable)
               for i in range(cfg.n_layers)]
     return Transformer(cfg, t(tree["embed"]),
                        {k: t(v) for k, v in tree["final_norm"].items()},
                        None if cfg.tie_embeddings else t(tree["lm_head"]),
-                       blocks)
+                       blocks, trainable)
 
 
 def params_to_numpy(params: Transformer) -> dict:
@@ -187,6 +193,22 @@ def params_to_numpy(params: Transformer) -> dict:
         tree["lm_head"] = n(params.lm_head)
     tree["blocks"] = {
         group: {k: np.stack([n(getattr(b, group)[k]) for b in params.blocks])
+                for k in getattr(params.blocks[0], group).keys()}
+        for group in ("attn", "norm1", "norm2", "mlp")}
+    return tree
+
+
+def param_tree(params: Transformer) -> dict:
+    """The model's weights (the tensors themselves) in the reference's
+    pytree layout, each stacked leaf as a list of its layers' tensors, so
+    that ``repro_torch.tree.leaves`` walks them in the reference's leaf
+    order (each reference leaf giving its L layers in turn): the tree that
+    the port's ``AdamW`` updates in place."""
+    tree = {"embed": params.embed, "final_norm": dict(params.final_norm)}
+    if params.lm_head is not None:
+        tree["lm_head"] = params.lm_head
+    tree["blocks"] = {
+        group: {k: [getattr(b, group)[k] for b in params.blocks]
                 for k in getattr(params.blocks[0], group).keys()}
         for group in ("attn", "norm1", "norm2", "mlp")}
     return tree
@@ -244,16 +266,43 @@ def _trunk(params: Transformer, h: torch.Tensor, cfg: ModelConfig,
     return h
 
 
+def forward_train(params: Transformer, tokens: torch.Tensor,
+                  cfg: ModelConfig, *, memory: Optional[torch.Tensor] = None,
+                  attn_impl: str = "cuda"):
+    """tokens (B, S) -> ``(logits (B, S, Vp), aux)`` with gradients, as the
+    reference's ``forward_train``: ``aux`` (the MoE auxiliary loss) is a
+    zero float32 scalar for the dense family. ``memory`` (image embeddings
+    or encoder frames) belongs to families not ported yet and raises."""
+    if memory is not None:
+        raise NotImplementedError(
+            f"forward_train: memory is for the families not ported yet: "
+            f"ROADMAP queue 1, {LLM_ITEM} (VLM and audio)")
+    positions = torch.arange(tokens.shape[1], device=params.device)
+    h = _trunk(params, _embed(params, tokens, cfg), cfg, positions,
+               attn_impl=attn_impl)
+    return (_logits(params, h, cfg),
+            torch.zeros((), dtype=torch.float32, device=params.device))
+
+
+def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
+            vocab: int) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32: logsumexp over the
+    (padded, masked) vocabulary minus the target's logit. ``vocab`` is
+    the reference's argument, unused there too."""
+    del vocab
+    x = logits.float()
+    logz = torch.logsumexp(x, dim=-1)
+    tgt = torch.gather(x, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(logz - tgt)
+
+
 @torch.no_grad()
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
             attn_impl: str = "cuda") -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, Vp): the logits of the reference's
     ``forward_train``, without its auxiliary loss (zero for dense
-    models)."""
-    positions = torch.arange(tokens.shape[1], device=params.device)
-    h = _trunk(params, _embed(params, tokens, cfg), cfg, positions,
-               attn_impl=attn_impl)
-    return _logits(params, h, cfg)
+    models), and without gradients."""
+    return forward_train(params, tokens, cfg, attn_impl=attn_impl)[0]
 
 
 # ---------------------------------------------------------------------------

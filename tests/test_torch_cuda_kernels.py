@@ -1304,6 +1304,115 @@ def test_cuda_flash_attention_rejects_bad_inputs(cuda):
         tflash.flash_attention(flat[1:].view(q.shape), k, v)
 
 
+# the backward's shapes: the forward's sweep cut to its kinds (causal,
+# window, neither; ragged Sq and T), every head dim, GQA 1, 2, 4 and 8, and
+# a row-less window
+FLASH_BWD_SHAPES = [
+    (2, 64, 64, 4, 2, 32, True, None),
+    (2, 32, 96, 4, 4, 16, False, None),
+    (2, 128, 128, 8, 2, 16, True, 32),
+    (2, 64, 100, 2, 1, 32, False, None),
+    (3, 100, 77, 4, 2, 64, False, None),
+    (1, 130, 130, 4, 1, 128, True, 50),
+    (2, 77, 130, 4, 2, 16, True, 40),
+    (1, 200, 64, 4, 2, 64, False, 32),
+    (1, 256, 256, 32, 4, 64, True, None),
+    (1, 192, 192, 16, 8, 128, True, None),
+]
+
+
+def _flash_bwd_case(b, sq, t, h, kv, hd, dtype, device, causal, window,
+                    seed=0):
+    """q, k, v, the forward's out and lse (the plain version's, so that
+    both backwards see the same inputs) and a cotangent."""
+    q, k, v = _flash_case(b, sq, t, h, kv, hd, dtype, device, seed)
+    out, lse = tflash.flash_attention_plain(q, k, v, causal, window)
+    rng = np.random.default_rng(seed + 1)
+    dout = torch.from_numpy(rng.normal(size=out.shape).astype(
+        np.float32)).to(device, dtype)
+    return q, k, v, out, lse, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,t,h,kv,hd,causal,window", FLASH_BWD_SHAPES)
+@pytest.mark.parametrize("dtype,route,tol", [(torch.float32, "f32", 1e-4),
+                                             (torch.bfloat16, "mma", 5e-2)])
+def test_cuda_flash_attention_bwd_matches_plain(cuda, b, sq, t, h, kv, hd,
+                                                causal, window, dtype, route,
+                                                tol):
+    """dq, dk and dv against the plain backward, each within ``tol`` of its
+    largest |plain| (f32: sums in another order; bf16: the reference's
+    bf16 tolerance, p and ds rounded to bf16 in both). One launch, counted
+    on its route; the forward's counts do not move."""
+    args = _flash_bwd_case(b, sq, t, h, kv, hd, dtype, cuda, causal, window)
+    n0, r0 = tflash.BWD_LAUNCHES, dict(tflash.BWD_ROUTE_LAUNCHES)
+    f0 = tflash.LAUNCHES
+    got = tflash.flash_attention_bwd(*args, causal, window)
+    torch.cuda.synchronize()
+    assert tflash.BWD_LAUNCHES == n0 + 1 and tflash.LAUNCHES == f0
+    assert tflash.BWD_ROUTE_LAUNCHES == {**r0, route: r0[route] + 1}
+    ref = tflash.flash_attention_bwd_plain(*args, causal, window)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and a.shape == r.shape, name
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= tol * max(r.float().abs().max().item(), 1e-30), \
+            (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_cuda_flash_attention_bwd_is_bit_identical_over_calls(cuda, dtype,
+                                                              hd):
+    """No float atomics: two calls give the same bits, at every head dim."""
+    args = _flash_bwd_case(2, 150, 150, 8, 2, hd, dtype, cuda, True, None)
+    first = tflash.flash_attention_bwd(*args, True, None)
+    for _ in range(3):
+        again = tflash.flash_attention_bwd(*args, True, None)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_autograd_runs_both_kernels(cuda, dtype):
+    """``ops.flash_attention`` on CUDA tensors that require grad: the
+    forward kernel once, the backward kernel once, and the gradients of
+    the plain path (``plain=True``) within the route's tolerance."""
+    q, k, v = _flash_case(2, 96, 96, 8, 2, 64, dtype, cuda)
+    dout = torch.randn(q.shape, device=cuda).to(dtype)
+    grads = {}
+    for plain in (False, True):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        f0, b0 = tflash.LAUNCHES, tflash.BWD_LAUNCHES
+        out = tops.flash_attention(*leaves, True, None, plain=plain)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        n = 0 if plain else 1
+        assert (tflash.LAUNCHES - f0, tflash.BWD_LAUNCHES - b0) == (n, n)
+        grads[plain] = [x.grad for x in leaves]
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for a, r in zip(grads[False], grads[True]):
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= tol * r.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bwd_rejects_bad_inputs(cuda):
+    q, k, v, out, lse, dout = _flash_bwd_case(1, 8, 8, 2, 1, 16,
+                                              torch.float32, cuda, True, None)
+    with pytest.raises(ValueError, match="lse must"):
+        tflash.flash_attention_bwd(q, k, v, out, lse.double(), dout)
+    with pytest.raises(ValueError, match="dout must"):
+        tflash.flash_attention_bwd(q, k, v, out, lse, dout.transpose(1, 2))
+    q, k, v, out, lse, dout = _flash_bwd_case(1, 8, 8, 2, 1, 16,
+                                              torch.bfloat16, cuda, True,
+                                              None)
+    flat = torch.zeros(dout.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash.flash_attention_bwd(q, k, v, out, lse,
+                                   flat[1:].view(dout.shape))
+
+
 def test_llm_engine_without_device_needs_a_card(monkeypatch):
     """``LLMServeOptions(device=None)`` means the card: without one the
     engine raises instead of falling back to the CPU. Runs everywhere."""

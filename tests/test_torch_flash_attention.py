@@ -101,9 +101,22 @@ def test_row_with_no_key_gives_zeros_as_the_kernel_does():
     assert torch.all(torch.isfinite(out))
 
 
-def test_requires_grad_raises_until_the_backward_is_ported():
-    q, k, v = (torch.from_numpy(a) for a in _case(16, 16, 2, 1, 16))
-    with pytest.raises(NotImplementedError, match="LLM training"):
-        tops.flash_attention(q.requires_grad_(True), k, v)
-    with torch.no_grad():                    # no graph: no backward needed
-        tops.flash_attention(q, k, v)
+def test_cpu_autograd_gives_the_plain_backward():
+    """``ops.flash_attention`` on CPU tensors that require grad: the
+    gradients are the plain backward's on the saved (out, lse), with or
+    without ``plain``, and no kernel launch is counted."""
+    q, k, v = (torch.from_numpy(a) for a in _case(40, 70, 4, 2, 32))
+    dout = torch.from_numpy(np.random.default_rng(5).normal(
+        size=q.shape).astype(np.float32))
+    out, lse = tflash.flash_attention_plain(q, k, v, False, 16)
+    want = tflash.flash_attention_bwd_plain(q, k, v, out, lse, dout, False,
+                                            16)
+    n0 = (tflash.LAUNCHES, tflash.BWD_LAUNCHES)
+    for plain in (False, True):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        got = tops.flash_attention(*leaves, False, 16, plain=plain)
+        assert torch.equal(got.detach(), out)
+        got.backward(dout)
+        for x, w in zip(leaves, want):
+            assert torch.equal(x.grad, w)
+    assert (tflash.LAUNCHES, tflash.BWD_LAUNCHES) == n0

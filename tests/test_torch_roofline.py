@@ -230,6 +230,12 @@ def test_each_cost_by_hand_on_both_routes():
     cases.append((fa.flash_attention, (q, q[:, :, :1], q[:, :, :1]),
                   dict(causal=True),
                   (4 * 16 * 10 * 2, 4 * (2 * 128 + 2 * 64) + 4 * 2 * 4)))
+    # its backward: five products; q, out, dout, dq and k, v, dk, dv once,
+    # the lse once
+    kv = torch.randn((1, 4, 1, 16), generator=gen)
+    cases.append((fa.flash_attention_bwd,
+                  (q, kv, kv, q, torch.zeros((1, 2, 4)), q), dict(causal=True),
+                  (10 * 16 * 10 * 2, 4 * (4 * 128 + 4 * 64) + 4 * 2 * 4)))
     for fn, args, kw, want in cases:
         cpu_out = fn(*args, **kw)
         meta_args = _meta(*args)
