@@ -11,7 +11,9 @@ profiled replay crash, PERF.md section 7); any failure ends the script
 with a non-zero exit code:
 
 1. device  — the card's name and power limit (``nvidia-smi``);
-2. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``;
+2. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``,
+   and print ptxas's registers, shared memory and spills of the flash
+   backward's kernels and their dynamic shared memory (a spill fails);
 3. kernels — build the ogbn-products stand-in graph and the training
    plan, then hold each CUDA kernel against its plain PyTorch version on
    the card. The extraction is bit-identical on real sampled serving rows
@@ -74,14 +76,19 @@ with a non-zero exit code:
    ``scaled_dot_product_attention`` on the same tensors (``library_ms``,
    a yardstick the port never calls); both routes are also timed at the
    LLM training shapes (bf16 (4, 2048, 32/4, 64), f32 (2, 2048, ...));
-   The flash-attention backward (``flash_attention_bwd``: a dq kernel and
-   a dk/dv kernel, no float atomics) is held against its plain version:
-   dq, dk and dv within 5e-2 (bf16) and 1e-4 (f32) of each one's largest
-   |plain| at the training shapes, at hd 128 with internlm2-1.8b's 16/8
-   heads, under a window, non-causal with a T that is no multiple of 64,
-   a second call the same bits; each route timed at its training shape
-   beside its bound, its plain version and the backward of
-   ``scaled_dot_product_attention`` (autograd, without its forward);
+   The flash-attention backward (``flash_attention_bwd``: a dq kernel, a
+   dk/dv kernel whose units pair key blocks and may split the q heads,
+   and then a fixed-order sum of the split's partials; bf16 on wgmma fed
+   by TMA, f32 in register tiles; no float atomics) is held against its
+   plain version: dq, dk and dv within 5e-2 (bf16) and 1e-4 (f32) of each
+   one's largest |plain| at the training shapes, at hd 128 with
+   internlm2-1.8b's 16/8 heads, under a window, non-causal with a T that
+   is no multiple of 64, on a plan that pairs and splits (1 x 2048), MHA,
+   and a window over a T of 333, a second call the same bits; each route
+   timed at its training shape, each kernel's device time beside the sum,
+   the kernels and the backward of ``scaled_dot_product_attention``
+   (autograd, without its forward) in turns, beside the bound and the
+   plain version;
 4. serve   — the serving path: the port's ``InferenceEngine`` at the
    paper's width (d_hidden 256, 3 layers, seeded random weights) serves a
    Zipf(1.3) stream of single-vertex requests with both of its kernels on;
@@ -228,6 +235,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -423,7 +431,8 @@ def time_ms(torch, fn, reps: int = 25, inner: int = 10,
     return statistics.median(times)
 
 
-def device_ms(torch, fn, kernel, n: int = 50, flush=None) -> float:
+def device_ms(torch, fn, kernel, n: int = 50, flush=None,
+              parts=None) -> float:
     """Mean device time of the CUDA kernel named ``kernel`` over ``n`` calls,
     from the profiler's CUPTI trace: the kernel alone, without the host
     time between launches that the event windows include. A tuple of names
@@ -434,7 +443,7 @@ def device_ms(torch, fn, kernel, n: int = 50, flush=None) -> float:
     launches were missing in full-size runs), so the mean is over the
     launches it holds, which must be at least half of them; a trace that
     holds fewer (once, none of 50 tail launches) is taken again, up to
-    three times."""
+    three times. ``parts``, a dict, receives each name's mean."""
     from torch.profiler import ProfilerActivity, profile
     names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
@@ -449,8 +458,10 @@ def device_ms(torch, fn, kernel, n: int = 50, flush=None) -> float:
         hits = [[e for e in prof.key_averages() if name in e.key]
                 for name in names]
         if all(len(h) == 1 and n / 2 <= h[0].count <= n for h in hits):
-            return sum(h[0].device_time_total / h[0].count
-                       for h in hits) / 1e3
+            means = [h[0].device_time_total / h[0].count / 1e3 for h in hits]
+            if parts is not None:
+                parts.update(zip(names, means))
+            return sum(means)
         log(f"[kernels] the profiler found "
             f"{[[(e.key, e.count) for e in h] for h in hits]} for {names} x "
             f"{n}; tracing again")
@@ -545,13 +556,91 @@ def phase_device(torch) -> dict:
             "count": torch.cuda.device_count()}
 
 
+# the sources whose kernels' registers, shared memory and spills the build
+# prints, from ptxas (-Xptxas -v on one more nvcc beside the build's); a
+# spill fails the build phase
+PTXAS_REPORT = ("flash_attention_bwd.cu",)
+
+
 def phase_build() -> None:
+    import ctypes
     from repro_torch.kernels import _build
     t0 = time.monotonic()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    reports = [(src, subprocess.Popen(
+        [_build.nvcc_path(), *_build.CFLAGS, "-Xptxas", "-v", "-c",
+         str(_build._CSRC / src), "-o",
+         str(_build.BUILD_DIR / f"ptxas.{os.getpid()}.{src}.o")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src in PTXAS_REPORT]
     so = _build.build()
-    _build.load()
+    lib = _build.load()
     log(f"[build] {so.relative_to(ROOT)} in {time.monotonic() - t0:.2f} s "
         f"({_build.nvcc_path()})")
+    spills = []
+    for src, proc in reports:
+        out, _ = proc.communicate()
+        (_build.BUILD_DIR / f"ptxas.{os.getpid()}.{src}.o").unlink(
+            missing_ok=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v {src} failed:\n{out}")
+        for name, regs, stack, st, ld, smem in _ptxas_kernels(out):
+            log(f"[build] ptxas {src}: {name}: {regs} registers, {smem} B "
+                f"static shared memory, {stack} B stack, {st} B spill "
+                f"stores, {ld} B spill loads")
+            if st or ld:
+                spills.append(name)
+        for line in out.splitlines():
+            if "Performance Loss" in line:
+                log(f"[build] ptxas {src}: {line.strip()}")
+    dq, dkdv = ctypes.c_int(), ctypes.c_int()
+    for hd in (16, 32, 64, 128):
+        for bf16, route in ((1, "bf16"), (0, "f32")):
+            _build.check(lib.repro_flash_attention_bwd_smem(
+                hd, bf16, ctypes.byref(dq), ctypes.byref(dkdv)),
+                "repro_flash_attention_bwd_smem")
+            log(f"[build] flash backward {route} hd {hd}: dynamic shared "
+                f"memory {dq.value} B (dq), {dkdv.value} B (dk/dv) a CTA")
+    if spills:
+        raise AssertionError(f"ptxas spills registers in {spills}")
+
+
+def _ptxas_kernels(out: str) -> list:
+    """(name<template argument>, registers, stack, spill stores, spill
+    loads, static shared bytes) of every entry function in a ptxas -v
+    report."""
+    rows, name = [], None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = mangled = m.group(1)
+            # _ZN <len> namespace <len> name I <template argument> E ...
+            ns = re.match(r"_ZN(\d+)", mangled)
+            if ns:
+                rest = mangled[ns.end() + int(ns.group(1)):]
+                own = re.match(r"(\d+)", rest)
+                if own:
+                    n = int(own.group(1))
+                    name = rest[own.end():own.end() + n]
+                    arg = re.match(r"I(?:Li(\d+)E|(f)E|\d+(\w+?)E)",
+                                   rest[own.end() + n:])
+                    if arg:
+                        width, f, other = arg.groups()
+                        name += f"<{width or other or 'float'}>"
+            stack = st = ld = 0
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            stack, st, ld = map(int, m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append((name, int(m.group(1)), stack, st, ld,
+                         int(smem.group(1)) if smem else 0))
+            name = None
+    return rows
 
 
 def _bound_by(n_bytes: float, n_ops: float) -> str:
@@ -1516,7 +1605,9 @@ def check_flash_attention(torch, np, dev) -> list:
 # the backward's shapes (b, sq, t, h, kv, hd, causal, window, dtype): the
 # LLM training shapes (bf16 4 x 2048 and f32 2 x 2048 of tinyllama-1.1b's
 # 32/4 heads), hd 128 at internlm2-1.8b's 16/8 heads in both types, a
-# window, a non-causal call and a T that is no multiple of the 64-key block
+# window, a non-causal call and a T that is no multiple of the 64-key block;
+# then, in both types, a shape whose plan pairs key blocks and splits the q
+# heads, MHA, and a window over a T that is no multiple of 64 or 128
 FLASH_BWD_SHAPES = [
     ("train", 4, 2048, 2048, 32, 4, 64, True, None, "bfloat16"),
     ("train", 2, 2048, 2048, 32, 4, 64, True, None, "float32"),
@@ -1528,6 +1619,12 @@ FLASH_BWD_SHAPES = [
      "bfloat16"),
     ("non-causal, ragged T", 1, 200, 333, 8, 2, 16, False, None,
      "float32"),
+    ("paired and split", 1, 2048, 2048, 32, 4, 64, True, None, "bfloat16"),
+    ("paired and split", 1, 2048, 2048, 32, 4, 64, True, None, "float32"),
+    ("MHA, ragged T", 2, 300, 300, 4, 4, 64, True, None, "bfloat16"),
+    ("MHA, ragged T", 2, 300, 300, 4, 4, 64, True, None, "float32"),
+    ("window, ragged T", 2, 333, 333, 8, 2, 64, True, 100, "bfloat16"),
+    ("window, ragged T", 2, 333, 333, 8, 2, 64, True, 100, "float32"),
 ]
 
 
@@ -1582,14 +1679,13 @@ def check_flash_attention_bwd(torch, np, dev) -> list:
             continue
         del got, again, ref
         torch.cuda.empty_cache()
-        kernels = (("flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel")
-                   if dtype == torch.bfloat16 else
-                   ("flash_bwd_dq_kernel<", "flash_bwd_dkdv_kernel<"))
+        plan = fa.bwd_plan(b, sq, t, h, kv, hd, dtype, causal, window)
+        kernels = plan.kernels()
         peak = BF16_TC_OPS_PER_S if dtype == torch.bfloat16 \
             else F32_OPS_PER_S
         call = lambda: fa.flash_attention_bwd(*args, causal, window)
-        ms = time_ms(torch, call, reps=5, inner=3, warmup=2)
-        dev_ms = device_ms(torch, call, kernels, n=10)
+        parts: dict = {}
+        dev_ms = device_ms(torch, call, kernels, n=10, parts=parts)
         plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
             *args, causal, window), reps=3, inner=1, warmup=1)
         q, k, v, _, _, dout = args
@@ -1598,9 +1694,13 @@ def check_flash_attention_bwd(torch, np, dev) -> list:
         sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
                                                   enable_gqa=True)
         sdpa_dout = dout.transpose(1, 2)
-        library_ms = time_ms(torch, lambda: torch.autograd.grad(
-            sdpa_out, leaves, sdpa_dout, retain_graph=True), reps=5,
-            inner=3, warmup=2)
+        sdpa = lambda: torch.autograd.grad(sdpa_out, leaves, sdpa_dout,
+                                           retain_graph=True)
+        # in turns: kernels, SDPA, SDPA, kernels
+        turns = [time_ms(torch, fn, reps=5, inner=3, warmup=2)
+                 for fn in (call, sdpa, sdpa, call)]
+        ms = (turns[0] + turns[3]) / 2
+        library_ms = (turns[1] + turns[2]) / 2
         lib_err = max((a.transpose(1, 2).float() - c.float()).abs().max()
                       .item() for a, c in zip(torch.autograd.grad(
                           sdpa_out, leaves, sdpa_dout, retain_graph=True),
@@ -1609,15 +1709,20 @@ def check_flash_attention_bwd(torch, np, dev) -> list:
         bound = bound_ms(n_bytes, n_ops, peak)
         by = "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / peak \
             else "operations"
-        log(f"[kernels] flash_attention_bwd {label} shape, {kernels}: "
-            f"{dname}, {n_bytes} B, {n_ops} ops: kernels {ms:.5f} ms per "
-            f"call ({dev_ms:.5f} ms on the device, "
-            f"{n_ops / dev_ms / 1e9:.2f} TFLOP/s, {bound / dev_ms:.3f} of "
-            f"the bound), plain {plain_ms:.5f} ms, bound {bound:.6f} ms "
+        log(f"[kernels] flash_attention_bwd {label} shape, plan "
+            f"pair={plan.pair} split={plan.split} ({plan.n_units} dk/dv "
+            f"units): {dname}, {n_bytes} B, {n_ops} ops: kernels {ms:.5f} "
+            f"ms per call ({dev_ms:.5f} ms on the device: "
+            + ", ".join(f"{name} {parts[name]:.5f}" for name in kernels)
+            + f"; {n_ops / dev_ms / 1e9:.2f} TFLOP/s, {bound / dev_ms:.3f} "
+            f"of the bound), plain {plain_ms:.5f} ms, bound {bound:.6f} ms "
             f"({by}); the backward of scaled_dot_product_attention "
-            f"{library_ms:.5f} ms (max |diff| {lib_err:.3e})")
+            f"{library_ms:.5f} ms (max |diff| {lib_err:.3e}); in turns, "
+            f"kernels / SDPA / SDPA / kernels: "
+            + " / ".join(f"{x:.5f}" for x in turns) + " ms")
         shapes[dname][label] = {"q": [b, sq, h, hd], "kv": [b, t, kv, hd],
                                 "ms": ms, "device_ms": dev_ms,
+                                "kernels": parts, "turns_ms": turns,
                                 "plain_ms": plain_ms, "bound_ms": bound,
                                 "bound_by": by, "library_ms": library_ms}
         del args, leaves, sdpa_out, sdpa_dout, q, k, v, dout
@@ -2001,6 +2106,8 @@ def device_profile(prof, wall_us: float, what: str,
             "host_ops": host_ops, "span_us": span_us,
             "kernels": {k: sum(count[n] for n in count if k in n)
                         for k in watch},
+            "us": {k: sum(by_name[n] for n in by_name if k in n)
+                   for k in watch},
             "names": {k: sorted(n for n in count if k in n) for k in watch}}
 
 
@@ -3683,10 +3790,16 @@ def profile_llm_step(torch, model, cfg, toks, tgts) -> None:
         opt.update(tree, grads, state)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    device_profile(prof, wall_us, f"one {cfg.name} float32 training step "
-                   f"of {toks.shape[0]} x {toks.shape[1]} tokens",
-                   watch=("gemm", "flash_attention_kernel<",
-                          "flash_bwd_dq_kernel<", "flash_bwd_dkdv_kernel<"))
+    bwd = ("flash_bwd_dq_f32_kernel", "flash_bwd_dkdv_f32_kernel",
+           "flash_bwd_reduce_kernel")
+    seen = device_profile(prof, wall_us, f"one {cfg.name} float32 training "
+                          f"step of {toks.shape[0]} x {toks.shape[1]} "
+                          f"tokens", watch=("gemm", "flash_attention_kernel<")
+                          + bwd)
+    bwd_us = sum(seen["us"][k] for k in bwd)
+    log(f"[profile]   the flash backward: {bwd_us:.1f} us, "
+        f"{100 * bwd_us / max(seen['busy_us'], 1e-9):.2f} % of the step's "
+        f"device time")
 
 
 def main() -> int:

@@ -53,11 +53,13 @@ SIGNATURES = {
     # scale, bf16, stream
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _F, _I, _P],
-    # q, k, v, out, lse, dout, delta, dq, dk, dv, b, sq, t, h, kv, hd,
-    # causal, use_window, window, scale, bf16, stream
+    # q, k, v, out, lse, dout, stats, part|null, dq, dk, dv, b, sq, t, h,
+    # kv, hd, causal, use_window, window, pair, split, scale, bf16, stream
     "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                                  _I, _P],
+                                  _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _F, _I, _P],
+    # hd, bf16, &dq bytes, &dk/dv bytes: the kernels' dynamic shared memory
+    "repro_flash_attention_bwd_smem": [_I, _I, _P, _P],
     # key, n, out, stream
     "repro_hash_keys": [_P, _L, _P, _P],
     # key, n, threshold, out, stream

@@ -17,57 +17,76 @@
 // accumulation; q, out, dout, dq (B, Sq, H, hd), k, v, dk, dv (B, T, KV,
 // hd), lse (B, H, Sq) float32; q head h reads kv head h / (H / KV).
 //
-// Two kernels a call, in stream order, and no float atomics, so two calls
-// give the same bits:
-//   dq:    one CTA per (batch row, q head, 64 query rows) loops over the key
-//          blocks that the mask lets those rows see, recomputing p from the
-//          lse; it also computes D for its rows and writes it to `delta`;
-//   dk/dv: one CTA per (batch row, kv head, 64 keys) loops over the g q
-//          heads of its group and, for each, over the query blocks that can
-//          see those keys, recomputing p and ds (reading D from `delta`), and
-//          sums dk and dv in registers in that fixed order.
+// What bounds it on the H100: operations. At (4, 2048, 32/4, 64) bf16,
+// causal, the function's five products are 172 GFLOP, 0.17 ms at 989
+// TFLOP/s, against 0.08 GB of inputs and outputs (0.02 ms at 3.35 TB/s);
+// in float32 at (2, 2048) 86 GFLOP, 1.28 ms at 67 TFLOP/s.
+//
+// The plan (chosen by the wrapper, flash_attention.bwd_plan, in Python):
+// two kernels, or three, in stream order, and no float atomics, so two
+// calls give the same bits.
+//   dq:     one CTA per (batch row, q head, 64 query rows), heaviest first,
+//           loops over the key blocks that the mask lets those rows see,
+//           recomputing p and dp; it computes D for its rows first and
+//           writes (lse * log2 e, D) to `stats`, (B * H, sq_pad) float2
+//           with sq_pad = Sq rounded up to 64.
+//   dk/dv:  one CTA per unit = (batch row, kv head, key blocks of 64, a
+//           share of the group's q heads). Under a causal mask (and no
+//           window) a unit pairs key blocks j and n - 1 - j, so every unit
+//           walks n + 1 query blocks a head and none waits on the heaviest.
+//           The group's g q heads may be split over `split` units: each
+//           then sums dk and dv over its g / split heads and writes float32
+//           partials to `part` (2 x split x B x T x KV x hd floats, dk's
+//           then dv's), and
+//   reduce: sums the partials in the order 0 .. split - 1 into dk and dv.
 // s and dp are computed in both kernels (seven products where a kernel with
 // atomics on dq would do five): the price of writing every output once.
 //
-// What bounds it on the H100: operations. At (4, 2048, 32/4, 64) bf16,
-// causal, the function's five products are 2 * 2*B*H*Sq*T*hd / 2 * 5 = 172
-// GFLOP, 0.17 ms at 989 TFLOP/s, against 0.08 GB of inputs and outputs
-// (0.02 ms at 3.35 TB/s).
+// bfloat16 (flash_bwd_*_wgmma_kernel): one warpgroup a CTA, every product
+// on wgmma (wgmma.cuh) with float32 accumulation. The CTA's own rows (64
+// keys of K and V in dk/dv, 64 rows of q and dout in dq) are loaded once
+// into registers as the A operands of s and dp; the other side (q and
+// dout in dk/dv, K and V in dq) streams through a ring of three stages (two
+// at hd 128 in dq) that TMA fills -- tensor maps of the (B, S, heads, hd)
+// arrays, rows past the end read as zeros, dk/dv's stages also carrying
+// their rows' stats -- and mbarriers complete; thread 0 refills a stage as
+// soon as the warpgroup has read it. Those bytes are the K-major B operand
+// of s and dp and the MN-major B operand of the products that contract
+// over their rows (dv += p^T . dout, dk += ds^T . q, dq += ds . k): no
+// transposed copy is staged, and only B is read from shared memory. p and
+// ds are computed from the accumulators in registers and packed to bf16 as
+// the register A operands of those products -- the rounding that the
+// reference applies -- each while the next product runs: p while dp is
+// multiplied, ds while dv is. At hd 128 the dk/dv kernel takes query blocks
+// of 32, so that dk, dv, s, dp and K and V's fragments fit the registers.
 //
-// bfloat16 (flash_bwd_*_mma_kernel): every product on the tensor cores,
-// mma.sync m16n8k16, bf16 in and float32 accumulation, with the forward's
-// fragment code (mma_fragments.cuh). Each warp owns 16 rows of its CTA's
-// tile (queries in dq, keys in dk/dv); the other side streams through shared
-// memory double-buffered with cp.async (16 bytes a thread, zero-filled past
-// the end), in rows padded by 16 bytes. The recomputed scores land in the
-// accumulator layout, become p and ds in registers, and are packed to bf16
-// as the A fragments of the next products -- the rounding that the
-// reference applies. At hd 128 the dk/dv kernel takes query blocks of 32,
-// so that dk, dv, s and dp fit the registers.
-//
-// float32 (flash_bwd_*_kernel): on the float32 CUDA cores, never through
-// TF32, as the forward's float32 route: each lane scores two columns against
-// its warp's 16 rows from tiles staged transposed and padded in shared
-// memory, writes p and ds to its warp's strips, and accumulates hd / 32
-// output columns a lane.
+// float32 (flash_bwd_*_f32_kernel): on the float32 CUDA cores, never
+// through TF32. The CTA's own tile (64 rows) stays in shared memory; the
+// other side streams 32 rows a step (16 in dk/dv at hd 128, for the
+// registers), double-buffered with cp.async (16 bytes a thread, zero-filled
+// past the end) while the previous block computes; rows are padded by 16
+// bytes. Each thread owns a 4 x 4 tile of s and dp (float4 loads along
+// hd), writes p and ds transposed to shared memory, and owns an 8 x hd/16
+// tile of dk and dv (or of dq) for the products over the streamed rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 
 #include "async_copy.cuh"
 #include "mma_fragments.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kTile = 64;                   // rows a CTA owns (16 a warp)
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = kTile / kWarps;  // 16
-constexpr int kTStride = kTile + 1;         // a transposed tile's padded row
+constexpr int kTile = 64;      // rows a CTA owns: keys (dk/dv), queries (dq)
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kOther = 32;     // keys the f32 dq kernel streams a step
+constexpr int kXLd = kTile + 16;  // a row of p^T / ds^T (f32), padded
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ bool allowed(int qp, int key, int sq, int t,
@@ -77,63 +96,155 @@ __device__ __forceinline__ bool allowed(int qp, int key, int sq, int t,
          (!use_window || key > qp - window);
 }
 
-// the key blocks (of kTile) that query rows [q0, q0 + kTile) can see
-__device__ __forceinline__ void key_blocks(int q0, int sq, int t, int causal,
-                                           int use_window, int window,
-                                           int& begin, int& end) {
-  end = (t + kTile - 1) / kTile;
-  if (causal) end = min(end, (min(q0 + kTile, sq) - 1) / kTile + 1);
+// every (query, key) pair of the block is allowed: no mask to apply
+__device__ __forceinline__ bool all_visible(int q0, int qn, int k0, int kn,
+                                            int sq, int t, int causal,
+                                            int use_window, int window) {
+  return q0 + qn <= sq && k0 + kn <= t && (!causal || k0 + kn - 1 <= q0) &&
+         (!use_window || k0 > q0 + qn - 1 - window);
+}
+
+// the key blocks (of kn) that query rows [q0, q0 + qn) can see
+__device__ __forceinline__ void key_blocks(int q0, int qn, int kn, int sq,
+                                           int t, int causal, int use_window,
+                                           int window, int& begin, int& end) {
+  end = (t + kn - 1) / kn;
+  if (causal) end = min(end, (min(q0 + qn, sq) - 1) / kn + 1);
   begin = 0;
   if (use_window) {
     const int first = q0 - window + 1;  // smallest key the window reaches
-    begin = first > 0 ? first / kTile : 0;
+    begin = first > 0 ? first / kn : 0;
   }
   if (end < begin) end = begin;
 }
 
-// the query blocks (of qb rows) that can see keys [k0, k0 + kTile)
-__device__ __forceinline__ void query_blocks(int k0, int sq, int qb,
+// the query blocks (of qb rows) that can see keys [k0, k0 + kn)
+__device__ __forceinline__ void query_blocks(int k0, int kn, int sq, int qb,
                                              int causal, int use_window,
                                              int window, int& begin,
                                              int& end) {
   end = (sq + qb - 1) / qb;
   begin = causal ? k0 / qb : 0;  // rows >= the first key
   if (use_window) {              // rows < the last key + window
-    const long long last = static_cast<long long>(k0) + kTile + window - 2;
+    const long long last = static_cast<long long>(k0) + kn + window - 2;
     end = last < 0 ? 0 : min(static_cast<long long>(end), last / qb + 1);
   }
   if (end < begin) end = begin;
 }
 
+// A dk/dv unit: blockIdx.x = ((b * kv + kv head) * split + share) * n_units
+// + u; its key blocks are u and, paired, n_kb - 1 - u; its q heads the
+// share-th g / split of the group; its steps (key block, q head, query
+// block) in that order, the query blocks of each key block those that see
+// it.
+struct Unit {
+  int b, kvh, share, head0, heads;  // q heads head0 .. head0 + heads - 1
+  int n_blocks, kb0, kb1, qbb0, qbe0, qbb1, qbe1, steps0, steps1, total;
+
+  __device__ Unit(int n_kb, int pair, int split, int kv, int h, int sq,
+                  int qb, int causal, int use_window, int window) {
+    const int n_units = pair ? (n_kb + 1) / 2 : n_kb;
+    const int u = blockIdx.x % n_units;
+    int r = blockIdx.x / n_units;
+    share = r % split;
+    r /= split;
+    kvh = r % kv;
+    b = r / kv;
+    heads = h / kv / split;
+    head0 = kvh * (h / kv) + share * heads;
+    kb0 = u;
+    kb1 = n_kb - 1 - u;
+    n_blocks = pair && kb1 != kb0 ? 2 : 1;
+    query_blocks(kb0 * kTile, kTile, sq, qb, causal, use_window, window, qbb0,
+                 qbe0);
+    query_blocks(kb1 * kTile, kTile, sq, qb, causal, use_window, window, qbb1,
+                 qbe1);
+    steps0 = heads * (qbe0 - qbb0);
+    steps1 = n_blocks == 2 ? heads * (qbe1 - qbb1) : 0;
+    total = steps0 + steps1;
+  }
+  __device__ int kb(int c) const { return c ? kb1 : kb0; }
+  __device__ int qb_begin(int c) const { return c ? qbb1 : qbb0; }
+  __device__ int n_qb(int c) const { return c ? qbe1 - qbb1 : qbe0 - qbb0; }
+  __device__ int steps(int c) const { return c ? steps1 : steps0; }
+  // flat step i -> (q head, first query row)
+  __device__ void step(int i, int qb, int& head, int& q0) const {
+    const int c = i >= steps0 ? 1 : 0;
+    const int f = c ? i - steps0 : i;
+    head = head0 + f / n_qb(c);
+    q0 = (qb_begin(c) + f % n_qb(c)) * qb;
+  }
+};
+
 // ---------------------------------------------------------------------------
-// bfloat16 route: tensor cores (mma.sync)
+// bfloat16 route: wgmma fed by a TMA ring
 // ---------------------------------------------------------------------------
 
+// the register A operand of an m64nNk16 product over hd: rows row_a and
+// row_a + 8 (this lane's rows of the warpgroup's 64) of one head of a (.., S,
+// heads, hd) bf16 array (`src` at the head's first element, rows `stride`
+// elements apart), every k-step; rows >= limit read as zeros
 template <int HD>
-__host__ __device__ constexpr size_t dq_mma_smem_bytes() {
-  // q and dout tiles, K and V double-buffered; lse and D of the rows
-  return static_cast<size_t>(6 * kTile) * mma_stride<HD>() * sizeof(bf16) +
-         2 * kTile * sizeof(float);
+__device__ __forceinline__ void load_a_rows(uint32_t (&a)[HD / 16][4],
+                                            const bf16* src, size_t stride,
+                                            int row_a, int limit, int lane) {
+  const int c = (lane & 3) * 2;
+  const bool ok_a = row_a < limit, ok_b = row_a + 8 < limit;
+  const uint32_t* ra = reinterpret_cast<const uint32_t*>(
+      src + static_cast<size_t>(ok_a ? row_a : 0) * stride + c);
+  const uint32_t* rb = reinterpret_cast<const uint32_t*>(
+      src + static_cast<size_t>(ok_b ? row_a + 8 : 0) * stride + c);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    a[kk][0] = ok_a ? ra[8 * kk] : 0u;
+    a[kk][1] = ok_b ? rb[8 * kk] : 0u;
+    a[kk][2] = ok_a ? ra[8 * kk + 4] : 0u;
+    a[kk][3] = ok_b ? rb[8 * kk + 4] : 0u;
+  }
 }
 
+// the accumulator of an m64nN product (N = 16 R) as the bf16 A operand of
+// R k-steps over its columns
+template <int R>
+__device__ __forceinline__ void pack_rows(uint32_t (&a)[R][4],
+                                          const float (&d)[8 * R]) {
+#pragma unroll
+  for (int kk = 0; kk < R; ++kk) {
+    a[kk][0] = pack_bf16(d[8 * kk], d[8 * kk + 1]);
+    a[kk][1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+    a[kk][2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+    a[kk][3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+  }
+}
+
+// shared memory of the dq kernel, bytes from a 1024-byte boundary: the K/V
+// ring, then lse and D of the CTA's 64 rows
 template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ out,
-    const float* __restrict__ lse, const bf16* __restrict__ dout,
-    float* __restrict__ delta, bf16* __restrict__ dq, int sq, int t, int h,
-    int kv, int causal, int use_window, int window, float scale) {
-  constexpr int S = mma_stride<HD>();
-  constexpr int kPieces = HD / 8;   // 16-byte pieces in a row
-  constexpr int kDSteps = HD / 16;
-  constexpr int kNTiles = kTile / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kTile][S]
-  bf16* dos = qs + kTile * S;                    // [kTile][S]
-  bf16* ks = dos + kTile * S;                    // [2][kTile][S]
-  bf16* vs = ks + 2 * kTile * S;                 // [2][kTile][S]
-  float* lse_s = reinterpret_cast<float*>(vs + 2 * kTile * S);  // [kTile]
-  float* d_s = lse_s + kTile;                                   // [kTile]
+struct DqLayout {
+  using T = Tile<HD, kTile>;
+  static constexpr int kStages = HD == 128 ? 2 : 3;
+  static constexpr int kStage = 2 * T::kBytes;  // K, V
+  static constexpr int kStats = kStages * kStage;
+  static constexpr int kBytes = kStats + 2 * kTile * 4 + 1024;  // + align
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const bf16* __restrict__ q,
+    const bf16* __restrict__ out, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, float2* __restrict__ stats,
+    bf16* __restrict__ dq, int sq, int sq_pad, int t, int h, int kv,
+    int causal, int use_window, int window, float scale) {
+  using T = Tile<HD, kTile>;
+  using L = DqLayout<HD>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[kStages];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  float* lse_s = reinterpret_cast<float*>(smem_raw + (base - raw) + L::kStats);
+  float* d_s = lse_s + kTile;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -142,715 +253,824 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(
   const int b = blockIdx.x / h;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heaviest first
   const int kvh = head / (h / kv);
-  const size_t row_stride = static_cast<size_t>(h) * HD;
-  const size_t q_base = (static_cast<size_t>(b) * sq * h + head) * HD;
-  const size_t kv_base = (static_cast<size_t>(b) * t * kv + kvh) * HD;
-  const size_t stat_base = (static_cast<size_t>(b) * h + head) * sq;
-
   int kb_begin, kb_end;
-  key_blocks(q0, sq, t, causal, use_window, window, kb_begin, kb_end);
+  key_blocks(q0, kTile, kTile, sq, t, causal, use_window, window, kb_begin,
+             kb_end);
+  const int n = kb_end - kb_begin;
+  const uint32_t bar0 = smem_addr(&bars[0]);
 
-  for (int i = tid; i < kTile * kPieces; i += kThreads) {
-    const int r = i / kPieces, c = i % kPieces;
-    const bool ok = q0 + r < sq;
-    const size_t off =
-        q_base + static_cast<size_t>(ok ? q0 + r : 0) * row_stride + c * 8;
-    cp_async16(smem_addr(qs + r * S + c * 8), q + off, ok);
-    cp_async16(smem_addr(dos + r * S + c * 8), dout + off, ok);
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) mbar_init(bar0 + 8 * i, 1);
+    mbar_fence_init();
   }
-  cp_async_commit();
-  auto load_kv = [&](int kb, int buf) {
-    const int k0 = kb * kTile;
-    for (int i = tid; i < kTile * kPieces; i += kThreads) {
-      const int r = i / kPieces, c = i % kPieces;
-      const bool ok = k0 + r < t;
-      const size_t off =
-          kv_base + static_cast<size_t>(ok ? k0 + r : 0) * kv * HD + c * 8;
-      const int dst = (buf * kTile + r) * S + c * 8;
-      cp_async16(smem_addr(ks + dst), k + off, ok);
-      cp_async16(smem_addr(vs + dst), v + off, ok);
+  __syncthreads();
+  auto load_kv = [&](int i) {  // ring entry i: key block kb_begin + i
+    const int st = i % kStages;
+    const uint32_t dst = base + st * L::kStage;
+    const uint32_t bar = bar0 + 8 * st;
+    const int k0 = (kb_begin + i) * kTile;
+    mbar_expect(bar, 2 * T::kBytes);
+    for (int p = 0; p < T::kPanels; ++p) {
+      tma_load_4d(dst + p * T::kPanelBytes, &tm_k, bar, p * T::kBoxCols, kvh,
+                  k0, b);
+      tma_load_4d(dst + T::kBytes + p * T::kPanelBytes, &tm_v, bar,
+                  p * T::kBoxCols, kvh, k0, b);
     }
   };
-  if (kb_begin < kb_end) load_kv(kb_begin, 0);
-  cp_async_commit();
+  if (tid == 0)
+    for (int i = 0; i < kStages && i < n; ++i) load_kv(i);
 
-  // D = sum(dout * out) of the warp's 16 rows, from device memory while the
-  // tiles arrive; written for the dk/dv kernel
-#pragma unroll 1
-  for (int r = warp * kRowsPerWarp; r < (warp + 1) * kRowsPerWarp; ++r) {
-    float acc = 0.0f;
-    if (q0 + r < sq) {
-      const size_t off = q_base + static_cast<size_t>(q0 + r) * row_stride;
-      for (int d = lane; d < HD; d += 32)
-        acc += __bfloat162float(dout[off + d]) * __bfloat162float(out[off + d]);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      d_s[r] = acc;
-      if (q0 + r < sq) delta[stat_base + q0 + r] = acc;
-    }
-  }
-  for (int i = tid; i < kTile; i += kThreads)
-    lse_s[i] = q0 + i < sq ? lse[stat_base + q0 + i] * kLog2e : 0.0f;
-  cp_async_wait<1>();  // the q and dout tiles
-  __syncthreads();
-
-  const int w_first = q0 + warp * 16, w_last = w_first + 15;
+  // q and dout of this lane's rows as the A operands of s and dp
+  const size_t q_head = (static_cast<size_t>(b) * sq * h + head) * HD;
   const int ra = warp * 16 + (lane >> 2);  // this lane's rows: ra, ra + 8
   const int row_a = q0 + ra, row_b = row_a + 8;
+  uint32_t qf[HD / 16][4], df[HD / 16][4];
+  load_a_rows<HD>(qf, q + q_head, static_cast<size_t>(h) * HD, row_a, sq,
+                  lane);
+  load_a_rows<HD>(df, dout + q_head, static_cast<size_t>(h) * HD, row_a, sq,
+                  lane);
+
+  // D = sum(dout * out) and lse * log2 e of the 64 rows, two threads a row,
+  // written for the dk/dv kernel (rows past sq: zeros)
+  {
+    const int r = tid >> 1, half = tid & 1;
+    const int row = q0 + r;
+    float acc = 0.0f;
+    if (row < sq) {
+      const size_t off =
+          q_head + static_cast<size_t>(row) * h * HD + half * (HD / 2);
+#pragma unroll
+      for (int c = 0; c < HD / 2; c += 8) {
+        const uint4 a = *reinterpret_cast<const uint4*>(dout + off + c);
+        const uint4 o = *reinterpret_cast<const uint4*>(out + off + c);
+        const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 fa = __bfloat1622float2(a2[e]);
+          const float2 fo = __bfloat1622float2(o2[e]);
+          acc = fmaf(fa.x, fo.x, acc);
+          acc = fmaf(fa.y, fo.y, acc);
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    const float l2 =
+        row < sq ? lse[(static_cast<size_t>(b) * h + head) * sq + row] * kLog2e
+                 : 0.0f;
+    if (half == 0) {
+      lse_s[r] = l2;
+      d_s[r] = acc;
+      stats[(static_cast<size_t>(b) * h + head) * sq_pad + row] =
+          make_float2(l2, acc);
+    }
+  }
+  __syncthreads();
+
   const float lse_a = lse_s[ra], lse_b = lse_s[ra + 8];
   const float d_a = d_s[ra], d_b = d_s[ra + 8];
   const float scale_log2 = scale * kLog2e;
-  float acc[2 * kDSteps][4];
+  float acc[HD / 2];
 #pragma unroll
-  for (int n = 0; n < 2 * kDSteps; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
 
-  for (int kb = kb_begin; kb < kb_end; ++kb) {
-    const int buf = (kb - kb_begin) & 1;
-    if (kb + 1 < kb_end) load_kv(kb + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // block kb
-    __syncthreads();
-    const bf16* kbuf = ks + buf * kTile * S;
-    const bf16* vbuf = vs + buf * kTile * S;
-    const int k0 = kb * kTile;
-    const bool visible = w_first < sq && !(causal && k0 > w_last) &&
-                         !(use_window && k0 + kTile - 1 <= w_first - window);
-    if (visible) {
-      // s = q . k^T and dp = dout . v^T, 16 rows x 64 keys
-      float s[kNTiles][4], dp[kNTiles][4];
+  for (int i = 0; i < n; ++i) {
+    const int st = i % kStages;
+    const uint32_t ks = base + st * L::kStage;
+    const uint32_t vs = ks + T::kBytes;
+    const int k0 = (kb_begin + i) * kTile;
+    mbar_wait(bar0 + 8 * st, (i / kStages) & 1);
+    // s = q . k^T and dp = dout . v^T, 64 rows x 64 keys, in two groups
+    float s[kTile / 2], dp[kTile / 2];
 #pragma unroll
-      for (int n = 0; n < kNTiles; ++n)
+    for (int e = 0; e < kTile / 2; ++e) s[e] = dp[e] = 0.0f;
+    own(s);
+    own(dp);
+    wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+    for (int kk = 0; kk < HD / 16; ++kk)
+      Wgmma<kTile>::rs<0>(s, qf[kk], T::k_major(ks, kk), kk > 0);
+    wgmma_commit();
 #pragma unroll
-      for (int ds = 0; ds < kDSteps; ++ds) {
-        uint32_t qa[4], da[4];
-        load_a(qa, qs + warp * 16 * S + ds * 16, S, lane);
-        load_a(da, dos + warp * 16 * S + ds * 16, S, lane);
-#pragma unroll
-        for (int np = 0; np < kNTiles / 2; ++np) {
-          uint32_t kf[4], vf[4];
-          load_b(kf, kbuf + np * 16 * S + ds * 16, S, lane);
-          load_b(vf, vbuf + np * 16 * S + ds * 16, S, lane);
-          mma_bf16(s[2 * np], qa, kf[0], kf[1]);
-          mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
-          mma_bf16(dp[2 * np], da, vf[0], vf[1]);
-          mma_bf16(dp[2 * np + 1], da, vf[2], vf[3]);
-        }
-      }
-      // ds = p * (dp - D) * scale, in place of s
-#pragma unroll
-      for (int n = 0; n < kNTiles; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + n * 8 + (lane & 3) * 2 + (e & 1);
-          const bool hi = e >= 2;
-          const bool ok = allowed(hi ? row_b : row_a, key, sq, t, causal,
+    for (int kk = 0; kk < HD / 16; ++kk)
+      Wgmma<kTile>::rs<0>(dp, df[kk], T::k_major(vs, kk), kk > 0);
+    wgmma_commit();
+    // p, while dp is computed
+    wgmma_wait<1>();
+    own(s);
+    const bool full = all_visible(q0, kTile, k0, kTile, sq, t, causal,
                                   use_window, window);
-          const float p =
-              ok ? fast_exp2(fmaf(s[n][e], scale_log2, -(hi ? lse_b : lse_a)))
-                 : 0.0f;
-          s[n][e] = p * (dp[n][e] - (hi ? d_b : d_a)) * scale;
-        }
-      // dq += bf(ds) . k
 #pragma unroll
-      for (int kk = 0; kk < kNTiles / 2; ++kk) {
-        uint32_t af[4];
-        pack_a(af, s[2 * kk], s[2 * kk + 1]);
+    for (int j = 0; j < kTile / 8; ++j)
 #pragma unroll
-        for (int dp2 = 0; dp2 < kDSteps; ++dp2) {
-          uint32_t kf[4];
-          load_b_trans(kf, kbuf + kk * 16 * S + dp2 * 16, S, lane);
-          mma_bf16(acc[2 * dp2], af, kf[0], kf[1]);
-          mma_bf16(acc[2 * dp2 + 1], af, kf[2], kf[3]);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int idx = 4 * j + e;
+        const bool hi = e >= 2;
+        const int key = k0 + 8 * j + (lane & 3) * 2 + (e & 1);
+        const bool ok = full || allowed(hi ? row_b : row_a, key, sq, t,
+                                        causal, use_window, window);
+        s[idx] = ok ? fast_exp2(fmaf(s[idx], scale_log2,
+                                     -(hi ? lse_b : lse_a)))
+                    : 0.0f;
       }
-    }
-    __syncthreads();  // the buffer is read before the next load refills it
+    // ds = p * (dp - D) * scale, in place of s
+    wgmma_wait<0>();
+    own(dp);
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int idx = 4 * j + e;
+        s[idx] = s[idx] * (dp[idx] - (e >= 2 ? d_b : d_a)) * scale;
+      }
+    // dq += bf(ds) . k, k read MN-major
+    uint32_t a[kTile / 16][4];
+    pack_rows<kTile / 16>(a, s);
+    own(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      Wgmma<HD>::template rs<1>(acc, a[kk], T::mn_major(ks, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    own(acc);
+    own(a);
+    __syncthreads();  // every warp is done with the stage
+    if (tid == 0 && i + kStages < n) load_kv(i + kStages);
   }
-  cp_async_wait<0>();
+  own(qf);
+  own(df);
 
   const int rows[2] = {row_a, row_b};
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (rows[i] >= sq) continue;
-    bf16* orow = dq + q_base + static_cast<size_t>(rows[i]) * row_stride +
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= sq) continue;
+    bf16* orow = dq + q_head + static_cast<size_t>(rows[r]) * h * HD +
                  (lane & 3) * 2;
 #pragma unroll
-    for (int n = 0; n < 2 * kDSteps; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
-          __floats2bfloat162_rn(acc[n][2 * i], acc[n][2 * i + 1]);
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
   }
 }
 
-// query rows a step of the dk/dv kernel: fewer at hd 128 (registers)
+// query rows a step of the bf16 dk/dv kernel: fewer at hd 128, where dk,
+// dv and K and V's fragments take 192 registers a thread (ptxas then
+// serializes the wgmma chain; 16 rows measured slower still)
 template <int HD>
 __host__ __device__ constexpr int dkdv_q_block() {
   return HD == 128 ? 32 : 64;
 }
 
+// shared memory of the dk/dv kernel: the q/dout ring, each stage q, dout,
+// then (lse * log2 e, D) of its QB rows
 template <int HD>
-__host__ __device__ constexpr size_t dkdv_mma_smem_bytes() {
-  constexpr int QB = dkdv_q_block<HD>();
-  // K and V tiles, q and dout double-buffered; lse and D of the rows
-  return static_cast<size_t>(2 * kTile + 4 * QB) * mma_stride<HD>() *
-             sizeof(bf16) +
-         4 * QB * sizeof(float);
+struct DkdvLayout {
+  static constexpr int QB = dkdv_q_block<HD>();
+  using TQ = Tile<HD, QB>;
+  static constexpr int kStages = 3;
+  static constexpr int kStats = 2 * TQ::kBytes;
+  static constexpr int kStage = 2 * TQ::kBytes + 1024;
+  static constexpr int kBytes = kStages * kStage + 1024;  // + align
+};
+
+// dk and dv (or the unit's float32 partials) of keys key_a and key_a + 8,
+// from the accumulators of an m64nHD product
+template <int HD>
+__device__ __forceinline__ void store_kv_rows(
+    const float (&dka)[HD / 2], const float (&dva)[HD / 2], int key_a,
+    int lane, int t, size_t row0, int row_step, bf16* dk, bf16* dv,
+    float* pk, float* pv) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key_a + 8 * r;
+    if (key >= t) continue;
+    const size_t off =
+        row0 + static_cast<size_t>(key) * row_step + (lane & 3) * 2;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int e = 4 * j + 2 * r;
+      if (pk != nullptr) {
+        *reinterpret_cast<float2*>(pk + off + 8 * j) =
+            make_float2(dka[e], dka[e + 1]);
+        *reinterpret_cast<float2*>(pv + off + 8 * j) =
+            make_float2(dva[e], dva[e + 1]);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
+            __floats2bfloat162_rn(dka[e], dka[e + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
+            __floats2bfloat162_rn(dva[e], dva[e + 1]);
+      }
+    }
+  }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const float* __restrict__ lse,
-    const bf16* __restrict__ dout, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int t, int h,
-    int kv, int causal, int use_window, int window, float scale) {
-  constexpr int S = mma_stride<HD>();
-  constexpr int QB = dkdv_q_block<HD>();
-  constexpr int kPieces = HD / 8;
-  constexpr int kDSteps = HD / 16;
-  constexpr int kNTiles = QB / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [kTile][S]
-  bf16* vs = ks + kTile * S;                     // [kTile][S]
-  bf16* qs = vs + kTile * S;                     // [2][QB][S]
-  bf16* dos = qs + 2 * QB * S;                   // [2][QB][S]
-  float* lse_s = reinterpret_cast<float*>(dos + 2 * QB * S);  // [2][QB]
-  float* d_s = lse_s + 2 * QB;                                // [2][QB]
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_dout,
+    const __grid_constant__ CUtensorMap tm_stats, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    float* __restrict__ part, int nb, int sq, int t, int h, int kv, int n_kb,
+    int pair, int split, int causal, int use_window, int window,
+    float scale) {
+  using L = DkdvLayout<HD>;
+  using TQ = typename L::TQ;
+  constexpr int QB = L::QB;
+  constexpr int kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[kStages];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int kvh = blockIdx.x % kv;
-  const int b = blockIdx.x / kv;
-  const int k0 = blockIdx.y * kTile;  // under a causal mask: heaviest first
-  const int g = h / kv;
-  const size_t row_stride = static_cast<size_t>(h) * HD;
-  const size_t kv_base = (static_cast<size_t>(b) * t * kv + kvh) * HD;
+  const Unit unit(n_kb, pair, split, kv, h, sq, QB, causal, use_window,
+                  window);
+  const int b = unit.b, kvh = unit.kvh;
+  const uint32_t bar0 = smem_addr(&bars[0]);
 
-  for (int i = tid; i < kTile * kPieces; i += kThreads) {
-    const int r = i / kPieces, c = i % kPieces;
-    const bool ok = k0 + r < t;
-    const size_t off =
-        kv_base + static_cast<size_t>(ok ? k0 + r : 0) * kv * HD + c * 8;
-    cp_async16(smem_addr(ks + r * S + c * 8), k + off, ok);
-    cp_async16(smem_addr(vs + r * S + c * 8), v + off, ok);
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) mbar_init(bar0 + 8 * i, 1);
+    mbar_fence_init();
   }
-  cp_async_commit();
-
-  int qb_begin, qb_end;
-  query_blocks(k0, sq, QB, causal, use_window, window, qb_begin, qb_end);
-  const int n_qb = qb_end - qb_begin;
-  const int n_steps = g * n_qb;  // (q head of the group, query block)
-  auto load_q = [&](int step, int buf) {
-    const int head = kvh * g + step / n_qb;
-    const int q0 = (qb_begin + step % n_qb) * QB;
-    const size_t q_base = (static_cast<size_t>(b) * sq * h + head) * HD;
-    for (int i = tid; i < QB * kPieces; i += kThreads) {
-      const int r = i / kPieces, c = i % kPieces;
-      const bool ok = q0 + r < sq;
-      const size_t off =
-          q_base + static_cast<size_t>(ok ? q0 + r : 0) * row_stride + c * 8;
-      const int dst = (buf * QB + r) * S + c * 8;
-      cp_async16(smem_addr(qs + dst), q + off, ok);
-      cp_async16(smem_addr(dos + dst), dout + off, ok);
+  __syncthreads();
+  auto load_q = [&](int i) {  // ring entry i: flat step i
+    int head, q0;
+    unit.step(i, QB, head, q0);
+    const int st = i % kStages;
+    const uint32_t dst = base + st * L::kStage;
+    const uint32_t bar = bar0 + 8 * st;
+    mbar_expect(bar, 2 * TQ::kBytes + QB * 8);
+    for (int p = 0; p < TQ::kPanels; ++p) {
+      tma_load_4d(dst + p * TQ::kPanelBytes, &tm_q, bar, p * TQ::kBoxCols,
+                  head, q0, b);
+      tma_load_4d(dst + TQ::kBytes + p * TQ::kPanelBytes, &tm_dout, bar,
+                  p * TQ::kBoxCols, head, q0, b);
     }
-    const size_t stat_base = (static_cast<size_t>(b) * h + head) * sq;
-    for (int i = tid; i < QB; i += kThreads) {
-      const bool ok = q0 + i < sq;
-      lse_s[buf * QB + i] = ok ? lse[stat_base + q0 + i] * kLog2e : 0.0f;
-      d_s[buf * QB + i] = ok ? delta[stat_base + q0 + i] : 0.0f;
-    }
+    tma_load_2d(dst + L::kStats, &tm_stats, bar, 2 * q0, b * h + head);
   };
-  if (n_steps > 0) load_q(0, 0);
-  cp_async_commit();
+  if (tid == 0)
+    for (int i = 0; i < kStages && i < unit.total; ++i) load_q(i);
 
-  const int w_first = k0 + warp * 16, w_last = w_first + 15;
-  const int key_a = w_first + (lane >> 2), key_b = key_a + 8;
   const float scale_log2 = scale * kLog2e;
-  float dka[2 * kDSteps][4], dva[2 * kDSteps][4];
+  const size_t kv_head = (static_cast<size_t>(b) * t * kv + kvh) * HD;
+  const size_t plane = static_cast<size_t>(nb) * t * kv * HD;
+  float* pk = split > 1 ? part + unit.share * plane : nullptr;
+  float* pv = split > 1 ? part + (split + unit.share) * plane : nullptr;
+  // step i's dv and dk products run on while step i + 1's s^T and dp^T
+  // are issued; the stage they read is refilled once they are done
+  uint32_t pf[QB / 16][4], sf[QB / 16][4];
+  int i = 0;  // flat step
+  for (int c = 0; c < unit.n_blocks; ++c) {
+    const int k0 = unit.kb(c) * kTile;
+    const int key_a = k0 + warp * 16 + (lane >> 2);  // and key_a + 8
+    const int nq = unit.n_qb(c);
+    // K and V of this lane's keys as the A operands of s^T and dp^T
+    uint32_t kf[HD / 16][4], vf[HD / 16][4];
+    load_a_rows<HD>(kf, k + kv_head, static_cast<size_t>(kv) * HD, key_a, t,
+                    lane);
+    load_a_rows<HD>(vf, v + kv_head, static_cast<size_t>(kv) * HD, key_a, t,
+                    lane);
+    float dka[HD / 2], dva[HD / 2];
 #pragma unroll
-  for (int n = 0; n < 2 * kDSteps; ++n)
+    for (int e = 0; e < HD / 2; ++e) dka[e] = dva[e] = 0.0f;
+    for (int s = 0; s < unit.steps(c); ++s, ++i) {
+      const int q0 = (unit.qb_begin(c) + s % nq) * QB;
+      const int st = i % kStages;
+      const uint32_t qs = base + st * L::kStage;
+      const uint32_t dos = qs + TQ::kBytes;
+      const float* stat = reinterpret_cast<const float*>(
+          smem_raw + (qs - raw) + L::kStats);
+      mbar_wait(bar0 + 8 * st, (i / kStages) & 1);
+      // s^T = k . q^T and dp^T = v . dout^T, 64 keys x QB queries
+      float sa[QB / 2], dpa[QB / 2];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.0f;
-
-  for (int step = 0; step < n_steps; ++step) {
-    const int buf = step & 1;
-    if (step + 1 < n_steps) load_q(step + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // step's tiles (and, at step 0, K and V)
-    __syncthreads();
-    const int q0 = (qb_begin + step % n_qb) * QB;
-    const bf16* qbuf = qs + buf * QB * S;
-    const bf16* dobuf = dos + buf * QB * S;
-    const float* lbuf = lse_s + buf * QB;
-    const float* dbuf = d_s + buf * QB;
-    // a block that none of this warp's keys is seen by adds nothing
-    const bool visible = w_first < t && !(causal && q0 + QB - 1 < w_first) &&
-                         !(use_window && q0 >= w_last + window);
-    if (visible) {
-      // s^T = k . q^T and dp^T = v . dout^T, 16 keys x QB queries
-      float st[kNTiles][4], dpt[kNTiles][4];
+      for (int e = 0; e < QB / 2; ++e) sa[e] = dpa[e] = 0.0f;
+      own(sa);
+      own(dpa);
+      wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < kNTiles; ++n)
+      for (int kk = 0; kk < HD / 16; ++kk)
+        Wgmma<QB>::template rs<0>(sa, kf[kk], TQ::k_major(qs, kk), kk > 0);
+      wgmma_commit();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.0f;
-#pragma unroll
-      for (int ds = 0; ds < kDSteps; ++ds) {
-        uint32_t ka[4], va[4];
-        load_a(ka, ks + warp * 16 * S + ds * 16, S, lane);
-        load_a(va, vs + warp * 16 * S + ds * 16, S, lane);
-#pragma unroll
-        for (int np = 0; np < kNTiles / 2; ++np) {
-          uint32_t qf[4], of[4];
-          load_b(qf, qbuf + np * 16 * S + ds * 16, S, lane);
-          load_b(of, dobuf + np * 16 * S + ds * 16, S, lane);
-          mma_bf16(st[2 * np], ka, qf[0], qf[1]);
-          mma_bf16(st[2 * np + 1], ka, qf[2], qf[3]);
-          mma_bf16(dpt[2 * np], va, of[0], of[1]);
-          mma_bf16(dpt[2 * np + 1], va, of[2], of[3]);
-        }
+      for (int kk = 0; kk < HD / 16; ++kk)
+        Wgmma<QB>::template rs<0>(dpa, vf[kk], TQ::k_major(dos, kk), kk > 0);
+      wgmma_commit();
+      if (i > 0) {  // step i - 1's dv and dk products, then its stage
+        wgmma_wait<2>();
+        own(dva);
+        own(dka);
+        own(pf);
+        own(sf);
+        __syncthreads();  // every warp is done with the stage
+        if (tid == 0 && i - 1 + kStages < unit.total)
+          load_q(i - 1 + kStages);
       }
-      // p^T in place of s^T, ds^T in place of dp^T
+      // p^T in place of s^T, while dp^T is computed
+      wgmma_wait<1>();
+      own(sa);
+      const bool full = all_visible(q0, QB, k0, kTile, sq, t, causal,
+                                    use_window, window);
 #pragma unroll
-      for (int n = 0; n < kNTiles; ++n)
+      for (int j = 0; j < QB / 8; ++j) {
+        const int col = 8 * j + (lane & 3) * 2;
+        const float4 sv = *reinterpret_cast<const float4*>(stat + 2 * col);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int qi = n * 8 + (lane & 3) * 2 + (e & 1);
-          const bool ok = allowed(q0 + qi, e >= 2 ? key_b : key_a, sq, t,
-                                  causal, use_window, window);
-          const float p =
-              ok ? fast_exp2(fmaf(st[n][e], scale_log2, -lbuf[qi])) : 0.0f;
-          st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - dbuf[qi]) * scale;
-        }
-      // dv += bf(p)^T . dout and dk += bf(ds)^T . q
-#pragma unroll
-      for (int kk = 0; kk < kNTiles / 2; ++kk) {
-        uint32_t pf[4], sf[4];
-        pack_a(pf, st[2 * kk], st[2 * kk + 1]);
-        pack_a(sf, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-        for (int dp2 = 0; dp2 < kDSteps; ++dp2) {
-          uint32_t of[4], qf[4];
-          load_b_trans(of, dobuf + kk * 16 * S + dp2 * 16, S, lane);
-          mma_bf16(dva[2 * dp2], pf, of[0], of[1]);
-          mma_bf16(dva[2 * dp2 + 1], pf, of[2], of[3]);
-          load_b_trans(qf, qbuf + kk * 16 * S + dp2 * 16, S, lane);
-          mma_bf16(dka[2 * dp2], sf, qf[0], qf[1]);
-          mma_bf16(dka[2 * dp2 + 1], sf, qf[2], qf[3]);
+          const int idx = 4 * j + e;
+          const bool odd = e & 1;
+          const bool ok =
+              full || allowed(q0 + col + odd, key_a + (e >= 2 ? 8 : 0), sq,
+                              t, causal, use_window, window);
+          sa[idx] = ok ? fast_exp2(fmaf(sa[idx], scale_log2,
+                                        -(odd ? sv.z : sv.x)))
+                       : 0.0f;
         }
       }
-    }
-    __syncthreads();  // the buffer is read before the next load refills it
-  }
-  cp_async_wait<0>();
-
-  const int keys[2] = {key_a, key_b};
+      // dv += bf(p)^T . dout, dout read MN-major, while ds^T is computed
+      pack_rows<QB / 16>(pf, sa);
+      own(dva);
+      wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (keys[i] >= t) continue;
-    const size_t off =
-        kv_base + static_cast<size_t>(keys[i]) * kv * HD + (lane & 3) * 2;
+      for (int kk = 0; kk < QB / 16; ++kk)
+        Wgmma<HD>::template rs<1>(dva, pf[kk], TQ::mn_major(dos, kk), 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // dp^T
+      own(dpa);
 #pragma unroll
-    for (int n = 0; n < 2 * kDSteps; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8) =
-          __floats2bfloat162_rn(dka[n][2 * i], dka[n][2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8) =
-          __floats2bfloat162_rn(dva[n][2 * i], dva[n][2 * i + 1]);
+      for (int j = 0; j < QB / 8; ++j) {
+        const int col = 8 * j + (lane & 3) * 2;
+        const float4 sv = *reinterpret_cast<const float4*>(stat + 2 * col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int idx = 4 * j + e;
+          dpa[idx] = sa[idx] * (dpa[idx] - (e & 1 ? sv.w : sv.y)) * scale;
+        }
+      }
+      // dk += bf(ds)^T . q, q read MN-major
+      pack_rows<QB / 16>(sf, dpa);
+      own(dka);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < QB / 16; ++kk)
+        Wgmma<HD>::template rs<1>(dka, sf[kk], TQ::mn_major(qs, kk), 1);
+      wgmma_commit();
     }
+    wgmma_wait<0>();
+    own(dva);
+    own(dka);
+    own(pf);
+    own(sf);
+    own(kf);
+    own(vf);
+    store_kv_rows<HD>(dka, dva, key_a, lane, t, kv_head, kv * HD, dk, dv, pk,
+                      pv);
   }
 }
 
 // ---------------------------------------------------------------------------
-// float32 route: CUDA cores
+// float32 route: register tiles on the CUDA cores
 // ---------------------------------------------------------------------------
 
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// rows [r0, r0 + n) of one head of a (.., rows, heads, HD) float32 array
+// (`src` at the head's first element, rows `stride` floats apart) into
+// shared rows of HD + 4 floats, asynchronously; rows >= limit read as zeros
 template <int HD>
-constexpr size_t dq_smem_floats() {
-  return static_cast<size_t>(2 * kTile) * HD       // q and dout tiles
-         + static_cast<size_t>(2 * HD) * kTStride  // K and V, transposed
-         + static_cast<size_t>(kTile) * kTile;     // ds, one strip a warp
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           size_t stride, int r0, int n,
+                                           int limit, int tid) {
+  constexpr int kPieces = HD / 4;
+  for (int i = tid; i < n * kPieces; i += kThreads) {
+    const int r = i / kPieces, c = i % kPieces;
+    const bool ok = r0 + r < limit;
+    cp_async16(smem_addr(dst + r * (HD + 4) + c * 4),
+               src + static_cast<size_t>(ok ? r0 + r : 0) * stride + c * 4,
+               ok);
+  }
+}
+
+// a[i][j] = own_a[og + 16 i] . other_a[xg + 8 j] and the same for b: two
+// (64 own x OT other) products over hd, a 4 x OT/8 tile a thread
+template <int HD, int OT>
+__device__ __forceinline__ void nt_products(float (&a)[4][OT / 8],
+                                            float (&b)[4][OT / 8],
+                                            const float* own_a,
+                                            const float* other_a,
+                                            const float* own_b,
+                                            const float* other_b, int og,
+                                            int xg) {
+  constexpr int LD = HD + 4;
+  constexpr int kUnroll = HD == 128 ? 1 : 2;  // registers at hd 128
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < OT / 8; ++j) a[i][j] = b[i][j] = 0.0f;
+#pragma unroll (kUnroll)
+  for (int d = 0; d < HD; d += 4) {
+    float4 o[4], x[OT / 8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[i] = ld4(own_a + (og + 16 * i) * LD + d);
+#pragma unroll
+    for (int j = 0; j < OT / 8; ++j)
+      x[j] = ld4(other_a + (xg + 8 * j) * LD + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < OT / 8; ++j) {
+        a[i][j] = fmaf(o[i].x, x[j].x, a[i][j]);
+        a[i][j] = fmaf(o[i].y, x[j].y, a[i][j]);
+        a[i][j] = fmaf(o[i].z, x[j].z, a[i][j]);
+        a[i][j] = fmaf(o[i].w, x[j].w, a[i][j]);
+      }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[i] = ld4(own_b + (og + 16 * i) * LD + d);
+#pragma unroll
+    for (int j = 0; j < OT / 8; ++j)
+      x[j] = ld4(other_b + (xg + 8 * j) * LD + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < OT / 8; ++j) {
+        b[i][j] = fmaf(o[i].x, x[j].x, b[i][j]);
+        b[i][j] = fmaf(o[i].y, x[j].y, b[i][j]);
+        b[i][j] = fmaf(o[i].z, x[j].z, b[i][j]);
+        b[i][j] = fmaf(o[i].w, x[j].w, b[i][j]);
+      }
+  }
+}
+
+// DPT floats of a shared row at p
+template <int DPT>
+__device__ __forceinline__ void ld_cols(float (&v)[DPT], const float* p) {
+  if constexpr (DPT % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < DPT; c += 4) {
+      const float4 f = ld4(p + c);
+      v[c] = f.x;
+      v[c + 1] = f.y;
+      v[c + 2] = f.z;
+      v[c + 3] = f.w;
+    }
+  } else if constexpr (DPT == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    v[0] = f.x;
+    v[1] = f.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+template <int DPT>
+__device__ __forceinline__ void st_cols(float* p, const float (&v)[DPT]) {
+  if constexpr (DPT % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < DPT; c += 4)
+      *reinterpret_cast<float4*>(p + c) =
+          make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]);
+  } else if constexpr (DPT == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+// acc[i][c] (own row 8 kg + i, column DPT dg + c) += sum over the OT
+// streamed rows r of x[r][8 kg + i] * tile[r][DPT dg + c]
+template <int HD, int OT>
+__device__ __forceinline__ void tn_product(float (&acc)[8][HD / 16],
+                                           const float* x, const float* tile,
+                                           int kg, int dg) {
+  constexpr int LD = HD + 4, DPT = HD / 16;
+  constexpr int kUnroll = HD == 128 ? 1 : 4;  // registers at hd 128
+#pragma unroll (kUnroll)
+  for (int r = 0; r < OT; ++r) {
+    const float4 x0 = ld4(x + r * kXLd + 8 * kg);
+    const float4 x1 = ld4(x + r * kXLd + 8 * kg + 4);
+    const float xs[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    float tv[DPT];
+    ld_cols<DPT>(tv, tile + r * LD + DPT * dg);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < DPT; ++c) acc[i][c] = fmaf(xs[i], tv[c], acc[i][c]);
+  }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
+__host__ __device__ constexpr size_t dq_f32_smem_bytes() {
+  // q and dout tiles; K and V double-buffered; ds^T; lse and D of the rows
+  return (static_cast<size_t>(2 * kTile) * (HD + 4) +
+          static_cast<size_t>(4 * kOther) * (HD + 4) + kOther * kXLd +
+          2 * kTile) *
+         sizeof(float);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ out,
     const float* __restrict__ lse, const float* __restrict__ dout,
-    float* __restrict__ delta, float* __restrict__ dq, int sq, int t, int h,
-    int kv, int causal, int use_window, int window, float scale) {
-  constexpr int kDpl = HD >= 32 ? HD / 32 : 1;  // output columns a lane
+    float2* __restrict__ stats, float* __restrict__ dq, int sq, int sq_pad,
+    int t, int h, int kv, int causal, int use_window, int window,
+    float scale) {
+  constexpr int LD = HD + 4, DPT = HD / 16;
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [kTile][HD]
-  float* dos = qs + kTile * HD;                 // [kTile][HD]
-  float* kt = dos + kTile * HD;                 // [HD][kTStride]
-  float* vt = kt + HD * kTStride;               // [HD][kTStride]
-  float* ps = vt + HD * kTStride;               // [kTile][kTile]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q0 = blockIdx.x * kTile;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = head / (h / kv);
-  const int r0 = warp * kRowsPerWarp;
-  const size_t q_base = (static_cast<size_t>(b) * sq * h + head) * HD;
-  const size_t row_stride = static_cast<size_t>(h) * HD;
-  const size_t stat_base = (static_cast<size_t>(b) * h + head) * sq;
-
-  for (int i = tid; i < kTile * HD; i += kThreads) {
-    const int row = q0 + i / HD;
-    const size_t off = q_base + static_cast<size_t>(row) * row_stride + i % HD;
-    qs[i] = row < sq ? q[off] : 0.0f;
-    dos[i] = row < sq ? dout[off] : 0.0f;
-  }
-  __syncthreads();
-
-  // D and the lse of the warp's rows, every lane holding all 16
-  float dr[kRowsPerWarp], lr[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = q0 + r0 + r;
-    float acc = 0.0f;
-    if (row < sq) {
-      const float* orow = out + q_base + static_cast<size_t>(row) * row_stride;
-      for (int d = lane; d < HD; d += 32)
-        acc = fmaf(dos[(r0 + r) * HD + d], orow[d], acc);
-    }
-    dr[r] = warp_sum(acc);
-    lr[r] = row < sq ? lse[stat_base + row] : 0.0f;
-    if (lane == 0 && row < sq) delta[stat_base + row] = dr[r];
-  }
-
-  int kb_begin, kb_end;
-  key_blocks(q0, sq, t, causal, use_window, window, kb_begin, kb_end);
-  float acc[kRowsPerWarp][kDpl];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int i = 0; i < kDpl; ++i) acc[r][i] = 0.0f;
-  float* pw = ps + r0 * kTile;
-
-  for (int kb = kb_begin; kb < kb_end; ++kb) {
-    __syncthreads();  // the last block is read
-    const int k0 = kb * kTile;
-    for (int i = tid; i < kTile * HD; i += kThreads) {
-      const int j = i / HD, d = i % HD, key = k0 + j;
-      float kval = 0.0f, vval = 0.0f;
-      if (key < t) {
-        const size_t off =
-            ((static_cast<size_t>(b) * t + key) * kv + kvh) * HD + d;
-        kval = k[off];
-        vval = v[off];
-      }
-      kt[d * kTStride + j] = kval;
-      vt[d * kTStride + j] = vval;
-    }
-    __syncthreads();
-
-    // s and dp of keys k0 + lane and k0 + lane + 32 against the warp's rows
-    float s[kRowsPerWarp][2], dp[kRowsPerWarp][2];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-      s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.0f;
-#pragma unroll 2
-    for (int d = 0; d < HD; d += 4) {
-      float ka[4], kb2[4], va[4], vb[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        ka[u] = kt[(d + u) * kTStride + lane];
-        kb2[u] = kt[(d + u) * kTStride + lane + 32];
-        va[u] = vt[(d + u) * kTStride + lane];
-        vb[u] = vt[(d + u) * kTStride + lane + 32];
-      }
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(qs + (r0 + r) * HD + d);
-        const float4 ov =
-            *reinterpret_cast<const float4*>(dos + (r0 + r) * HD + d);
-        s[r][0] = fmaf(qv.x, ka[0], s[r][0]);
-        s[r][0] = fmaf(qv.y, ka[1], s[r][0]);
-        s[r][0] = fmaf(qv.z, ka[2], s[r][0]);
-        s[r][0] = fmaf(qv.w, ka[3], s[r][0]);
-        s[r][1] = fmaf(qv.x, kb2[0], s[r][1]);
-        s[r][1] = fmaf(qv.y, kb2[1], s[r][1]);
-        s[r][1] = fmaf(qv.z, kb2[2], s[r][1]);
-        s[r][1] = fmaf(qv.w, kb2[3], s[r][1]);
-        dp[r][0] = fmaf(ov.x, va[0], dp[r][0]);
-        dp[r][0] = fmaf(ov.y, va[1], dp[r][0]);
-        dp[r][0] = fmaf(ov.z, va[2], dp[r][0]);
-        dp[r][0] = fmaf(ov.w, va[3], dp[r][0]);
-        dp[r][1] = fmaf(ov.x, vb[0], dp[r][1]);
-        dp[r][1] = fmaf(ov.y, vb[1], dp[r][1]);
-        dp[r][1] = fmaf(ov.z, vb[2], dp[r][1]);
-        dp[r][1] = fmaf(ov.w, vb[3], dp[r][1]);
-      }
-    }
-
-    // ds = p * (dp - D) * scale into the warp's strip
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int qp = q0 + r0 + r;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int key = k0 + lane + 32 * c;
-        const float p =
-            allowed(qp, key, sq, t, causal, use_window, window)
-                ? expf(s[r][c] * scale - lr[r])
-                : 0.0f;
-        pw[r * kTile + lane + 32 * c] = p * (dp[r][c] - dr[r]) * scale;
-      }
-    }
-    __syncwarp();
-
-    // dq += ds . k: lane owns columns lane, lane + 32, ...; k[j][d] is
-    // kt[d][j], the lanes' reads on distinct banks
-#pragma unroll 2
-    for (int j = 0; j < kTile; j += 4) {
-      float kk[4][kDpl];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int i = 0; i < kDpl; ++i) {
-          const int d = lane + 32 * i;
-          kk[u][i] = d < HD ? kt[d * kTStride + j + u] : 0.0f;
-        }
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 p4 = *reinterpret_cast<const float4*>(pw + r * kTile + j);
-#pragma unroll
-        for (int i = 0; i < kDpl; ++i) {
-          acc[r][i] = fmaf(p4.x, kk[0][i], acc[r][i]);
-          acc[r][i] = fmaf(p4.y, kk[1][i], acc[r][i]);
-          acc[r][i] = fmaf(p4.z, kk[2][i], acc[r][i]);
-          acc[r][i] = fmaf(p4.w, kk[3][i], acc[r][i]);
-        }
-      }
-    }
-    __syncwarp();  // the strip is read before the next block writes it
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = q0 + r0 + r;
-    if (row >= sq) continue;
-    float* o = dq + q_base + static_cast<size_t>(row) * row_stride;
-#pragma unroll
-    for (int i = 0; i < kDpl; ++i) {
-      const int d = lane + 32 * i;
-      if (d < HD) o[d] = acc[r][i];
-    }
-  }
-}
-
-template <int HD>
-constexpr size_t dkdv_smem_floats() {
-  return static_cast<size_t>(2 * kTile) * HD       // K and V tiles
-         + static_cast<size_t>(2 * HD) * kTStride  // q and dout, transposed
-         + static_cast<size_t>(2 * kTile) * kTile  // p and ds strips
-         + static_cast<size_t>(2 * kTile);         // lse and D of the rows
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ lse,
-    const float* __restrict__ dout, const float* __restrict__ delta,
-    float* __restrict__ dk, float* __restrict__ dv, int sq, int t, int h,
-    int kv, int causal, int use_window, int window, float scale) {
-  constexpr int kDpl = HD >= 32 ? HD / 32 : 1;
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);  // [kTile][HD]
-  float* vs = ks + kTile * HD;                  // [kTile][HD]
-  float* qt = vs + kTile * HD;                  // [HD][kTStride]
-  float* ot = qt + HD * kTStride;               // [HD][kTStride]
-  float* ps = ot + HD * kTStride;               // [kTile][kTile]
-  float* dss = ps + kTile * kTile;              // [kTile][kTile]
-  float* lse_s = dss + kTile * kTile;           // [kTile]
+  float* qs = reinterpret_cast<float*>(smem4);  // [kTile][LD]
+  float* dos = qs + kTile * LD;                 // [kTile][LD]
+  float* kvbuf = dos + kTile * LD;              // [2][K, V: kOther][LD]
+  float* dst = kvbuf + 4 * kOther * LD;         // ds^T [kOther][kXLd]
+  float* lse_s = dst + kOther * kXLd;           // [kTile]
   float* d_s = lse_s + kTile;                   // [kTile]
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int k0 = blockIdx.x * kTile;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int g = h / kv;
-  const int r0 = warp * kRowsPerWarp;
-  const size_t row_stride = static_cast<size_t>(h) * HD;
+  const int head = blockIdx.x % h;
+  const int b = blockIdx.x / h;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heaviest first
+  const int kvh = head / (h / kv);
+  const size_t q_head = (static_cast<size_t>(b) * sq * h + head) * HD;
+  const size_t kv_head = (static_cast<size_t>(b) * t * kv + kvh) * HD;
+  int kb_begin, kb_end;
+  key_blocks(q0, kTile, kOther, sq, t, causal, use_window, window, kb_begin,
+             kb_end);
+  const int n = kb_end - kb_begin;
+  auto load_kv = [&](int i, int buf) {
+    float* kb = kvbuf + buf * 2 * kOther * LD;
+    const int k0 = (kb_begin + i) * kOther;
+    stage_rows<HD>(kb, k + kv_head, static_cast<size_t>(kv) * HD, k0, kOther,
+                   t, tid);
+    stage_rows<HD>(kb + kOther * LD, v + kv_head,
+                   static_cast<size_t>(kv) * HD, k0, kOther, t, tid);
+  };
+  stage_rows<HD>(qs, q + q_head, static_cast<size_t>(h) * HD, q0, kTile, sq,
+                 tid);
+  stage_rows<HD>(dos, dout + q_head, static_cast<size_t>(h) * HD, q0, kTile,
+                 sq, tid);
+  if (n > 0) load_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
 
-  for (int i = tid; i < kTile * HD; i += kThreads) {
-    const int key = k0 + i / HD;
-    const size_t off =
-        ((static_cast<size_t>(b) * t + key) * kv + kvh) * HD + i % HD;
-    ks[i] = key < t ? k[off] : 0.0f;
-    vs[i] = key < t ? v[off] : 0.0f;
-  }
-
-  int qb_begin, qb_end;
-  query_blocks(k0, sq, kTile, causal, use_window, window, qb_begin, qb_end);
-  const int w_first = k0 + r0, w_last = w_first + kRowsPerWarp - 1;
-  float dka[kRowsPerWarp][kDpl], dva[kRowsPerWarp][kDpl];
+  // D = sum(dout * out) and lse * log2 e of the 64 rows, two threads a row
+  {
+    const int r = tid >> 1, half = tid & 1;
+    const int row = q0 + r;
+    float acc = 0.0f;
+    if (row < sq) {
+      const float* orow =
+          out + q_head + static_cast<size_t>(row) * h * HD + half * (HD / 2);
+      const float* drow = dos + r * LD + half * (HD / 2);
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int i = 0; i < kDpl; ++i) dka[r][i] = dva[r][i] = 0.0f;
-  float* pw = ps + r0 * kTile;
-  float* sw = dss + r0 * kTile;
-
-  for (int gi = 0; gi < g; ++gi) {
-    const int head = kvh * g + gi;
-    const size_t q_base = (static_cast<size_t>(b) * sq * h + head) * HD;
-    const size_t stat_base = (static_cast<size_t>(b) * h + head) * sq;
-    for (int qb = qb_begin; qb < qb_end; ++qb) {
-      const int q0 = qb * kTile;
-      __syncthreads();  // the last block is read (and K, V are staged)
-      for (int i = tid; i < kTile * HD; i += kThreads) {
-        const int j = i / HD, d = i % HD, row = q0 + j;
-        const size_t off = q_base + static_cast<size_t>(row) * row_stride + d;
-        qt[d * kTStride + j] = row < sq ? q[off] : 0.0f;
-        ot[d * kTStride + j] = row < sq ? dout[off] : 0.0f;
+      for (int c = 0; c < HD / 2; c += 4) {
+        const float4 o = *reinterpret_cast<const float4*>(orow + c);
+        const float4 g = ld4(drow + c);
+        acc = fmaf(g.x, o.x, acc);
+        acc = fmaf(g.y, o.y, acc);
+        acc = fmaf(g.z, o.z, acc);
+        acc = fmaf(g.w, o.w, acc);
       }
-      for (int i = tid; i < kTile; i += kThreads) {
-        const bool ok = q0 + i < sq;
-        lse_s[i] = ok ? lse[stat_base + q0 + i] : 0.0f;
-        d_s[i] = ok ? delta[stat_base + q0 + i] : 0.0f;
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    const float l2 =
+        row < sq ? lse[(static_cast<size_t>(b) * h + head) * sq + row] * kLog2e
+                 : 0.0f;
+    if (half == 0) {
+      lse_s[r] = l2;
+      d_s[r] = acc;
+      stats[(static_cast<size_t>(b) * h + head) * sq_pad + row] =
+          make_float2(l2, acc);
+    }
+  }
+  __syncthreads();
+
+  const int og = tid % 16, xg = tid / 16;  // s: rows og + 16 i, keys xg + 8 j
+  const int kg = tid / 16, dg = tid % 16;  // dq: rows 8 kg + i, cols DPT dg
+  float l2[4], dd[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    l2[i] = lse_s[og + 16 * i];
+    dd[i] = d_s[og + 16 * i];
+  }
+  const float scale_log2 = scale * kLog2e;
+  float acc[8][DPT];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.0f;
+
+  for (int i = 0; i < n; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < n) load_kv(i + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // block i
+    __syncthreads();
+    const float* kb = kvbuf + buf * 2 * kOther * LD;
+    const float* vb = kb + kOther * LD;
+    const int k0 = (kb_begin + i) * kOther;
+    float s[4][4], dp[4][4];
+    nt_products<HD, kOther>(s, dp, qs, kb, dos, vb, og, xg);
+    const bool full = all_visible(q0, kTile, k0, kOther, sq, t, causal,
+                                  use_window, window);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = q0 + og + 16 * a, key = k0 + xg + 8 * j;
+        const bool ok =
+            full || allowed(row, key, sq, t, causal, use_window, window);
+        const float p = ok ? exp2f(fmaf(s[a][j], scale_log2, -l2[a])) : 0.0f;
+        dst[(xg + 8 * j) * kXLd + og + 16 * a] =
+            p * (dp[a][j] - dd[a]) * scale;
+      }
+    __syncthreads();
+    tn_product<HD, kOther>(acc, dst, kb, kg, dg);
+    __syncthreads();  // ds^T and the buffer are read before they are refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + 8 * kg + i;
+    if (row < sq)
+      st_cols<DPT>(dq + q_head + static_cast<size_t>(row) * h * HD + DPT * dg,
+                   acc[i]);
+  }
+}
+
+// query rows a step of the f32 dk/dv kernel: fewer at hd 128 (registers)
+template <int HD>
+__host__ __device__ constexpr int dkdv_f32_q_block() {
+  return HD == 128 ? 16 : 32;
+}
+
+template <int HD>
+__host__ __device__ constexpr size_t dkdv_f32_smem_bytes() {
+  constexpr int OT = dkdv_f32_q_block<HD>();
+  // K and V tiles; q, dout and their stats double-buffered; p^T and ds^T
+  return (static_cast<size_t>(2 * kTile) * (HD + 4) +
+          2 * (static_cast<size_t>(2 * OT) * (HD + 4) + 2 * OT) +
+          2 * OT * kXLd) *
+         sizeof(float);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float2* __restrict__ stats, float* __restrict__ dk,
+    float* __restrict__ dv, float* __restrict__ part, int nb, int sq,
+    int sq_pad, int t, int h, int kv, int n_kb, int pair, int split,
+    int causal, int use_window, int window, float scale) {
+  constexpr int LD = HD + 4, DPT = HD / 16;
+  constexpr int OT = dkdv_f32_q_block<HD>();
+  constexpr int kBuf = 2 * OT * LD + 2 * OT;  // q, dout, stats
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);  // [kTile][LD]
+  float* vs = ks + kTile * LD;                  // [kTile][LD]
+  float* bufs = vs + kTile * LD;                // [2][kBuf]
+  float* pt = bufs + 2 * kBuf;                  // p^T [OT][kXLd]
+  float* dst = pt + OT * kXLd;                  // ds^T [OT][kXLd]
+
+  const int tid = threadIdx.x;
+  const Unit unit(n_kb, pair, split, kv, h, sq, OT, causal, use_window,
+                  window);
+  const int b = unit.b, kvh = unit.kvh;
+  const size_t kv_head = (static_cast<size_t>(b) * t * kv + kvh) * HD;
+  auto load_kv = [&](int c) {
+    const int k0 = unit.kb(c) * kTile;
+    stage_rows<HD>(ks, k + kv_head, static_cast<size_t>(kv) * HD, k0, kTile,
+                   t, tid);
+    stage_rows<HD>(vs, v + kv_head, static_cast<size_t>(kv) * HD, k0, kTile,
+                   t, tid);
+  };
+  auto load_q = [&](int i, int buf) {
+    int head, q0;
+    unit.step(i, OT, head, q0);
+    float* bq = bufs + buf * kBuf;
+    const size_t q_head = (static_cast<size_t>(b) * sq * h + head) * HD;
+    stage_rows<HD>(bq, q + q_head, static_cast<size_t>(h) * HD, q0, OT,
+                   sq, tid);
+    stage_rows<HD>(bq + OT * LD, dout + q_head,
+                   static_cast<size_t>(h) * HD, q0, OT, sq, tid);
+    const float2* srow =
+        stats + (static_cast<size_t>(b) * h + head) * sq_pad + q0;
+    for (int r = tid; r < OT / 2; r += kThreads)  // q0 + OT <= sq_pad
+      cp_async16(smem_addr(bq + 2 * OT * LD + 4 * r), srow + 2 * r, true);
+  };
+  load_kv(0);
+  if (unit.total > 0) load_q(0, 0);
+  cp_async_commit();
+
+  const int og = tid % 16, xg = tid / 16;  // s^T: keys og + 16 i, q xg + 8 j
+  const int kg = tid / 16, dg = tid % 16;  // dk, dv: keys 8 kg + i, DPT dg
+  const float scale_log2 = scale * kLog2e;
+  const size_t plane = static_cast<size_t>(nb) * t * kv * HD;
+  int i = 0;  // flat step
+  for (int c = 0; c < unit.n_blocks; ++c) {
+    const int k0 = unit.kb(c) * kTile;
+    const int nq = unit.n_qb(c);
+    float dka[8][DPT], dva[8][DPT];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int e = 0; e < DPT; ++e) dka[r][e] = dva[r][e] = 0.0f;
+    for (int s = 0; s < unit.steps(c); ++s, ++i) {
+      const int buf = i & 1;
+      if (i + 1 < unit.total) load_q(i + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // step i (and K and V)
+      __syncthreads();
+      const int q0 = (unit.qb_begin(c) + s % nq) * OT;
+      const float* bq = bufs + buf * kBuf;
+      const float* bdo = bq + OT * LD;
+      const float* bst = bdo + OT * LD;
+      float st[4][OT / 8], dpt[4][OT / 8];
+      nt_products<HD, OT>(st, dpt, ks, bq, vs, bdo, og, xg);
+      const bool full = all_visible(q0, OT, k0, kTile, sq, t, causal,
+                                    use_window, window);
+#pragma unroll
+      for (int j = 0; j < OT / 8; ++j) {
+        const int qi = xg + 8 * j;
+        const float2 sv = *reinterpret_cast<const float2*>(bst + 2 * qi);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int key = k0 + og + 16 * a;
+          const bool ok = full || allowed(q0 + qi, key, sq, t, causal,
+                                          use_window, window);
+          const float p = ok ? exp2f(fmaf(st[a][j], scale_log2, -sv.x)) : 0.0f;
+          pt[qi * kXLd + og + 16 * a] = p;
+          dst[qi * kXLd + og + 16 * a] = p * (dpt[a][j] - sv.y) * scale;
+        }
       }
       __syncthreads();
-      const bool visible = w_first < t && !(causal && q0 + kTile - 1 < w_first)
-                           && !(use_window && q0 >= w_last + window);
-      if (!visible) continue;
-
-      // s^T and dp^T of queries q0 + lane and q0 + lane + 32 against the
-      // warp's 16 keys
-      float s[kRowsPerWarp][2], dp[kRowsPerWarp][2];
+      tn_product<HD, OT>(dva, pt, bdo, kg, dg);
+      tn_product<HD, OT>(dka, dst, bq, kg, dg);
+      __syncthreads();  // p^T, ds^T and the buffer are read
+    }
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r)
-        s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.0f;
-#pragma unroll 2
-      for (int d = 0; d < HD; d += 4) {
-        float qa[4], qb2[4], oa[4], ob[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          qa[u] = qt[(d + u) * kTStride + lane];
-          qb2[u] = qt[(d + u) * kTStride + lane + 32];
-          oa[u] = ot[(d + u) * kTStride + lane];
-          ob[u] = ot[(d + u) * kTStride + lane + 32];
-        }
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const float4 kv4 =
-              *reinterpret_cast<const float4*>(ks + (r0 + r) * HD + d);
-          const float4 vv4 =
-              *reinterpret_cast<const float4*>(vs + (r0 + r) * HD + d);
-          s[r][0] = fmaf(kv4.x, qa[0], s[r][0]);
-          s[r][0] = fmaf(kv4.y, qa[1], s[r][0]);
-          s[r][0] = fmaf(kv4.z, qa[2], s[r][0]);
-          s[r][0] = fmaf(kv4.w, qa[3], s[r][0]);
-          s[r][1] = fmaf(kv4.x, qb2[0], s[r][1]);
-          s[r][1] = fmaf(kv4.y, qb2[1], s[r][1]);
-          s[r][1] = fmaf(kv4.z, qb2[2], s[r][1]);
-          s[r][1] = fmaf(kv4.w, qb2[3], s[r][1]);
-          dp[r][0] = fmaf(vv4.x, oa[0], dp[r][0]);
-          dp[r][0] = fmaf(vv4.y, oa[1], dp[r][0]);
-          dp[r][0] = fmaf(vv4.z, oa[2], dp[r][0]);
-          dp[r][0] = fmaf(vv4.w, oa[3], dp[r][0]);
-          dp[r][1] = fmaf(vv4.x, ob[0], dp[r][1]);
-          dp[r][1] = fmaf(vv4.y, ob[1], dp[r][1]);
-          dp[r][1] = fmaf(vv4.z, ob[2], dp[r][1]);
-          dp[r][1] = fmaf(vv4.w, ob[3], dp[r][1]);
-        }
+    for (int r = 0; r < 8; ++r) {
+      const int key = k0 + 8 * kg + r;
+      if (key >= t) continue;
+      const size_t off =
+          kv_head + static_cast<size_t>(key) * kv * HD + DPT * dg;
+      if (split > 1) {
+        st_cols<DPT>(part + unit.share * plane + off, dka[r]);
+        st_cols<DPT>(part + (split + unit.share) * plane + off, dva[r]);
+      } else {
+        st_cols<DPT>(dk + off, dka[r]);
+        st_cols<DPT>(dv + off, dva[r]);
       }
-
-      // p^T and ds^T into the warp's strips
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const int key = w_first + r;
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int qi = lane + 32 * c;
-          const float p =
-              allowed(q0 + qi, key, sq, t, causal, use_window, window)
-                  ? expf(s[r][c] * scale - lse_s[qi])
-                  : 0.0f;
-          pw[r * kTile + qi] = p;
-          sw[r * kTile + qi] = p * (dp[r][c] - d_s[qi]) * scale;
-        }
-      }
-      __syncwarp();
-
-      // dv += p^T . dout, then dk += ds^T . q: lane owns columns lane,
-      // lane + 32, ...; dout[j][d] is ot[d][j]
-#pragma unroll 2
-      for (int j = 0; j < kTile; j += 4) {
-        float oo[4][kDpl];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int i = 0; i < kDpl; ++i) {
-            const int d = lane + 32 * i;
-            oo[u][i] = d < HD ? ot[d * kTStride + j + u] : 0.0f;
-          }
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const float4 p4 =
-              *reinterpret_cast<const float4*>(pw + r * kTile + j);
-#pragma unroll
-          for (int i = 0; i < kDpl; ++i) {
-            dva[r][i] = fmaf(p4.x, oo[0][i], dva[r][i]);
-            dva[r][i] = fmaf(p4.y, oo[1][i], dva[r][i]);
-            dva[r][i] = fmaf(p4.z, oo[2][i], dva[r][i]);
-            dva[r][i] = fmaf(p4.w, oo[3][i], dva[r][i]);
-          }
-        }
-      }
-#pragma unroll 2
-      for (int j = 0; j < kTile; j += 4) {
-        float qq[4][kDpl];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int i = 0; i < kDpl; ++i) {
-            const int d = lane + 32 * i;
-            qq[u][i] = d < HD ? qt[d * kTStride + j + u] : 0.0f;
-          }
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const float4 s4 =
-              *reinterpret_cast<const float4*>(sw + r * kTile + j);
-#pragma unroll
-          for (int i = 0; i < kDpl; ++i) {
-            dka[r][i] = fmaf(s4.x, qq[0][i], dka[r][i]);
-            dka[r][i] = fmaf(s4.y, qq[1][i], dka[r][i]);
-            dka[r][i] = fmaf(s4.z, qq[2][i], dka[r][i]);
-            dka[r][i] = fmaf(s4.w, qq[3][i], dka[r][i]);
-          }
-        }
-      }
-      __syncwarp();  // the strips are read before the next block writes them
+    }
+    if (c + 1 < unit.n_blocks) {
+      __syncthreads();  // K and V are read
+      load_kv(c + 1);
+      cp_async_commit();
     }
   }
+  cp_async_wait<0>();
+}
 
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int key = w_first + r;
-    if (key >= t) continue;
-    const size_t off =
-        ((static_cast<size_t>(b) * t + key) * kv + kvh) * HD;
-#pragma unroll
-    for (int i = 0; i < kDpl; ++i) {
-      const int d = lane + 32 * i;
-      if (d < HD) {
-        dk[off + d] = dka[r][i];
-        dv[off + d] = dva[r][i];
-      }
+// ---------------------------------------------------------------------------
+// the partials' fixed-order sum
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// dk = sum of part[0][s], dv = sum of part[1][s], s = 0 .. split - 1 in
+// order; n floats a plane (a multiple of 4)
+template <typename T>
+__global__ void flash_bwd_reduce_kernel(const float* __restrict__ part,
+                                        T* __restrict__ dk,
+                                        T* __restrict__ dv, size_t n,
+                                        int split) {
+  for (size_t i = (static_cast<size_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x) * 4;
+       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x * 4) {
+    float4 a = ld4(part + i);
+    float4 c = ld4(part + split * n + i);
+    for (int s = 1; s < split; ++s) {
+      const float4 x = ld4(part + s * n + i);
+      const float4 y = ld4(part + (split + s) * n + i);
+      a.x += x.x, a.y += x.y, a.z += x.z, a.w += x.w;
+      c.x += y.x, c.y += y.y, c.z += y.z, c.w += y.w;
     }
+    store4(dk + i, a);
+    store4(dv + i, c);
   }
 }
 
@@ -860,46 +1080,80 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
 
 struct Args {
   const void *q, *k, *v, *out, *lse, *dout;
-  void *delta, *dq, *dk, *dv;
-  int b, sq, t, h, kv, causal, use_window, window;
+  void *stats, *dq, *dk, *dv, *part;
+  int b, sq, sq_pad, t, h, kv, causal, use_window, window, pair, split;
   float scale;
 };
 
+int n_units(const Args& a) {
+  const int n_kb = (a.t + kTile - 1) / kTile;
+  return (a.pair ? (n_kb + 1) / 2 : n_kb) * a.split * a.kv * a.b;
+}
+
+template <typename T, int HD>
+int reduce(const Args& a, cudaStream_t stream) {
+  if (a.split <= 1) return static_cast<int>(cudaSuccess);
+  const size_t n = static_cast<size_t>(a.b) * a.t * a.kv * HD;
+  const int grid = static_cast<int>(std::min<size_t>(n / 4 / 256 + 1, 2048));
+  flash_bwd_reduce_kernel<T><<<grid, 256, 0, stream>>>(
+      static_cast<const float*>(a.part), static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), n, a.split);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int HD>
 int launch_f32(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem_dq = dq_smem_floats<HD>() * sizeof(float);
-  constexpr size_t smem_dkdv = dkdv_smem_floats<HD>() * sizeof(float);
-  auto dq_kernel = flash_bwd_dq_kernel<HD>;
-  auto dkdv_kernel = flash_bwd_dkdv_kernel<HD>;
+  constexpr size_t smem_dq = dq_f32_smem_bytes<HD>();
+  constexpr size_t smem_dkdv = dkdv_f32_smem_bytes<HD>();
+  auto dq_kernel = flash_bwd_dq_f32_kernel<HD>;
+  auto dkdv_kernel = flash_bwd_dkdv_f32_kernel<HD>;
   static bool dq_in = false, dkdv_in = false;
   cudaError_t e = opt_in(dq_kernel, smem_dq, dq_in);
   if (e == cudaSuccess) e = opt_in(dkdv_kernel, smem_dkdv, dkdv_in);
   if (e != cudaSuccess) return static_cast<int>(e);
   using F = const float*;
-  dq_kernel<<<dim3((a.sq + kTile - 1) / kTile, a.h, a.b), kThreads, smem_dq,
+  dq_kernel<<<dim3(a.b * a.h, (a.sq + kTile - 1) / kTile), kThreads, smem_dq,
               stream>>>(
       static_cast<F>(a.q), static_cast<F>(a.k), static_cast<F>(a.v),
       static_cast<F>(a.out), static_cast<F>(a.lse), static_cast<F>(a.dout),
-      static_cast<float*>(a.delta), static_cast<float*>(a.dq), a.sq, a.t,
-      a.h, a.kv, a.causal, a.use_window, a.window, a.scale);
+      static_cast<float2*>(a.stats), static_cast<float*>(a.dq), a.sq,
+      a.sq_pad, a.t, a.h, a.kv, a.causal, a.use_window, a.window, a.scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  dkdv_kernel<<<dim3((a.t + kTile - 1) / kTile, a.kv, a.b), kThreads,
-                smem_dkdv, stream>>>(
+  dkdv_kernel<<<n_units(a), kThreads, smem_dkdv, stream>>>(
       static_cast<F>(a.q), static_cast<F>(a.k), static_cast<F>(a.v),
-      static_cast<F>(a.lse), static_cast<F>(a.dout),
-      static_cast<F>(a.delta), static_cast<float*>(a.dk),
-      static_cast<float*>(a.dv), a.sq, a.t, a.h, a.kv, a.causal,
-      a.use_window, a.window, a.scale);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<F>(a.dout), static_cast<const float2*>(a.stats),
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      static_cast<float*>(a.part), a.b, a.sq, a.sq_pad, a.t, a.h, a.kv,
+      (a.t + kTile - 1) / kTile, a.pair, a.split, a.causal, a.use_window,
+      a.window, a.scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return reduce<float, HD>(a, stream);
 }
 
 template <int HD>
 int launch_bf16(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem_dq = dq_mma_smem_bytes<HD>();
-  constexpr size_t smem_dkdv = dkdv_mma_smem_bytes<HD>();
-  auto dq_kernel = flash_bwd_dq_mma_kernel<HD>;
-  auto dkdv_kernel = flash_bwd_dkdv_mma_kernel<HD>;
+  using T64 = Tile<HD, kTile>;
+  using TQ = typename DkdvLayout<HD>::TQ;
+  constexpr int QB = DkdvLayout<HD>::QB;
+  CUtensorMap k64, v64, qq, dod, st;
+  const bool ok =
+      bshd_map(&k64, a.k, a.b, a.t, a.kv, HD, kTile, T64::kBoxCols,
+               T64::kRowBytes) &&
+      bshd_map(&v64, a.v, a.b, a.t, a.kv, HD, kTile, T64::kBoxCols,
+               T64::kRowBytes) &&
+      bshd_map(&qq, a.q, a.b, a.sq, a.h, HD, QB, TQ::kBoxCols,
+               TQ::kRowBytes) &&
+      bshd_map(&dod, a.dout, a.b, a.sq, a.h, HD, QB, TQ::kBoxCols,
+               TQ::kRowBytes) &&
+      f32_map(&st, a.stats, a.b * a.h, 2 * a.sq_pad, 2 * a.sq_pad, 1,
+              2 * QB);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem_dq = DqLayout<HD>::kBytes;
+  constexpr size_t smem_dkdv = DkdvLayout<HD>::kBytes;
+  auto dq_kernel = flash_bwd_dq_wgmma_kernel<HD>;
+  auto dkdv_kernel = flash_bwd_dkdv_wgmma_kernel<HD>;
   static bool dq_in = false, dkdv_in = false;
   cudaError_t e = opt_in(dq_kernel, smem_dq, dq_in);
   if (e == cudaSuccess) e = opt_in(dkdv_kernel, smem_dkdv, dkdv_in);
@@ -907,24 +1161,23 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
   using B = const bf16*;
   // (batch x head) fastest, the q tile slowest, reversed: heaviest first
   dq_kernel<<<dim3(a.b * a.h, (a.sq + kTile - 1) / kTile), kThreads, smem_dq,
-              stream>>>(
-      static_cast<B>(a.q), static_cast<B>(a.k), static_cast<B>(a.v),
-      static_cast<B>(a.out), static_cast<const float*>(a.lse),
-      static_cast<B>(a.dout), static_cast<float*>(a.delta),
-      static_cast<bf16*>(a.dq), a.sq, a.t, a.h, a.kv, a.causal,
-      a.use_window, a.window, a.scale);
+              stream>>>(k64, v64, static_cast<B>(a.q), static_cast<B>(a.out),
+                        static_cast<B>(a.dout),
+                        static_cast<const float*>(a.lse),
+                        static_cast<float2*>(a.stats),
+                        static_cast<bf16*>(a.dq), a.sq, a.sq_pad, a.t, a.h,
+                        a.kv, a.causal, a.use_window, a.window, a.scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  // (batch x kv head) fastest, the key block slowest: under a causal mask
-  // the first key blocks see the most queries and start first
-  dkdv_kernel<<<dim3(a.b * a.kv, (a.t + kTile - 1) / kTile), kThreads,
-                smem_dkdv, stream>>>(
-      static_cast<B>(a.q), static_cast<B>(a.k), static_cast<B>(a.v),
-      static_cast<const float*>(a.lse), static_cast<B>(a.dout),
-      static_cast<const float*>(a.delta), static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.sq, a.t, a.h, a.kv, a.causal,
-      a.use_window, a.window, a.scale);
-  return static_cast<int>(cudaGetLastError());
+  dkdv_kernel<<<n_units(a), kThreads, smem_dkdv, stream>>>(
+      qq, dod, st, static_cast<B>(a.k), static_cast<B>(a.v),
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+      static_cast<float*>(a.part), a.b, a.sq, a.t, a.h, a.kv,
+      (a.t + kTile - 1) / kTile, a.pair, a.split, a.causal, a.use_window,
+      a.window, a.scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return reduce<bf16, HD>(a, stream);
 }
 
 template <int HD>
@@ -934,21 +1187,28 @@ int launch(int bf16_route, const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// q, out, dout, dq (b, sq, h, hd), k, v, dk, dv (b, t, kv, hd), lse and
-// delta (b, h, sq) float32 (delta: scratch the call fills with D); all
-// contiguous, float32 (bf16 = 0) or bfloat16 (bf16 = 1, q, k, v and dout
-// 16-byte aligned); hd in {16, 32, 64, 128}, h % kv == 0, b, sq, t > 0.
-// Two kernels, in stream order. Returns the first failed launch's
-// cudaError_t (0 on success).
+// q, out, dout, dq (b, sq, h, hd), k, v, dk, dv (b, t, kv, hd), lse (b, h,
+// sq) float32; all contiguous, float32 (bf16 = 0) or bfloat16 (bf16 = 1;
+// q, k, v, out and dout 16-byte aligned); hd in {16, 32, 64, 128}, h % kv
+// == 0, b, sq, t > 0. Scratch: stats (b * h, sq_pad) float2 with sq_pad =
+// sq rounded up to 64; part 2 * split * b * t * kv * hd floats when split >
+// 1 (else unused); split divides h / kv; pair only pairs key blocks. Two
+// kernels, or three with split > 1, in stream order. Returns the first
+// failed launch's cudaError_t (0 on success).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* out,
-    const void* lse, const void* dout, void* delta, void* dq, void* dk,
-    void* dv, int b, int sq, int t, int h, int kv, int hd, int causal,
-    int use_window, int window, float scale, int bf16, void* stream) {
-  if (b <= 0 || sq <= 0 || t <= 0 || kv <= 0 || h % kv != 0)
+    const void* lse, const void* dout, void* stats, void* part, void* dq,
+    void* dk, void* dv, int b, int sq, int t, int h, int kv, int hd,
+    int causal, int use_window, int window, int pair, int split, float scale,
+    int bf16, void* stream) {
+  const int sq_pad = (sq + kTile - 1) / kTile * kTile;
+  if (b <= 0 || sq <= 0 || t <= 0 || kv <= 0 || h % kv != 0 || split <= 0 ||
+      (h / kv) % split != 0 || (split > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q,  k,  v,  out, lse,    dout,       delta,  dq,    dk, dv,
-               b,  sq, t,  h,   kv,     causal,     use_window, window, scale};
+  const Args a{q,      k,    v,      out,        lse,    dout,
+               stats,  dq,   dk,     dv,         part,   b,
+               sq,     sq_pad, t,    h,          kv,     causal,
+               use_window, window, pair, split,  scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16:
@@ -959,6 +1219,30 @@ extern "C" int repro_flash_attention_bwd(
       return launch<64>(bf16, a, s);
     case 128:
       return launch<128>(bf16, a, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// the dynamic shared memory, in bytes, of the dq and dk/dv kernels of a
+// route at head dim hd (for the build report); 0 on success
+extern "C" int repro_flash_attention_bwd_smem(int hd, int bf16, int* dq,
+                                              int* dkdv) {
+  switch (hd * 2 + (bf16 ? 1 : 0)) {
+#define REPRO_SMEM(HD)                                                  \
+  case 2 * HD:                                                          \
+    *dq = static_cast<int>(dq_f32_smem_bytes<HD>());                    \
+    *dkdv = static_cast<int>(dkdv_f32_smem_bytes<HD>());                \
+    return 0;                                                           \
+  case 2 * HD + 1:                                                      \
+    *dq = DqLayout<HD>::kBytes;                                         \
+    *dkdv = DkdvLayout<HD>::kBytes;                                     \
+    return 0;
+    REPRO_SMEM(16)
+    REPRO_SMEM(32)
+    REPRO_SMEM(64)
+    REPRO_SMEM(128)
+#undef REPRO_SMEM
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

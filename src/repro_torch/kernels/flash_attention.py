@@ -26,13 +26,20 @@ type from ``(q, k, v, out, lse, dout)``: the CUDA kernels of
 :func:`flash_attention_bwd_plain` (the reference's ``layers._flash_bwd``
 in dense form) for CPU tensors. It has no TPU kernel to replace: the
 reference's backward is plain jnp. It is deterministic (no float atomics:
-dk and dv are summed over a kv head's q heads inside one CTA), and it
-has the forward's two routes, counted in ``BWD_ROUTE_LAUNCHES``.
+a dq kernel, a dk/dv kernel whose units each sum a share of a kv head's q
+heads, and, when the heads are split, a pass that sums the shares in a
+fixed order), and it has the forward's two routes, counted in
+``BWD_ROUTE_LAUNCHES``: bfloat16 on ``wgmma`` fed by TMA, float32 in
+register tiles on the CUDA cores. :func:`bwd_plan` chooses the dk/dv
+kernel's units from the shape (key blocks paired under a causal mask, the
+q heads split as far as the card needs) and :func:`bwd_steps` lists the
+work that plan gives each CTA.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -227,6 +234,137 @@ def flash_attention_bwd_cost(q: torch.Tensor, k: torch.Tensor,
     return 10 * hd * pairs * b * h, n_bytes
 
 
+# The backward's plan (csrc/flash_attention_bwd.cu): a dq kernel of one CTA
+# per (batch row, q head, BWD_TILE query rows) walking the key blocks its
+# rows see, then a dk/dv kernel of one CTA per unit = (batch row, kv head,
+# one or two BWD_TILE-key blocks, a share of the group's q heads) walking
+# (key block, q head, query block). The dk/dv kernel steps over 64 query
+# rows in bfloat16 and 32 in float32 (half as many at hd 128, for the
+# registers); the float32 dq kernel streams 32 keys a step, the bfloat16
+# one 64.
+BWD_TILE = 64
+SMS = 132                 # the H100's streaming multiprocessors
+BWD_CTAS_PER_SM = 2       # dk/dv CTAs resident on one SM, either route
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """The backward kernels' work for one shape: ``pair`` puts key blocks
+    j and n_kb - 1 - j in one unit (under a causal mask without a window,
+    so that every unit walks the same number of query blocks); ``split``
+    shares a kv head's g q heads over that many units, whose float32
+    partials (``part_floats``) a third kernel sums in order; ``stats``
+    holds (lse * log2 e, D) of every query row, padded to ``sq_pad``."""
+    route: str
+    q_block: int          # dk/dv: query rows a step
+    k_block: int          # dq: keys a step
+    n_kb: int             # BWD_TILE-key blocks
+    pair: bool
+    split: int
+    n_units: int          # dk/dv CTAs
+    sq_pad: int
+    stats_floats: int
+    part_floats: int
+
+    def kernels(self) -> Tuple[str, ...]:
+        """The names of the kernels one call launches, in stream order."""
+        kind = "wgmma" if self.route == "mma" else "f32"
+        names = (f"flash_bwd_dq_{kind}_kernel",
+                 f"flash_bwd_dkdv_{kind}_kernel")
+        return names + (("flash_bwd_reduce_kernel",) if self.split > 1
+                        else ())
+
+
+def bwd_plan(b: int, sq: int, t: int, h: int, kv: int, hd: int,
+             dtype: torch.dtype, causal: bool = True,
+             window: Optional[int] = None) -> BwdPlan:
+    """The plan :func:`flash_attention_bwd` launches for this shape. The
+    split is the divisor s of g = h / kv that minimises
+    ceil(units * s / slots) / s, the waves of BWD_CTAS_PER_SM * SMS slots
+    times a unit's share of the work, the smallest s on a tie: enough
+    units to fill the card, and no partials where one wave already
+    does."""
+    route = "mma" if dtype == torch.bfloat16 else "f32"
+    g = h // kv
+    n_kb = -(-t // BWD_TILE)
+    pair = bool(causal) and window is None and n_kb > 1
+    base = (-(-n_kb // 2) if pair else n_kb) * kv * b
+    slots = SMS * BWD_CTAS_PER_SM
+    split = min((s for s in range(1, g + 1) if g % s == 0),
+                key=lambda s: (-(-base * s // slots) / s, s))
+    sq_pad = -(-sq // BWD_TILE) * BWD_TILE
+    return BwdPlan(
+        route=route,
+        q_block=(32 if hd == 128 else 64) if route == "mma"
+        else (16 if hd == 128 else 32),
+        k_block=64 if route == "mma" else 32,
+        n_kb=n_kb, pair=pair, split=split, n_units=base * split,
+        sq_pad=sq_pad, stats_floats=2 * b * h * sq_pad,
+        part_floats=2 * split * b * t * kv * hd if split > 1 else 0)
+
+
+def _key_blocks(q0, qn, kn, sq, t, causal, window):
+    """The kernels' ``key_blocks``: [begin, end) of the kn-key blocks
+    that query rows [q0, q0 + qn) can see."""
+    end = -(-t // kn)
+    if causal:
+        end = min(end, (min(q0 + qn, sq) - 1) // kn + 1)
+    begin = 0
+    if window is not None:
+        first = q0 - window + 1
+        begin = first // kn if first > 0 else 0
+    return begin, max(end, begin)
+
+
+def _query_blocks(k0, kn, sq, qb, causal, window):
+    """The kernels' ``query_blocks``: [begin, end) of the qb-row query
+    blocks that can see keys [k0, k0 + kn)."""
+    end = -(-sq // qb)
+    begin = k0 // qb if causal else 0
+    if window is not None:
+        last = k0 + kn + window - 2
+        end = 0 if last < 0 else min(end, last // qb + 1)
+    return begin, max(end, begin)
+
+
+def bwd_steps(plan: BwdPlan, b: int, sq: int, t: int, h: int, kv: int,
+              causal: bool = True, window: Optional[int] = None
+              ) -> Tuple[List[list], List[list]]:
+    """The work of each CTA under ``plan``, as the kernels index it: the dq
+    kernel's CTAs (batch row, q head, 64-row block), each a list of
+    (batch row, q head, query block, key block of plan.k_block); and the
+    dk/dv kernel's units in blockIdx order, each a list of (batch row, q
+    head, query block of plan.q_block, key block of BWD_TILE) in the order
+    it sums them."""
+    g = h // kv
+    n_qb = -(-sq // BWD_TILE)
+    dq = []
+    for bi in range(b):
+        for head in range(h):
+            for qb in range(n_qb):
+                kb0, kb1 = _key_blocks(qb * BWD_TILE, BWD_TILE,
+                                       plan.k_block, sq, t, causal, window)
+                dq.append([(bi, head, qb, kb) for kb in range(kb0, kb1)])
+    n_u = -(-plan.n_kb // 2) if plan.pair else plan.n_kb
+    heads = g // plan.split
+    dkdv = []
+    for x in range(plan.n_units):
+        u, r = x % n_u, x // n_u
+        share, r = r % plan.split, r // plan.split
+        kvh, bi = r % kv, r // kv
+        kbs = [u] + ([plan.n_kb - 1 - u]
+                     if plan.pair and plan.n_kb - 1 - u != u else [])
+        steps = []
+        for kb in kbs:
+            q0, q1 = _query_blocks(kb * BWD_TILE, BWD_TILE, sq, plan.q_block,
+                                   causal, window)
+            for head in range(kvh * g + share * heads,
+                              kvh * g + (share + 1) * heads):
+                steps.extend((bi, head, qb, kb) for qb in range(q0, q1))
+        dkdv.append(steps)
+    return dq, dkdv
+
+
 @_observe.counted(flash_attention_bwd_cost)
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
@@ -264,11 +402,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ("dout", dout, q.dtype, (b, sq, h, hd)),
             ("lse", lse, torch.float32, (b, h, sq))):
         _check(x, name, dtype, shape, dev)
-    if q.dtype == torch.bfloat16 and dev.type == "cuda" \
-            and any(x.data_ptr() % 16 for x in (q, k, v, dout)):
-        raise ValueError("flash_attention_bwd: bfloat16 q, k, v and dout "
-                         "must start on a 16-byte boundary (the kernels "
-                         "copy 16 bytes at a time)")
+    if dev.type == "cuda" \
+            and any(x.data_ptr() % 16 for x in (q, k, v, out, dout)):
+        raise ValueError("flash_attention_bwd: q, k, v, out and dout must "
+                         "start on a 16-byte boundary (the kernels copy 16 "
+                         "bytes at a time)")
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -276,17 +414,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk, dv
     if min(b, sq, t, h) == 0:     # nothing to see: every gradient is 0
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    plan = bwd_plan(b, sq, t, h, kv, hd, q.dtype, causal, window)
+    stats = torch.empty(plan.stats_floats, dtype=torch.float32, device=dev)
+    part = (torch.empty(plan.part_floats, dtype=torch.float32, device=dev)
+            if plan.part_floats else None)
     lib = _build.load()
     rc = lib.repro_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        lse.data_ptr(), dout.data_ptr(), stats.data_ptr(),
+        None if part is None else part.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, sq, t, h, kv, hd, int(causal),
         int(window is not None), 0 if window is None else int(window),
-        float(hd ** -0.5), int(q.dtype == torch.bfloat16),
+        int(plan.pair), plan.split, float(hd ** -0.5),
+        int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "flash_attention_bwd")
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
-    BWD_ROUTE_LAUNCHES["mma" if q.dtype == torch.bfloat16 else "f32"] += 1
+    BWD_ROUTE_LAUNCHES[plan.route] += 1
     return dq, dk, dv

@@ -1319,6 +1319,15 @@ FLASH_BWD_SHAPES = [
     (1, 256, 256, 32, 4, 64, True, None),
     (1, 192, 192, 16, 8, 128, True, None),
 ]
+# shapes on which the wrapper's plan pairs key blocks and splits the q heads
+# (1 x 2048 of 32/4 heads), MHA (g = 1) causal, and a window with T no
+# multiple of 64 or 128
+FLASH_BWD_PLAN_SHAPES = [
+    (1, 2048, 2048, 32, 4, 64, True, None),
+    (2, 300, 300, 4, 4, 64, True, None),
+    (2, 333, 333, 8, 2, 64, True, 100),
+]
+FLASH_BWD_SHAPES += FLASH_BWD_PLAN_SHAPES
 
 
 def _flash_bwd_case(b, sq, t, h, kv, hd, dtype, device, causal, window,
@@ -1370,6 +1379,21 @@ def test_cuda_flash_attention_bwd_is_bit_identical_over_calls(cuda, dtype,
     for _ in range(3):
         again = tflash.flash_attention_bwd(*args, True, None)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,t,h,kv,hd,causal,window",
+                         FLASH_BWD_PLAN_SHAPES)
+def test_cuda_flash_attention_bwd_plans_are_bit_identical_over_calls(
+        cuda, b, sq, t, h, kv, hd, causal, window, dtype):
+    """The plans that pair key blocks, split the q heads over units and
+    sum their partials in a fixed order give the same bits every call."""
+    args = _flash_bwd_case(b, sq, t, h, kv, hd, dtype, cuda, causal, window)
+    first = tflash.flash_attention_bwd(*args, causal, window)
+    for _ in range(2):
+        again = tflash.flash_attention_bwd(*args, causal, window)
+        assert all(torch.equal(a, c) for a, c in zip(first, again))
 
 
 @pytest.mark.cuda
