@@ -49,17 +49,39 @@
 // warps (128 rows, half the K/V traffic into shared memory) was slower.
 //
 // float32: flash_attention_kernel, on the float32 CUDA cores (an f32 call
-// must not go through TF32, which keeps about three decimal digits). One
-// CTA owns a tile of 64 query rows of one head of one batch row and loops
-// over K/V itself, staged through shared memory in blocks of 64 keys. Each
-// of the 4 warps owns 16 of the rows and keeps their m, l and accumulator
-// in registers: a lane scores 2 keys against the 16 rows (q rows read as
-// float4 broadcasts, K stored transposed and padded so the lanes' reads hit
-// distinct banks), the warp reduces max and sum with shuffles, writes p to
-// its own strip of shared memory, and each lane then accumulates hd / 32
-// output columns (fewer lanes work at hd 16). Under the causal mask the
-// loop stops at the block that holds the tile's last row; under a window it
-// starts at the first block the window reaches.
+// must not go through TF32, which keeps about three decimal digits). What
+// bounds it: operations, 2 * 2 * hd FMAs' worth a visible (query, key) pair
+// and q head at 67 TFLOP/s -- 34.4 GFLOP, 0.513 ms at the LLM training
+// shape (2, 2048, 32/4 heads of 64, causal), against 76 MB of inputs and
+// outputs (0.023 ms at 3.35 TB/s). Every FMA takes an issue slot of its
+// warp scheduler, so the design keeps shared-memory loads, shuffles and
+// the softmax few beside the FMAs. One CTA of 4 warps owns 64 query rows of
+// one head of one batch row, kept in shared memory; K and V stream through
+// a cp.async double buffer (16 bytes a thread, zero-filled past T) in
+// blocks of 64 keys (32 at hd 128), block i + 1 loading while block i
+// computes (one CTA barrier a block), in rows padded by 16 bytes. Each warp owns 16 of the rows and
+// a lane 8 of those: it scores them against 4 keys of a 64-key block (12
+// float4 loads per 128 FMAs), reduces the running max over the 16 lanes
+// that share a row (four shuffles; the row sums stay per lane until the
+// end), computes p with one FFMA and one ex2.approx a score (p = 2^(s *
+// scale * log2 e - m * scale * log2 e)) and rescales its part of the
+// output once a row a block, writes p transposed into the warp's own
+// columns of shared memory (no CTA barrier between the products), and
+// accumulates an 8 x hd/16 tile of the output over the block's keys
+// (tn_product, flash_tiles.cuh; 3 float4 loads per 32 FMAs). The mask is
+// applied only on the blocks that the ragged end of T, the diagonal or the
+// window edge cross; a warp skips the blocks none of its rows may see.
+// Shared memory is 102 KB a CTA at hd 64 and 107 KB at hd 128: two CTAs an
+// SM. Under a causal mask the tiles differ in work by up to T / 64, so the
+// grid puts (batch, head) fastest and the tile slowest, the last tile first
+// (flash_attention.fwd_plan lists each CTA's blocks): the heaviest tiles
+// start first and the light ones fill in. Nothing is summed across CTAs, so
+// two calls give the same bits. On an NVIDIA H100 80GB HBM3 at 700 W it
+// takes 0.96-0.97 ms on the device at the training shape, 0.53 of the
+// bound, with 210 registers a thread at hd 64 and no spill. By count,
+// loads, shuffles and the softmax take about 15 % of the issue slots from
+// the FMAs; the rest of the gap would be latency that 8 warps an SM do
+// not hide (no stall counters were read).
 //
 // Both routes mask ragged Sq and T, so neither needs padding.
 
@@ -71,6 +93,7 @@
 #include <cstdint>
 
 #include "async_copy.cuh"
+#include "flash_tiles.cuh"
 #include "mma_fragments.cuh"
 
 namespace {
@@ -78,183 +101,202 @@ namespace {
 constexpr int kRows = 64;                     // query rows per CTA
 constexpr int kKeys = 64;                     // keys per staged block
 constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = kRows / kWarps;  // 16
 
 // ---------------------------------------------------------------------------
 // float32 route: CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int kKtStride = kKeys + 1;          // transposed K, padded row
+// a row of p^T: the tile's rows padded by 16 bytes, so that the 8 lanes
+// of a float4 store phase, 8 keys' rows, hit 8 distinct bank groups (the
+// backward's kXLd, padded by 64 bytes, puts 4 of them on each of 2)
+constexpr int kPtLd = kRows + 4;
 
+// keys of a staged K/V block: 32 at hd 128, so that two CTAs share an SM
 template <int HD>
-constexpr size_t smem_floats() {
-  return static_cast<size_t>(kRows) * HD        // q tile
-         + static_cast<size_t>(HD) * kKtStride  // K block, transposed
-         + static_cast<size_t>(kKeys) * HD      // V block
-         + static_cast<size_t>(kRows) * kKeys;  // p, one strip per warp
+__host__ __device__ constexpr int f32_k_block() {
+  return HD == 128 ? 32 : 64;
+}
+
+// the q tile, K and V double-buffered, p^T of the tile's rows
+template <int HD>
+__host__ __device__ constexpr size_t f32_smem_bytes() {
+  constexpr int KB = f32_k_block<HD>();
+  return (static_cast<size_t>(kRows + 4 * KB) * (HD + 4) +
+          static_cast<size_t>(KB) * kPtLd) *
+         sizeof(float);
+}
+
+// s[i][j] = q[i] . k[16 j] over hd, for 8 rows of q (`q` at the first,
+// rows HD + 4 floats apart) and KB / 16 keys (`k` at the first)
+template <int HD, int KB>
+__device__ __forceinline__ void qk_product(float (&s)[8][KB / 16],
+                                           const float* q, const float* k) {
+  constexpr int LD = HD + 4, KJ = KB / 16;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) s[i][j] = 0.0f;
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 4) {
+    float4 kx[KJ];
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) kx[j] = ld4(k + 16 * j * LD + d);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 qv = ld4(q + i * LD + d);
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        s[i][j] = fmaf(qv.x, kx[j].x, s[i][j]);
+        s[i][j] = fmaf(qv.y, kx[j].y, s[i][j]);
+        s[i][j] = fmaf(qv.z, kx[j].z, s[i][j]);
+        s[i][j] = fmaf(qv.w, kx[j].w, s[i][j]);
+      }
+    }
+  }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kWarps * 32) flash_attention_kernel(
+__global__ void __launch_bounds__(kTileThreads, 2) flash_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out,
     float* __restrict__ lse, int sq, int t, int h, int kv, int causal,
-    int use_window, int window, float scale) {
-  constexpr int kDpl = HD >= 32 ? HD / 32 : 1;  // output columns per lane
+    int use_window, int window, float scale, float scale_log2) {
+  constexpr int LD = HD + 4, KB = f32_k_block<HD>(), KJ = KB / 16;
+  constexpr int DPT = HD / 16;  // output columns a lane
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [kRows][HD]
-  float* kt = qs + kRows * HD;                  // [HD][kKtStride]
-  float* vs = kt + HD * kKtStride;              // [kKeys][HD]
-  float* ps = vs + kKeys * HD;                  // [kRows][kKeys]
+  float* qs = reinterpret_cast<float*>(smem4);  // [kRows][LD]
+  float* kvbuf = qs + kRows * LD;               // [2][K, V: KB][LD]
+  float* pt = kvbuf + 4 * KB * LD;              // p^T [KB][kPtLd]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int q0 = blockIdx.x * kRows;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
+  const int head = blockIdx.x % h;
+  const int b = blockIdx.x / h;
+  // under a causal mask the last tile sees the most keys: heaviest first
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kRows;
   const int kvh = head / (h / kv);
-  const int r0 = warp * kRowsPerWarp;
+  const size_t q_head = (static_cast<size_t>(b) * sq * h + head) * HD;
+  const size_t kv_head = (static_cast<size_t>(b) * t * kv + kvh) * HD;
+  int kb_begin, kb_end;
+  key_blocks(q0, kRows, KB, sq, t, causal, use_window, window, kb_begin,
+             kb_end);
+  const int n = kb_end - kb_begin;
+  auto load_kv = [&](int i, int buf) {
+    float* kb = kvbuf + buf * 2 * KB * LD;
+    const int k0 = (kb_begin + i) * KB;
+    stage_rows<HD>(kb, k + kv_head, static_cast<size_t>(kv) * HD, k0, KB, t,
+                   tid);
+    stage_rows<HD>(kb + KB * LD, v + kv_head, static_cast<size_t>(kv) * HD,
+                   k0, KB, t, tid);
+  };
+  stage_rows<HD>(qs, q + q_head, static_cast<size_t>(h) * HD, q0, kRows, sq,
+                 tid);
+  if (n > 0) load_kv(0, 0);
+  cp_async_commit();
 
-  for (int i = tid; i < kRows * HD; i += kWarps * 32) {
-    const int row = q0 + i / HD;
-    qs[i] = row < sq ? q[((static_cast<size_t>(b) * sq + row) * h + head) *
-                             HD +
-                         i % HD]
-                     : 0.0f;
-  }
-
-  // the key blocks this tile can see
-  int kb_end = (t + kKeys - 1) / kKeys;
-  if (causal) {
-    const int last = min(q0 + kRows, sq) - 1;
-    kb_end = min(kb_end, last / kKeys + 1);
-  }
-  int kb_begin = 0;
-  if (use_window) {
-    const int first = q0 - window + 1;  // smallest key the window reaches
-    kb_begin = first > 0 ? first / kKeys : 0;
-  }
-
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kDpl];
+  // the warp owns rows 16 warp .. 16 warp + 15; a lane holds rows r0 + i (i
+  // < 8) of them: their scores against keys kg + 16 j of each block, and
+  // their output columns DPT kg .. DPT kg + DPT - 1
+  const int kg = lane & 15;
+  const int r0 = 16 * warp + 8 * (lane >> 4);
+  const int w_first = q0 + 16 * warp, w_last = w_first + 15;
+  float m[8], l[8], acc[8][DPT];  // l: this lane's part of the row sums
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
+  for (int r = 0; r < 8; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.0f;
 #pragma unroll
-    for (int i = 0; i < kDpl; ++i) acc[r][i] = 0.0f;
+    for (int c = 0; c < DPT; ++c) acc[r][c] = 0.0f;
   }
-  float* pw = ps + r0 * kKeys;
 
-  for (int kb = kb_begin; kb < kb_end; ++kb) {
-    __syncthreads();  // the last block is read (and q is staged)
-    const int k0 = kb * kKeys;
-    for (int i = tid; i < kKeys * HD; i += kWarps * 32) {
-      const int j = i / HD, d = i % HD, key = k0 + j;
-      float kval = 0.0f, vval = 0.0f;
-      if (key < t) {
-        const size_t off =
-            ((static_cast<size_t>(b) * t + key) * kv + kvh) * HD + d;
-        kval = k[off];
-        vval = v[off];
-      }
-      kt[d * kKtStride + j] = kval;
-      vs[j * HD + d] = vval;
-    }
+  for (int i = 0; i < n; ++i) {
+    const int buf = i & 1;
+    cp_async_wait<0>();  // block i (and the q tile)
+    // block i is in every thread's view, and block i - 1 is read: its
+    // buffer takes block i + 1 while this one computes
     __syncthreads();
-
-    // scores of keys k0 + lane and k0 + lane + 32 against the warp's rows
-    float s[kRowsPerWarp][2];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) s[r][0] = s[r][1] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float ka[4], kb2[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        ka[u] = kt[(d + u) * kKtStride + lane];
-        kb2[u] = kt[(d + u) * kKtStride + lane + 32];
-      }
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(qs + (r0 + r) * HD + d);
-        s[r][0] = fmaf(qv.x, ka[0], s[r][0]);
-        s[r][0] = fmaf(qv.y, ka[1], s[r][0]);
-        s[r][0] = fmaf(qv.z, ka[2], s[r][0]);
-        s[r][0] = fmaf(qv.w, ka[3], s[r][0]);
-        s[r][1] = fmaf(qv.x, kb2[0], s[r][1]);
-        s[r][1] = fmaf(qv.y, kb2[1], s[r][1]);
-        s[r][1] = fmaf(qv.z, kb2[2], s[r][1]);
-        s[r][1] = fmaf(qv.w, kb2[3], s[r][1]);
-      }
+    if (i + 1 < n) {
+      load_kv(i + 1, buf ^ 1);
+      cp_async_commit();
     }
-
-    // mask, running statistics, p into the warp's strip
-    const int key_a = k0 + lane, key_b = k0 + lane + 32;
+    const float* kb = kvbuf + buf * 2 * KB * LD;
+    const int k0 = (kb_begin + i) * KB;
+    // a block that no row of this warp may see (past sq, above the
+    // diagonal, or before the window) leaves its state as it is
+    const bool visible = w_first < sq && !(causal && k0 > w_last) &&
+                         !(use_window && k0 + KB - 1 <= w_first - window);
+    if (visible) {
+      float s[8][KJ];
+      qk_product<HD, KB>(s, qs + r0 * LD, kb + kg * LD);
+      // mask only where the block needs it
+      if (!all_visible(w_first, 16, k0, KB, sq, t, causal, use_window,
+                       window)) {
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int qp = q0 + r0 + r;
-      const bool ok_a = key_a < t && (!causal || key_a <= qp) &&
-                        (!use_window || key_a > qp - window);
-      const bool ok_b = key_b < t && (!causal || key_b <= qp) &&
-                        (!use_window || key_b > qp - window);
-      const float sa = ok_a ? s[r][0] * scale : -INFINITY;
-      const float sb = ok_b ? s[r][1] * scale : -INFINITY;
-      const float m_new = fmaxf(m[r], warp_max(fmaxf(sa, sb)));
-      const float m_safe = m_new == -INFINITY ? 0.0f : m_new;
-      const float pa = ok_a ? expf(sa - m_safe) : 0.0f;
-      const float pb = ok_b ? expf(sb - m_safe) : 0.0f;
-      const float corr = m[r] == -INFINITY ? 0.0f : expf(m[r] - m_safe);
-      l[r] = l[r] * corr + warp_sum(pa + pb);
-      m[r] = m_new;
+        for (int r = 0; r < 8; ++r)
 #pragma unroll
-      for (int i = 0; i < kDpl; ++i) acc[r][i] *= corr;
-      pw[r * kKeys + lane] = pa;
-      pw[r * kKeys + lane + 32] = pb;
-    }
-    __syncwarp();
-
-    // acc += p @ v: lane owns columns lane, lane + 32, ...
-#pragma unroll 2
-    for (int j = 0; j < kKeys; j += 4) {
-      float vv[4][kDpl];
+          for (int j = 0; j < KJ; ++j)
+            if (!allowed(q0 + r0 + r, k0 + kg + 16 * j, sq, t, causal,
+                         use_window, window))
+              s[r][j] = -INFINITY;
+      }
+      // running statistics: a row lives on 16 lanes; p = 2^(s * scale *
+      // log2 e - m * scale * log2 e), one FFMA and one ex2 a score
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
+      for (int r = 0; r < 8; ++r) {
+        float mx = s[r][0];
 #pragma unroll
-        for (int i = 0; i < kDpl; ++i) {
-          const int d = lane + 32 * i;
-          vv[u][i] = d < HD ? vs[(j + u) * HD + d] : 0.0f;
-        }
+        for (int j = 1; j < KJ; ++j) mx = fmaxf(mx, s[r][j]);
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 p4 = *reinterpret_cast<const float4*>(pw + r * kKeys + j);
+        for (int o = 1; o < 16; o <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_new = fmaxf(m[r], mx);
+        const float m_scaled = m_new == -INFINITY ? 0.0f : m_new * scale_log2;
+        // 0 while m is -inf
+        const float corr = fast_exp2(m[r] * scale_log2 - m_scaled);
+        m[r] = m_new;
+        l[r] *= corr;
 #pragma unroll
-        for (int i = 0; i < kDpl; ++i) {
-          acc[r][i] = fmaf(p4.x, vv[0][i], acc[r][i]);
-          acc[r][i] = fmaf(p4.y, vv[1][i], acc[r][i]);
-          acc[r][i] = fmaf(p4.z, vv[2][i], acc[r][i]);
-          acc[r][i] = fmaf(p4.w, vv[3][i], acc[r][i]);
+        for (int c = 0; c < DPT; ++c) acc[r][c] *= corr;
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          const float p = fast_exp2(fmaf(s[r][j], scale_log2, -m_scaled));
+          l[r] += p;
+          s[r][j] = p;
         }
       }
+      // p^T into the warp's 16 columns, then acc += p . v over the block
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        float* dst = pt + (kg + 16 * j) * kPtLd + r0;
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+        *reinterpret_cast<float4*>(dst + 4) =
+            make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
+      }
+      __syncwarp();
+      tn_product<HD, KB, HD == 128 ? 4 : 16, kPtLd>(acc, pt, kb + KB * LD,
+                                                   r0 / 8, kg);
     }
-    __syncwarp();  // the strip is read before the next block writes it
   }
+  cp_async_wait<0>();  // in flight only where the tile saw no block
 
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1)
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], o);
     const int row = q0 + r0 + r;
     if (row >= sq) continue;
     const float denom = fmaxf(l[r], 1e-20f);
-    float* o = out + ((static_cast<size_t>(b) * sq + row) * h + head) * HD;
+    float val[DPT];
 #pragma unroll
-    for (int i = 0; i < kDpl; ++i) {
-      const int d = lane + 32 * i;
-      if (d < HD) o[d] = acc[r][i] / denom;
-    }
-    if (lane == 0)
+    for (int c = 0; c < DPT; ++c) val[c] = acc[r][c] / denom;
+    st_cols<DPT>(out + q_head + static_cast<size_t>(row) * h * HD + DPT * kg,
+                 val);
+    if (kg == 0)
       lse[(static_cast<size_t>(b) * h + head) * sq + row] =
-          (m[r] == -INFINITY ? 0.0f : m[r]) + logf(denom);
+          (m[r] == -INFINITY ? 0.0f : m[r] * scale) + logf(denom);
   }
 }
 
@@ -480,17 +522,18 @@ template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                void* lse, int b, int sq, int t, int h, int kv, int causal,
                int use_window, int window, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_floats<HD>() * sizeof(float);
+  constexpr size_t smem = f32_smem_bytes<HD>();
   auto kernel = flash_attention_kernel<HD>;
   static bool opted_in = false;
   const cudaError_t e = opt_in(kernel, smem, opted_in);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((sq + kRows - 1) / kRows, h, b);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
+  // (batch x head) fastest, the q tile slowest (flash_attention.fwd_plan)
+  const dim3 grid(b * h, (sq + kRows - 1) / kRows);
+  kernel<<<grid, kTileThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out),
       static_cast<float*>(lse), sq, t, h, kv, causal, use_window, window,
-      scale);
+      scale, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -529,8 +572,8 @@ int launch(int bf16_route, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q (b, sq, h, hd), k and v (b, t, kv, hd), out like q, lse (b, h, sq)
-// float32; all contiguous, float32 (bf16 = 0) or bfloat16 (bf16 = 1, every
-// pointer 16-byte aligned); hd in {16, 32, 64, 128}, h % kv == 0. Returns
+// float32; all contiguous and 16-byte aligned, float32 (bf16 = 0) or
+// bfloat16 (bf16 = 1); hd in {16, 32, 64, 128}, h % kv == 0. Returns
 // the launch's cudaError_t (0 on success).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* out, void* lse, int b,
@@ -550,6 +593,36 @@ extern "C" int repro_flash_attention(
     case 128:
       return launch<128>(bf16, q, k, v, out, lse, b, sq, t, h, kv, causal,
                          use_window, window, scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// the dynamic shared memory (bytes) of the forward's route at head dim hd
+// and the CTAs of it that fit one SM, by the occupancy calculator (for the
+// build report); 0 on success
+extern "C" int repro_flash_attention_smem(int hd, int bf16, int* bytes,
+                                          int* ctas_per_sm) {
+  auto report = [&](auto kernel, size_t smem) {
+    bool done = false;
+    cudaError_t e = opt_in(kernel, smem, done);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          ctas_per_sm, kernel, kTileThreads, smem);
+    *bytes = static_cast<int>(smem);
+    return static_cast<int>(e);
+  };
+  switch (hd * 2 + (bf16 ? 1 : 0)) {
+#define REPRO_SMEM(HD)                                                  \
+  case 2 * HD:                                                          \
+    return report(flash_attention_kernel<HD>, f32_smem_bytes<HD>());    \
+  case 2 * HD + 1:                                                      \
+    return report(flash_attention_mma_kernel<HD>, mma_smem_bytes<HD>());
+    REPRO_SMEM(16)
+    REPRO_SMEM(32)
+    REPRO_SMEM(64)
+    REPRO_SMEM(128)
+#undef REPRO_SMEM
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

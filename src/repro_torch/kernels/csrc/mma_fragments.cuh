@@ -1,5 +1,5 @@
-// Helpers shared by the flash-attention kernels (sm_90a): warp reductions,
-// the bf16 tensor-core product mma.sync m16n8k16 with float32 accumulation,
+// Helpers shared by the flash-attention kernels (sm_90a): the bf16
+// tensor-core product mma.sync m16n8k16 with float32 accumulation,
 // and the ldmatrix address patterns that load its fragments from shared
 // memory tiles of rows padded to mma_stride<HD>() bf16.
 //
@@ -22,18 +22,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // d += a (16 x 16, row) . b (16 x 8, col), bf16 in, float32 accumulation
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],

@@ -12,13 +12,24 @@ kernel (``csrc/flash_attention.cu``) for CUDA tensors, and
 :func:`flash_attention_plain` — the dense masked softmax in float32, as the
 reference's oracle ``ref.flash_attention_ref`` computes it, plus the lse —
 for CPU tensors; on the meta device it returns outputs of the right shape
-and computes nothing. :func:`flash_attention_cost` counts its work. q head ``h`` reads kv head ``h // (H / KV)``. The kernel
-takes hd in {16, 32, 64, 128} and float32 or bfloat16; any Sq and T. It
-has two routes, one per type: bfloat16 runs both products on the tensor
-cores (``flash_attention_mma_kernel``, ``mma.sync`` with float32
-accumulation; its inputs must be 16-byte aligned), float32 on the float32
-CUDA cores (``flash_attention_kernel``), never through TF32.
-``kernels.ops.flash_attention`` is the public entry.
+and computes nothing. :func:`flash_attention_cost` counts its work. q head
+``h`` reads kv head ``h // (H / KV)``. The kernel takes hd in {16, 32, 64,
+128} and float32 or bfloat16; any Sq and T; q, k and v 16-byte aligned
+(both routes copy 16 bytes at a time). It has two routes, one per type,
+each a CTA of 4 warps per (batch row, q head, 64 query rows) that streams
+K/V through a ``cp.async`` double buffer: bfloat16 runs both products on
+the tensor cores (``flash_attention_mma_kernel``, ``mma.sync`` with
+float32 accumulation), float32 on the float32 CUDA cores
+(``flash_attention_kernel``), never through TF32, in register tiles: a
+lane scores 8 rows against 4 keys of a 64-key block (2 of 32 at hd 128),
+the running max is reduced over the 16 lanes of a row, p goes through the
+warp's own columns of shared memory, and the lane accumulates an 8 x hd/16
+tile of the output. The float32 route is bound by operations (2 * 2 * hd a
+visible pair and q head at 67 TFLOP/s): every shared-memory load and
+softmax instruction takes an issue slot from its FMAs. :func:`fwd_plan`
+gives the grid's order (the last query tile first under a causal mask, so
+the heaviest CTAs start first) and :func:`fwd_steps` the key blocks each
+CTA walks. ``kernels.ops.flash_attention`` is the public entry.
 
 The backward, :func:`flash_attention_bwd`, returns ``(dq, dk, dv)`` in q's
 type from ``(q, k, v, out, lse, dout)``: the CUDA kernels of
@@ -146,11 +157,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, "q", q.dtype, (b, sq, h, hd), dev)
     _check(k, "k", q.dtype, (b, t, kv, hd), dev)
     _check(v, "v", q.dtype, (b, t, kv, hd), dev)
-    if q.dtype == torch.bfloat16 and dev.type == "cuda" \
-            and any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("flash_attention: bfloat16 q, k and v must start "
-                         "on a 16-byte boundary (the kernel copies 16 bytes "
-                         "at a time)")
+    if dev.type == "cuda" and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must start on a "
+                         "16-byte boundary (both routes copy 16 bytes at a "
+                         "time)")
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     if b == 0 or sq == 0 or h == 0 or dev.type == "meta":
@@ -171,6 +181,73 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     LAUNCHES += 1
     ROUTE_LAUNCHES["mma" if q.dtype == torch.bfloat16 else "f32"] += 1
     return out, lse
+
+
+# The forward's plan (csrc/flash_attention.cu): one CTA per (batch row, q
+# head, FWD_TILE query rows), (batch row, q head) fastest in the grid and
+# the query tile slowest; each CTA walks the key blocks its rows see.
+FWD_TILE = 64
+
+
+@dataclass(frozen=True)
+class FwdPlan:
+    """The forward kernel's grid for one shape: ``n_ctas`` = B * H *
+    ``n_qt`` CTAs, launched (batch row, q head) fastest, then the query
+    tile, the last tile first when ``reverse``; each walks the
+    ``k_block``-key blocks its FWD_TILE rows can see, staged through
+    ``smem_bytes`` of shared memory. Under a causal mask the last tile
+    sees the most keys, up to T / 64 times the first's: both routes launch
+    it first, so that no CTA starts after one with less work and the light
+    ones fill the card's last wave. Under a causal window a tile walks at
+    most the blocks the window spans; under a window alone the first tile
+    sees the most keys, and without a mask every tile sees every key: the
+    float32 route keeps the tiles in order there, and the bfloat16 route
+    reverses them all the same."""
+    route: str
+    k_block: int          # keys a staged block
+    n_qt: int             # query tiles of FWD_TILE rows
+    reverse: bool
+    n_ctas: int
+    smem_bytes: int       # dynamic shared memory a CTA
+
+    def kernel(self) -> str:
+        """The name of the kernel a call launches."""
+        return ("flash_attention_mma_kernel" if self.route == "mma"
+                else "flash_attention_kernel")
+
+
+def fwd_plan(b: int, sq: int, t: int, h: int, kv: int, hd: int,
+             dtype: torch.dtype, causal: bool = True,
+             window: Optional[int] = None) -> FwdPlan:
+    """The plan :func:`flash_attention` launches for this shape."""
+    n_qt = -(-sq // FWD_TILE)
+    if dtype == torch.bfloat16:
+        return FwdPlan(route="mma", k_block=64, n_qt=n_qt, reverse=True,
+                       n_ctas=b * h * n_qt,
+                       smem_bytes=(FWD_TILE + 4 * 64) * (hd + 8) * 2)
+    k_block = 32 if hd == 128 else 64
+    return FwdPlan(route="f32", k_block=k_block, n_qt=n_qt,
+                   reverse=bool(causal), n_ctas=b * h * n_qt,
+                   smem_bytes=4 * ((FWD_TILE + 4 * k_block) * (hd + 4)
+                                   + k_block * (FWD_TILE + 4)))
+
+
+def fwd_steps(plan: FwdPlan, b: int, sq: int, t: int, h: int, kv: int,
+              causal: bool = True, window: Optional[int] = None
+              ) -> List[list]:
+    """The work of each CTA under ``plan``, in launch order (blockIdx.y *
+    B * H + blockIdx.x), as the kernel indexes it: a list of (batch row, q
+    head, query tile of FWD_TILE, key block of plan.k_block) in the order
+    it walks them."""
+    ctas = []
+    for y in range(plan.n_qt):
+        tile = plan.n_qt - 1 - y if plan.reverse else y
+        kb0, kb1 = _key_blocks(tile * FWD_TILE, FWD_TILE, plan.k_block, sq,
+                               t, causal, window)
+        for x in range(b * h):
+            bi, head = divmod(x, h)
+            ctas.append([(bi, head, tile, kb) for kb in range(kb0, kb1)])
+    return ctas
 
 
 # ---------------------------------------------------------------------------

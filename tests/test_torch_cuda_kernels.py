@@ -1251,6 +1251,16 @@ FLASH_SHAPES = [
     (1, 512, 512, 32, 4, 64, True, None),
     (1, 512, 512, 14, 2, 128, True, None),
 ]
+# the LLM training shape at batch 1 (tinyllama-1.1b's 32/4 heads of 64 over
+# 2048 tokens), and hd 128 at internlm2's 16/8 heads over a T that is no
+# multiple of the 32-key block of the float32 route at hd 128 (causal, and
+# longer than Sq without a mask)
+FLASH_LONG_SHAPES = [
+    (1, 2048, 2048, 32, 4, 64, True, None),
+    (1, 333, 333, 16, 8, 128, True, None),
+    (2, 200, 333, 16, 8, 128, False, None),
+]
+FLASH_SHAPES += FLASH_LONG_SHAPES
 
 
 def _flash_case(b, sq, t, h, kv, hd, dtype, device, seed=0):
@@ -1285,6 +1295,22 @@ def test_cuda_flash_attention_matches_plain(cuda, b, sq, t, h, kv, hd,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,t,h,kv,hd,causal,window",
+                         FLASH_LONG_SHAPES + [(2, 77, 130, 4, 2, 16, True,
+                                               40)])
+def test_cuda_flash_attention_is_bit_identical_over_calls(
+        cuda, b, sq, t, h, kv, hd, causal, window, dtype):
+    """Nothing is summed across CTAs: repeated calls give the same bits,
+    out and lse."""
+    q, k, v = _flash_case(b, sq, t, h, kv, hd, dtype, cuda)
+    first = tflash.flash_attention(q, k, v, causal, window)
+    for _ in range(2):
+        again = tflash.flash_attention(q, k, v, causal, window)
+        assert all(torch.equal(a, c) for a, c in zip(first, again))
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_rejects_bad_inputs(cuda):
     q, k, v = _flash_case(1, 8, 8, 2, 1, 48, torch.float32, cuda)
     with pytest.raises(ValueError, match="head dim"):
@@ -1297,11 +1323,13 @@ def test_cuda_flash_attention_rejects_bad_inputs(cuda):
         tflash.flash_attention(q, k.bfloat16(), v)
     with pytest.raises(ValueError, match="q must"):
         tflash.flash_attention(q.transpose(1, 2), k, v)
-    # bf16 goes through 16-byte copies: a contiguous view 2 bytes in raises
-    q, k, v = _flash_case(1, 8, 8, 2, 1, 16, torch.bfloat16, cuda)
-    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="16-byte"):
-        tflash.flash_attention(flat[1:].view(q.shape), k, v)
+    # both routes go through 16-byte copies: a contiguous view one element
+    # in raises
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _flash_case(1, 8, 8, 2, 1, 16, dtype, cuda)
+        flat = torch.zeros(q.numel() + 1, dtype=dtype, device=cuda)
+        with pytest.raises(ValueError, match="16-byte"):
+            tflash.flash_attention(flat[1:].view(q.shape), k, v)
 
 
 # the backward's shapes: the forward's sweep cut to its kinds (causal,
