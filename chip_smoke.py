@@ -13,9 +13,10 @@ with a non-zero exit code:
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``,
    and print ptxas's registers, shared memory and spills of the flash
-   forward's and backward's kernels, their dynamic shared memory and the
-   forward's CTAs an SM (a spill fails, but for the bf16 forward's known
-   20 B at hd 64, ``KNOWN_SPILLS``, held to its size);
+   forward's and backward's kernels and of the SpMM's and its dX's,
+   the flash kernels' dynamic shared memory and the forward's CTAs an SM
+   (a spill fails, but for the bf16 forward's known 20 B at hd 64,
+   ``KNOWN_SPILLS``, held to its size);
 3. kernels — build the ogbn-products stand-in graph and the training
    plan, then hold each CUDA kernel against its plain PyTorch version on
    the card. The extraction is bit-identical on real sampled serving rows
@@ -66,7 +67,9 @@ with a non-zero exit code:
    and a float32 h (1e-4) and its dX with a float32 cotangent (1e-5,
    bit-identical over 10 calls), each also on the top-k padding layout,
    each timed beside its bound, its plain version and the float32 route's
-   device time in the same call;
+   device time in the same call, the dX's kernels one by one, and the
+   batch's work at the kernels' units (``spmm_ell_work``: live chunks,
+   steps, nonzeros, the busiest CTA's share);
    The flash-attention kernel is held against its plain version (out and
    lse) at the reference's five sweep shapes on both routes, f32 (CUDA
    cores, 1e-4 absolute) and bf16 (tensor cores: out per element within
@@ -311,7 +314,7 @@ KERNEL_COUNTERS = {
                                 ("BWD_ROUTE_LAUNCHES", "f32")),
     "hash_keys": ("counter_rng", "HASH_LAUNCHES", None),
     "keep_mask": ("counter_rng", "MASK_LAUNCHES", None)}
-DX_KERNELS = ("dx_scan_kernel", "dx_fill_kernel", "dx_product_kernel")
+DX_KERNELS = ("dx_scan_kernel", "dx_product_kernel")
 
 TRAIN_BATCH = 8192
 TRAIN_STEPS = 48
@@ -353,14 +356,13 @@ def captured_launches(num_layers: int, bf16: bool = False) -> dict:
 
 
 # the device kernels of one training step of the 3-layer plan, by name,
-# and how many run a step (the dX wrapper launches three, the tail's
+# and how many run a step (the dX wrapper launches two, the tail's
 # backward two; the tail draws its dropout, so no keep-mask kernel runs)
 STEP_KERNELS = {"extract_dense_kernel": 1, "hash_keys_kernel": 1,
                 "spmm_ell_kernel": 3, "fused_layer_kernel_vec": 3,
                 "fused_layer_bwd_kernel_vec": 3,
                 "fused_layer_dscale_kernel": 3, "keep_mask_kernel": 0,
-                "dx_scan_kernel": 3, "dx_fill_kernel": 3,
-                "dx_product_kernel": 3}
+                "dx_scan_kernel": 3, "dx_product_kernel": 3}
 # the device kernels whose names carry their route's types: under
 # block_dtype="bf16" each is the bf16 instance (a __nv_bfloat16 template
 # argument), under f32 none is
@@ -564,7 +566,8 @@ def phase_device(torch) -> dict:
 # the sources whose kernels' registers, shared memory and spills the build
 # prints, from ptxas (-Xptxas -v on one more nvcc beside the build's); a
 # spill fails the build phase
-PTXAS_REPORT = ("flash_attention.cu", "flash_attention_bwd.cu")
+PTXAS_REPORT = ("flash_attention.cu", "flash_attention_bwd.cu",
+                "spmm_ell.cu", "spmm_ell_dx.cu")
 # spills that were there when their source joined the report, held to their
 # bytes: the bf16 forward at hd 64 caps its registers at 128 a thread (four
 # CTAs an SM) and spills 20 B (PERF.md row 4a); any other spill, or more
@@ -648,11 +651,9 @@ def _ptxas_kernels(out: str) -> list:
                 if own:
                     n = int(own.group(1))
                     name = rest[own.end():own.end() + n]
-                    arg = re.match(r"I(?:Li(\d+)E|(f)E|\d+(\w+?)E)",
-                                   rest[own.end() + n:])
-                    if arg:
-                        width, f, other = arg.groups()
-                        name += f"<{width or other or 'float'}>"
+                    args = _template_args(rest[own.end() + n:])
+                    if args:
+                        name += f"<{args}>"
             stack = st = ld = 0
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -667,6 +668,36 @@ def _ptxas_kernels(out: str) -> list:
                          int(smem.group(1)) if smem else 0))
             name = None
     return rows
+
+
+def _template_args(rest: str):
+    """The template arguments of a mangled name's ``I ... E`` (ints,
+    bools, float and named types) as C++ writes them, or None."""
+    if not rest.startswith("I"):
+        return None
+    rest, args, named = rest[1:], [], None
+    while rest and rest[0] != "E":
+        m = re.match(r"Li(\d+)E|Lb([01])E|(f)|(\d+)|S\d*_", rest)
+        if not m:
+            return None
+        if m.group(1):
+            args.append(m.group(1))
+        elif m.group(2):
+            args.append("true" if m.group(2) == "1" else "false")
+        elif m.group(3):
+            args.append("float")
+        elif m.group(4):          # a named type: <length><name>
+            n = int(m.group(4))
+            named = rest[m.end():m.end() + n]
+            args.append(named)
+            rest = rest[m.end() + n:]
+            continue
+        else:                     # a substitution: the type named before
+            if named is None:
+                return None
+            args.append(named)
+        rest = rest[m.end():]
+    return ", ".join(args) if rest else None
 
 
 def _bound_by(n_bytes: float, n_ops: float) -> str:
@@ -1326,7 +1357,8 @@ def check_spmm_ell_dx(torch, plan, graph, dev) -> dict:
                                                            n_rows))
     atomic_ms = time_ms(torch, lambda: atomic_dx(torch, tiles, colidx, g,
                                              n_rows))
-    dev_ms = device_ms(torch, call, DX_KERNELS)
+    parts = {}
+    dev_ms = device_ms(torch, call, DX_KERNELS, parts=parts)
     atomic_err = (atomic_dx(torch, tiles, colidx, g, n_rows)
                 - first).abs().max().item()
     # every tile read once (padding included, to find it), g read once,
@@ -1342,7 +1374,8 @@ def check_spmm_ell_dx(torch, plan, graph, dev) -> dict:
     log(f"[kernels] spmm_ell_dx training shape: {n_rb} row-blocks x "
         f"{n_slots} slots of ({bm}, {bn}) ({nz_tiles} live tiles), d {d}, "
         f"{n_bytes} B, {n_ops} ops on the nonzeros: kernel {ms:.5f} ms per "
-        f"call ({dev_ms:.5f} ms on the device: scan, fill and product; "
+        f"call ({dev_ms:.5f} ms on the device: "
+        f"{', '.join(f'{k} {v:.5f}' for k, v in parts.items())}; "
         f"{n_bytes / dev_ms / 1e9:.3f} TB/s), plain {plain_ms:.5f} ms, "
         f"bound {bound:.6f} ms (over the live tiles, {live_ops} ops: "
         f"{live_bound:.6f} ms); the path it replaced (batched GEMM + "
@@ -1354,7 +1387,8 @@ def check_spmm_ell_dx(torch, plan, graph, dev) -> dict:
             "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": _bound_by(n_bytes, n_ops),
             "bound_live_tiles_ms": live_bound, "live_tiles": nz_tiles,
-            "atomic_path_ms": atomic_ms, "library_ms": None}
+            "atomic_path_ms": atomic_ms, "library_ms": None,
+            "device_parts": parts}
 
 
 def check_bf16_routes(torch, plan, graph, dev, flushers) -> list:
@@ -1466,6 +1500,16 @@ def check_bf16_routes(torch, plan, graph, dev, flushers) -> list:
     if not same:
         raise AssertionError("spmm_ell_dx bf16_f32: repeated calls differ")
 
+    # the batch's work at the kernels' units (spmm_ell_work): live
+    # chunks, steps (8 rows x 1 column / 1 row x 8 columns), nonzeros and
+    # the busiest CTA's share
+    work = sp.spmm_ell_work(tiles, colidx, TRAIN_BATCH // bn)
+    log(f"[kernels] the bf16 batch's work: {work['live_tiles']} live "
+        f"tiles, {work['live_chunks']} live chunks, {work['nonzeros']} "
+        f"nonzeros, {work['fwd_steps']} forward steps and "
+        f"{work['dx_steps']} dX steps; the busiest forward CTA of "
+        f"{work['fwd_ctas']} {work['fwd_cta_max']}, dX CTA of "
+        f"{work['dx_ctas']} {work['dx_cta_max']}")
     t32 = tiles.float()
     for name, fn, plain, args, args32, kernels, cost, err, src, repl in (
             ("spmm_ell_bf16_f32", sp.spmm_ell, sp.spmm_ell_plain,
@@ -1478,22 +1522,27 @@ def check_bf16_routes(torch, plan, graph, dev, flushers) -> list:
              "src/repro/kernels/ops.py:36")):
         ms = time_ms(torch, lambda: fn(*args))
         plain_ms = time_ms(torch, lambda: plain(*args))
-        dev_ms = device_ms(torch, lambda: fn(*args), kernels)
-        dev32 = device_ms(torch, lambda: fn(*args32), kernels)
+        parts, parts32 = {}, {}
+        dev_ms = device_ms(torch, lambda: fn(*args), kernels, parts=parts)
+        dev32 = device_ms(torch, lambda: fn(*args32), kernels,
+                          parts=parts32)
         n_ops, n_bytes = cost(*args)
         bound = bound_ms(n_bytes, n_ops)
+        split = lambda p: ", ".join(f"{k} {v:.5f}" for k, v in p.items())
         log(f"[kernels] {name} training shape: {n_rb} row-blocks x "
             f"{n_slots} slots of ({bm}, {bn}) bf16 tiles, d {d}, {n_bytes} "
             f"B, {n_ops} ops: kernel {ms:.5f} ms per call ({dev_ms:.5f} ms "
-            f"on the device, {bound / dev_ms:.3f} of the bound), plain "
-            f"{plain_ms:.5f} ms, bound {bound:.6f} ms; the float32 route on "
-            f"the same values {dev32:.5f} ms on the device in the same call")
+            f"on the device: {split(parts)}; {bound / dev_ms:.3f} of the "
+            f"bound), plain {plain_ms:.5f} ms, bound {bound:.6f} ms; the "
+            f"float32 route on the same values {dev32:.5f} ms on the device "
+            f"({split(parts32)}) in the same call")
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{src}",
                      "replaces": repl, "max_abs_err": err, "ms": ms,
                      "device_ms": dev_ms, "plain_ms": plain_ms,
                      "bound_ms": bound, "bound_by": _bound_by(n_bytes, n_ops),
-                     "library_ms": None, "f32_route_device_ms": dev32})
+                     "library_ms": None, "f32_route_device_ms": dev32,
+                     "device_parts": parts})
     return rows
 
 

@@ -14,136 +14,65 @@
 // Padding. A padding slot is an all-zero tile at column-block 0, and in the
 // top-k layout it can stand in any slot (a live tile of column-block 0 can
 // stand in a slot other than 0), so padding is found from the tile itself,
-// never from colidx: the kernel skips every chunk of a tile (32 rows x 32
-// columns) that is all zero -- the x chunk under it is not loaded and its
-// product not computed. For finite x that is the function the TPU kernel
-// computes; a non-finite x under an all-zero chunk no longer turns the
-// output to NaN, as 0 * inf would.
+// never from colidx: the kernel skips every step (8 rows x 1 column of a
+// tile, spmm_steps.cuh) that is all zero -- the x row under it is not
+// loaded and its products not computed. For finite x that is the function
+// the TPU kernel computes; a non-finite x under an all-zero step no longer
+// turns the output to NaN, as 0 * inf would.
 //
 // What bounds it on the H100. At the training shape (n_rb = 64, bm = bn =
-// 128, d = 256, S = 32, 506 of the 2,048 slots live) all tiles are read
-// once, padding included, to find it: 134 MB, 0.040 ms at 3.35 TB/s. The
-// live tiles need 2*506*128*128*256 = 4.24 GFLOP, 0.063 ms at 67 TFLOP/s
-// on the float32 CUDA cores (every slot would be 17.2 GFLOP), but most of
-// their 32 x 32 chunks are empty in a sampled adjacency, so the products
-// of the nonzeros are few and the bytes bound it. No route uses TF32,
-// which keeps about three decimal digits: the training path is held to
-// 1e-4.
+// 128, d = 256, S = 32) all tiles are read once, padding included, to find
+// it: 134 MB in float32, 0.040 ms at 3.35 TB/s, and 67 MB (0.020 ms) as
+// bfloat16. A sampled batch holds about one nonzero a row (8,806 in 33.5 M
+// tile elements: a self-loop a row and ~0.1 other edges), so the products
+// its nonzeros need, 2 * 8,806 * 256 operations, are nothing beside the
+// bytes. A 32 x 32 chunk of it holds about one nonzero, or 32 on the
+// diagonal: multiplying whole live chunks (the kernel before this design)
+// did 32 to 1024 times the work that counts, after the scan, and took as
+// long again as the scan. No route uses TF32, which keeps about three
+// decimal digits: the training path is held to 1e-4.
 //
 // Design: the TPU kernel keeps all of x resident in VMEM and walks the slots
 // in a sequential fori_loop per (row-block, feature-tile) grid cell; 227 KB
 // of shared memory cannot hold x here. One CTA of 128 threads owns 32 rows
 // of one row-block and 256 features, so that every tile byte is read by one
-// CTA only; each warp owns 8 rows and each lane an 8 x 8 micro-tile of
-// float32 FMAs (rows read as shared-memory broadcasts). The CTA works in
-// two passes over its strip of the row-block's slots. The scan reads the
-// strip with 16 loads of 16 bytes in flight a thread and sets a bit in a
-// shared-memory mask for every chunk that holds a nonzero (a warp's 32
-// lanes read one chunk, so one vote and one shared atomicOr mark it): it
-// runs at the memory's rate whatever the padding. The product then walks
-// the live chunks only, the tile chunk and its x chunk (32 x 256) double-
-// buffered with cp.async (16 bytes a thread). Any bm and bn (the reference
-// sweeps 8, 16, 32 and 128) and a ragged d are masked at the edges; when
-// bn or d is not a multiple of 16 bytes, or a pointer is not 16-byte
-// aligned, both passes use plain loads. bfloat16 tiles and x are staged as
-// they are and converted on their way into the FMAs.
+// CTA only; each warp owns 8 rows. The CTA works in two passes over a
+// window of its strip's chunks (slot-major, 32 columns each). The scan:
+// each warp streams its own 8 rows of the strip through a cp.async ring in
+// the (still unused) x buffers, half of it in flight while the lanes fold
+// the other half's bits, and one word per (chunk, warp) records which of
+// the chunk's 32 columns hold a nonzero in those rows (the lanes' piece
+// bits ORed with five shuffles, only where any lane saw one); no barrier,
+// as each lane reads back only what it copied. The product then walks the
+// live chunks (walk_chunks): it stages the chunk's tile values converted to
+// float32 once and transposed to step-major, and the x rows under the
+// columns some warp needs (1 KB each in float32); each warp adds its own
+// live columns in order. Any bm and bn (the reference sweeps 8, 16, 32 and
+// 128) and a ragged d are masked at the edges; when bn or d is not a
+// multiple of 16 bytes, or a pointer is not 16-byte aligned, both passes
+// use plain loads.
 //
 // Routes. The kernel is templated on the tile type and the operand type
 // (x and out) apart: all float32, all bfloat16, and bfloat16 tiles with a
 // float32 x and output -- the reference's `block_dtype="bf16"` training
 // step, where `jnp.dot(tile, x, preferred_element_type=float32)` promotes
 // the bf16 tile and the output keeps x's type. On that route the scan reads
-// 2-byte tiles (half the bytes that bound it: 67 MB at the training shape),
-// each tile element is converted to float32 in registers, and the products
-// stay float32 FMAs (no TF32), so it is held to the f32 route's 1e-4.
+// 2-byte tiles (half the bytes that bound it), each tile element is
+// converted to float32 once as its chunk is staged, and the products stay
+// float32 FMAs (no TF32), so it is held to the f32 route's 1e-4.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
-
-#include "async_copy.cuh"
+#include "spmm_steps.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+constexpr int kWinChunks = 512;  // chunks a window: one word a warp each
 
-constexpr int kTM = 32;         // output rows per CTA (within one row-block)
-constexpr int kTN = 256;        // output features per CTA
-constexpr int kTK = 32;         // columns of a tile chunk
-constexpr int kThreads = 128;   // 4 warps of 8 rows; a lane owns 8 features
-constexpr int kMaskWords = 128;  // the live-chunk mask: 4096 chunks a pass
-constexpr int kScanBatch = 16;   // 16-byte loads in flight a thread (scan)
-
-// elements in a 16-byte piece
-template <typename T>
-__host__ __device__ constexpr int vec() {
-  return 16 / sizeof(T);
-}
-// a staged tile row, padded by 16 bytes
-template <typename T>
-__host__ __device__ constexpr int a_stride() {
-  return kTK + vec<T>();
-}
-// the mask, then the tile chunks (TA) and the x chunks (TX), double-buffered
-template <typename TA, typename TX>
+// the staged chunks, the window's words [kWinChunks][4] and its live-chunk
+// mask
+template <typename TX>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return kMaskWords * sizeof(uint32_t) +
-         2 * static_cast<size_t>(kTM) * a_stride<TA>() * sizeof(TA) +
-         2 * static_cast<size_t>(kTK) * kTN * sizeof(TX);
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(bf16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// four consecutive staged elements as floats
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x;
-  v[1] = t.y;
-  v[2] = t.z;
-  v[3] = t.w;
-}
-__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const float2 lo =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
-  const float2 hi =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
-  v[0] = lo.x;
-  v[1] = lo.y;
-  v[2] = hi.x;
-  v[3] = hi.y;
-}
-
-// one 16-byte piece: cp.async when kVec, else element by element (masked)
-template <typename T, bool kVec>
-__device__ __forceinline__ void stage_piece(T* dst, const T* src, int valid) {
-  constexpr int V = vec<T>();
-  if (kVec) {
-    cp_async16(smem_addr(dst), src, valid == V);
-  } else {
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      if (e < valid) {
-        dst[e] = src[e];
-      } else {
-        store(dst + e, 0.0f);
-      }
-    }
-  }
-}
-
-// does a 16-byte piece hold a nonzero? (-0 counts as zero, NaN does not)
-template <typename T>
-__device__ __forceinline__ bool nonzero16(const uint4& u) {
-  constexpr uint32_t kMagnitude = sizeof(T) == 4 ? 0x7fffffffu : 0x7fff7fffu;
-  return ((u.x | u.y | u.z | u.w) & kMagnitude) != 0;
+  return stage_bytes<TX>() +
+         (4 * kWinChunks + kWinChunks / 32) * sizeof(uint32_t);
 }
 
 // tiles of type TA; x and out of type TX
@@ -152,59 +81,34 @@ __global__ void __launch_bounds__(kThreads) spmm_ell_kernel(
     const TA* __restrict__ tiles, const int* __restrict__ colidx,
     const TX* __restrict__ x, TX* __restrict__ out, int n_slots, int bm,
     int bn, int n_cb, int d, int row_tiles) {
-  constexpr int V = vec<TA>();                     // a tile piece
-  constexpr int VX = vec<TX>();                    // an x piece
-  constexpr int AS = a_stride<TA>();
-  constexpr int kRowPieces = kTK / V;              // pieces in a chunk row
-  constexpr int kChunkPieces = kTM * kRowPieces;   // pieces in a chunk
-  constexpr int kAPieces = kChunkPieces / kThreads;  // a thread's share
-  constexpr int kXPieces = kTK * kTN / VX / kThreads;
+  constexpr int V = vec<TA>();               // elements of a tile piece
+  constexpr int P = kChunk / V;              // pieces in a chunk row
+  constexpr int kUnit = 8 * P / 32;          // a lane's pieces of 8 rows
+  // the scan's ring: 16-byte pieces a lane, and chunks in half of it
+  constexpr int kRing = 2 * kChunk * kTN * sizeof(TX) / (16 * kThreads);
+  constexpr int kHalf = kRing / 2 / kUnit;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint32_t* mask = reinterpret_cast<uint32_t*>(smem_raw);  // [kMaskWords]
-  TA* s_a = reinterpret_cast<TA*>(mask + kMaskWords);       // [2][kTM][AS]
-  TX* s_x = reinterpret_cast<TX*>(s_a + 2 * kTM * AS);      // [2][kTK][kTN]
+  float* s_a = reinterpret_cast<float*>(smem_raw);            // staged values
+  TX* s_x = reinterpret_cast<TX*>(s_a + 2 * kChunk * kAStride);  // x rows
+  uint32_t* words = reinterpret_cast<uint32_t*>(s_x + 2 * kChunk * kTN);
+  uint32_t* mask = words + 4 * kWinChunks;   // [kWinChunks / 32]
 
   const int i = blockIdx.x / row_tiles;           // row-block
-  const int r0 = (blockIdx.x % row_tiles) * kTM;  // first row in it
+  const int r0 = (blockIdx.x % row_tiles) * kChunk;  // first row in it
   const int j0 = blockIdx.y * kTN;                // first feature
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;  // rows warp * 8 + {0..7}
-  const int k_chunks = (bn + kTK - 1) / kTK;
+  const int warp = tid >> 5;  // rows r0 + warp * 8 + {0..7}
+  const int k_chunks = (bn + kChunk - 1) / kChunk;
   const int n_chunks = n_slots * k_chunks;
   const TA* tiles_i = tiles + static_cast<size_t>(i) * n_slots * bm * bn;
-
-  // piece q of chunk c: its row in the strip, its first column in the tile
-  // and its address (slot c / k_chunks, columns from (c % k_chunks) * kTK)
-  auto a_piece = [&](int c, int q, int& r, int& col) {
-    r = q / kRowPieces;
-    col = (c % k_chunks) * kTK + (q % kRowPieces) * V;
+  // chunk c's tile element (row r of the strip, column col of the chunk)
+  auto at = [&](int c, int r, int col) {
     return tiles_i + static_cast<size_t>(c / k_chunks) * bm * bn +
-           static_cast<size_t>(r0 + r) * bn + col;
+           static_cast<size_t>(r0 + r) * bn + (c % k_chunks) * kChunk + col;
   };
-  // tile chunk c and the x chunk under it into buffer buf
-  auto stage = [&](int c, int buf) {
-#pragma unroll
-    for (int p = 0; p < kAPieces; ++p) {
-      int r, col;
-      const TA* src = a_piece(c, tid + p * kThreads, r, col);
-      const bool in = r0 + r < bm && col < bn;
-      stage_piece<TA, kVec>(s_a + (buf * kTM + r) * AS + (col % kTK),
-                            in ? src : tiles, in ? min(V, bn - col) : 0);
-    }
-    int cb = colidx[static_cast<size_t>(i) * n_slots + c / k_chunks];
-    cb = min(max(cb, 0), n_cb - 1);
-    const int k0 = (c % k_chunks) * kTK;
-    const TX* xb = x + (static_cast<size_t>(cb) * bn + k0) * d + j0;
-#pragma unroll
-    for (int p = 0; p < kXPieces; ++p) {
-      const int e = tid + p * kThreads;
-      const int k = e / (kTN / VX), n = (e % (kTN / VX)) * VX;
-      const bool in = k0 + k < bn && j0 + n < d;
-      stage_piece<TX, kVec>(s_x + (buf * kTK + k) * kTN + n,
-                            in ? xb + static_cast<size_t>(k) * d + n : x,
-                            in ? min(VX, d - j0 - n) : 0);
-    }
+  auto cols_left = [&](int c, int col) {  // columns of chunk c from col
+    return bn - (c % k_chunks) * kChunk - col;
   };
 
   float acc[8][8];
@@ -213,122 +117,168 @@ __global__ void __launch_bounds__(kThreads) spmm_ell_kernel(
 #pragma unroll
     for (int n = 0; n < 8; ++n) acc[m][n] = 0.0f;
 
-  for (int c0 = 0; c0 < n_chunks; c0 += 32 * kMaskWords) {
-    const int n_win = min(n_chunks - c0, 32 * kMaskWords);
-    for (int w = tid; w < kMaskWords; w += kThreads) mask[w] = 0;
-    __syncthreads();
+  for (int c0 = 0; c0 < n_chunks; c0 += kWinChunks) {
+    const int n_win = min(n_chunks - c0, kWinChunks);
 
-    // pass 1: mark the chunks of the window that hold a nonzero; a warp's
-    // 32 consecutive items are pieces of one chunk
-    const int n_items = n_win * kChunkPieces;
-    for (int base = 0; base < n_items; base += kThreads * kScanBatch) {
-      bool nz[kScanBatch];
-      if (kVec) {
-        uint4 raw[kScanBatch];
+    // pass 1: this warp's word of each chunk of the window. Lane piece q =
+    // u * 32 + lane lies in row q / P of the warp's 8 and columns
+    // (q % P) * V.. of the chunk; every q of a lane has p = lane % P
+    const int p = lane % P;
+    // the word of window chunk c from the lanes' piece bits m: the 8 rows
+    // of column piece p, then the chunk's P column pieces
+    auto finish = [&](int c, uint32_t m) {
+      uint32_t word = 0;
+      if (__any_sync(0xffffffffu, m != 0u)) {
 #pragma unroll
-        for (int j = 0; j < kScanBatch; ++j) {
-          const int e = base + tid + j * kThreads;
-          int r, col;
-          const TA* src = a_piece(c0 + e / kChunkPieces, e % kChunkPieces,
-                                  r, col);
-          raw[j] = e < n_items && r0 + r < bm && col < bn
-                       ? __ldg(reinterpret_cast<const uint4*>(src))
-                       : make_uint4(0u, 0u, 0u, 0u);
+        for (int o = P; o < 32; o <<= 1)
+          m |= __shfl_xor_sync(0xffffffffu, m, o);
+        word = m << (p * V);
+#pragma unroll
+        for (int o = 1; o < P; o <<= 1)
+          word |= __shfl_xor_sync(0xffffffffu, word, o);
+      }
+      if (lane == 0 && c < n_win) words[c * 4 + warp] = word;
+    };
+    if constexpr (kVec) {
+      // a ring in the operand rows' buffers (free until the product): each
+      // lane copies its pieces with cp.async and reads back only its own,
+      // so no barrier; half the ring is in flight while the other's bits
+      // are folded
+      uint4* ring = reinterpret_cast<uint4*>(s_x);  // [kRing][kThreads]
+      auto slot = [&](int h, int j, int u) {
+        return ring + ((h * kHalf + j) * kUnit + u) * kThreads + tid;
+      };
+      auto issue = [&](int b) {  // chunks b * kHalf.. into half b & 1
+        int sl = (c0 + b * kHalf) / k_chunks, kc = (c0 + b * kHalf) % k_chunks;
+#pragma unroll
+        for (int j = 0; j < kHalf; ++j) {
+          const TA* src = tiles_i + static_cast<size_t>(sl) * bm * bn +
+                          static_cast<size_t>(r0 + warp * 8) * bn +
+                          kc * kChunk + p * V;
+          const bool cols = b * kHalf + j < n_win && kc * kChunk + p * V < bn;
+#pragma unroll
+          for (int u = 0; u < kUnit; ++u) {
+            const int r = (u * 32 + lane) / P;  // of the warp's 8 rows
+            const bool in = cols && r0 + warp * 8 + r < bm;
+            cp_async16(smem_addr(slot(b & 1, j, u)),
+                       in ? src + static_cast<size_t>(r) * bn : tiles, in);
+          }
+          if (++kc == k_chunks) {
+            kc = 0;
+            ++sl;
+          }
         }
-#pragma unroll
-        for (int j = 0; j < kScanBatch; ++j) nz[j] = nonzero16<TA>(raw[j]);
+        cp_async_commit();
+      };
+      const int n_b = (n_win + kHalf - 1) / kHalf;
+      issue(0);
+      if (n_b > 1) {
+        issue(1);
       } else {
+        cp_async_commit();
+      }
+      for (int b = 0; b < n_b; ++b) {
+        cp_async_wait<1>();  // half b & 1 has landed
 #pragma unroll
-        for (int j = 0; j < kScanBatch; ++j) {
-          const int e = base + tid + j * kThreads;
-          int r, col;
-          const TA* src = a_piece(c0 + e / kChunkPieces, e % kChunkPieces,
-                                  r, col);
-          nz[j] = false;
-          if (e < n_items && r0 + r < bm)
-            for (int v = 0; v < V && col + v < bn; ++v)
-              nz[j] |= to_f32(src[v]) != 0.0f;
+        for (int j = 0; j < kHalf; ++j) {
+          uint32_t m = 0;
+#pragma unroll
+          for (int u = 0; u < kUnit; ++u)
+            m |= nonzero_bits<TA>(*slot(b & 1, j, u));
+          finish(b * kHalf + j, m);
+        }
+        if (b + 2 < n_b) {
+          issue(b + 2);
+        } else {
+          cp_async_commit();
         }
       }
+      cp_async_wait<0>();
+    } else {  // plain loads, a chunk at a time
+      for (int c = 0; c < n_win; ++c) {
+        uint32_t m = 0;
 #pragma unroll
-      for (int j = 0; j < kScanBatch; ++j) {
-        const int c = (base + tid + j * kThreads) / kChunkPieces;
-        if (__any_sync(0xffffffffu, nz[j]) && lane == 0)
-          atomicOr(&mask[c >> 5], 1u << (c & 31));
+        for (int u = 0; u < kUnit; ++u) {
+          const int r = warp * 8 + (u * 32 + lane) / P;
+          const int valid = r0 + r < bm ? min(V, cols_left(c0 + c, p * V))
+                                        : 0;
+          m |= nonzero_bits<TA>(load_piece<TA, false>(
+              valid > 0 ? at(c0 + c, r, p * V) : tiles, valid));
+        }
+        finish(c, m);
       }
     }
     __syncthreads();
+    for (int c = tid; c < (n_win + 31) / 32 * 32; c += kThreads) {
+      const bool live =
+          c < n_win && (words[c * 4] | words[c * 4 + 1] | words[c * 4 + 2] |
+                        words[c * 4 + 3]) != 0u;
+      const unsigned bits = __ballot_sync(0xffffffffu, live);
+      if (lane == 0) mask[c >> 5] = bits;
+    }
+    __syncthreads();
 
-    // pass 2: the live chunks, double-buffered
+    // pass 2: the live chunks
     auto next_live = [&](int c) {  // the first live chunk >= c, or n_win
       while (c < n_win) {
-        const uint32_t word = mask[c >> 5] >> (c & 31);
-        if (word) return c + __ffs(word) - 1;
+        const uint32_t w = mask[c >> 5] >> (c & 31);
+        if (w) return c + __ffs(w) - 1;
         c = (c | 31) + 1;
       }
       return n_win;
     };
-    int cur = next_live(0), buf = 0;
-    if (cur < n_win) stage(c0 + cur, 0);
-    cp_async_commit();
-    while (cur < n_win) {
-      const int nxt = next_live(cur + 1);
-      if (nxt < n_win) stage(c0 + nxt, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();  // chunk cur has landed
-      __syncthreads();
-      const TA* a = s_a + buf * kTM * AS;
-      const TX* xs = s_x + buf * kTK * kTN;
+    auto load_tile = [&](int c, uint4(&raw)[chunk_pieces<TA>()]) {
 #pragma unroll
-      for (int k = 0; k < kTK; k += 4) {
-        float av[8][4];
-#pragma unroll
-        for (int m = 0; m < 8; ++m) load4(a + (warp * 8 + m) * AS + k, av[m]);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          float xl[4], xh[4];
-          load4(xs + (k + u) * kTN + lane * 4, xl);
-          load4(xs + (k + u) * kTN + kTN / 2 + lane * 4, xh);
-#pragma unroll
-          for (int m = 0; m < 8; ++m)
-#pragma unroll
-            for (int n = 0; n < 4; ++n) {
-              acc[m][n] = fmaf(av[m][u], xl[n], acc[m][n]);
-              acc[m][n + 4] = fmaf(av[m][u], xh[n], acc[m][n + 4]);
-            }
-        }
+      for (int q = 0; q < chunk_pieces<TA>(); ++q) {
+        const int e = tid + q * kThreads;
+        const int r = e / P, col = (e % P) * V;
+        const int valid =
+            r0 + r < bm ? min(V, cols_left(c0 + c, col)) : 0;
+        raw[q] = load_piece<TA, kVec>(valid > 0 ? at(c0 + c, r, col) : tiles,
+                                      valid);
       }
-      __syncthreads();  // buffer buf is read before it is refilled
-      cur = nxt;
-      buf ^= 1;
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // the mask is read before the next window clears it
+    };
+    auto store_tile = [&](float* a, const uint4(&raw)[chunk_pieces<TA>()]) {
+#pragma unroll
+      for (int q = 0; q < chunk_pieces<TA>(); ++q) {
+        const int e = tid + q * kThreads;
+        const int r = e / P, col = (e % P) * V;
+        float v[V];
+        unpack(raw[q], v);
+#pragma unroll
+        for (int k = 0; k < V; ++k) a[(col + k) * kAStride + r] = v[k];
+      }
+    };
+    auto stage_rows = [&](int c, TX* xs) {
+      const uint32_t rows = rows_to_stage(words[c * 4], words[c * 4 + 1],
+                                          words[c * 4 + 2], words[c * 4 + 3]);
+      int cb = colidx[static_cast<size_t>(i) * n_slots + (c0 + c) / k_chunks];
+      cb = min(max(cb, 0), n_cb - 1);
+      const int k0 = ((c0 + c) % k_chunks) * kChunk;
+      stage_operand_rows<TX, kVec>(
+          xs, x + (static_cast<size_t>(cb) * bn + k0) * d + j0,
+          static_cast<size_t>(d), rows, bn - k0, d - j0, x);
+    };
+    walk_chunks<TA, TX>(acc, s_a, s_x, next_live(0), n_win, next_live,
+                        load_tile, store_tile, stage_rows,
+                        [&](int c) { return words[c * 4 + warp]; });
+    __syncthreads();  // the words are read before the next window's scan
   }
 
-#pragma unroll
-  for (int m = 0; m < 8; ++m) {
-    const int rr = r0 + warp * 8 + m;
-    if (rr >= bm) continue;
-    TX* orow = out + (static_cast<size_t>(i) * bm + rr) * d;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int jj = j0 + (n / 4) * (kTN / 2) + lane * 4 + n % 4;
-      if (jj < d) store(orow + jj, acc[m][n]);
-    }
-  }
+  store_acc(acc, out + (static_cast<size_t>(i) * bm + r0) * d,
+            min(kChunk, bm - r0), j0, d);
 }
 
 template <typename TA, typename TX, bool kVec>
 int launch(const void* tiles, const void* colidx, const void* x, void* out,
            int n_rb, int n_slots, int bm, int bn, int n_cb, int d,
            cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<TA, TX>();
+  constexpr size_t smem = smem_bytes<TX>();
   auto kernel = spmm_ell_kernel<TA, TX, kVec>;
   static bool opted_in = false;
   const cudaError_t e = opt_in(kernel, smem, opted_in);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int row_tiles = (bm + kTM - 1) / kTM;
+  const int row_tiles = (bm + kChunk - 1) / kChunk;
   const dim3 grid(n_rb * row_tiles, (d + kTN - 1) / kTN);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const TA*>(tiles), static_cast<const int*>(colidx),

@@ -17,11 +17,12 @@ tile): the CUDA kernel
 function in plain PyTorch, slot by slot as the reference's oracle sums —
 for CPU tensors, and on the meta device only its output's shape and type
 (the counterpart of a Pallas call's abstract evaluation). The kernel finds padding from the tiles themselves, not
-from ``colidx``, and skips every all-zero 32 x 32 chunk of a tile: for
-finite x the same function (a non-finite x under a skipped chunk no longer
-turns the output to NaN). :func:`spmm_ell_dx` is its input gradient
+from ``colidx``, and skips every all-zero step of a tile (8 rows x 1
+column, the work of one warp at a time; :func:`spmm_ell_work` counts
+them): for finite x the same function (a non-finite x under a skipped
+step no longer turns the output to NaN). :func:`spmm_ell_dx` is its input gradient
 ``A^T @ g`` (the reference's ``_spmm_bwd`` is plain jnp): a deterministic
-kernel (``csrc/spmm_ell_dx.cu``) over the same live chunks, with
+kernel (``csrc/spmm_ell_dx.cu``) over the live steps of the transpose, with
 :func:`spmm_ell_dx_plain` beside it. :func:`spmm_ell_cost` and
 :func:`spmm_ell_dx_cost` count their work: the products of the tiles'
 nonzeros (every slot on the meta device, where no value is known), each
@@ -32,7 +33,7 @@ bit for bit.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -116,6 +117,64 @@ def spmm_ell_dx_cost(tiles: torch.Tensor, colidx: torch.Tensor,
             + n_rows_x * d * g.element_size())
 
 
+def spmm_ell_work(tiles: torch.Tensor, colidx: torch.Tensor,
+                  n_cb: Optional[int] = None) -> dict:
+    """The work the two kernels find in a block-ELL matrix, at their own
+    units, in plain PyTorch (a measurement aid: no path calls it).
+
+    A chunk is 32 x 32 elements of a tile. A CTA owns a strip of 32 output
+    rows (the forward: tile rows of one row-block; the dX: tile columns of
+    one of the ``n_cb`` column blocks, by default as many as ``colidx``
+    names), and each of its four warps 8 of them. A step is what one warp
+    multiplies at a time: in the forward one tile column under its 8 rows,
+    in the dX one tile row under its 8 columns; a step is live if any of
+    its 8 elements is nonzero (-0 counts as zero, NaN does not). Returns
+    the live tiles, live chunks, each kernel's live steps and the
+    nonzeros; each kernel's CTAs (one feature tile) and the most that any
+    one CTA carries (``fwd_cta_max`` / ``dx_cta_max``: its chunks, steps,
+    the steps of its busiest warp and its nonzeros; the dX's also its
+    live tiles)."""
+    n_rb, n_slots, bm, bn = tiles.shape
+    kc_n, cc_n = -(-bm // 32), -(-bn // 32)
+    nz = torch.zeros((n_rb, n_slots, kc_n * 32, cc_n * 32), dtype=torch.bool,
+                     device=tiles.device)
+    nz[:, :, :bm, :bn] = tiles != 0
+    # (rb, s, row strip, row group, 8 rows, column strip, column group, 8)
+    e = nz.reshape(n_rb, n_slots, kc_n, 4, 8, cc_n, 4, 8)
+    chunks = e.any(dim=(3, 4, 6, 7))                 # (rb, s, kc, cc)
+    nzc = e.sum(dim=(3, 4, 6, 7))                    # nonzeros by chunk
+    fsteps = e.any(dim=4)            # (rb, s, kc, g, cc, cg, column)
+    dsteps = e.any(dim=7)            # (rb, s, kc, g, row, cc, cg)
+    # the forward's CTA (rb, kc), its warps the row groups g
+    f_warp = fsteps.sum(dim=(1, 4, 5, 6))            # (rb, kc, g)
+    f_cta = {"chunks": chunks.sum(dim=(1, 3)), "steps": f_warp.sum(dim=2),
+             "warp_steps": f_warp.amax(dim=2),
+             "nonzeros": nzc.sum(dim=(1, 3))}
+    # the dX's CTA (cb, cc): the tiles of column block cb, its warps the
+    # column groups cg
+    if n_cb is None:
+        n_cb = int(colidx.max()) + 1 if colidx.numel() else 1
+    n_cb = max(n_cb, 1)
+    cb = colidx.long().clamp(0, n_cb - 1).reshape(-1)
+    live = nz.reshape(n_rb * n_slots, -1).any(dim=1)
+
+    def by_cb(per_tile: torch.Tensor) -> torch.Tensor:
+        flat = per_tile.reshape(n_rb * n_slots, -1).long()
+        return torch.zeros((n_cb, flat.shape[1]), dtype=torch.long,
+                           device=tiles.device).index_add_(0, cb, flat)
+
+    d_warp = by_cb(dsteps.sum(dim=(2, 3, 4))).reshape(n_cb, cc_n, 4)
+    d_cta = {"tiles": by_cb(live), "chunks": by_cb(chunks.sum(dim=2)),
+             "steps": d_warp.sum(dim=2), "warp_steps": d_warp.amax(dim=2),
+             "nonzeros": by_cb(nzc.sum(dim=2))}
+    return {"live_tiles": int(live.sum()), "nonzeros": int(nz.sum()),
+            "live_chunks": int(chunks.sum()),
+            "fwd_steps": int(fsteps.sum()), "dx_steps": int(dsteps.sum()),
+            "fwd_ctas": n_rb * kc_n, "dx_ctas": n_cb * cc_n,
+            "fwd_cta_max": {k: int(v.max()) for k, v in f_cta.items()},
+            "dx_cta_max": {k: int(v.max()) for k, v in d_cta.items()}}
+
+
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
            device: torch.device) -> None:
     if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
@@ -192,7 +251,8 @@ def spmm_ell_dx(tiles: torch.Tensor, colidx: torch.Tensor, g: torch.Tensor,
                 n_rows_x: int) -> torch.Tensor:
     """The SpMM's input gradient ``dX = A^T @ g`` (``n_rows_x = n_cb * bn``
     rows): the deterministic CUDA kernel (``csrc/spmm_ell_dx.cu``, no
-    float atomics, all-zero 32 x 32 chunks skipped) for CUDA tensors, its
+    float atomics, all-zero steps of 1 row x 8 columns skipped) for CUDA
+    tensors, its
     plain version for CPU tensors. float32 accumulation, dX in g's type;
     the forward's routes: all float32, all bfloat16, or bfloat16 tiles
     with a float32 g."""
@@ -221,10 +281,10 @@ def spmm_ell_dx(tiles: torch.Tensor, colidx: torch.Tensor, g: torch.Tensor,
     if n_rows_x == 0 or d == 0 or dev.type == "meta":
         return out
     n_cb, n_t = n_rows_x // bn, n_rb * n_slots
-    # pair counts and starts of each column block, the pair list, each
-    # tile's liveness and its chunks' flags (the kernel's scratch)
-    work = torch.empty((4 * (2 * n_cb + n_t) + n_t + n_t * chunks,),
-                       dtype=torch.uint8, device=dev)
+    # the kernel's scratch: each tile's row words (a word of 32 row bits a
+    # 32-row chunk and group of 8 columns) and its liveness
+    work = torch.empty((16 * n_t * chunks + n_t,), dtype=torch.uint8,
+                       device=dev)
     lib = _build.load()
     rc = lib.repro_spmm_ell_dx(
         tiles.data_ptr(), colidx.data_ptr(), g.data_ptr(), out.data_ptr(),

@@ -979,6 +979,207 @@ def test_cuda_bf16_wrappers_reject_other_pairs(cuda):
     assert bool((out == 7.0).all())
 
 
+# ---------------------------------------------------------------------------
+# The step walk of both SpMM kernels (csrc/spmm_steps.cuh): a warp adds only
+# its live steps, 8 rows x 1 column in the forward and 1 row x 8 columns in
+# the dX; layouts where the skip logic turns, on all three routes
+# ---------------------------------------------------------------------------
+
+SPMM_ROUTES = {"f32": (torch.float32, torch.float32),
+               "bf16": (torch.bfloat16, torch.bfloat16),
+               "bf16_f32": (torch.bfloat16, torch.float32)}
+STEP_CASES = ["diagonal", "warp_edges", "full_row_and_column", "dense",
+              "train_like"]
+
+
+def _step_case(name, seed=0):
+    """(tiles, colidx, n_cb) in float32 numpy: 128 x 128 tiles whose
+    nonzeros sit where the kernels' units of work begin and end."""
+    rng = np.random.default_rng(seed)
+    if name == "diagonal":            # a self-loop a row, padding beside
+        tiles = np.zeros((2, 3, 128, 128), np.float32)
+        colidx = np.zeros((2, 3), np.int32)
+        for rb in range(2):
+            tiles[rb, 1] = np.diag(rng.uniform(0.5, 2.0, 128))
+            colidx[rb, 1] = rb
+        return tiles, colidx, 2
+    if name == "warp_edges":
+        # one nonzero a tile, at the rows and columns where a warp's 8 end
+        # (7/8, 15/16, 23/24) and at a chunk's first and last (0, 31), in
+        # a different chunk of each tile
+        edges = [(0, 31), (7, 24), (8, 23), (15, 16), (16, 15), (23, 8),
+                 (24, 7), (31, 0)]
+        tiles = np.zeros((2, 4, 128, 128), np.float32)
+        colidx = np.zeros((2, 4), np.int32)
+        for n, (r, c) in enumerate(edges):
+            rb, s = divmod(n, 4)
+            tiles[rb, s, r + 32 * (n % 4), c + 32 * (3 - n % 4)] = \
+                rng.uniform(0.5, 2.0) * (-1) ** n
+            colidx[rb, s] = n % 3
+        return tiles, colidx, 3
+    if name == "full_row_and_column":
+        # every column of a chunk live in one row (the forward's dense loop
+        # for one warp only), every row of one in one column (the dX's)
+        tiles = np.zeros((2, 2, 128, 128), np.float32)
+        tiles[0, 0, 5, 0:32] = rng.normal(size=32)
+        tiles[0, 1, 70, 64:96] = rng.normal(size=32)
+        tiles[1, 0, 0:32, 40] = rng.normal(size=32)
+        tiles[1, 1, 96:128, 127] = rng.normal(size=32)
+        return tiles, np.array([[1, 0], [0, 1]], np.int32), 2
+    if name == "dense":
+        tiles = rng.normal(size=(2, 2, 128, 128)).astype(np.float32)
+        return tiles, np.array([[0, 1], [1, 0]], np.int32), 2
+    if name == "train_like":
+        # a sampled batch: a self-loop on every row and ~0.1 other edges a
+        # row, as block-ELL with the extraction's slot layout
+        n = 1024
+        adj = np.diag(rng.uniform(0.5, 2.0, n)).astype(np.float32)
+        rows = np.flatnonzero(rng.random(n) < 0.1)
+        adj[rows, rng.integers(0, n, rows.size)] += rng.uniform(
+            0.1, 1.0, rows.size).astype(np.float32)
+        tiles, colidx = tspmm.dense_to_block_ell_ranked(
+            torch.from_numpy(adj), 128, 128, 8)
+        return tiles.numpy(), colidx.numpy(), n // 128
+    raise ValueError(name)
+
+
+def _step_tensors(name, route, cuda, d=256, odd=False, seed=0):
+    """The case's tiles and colidx, x (n_cb * 128 rows) and g (n_rb * 128
+    rows) of width d on the card in the route's types; with ``odd`` the
+    tiles, x and g are views one element past 16-byte alignment (the
+    kernels' plain-load path)."""
+    tiles, colidx, n_cb = _step_case(name)
+    ta, tx = SPMM_ROUTES[route]
+    rng = np.random.default_rng(seed + 1)
+
+    def on_card(a, dtype):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(cuda, dtype)
+        if not odd:
+            return t
+        flat = torch.empty(t.numel() + 1, dtype=dtype, device=cuda)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    x = rng.normal(size=(n_cb * 128, d)).astype(np.float32)
+    g = rng.normal(size=(tiles.shape[0] * 128, d)).astype(np.float32)
+    return (on_card(tiles, ta), torch.from_numpy(colidx).to(cuda),
+            on_card(x, tx), on_card(g, tx), n_cb * 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(SPMM_ROUTES))
+@pytest.mark.parametrize("name", STEP_CASES)
+def test_cuda_spmm_ell_step_layouts_match_plain(cuda, name, route):
+    """The forward on each layout and route: within 1e-4 (bf16 in and
+    out: 5e-2) of the largest output of the plain version, the same bits
+    over repeated calls, and on the bf16-tile route the float32 route's
+    bits on the same values (the same FMAs in the same order)."""
+    tiles, colidx, x, _, _ = _step_tensors(name, route, cuda)
+    got = tspmm.spmm_ell(tiles, colidx, x)
+    torch.cuda.synchronize()
+    ref = tspmm.spmm_ell_plain(tiles, colidx, x).float()
+    tol = 5e-2 if x.dtype == torch.bfloat16 else 1e-4
+    assert (got.float() - ref).abs().max().item() <= tol * max(
+        1.0, ref.abs().max().item())
+    for _ in range(3):
+        assert torch.equal(tspmm.spmm_ell(tiles, colidx, x), got)
+    if route == "bf16_f32":
+        assert torch.equal(tspmm.spmm_ell(tiles.float(), colidx, x), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(SPMM_ROUTES))
+@pytest.mark.parametrize("name", STEP_CASES)
+def test_cuda_spmm_ell_dx_step_layouts_match_plain(cuda, name, route):
+    """The dX on each layout and route: within 1e-5 (bf16 in and out:
+    5e-2) of the largest |dX| of the plain version, the same bits over
+    repeated calls, and on the bf16-tile route the float32 route's bits."""
+    tiles, colidx, _, g, n_rows = _step_tensors(name, route, cuda)
+    got = tspmm.spmm_ell_dx(tiles, colidx, g, n_rows)
+    torch.cuda.synchronize()
+    ref = tspmm.spmm_ell_dx_plain(tiles, colidx, g, n_rows)
+    tol = 5e-2 if g.dtype == torch.bfloat16 else 1e-5
+    assert _dx_err(got, ref) <= tol
+    for _ in range(3):
+        assert torch.equal(tspmm.spmm_ell_dx(tiles, colidx, g, n_rows), got)
+    if route == "bf16_f32":
+        assert torch.equal(tspmm.spmm_ell_dx(tiles.float(), colidx, g,
+                                             n_rows), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(SPMM_ROUTES))
+@pytest.mark.parametrize("d,odd", [(37, False), (300, False), (256, True),
+                                   (37, True)])
+def test_cuda_spmm_ell_step_walk_ragged_and_unaligned(cuda, route, d, odd):
+    """A training-like batch at a ragged d, two feature tiles, and tiles,
+    x and g one element off 16-byte alignment (plain loads): both kernels
+    within their limits of the plain versions, repeatable bit for bit,
+    and the aligned path's bits where only the alignment differs."""
+    tiles, colidx, x, g, n_rows = _step_tensors("train_like", route, cuda,
+                                                d=d, odd=odd)
+    tol_f, tol_b = ((5e-2, 5e-2) if x.dtype == torch.bfloat16
+                    else (1e-4, 1e-5))
+    fwd = tspmm.spmm_ell(tiles, colidx, x)
+    dx = tspmm.spmm_ell_dx(tiles, colidx, g, n_rows)
+    torch.cuda.synchronize()
+    ref = tspmm.spmm_ell_plain(tiles, colidx, x).float()
+    assert (fwd.float() - ref).abs().max().item() <= tol_f * max(
+        1.0, ref.abs().max().item())
+    assert _dx_err(dx, tspmm.spmm_ell_dx_plain(tiles, colidx, g,
+                                               n_rows)) <= tol_b
+    assert torch.equal(tspmm.spmm_ell(tiles, colidx, x), fwd)
+    assert torch.equal(tspmm.spmm_ell_dx(tiles, colidx, g, n_rows), dx)
+    if odd:
+        t2, x2, g2 = (v.clone() for v in (tiles, x, g))
+        assert torch.equal(tspmm.spmm_ell(t2, colidx, x2), fwd)
+        assert torch.equal(tspmm.spmm_ell_dx(t2, colidx, g2, n_rows), dx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(SPMM_ROUTES))
+def test_cuda_spmm_ell_zero_step_ignores_non_finite_x(cuda, route):
+    """Departure 1 at the skip unit: a live chunk (one nonzero, row 3,
+    column 0) whose column 5 is all zero. inf in x's row 5 leaves every
+    output finite, because no warp adds that step; the plain version's
+    0 * inf gives NaN in all 32 rows of the chunk."""
+    ta, tx = SPMM_ROUTES[route]
+    tiles = torch.zeros((1, 1, 128, 128), dtype=ta, device=cuda)
+    tiles[0, 0, 3, 0] = 2.0
+    colidx = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    x = torch.randn((128, 64), device=cuda).to(tx)
+    x[5] = float("inf")
+    got = tspmm.spmm_ell(tiles, colidx, x)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[3].float(), (2.0 * x[0].float()).to(tx).float())
+    assert torch.count_nonzero(torch.cat([got[:3], got[4:]])) == 0
+    assert torch.isnan(tspmm.spmm_ell_plain(tiles, colidx, x)[:32]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(SPMM_ROUTES))
+def test_cuda_spmm_ell_dx_zero_step_ignores_non_finite_g(cuda, route):
+    """The same in the dX: a live chunk (one nonzero, row 0, column 3)
+    whose row 5 is all zero. inf in g's row 5 leaves dX finite, because no
+    warp adds that step; the plain version gives NaN in all 32 columns of
+    the chunk."""
+    ta, tx = SPMM_ROUTES[route]
+    tiles = torch.zeros((1, 1, 128, 128), dtype=ta, device=cuda)
+    tiles[0, 0, 0, 3] = 2.0
+    colidx = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    g = torch.randn((128, 64), device=cuda).to(tx)
+    g[5] = float("inf")
+    got = tspmm.spmm_ell_dx(tiles, colidx, g, 128)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[3].float(), (2.0 * g[0].float()).to(tx).float())
+    assert torch.count_nonzero(torch.cat([got[:3], got[4:]])) == 0
+    assert torch.isnan(tspmm.spmm_ell_dx_plain(tiles, colidx, g,
+                                               128)[:32]).all()
+
+
 def _card_trainer(plan, steps, ckpt_dir=None, prefetch=False, chunk=2):
     from repro_torch import optim as topt
     from repro_torch.train import Trainer, TrainLoopConfig
