@@ -41,10 +41,12 @@ with a non-zero exit code:
    deterministic d_scale) is within 1e-5 of the largest |plain| for dx and
    d_scale at the three shapes in every case of RMSNorm, ReLU and keep
    source (none, bytes, counter; the counter bit for bit the bytes mask's),
-   10 calls bit-identical on each route, and timed (counter, RMSNorm,
-   ReLU) at the training shape on a cold L2, at the serving shape and, on
-   its scalar route, at (300, 33), beside its bound, its plain version and
-   the plain version fed a mask (the backward before this kernel);
+   10 calls bit-identical on each route, 10 replays of a captured call the
+   eager calls' bits, and timed (counter, RMSNorm, ReLU) at the training
+   shape on a cold L2, at the serving shape (beside the launch floor at its
+   grid) and, on its scalar route, at (300, 33), beside its bound, its
+   plain version and the plain version fed a mask (the backward before
+   this kernel);
    The block-ELL SpMM is held against its plain version on a real sampled
    training batch (8192 vertices, 128 x 128 tiles) within 1e-4 of the
    largest output, at the reference's sweep shapes with a ragged d, on a
@@ -961,6 +963,16 @@ def check_fused_tail(torch, d_hidden: int, rows: int, dev,
             f"{same}")
         if not same:
             raise AssertionError("fused_layer_bwd is not deterministic")
+        if b == TRAIN_BATCH:
+            replays = captured_replays(torch, lambda: fl.fused_layer_bwd(
+                g, x, s, None, dropout_key=key, dropout_rate=rate), 10)
+            same = all(torch.equal(u, v) for o in replays
+                       for u, v in zip(o, outs[0]))
+            log(f"[kernels] fused_layer_bwd ({b}, {d}), 10 replays of a "
+                f"captured call: the eager calls' bits {same}")
+            if not same:
+                raise AssertionError("fused_layer_bwd: a captured call's "
+                                     "replays differ from the eager calls")
 
     # (label, rows, d, keep source, flushers, route, the route's kernel)
     timed = (("serving", rows, d_hidden, "none", None, "vector",
@@ -1071,6 +1083,13 @@ def check_fused_tail(torch, d_hidden: int, rows: int, dev,
             f"({dev_ms:.5f} ms on the device, {n_bytes / dev_ms / 1e9:.3f} "
             f"TB/s, {bound / dev_ms:.3f} of the bound), plain {plain_ms:.5f}"
             f" ms (fed a mask {plain_mask_ms:.5f} ms), bound {bound:.6f} ms")
+    grid = fl.bwd_grid(rows)[0]
+    serving = bwd_times["vector"]["serving"]
+    serving["floor_ms"] = launch_floor_ms(torch, grid, 32 * fl.ROWS_PER_CTA)
+    log(f"[kernels] empty kernel at the tail backward's serving grid ({grid}"
+        f" x {32 * fl.ROWS_PER_CTA}): {serving['floor_ms']:.5f} ms on the "
+        f"device; the backward's two kernels "
+        f"{serving['device_ms'] / serving['floor_ms']:.2f} x it")
 
     def entry(name, route, label, replaces, max_err, at):
         return {"name": name, "route": "cuda",
@@ -1093,6 +1112,27 @@ def check_fused_tail(torch, d_hidden: int, rows: int, dev,
                   bwd_err["vector"], bwd_times),
             entry("fused_layer_bwd_scalar", "scalar", "ragged", bwd,
                   bwd_err["scalar"], bwd_times)]
+
+
+def captured_replays(torch, fn, n: int) -> list:
+    """``n`` replays of a CUDA graph that captured one call of ``fn`` (after
+    an eager call on the capture's stream), each replay's outputs cloned."""
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=side):
+            out = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    replays = []
+    for _ in range(n):
+        graph.replay()
+        replays.append(tuple(o.clone() for o in out))
+    torch.cuda.synchronize()
+    del graph
+    return replays
 
 
 def train_setup(torch, ds, dev):

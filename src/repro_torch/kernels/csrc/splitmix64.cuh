@@ -37,4 +37,25 @@ __device__ __forceinline__ bool keep_lane(uint64_t k, uint64_t i,
   return keep_u24(k, i) < threshold;
 }
 
+// keep_lane of lanes i0 .. i0 + 3 (i0 % 4 == 0) as bits 0-3, on 32-bit
+// halves: the four lanes share k ^ i0 but for its two low bits, and of the
+// last product only the high word of its low 64 bits is formed
+__device__ __forceinline__ uint32_t keep_lanes4(uint64_t k, uint64_t i0,
+                                                uint32_t threshold) {
+  const uint64_t kb = k ^ i0;
+  uint32_t bits = 0;
+#pragma unroll
+  for (uint32_t e = 0; e < 4; ++e) {
+    uint64_t x = (kb ^ e) + 0x9E3779B97F4A7C15ull;
+    x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
+    x ^= x >> 27;
+    const uint32_t lo = static_cast<uint32_t>(x);
+    const uint32_t hi = static_cast<uint32_t>(x >> 32);
+    const uint32_t top =
+        __umulhi(lo, 0x133111EBu) + lo * 0x94D049BBu + hi * 0x133111EBu;
+    bits |= static_cast<uint32_t>((top >> 8) < threshold) << e;
+  }
+  return bits;
+}
+
 }  // namespace repro

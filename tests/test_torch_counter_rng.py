@@ -95,6 +95,33 @@ def test_keep_mask_plain_bits_and_purity(rate):
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.3, 0.5])
+@pytest.mark.parametrize("key", [0, 0xC0FFEE, 2 ** 64 - 3])
+def test_keep_lanes4_on_32_bit_halves_gives_the_keep_mask_bits(rate, key):
+    """The fused tail's draw of four lanes at once (``keep_lanes4`` in
+    ``csrc/splitmix64.cuh``), its arithmetic in numpy uint64: lanes i0 ..
+    i0 + 3 (i0 % 4 == 0) start from k ^ i0 with e in its two low bits, and
+    bits 40-63 of the last product come from 32-bit halves,
+    umulhi(lo, C_lo) + lo * C_hi + hi * C_lo mod 2^32, shifted by 8; the
+    bits are ``keep_mask_plain``'s."""
+    rows, cols = 33, 64
+    k = np.uint64(_u64(crng.splitmix64(_key(key))))
+    threshold = crng.keep_threshold(rate)
+    i0 = np.arange(0, rows * cols, 4, dtype=np.uint64)
+    low32 = np.uint64(0xFFFFFFFF)
+    c_lo, c_hi = np.uint64(0x133111EB), np.uint64(0x94D049BB)
+    got = np.zeros(rows * cols, dtype=bool)
+    for e in range(4):
+        x = ((k ^ i0) ^ np.uint64(e)) + np.uint64(0x9E3779B97F4A7C15)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x ^= x >> np.uint64(27)
+        lo, hi = x & low32, x >> np.uint64(32)
+        top = (((lo * c_lo) >> np.uint64(32)) + lo * c_hi + hi * c_lo) & low32
+        got[i0.astype(np.int64) + e] = (top >> np.uint64(8)) < threshold
+    want = crng.keep_mask_plain(_key(key), rows, cols, rate)
+    np.testing.assert_array_equal(got, want.numpy().reshape(-1))
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.3, 0.5])
 def test_keep_rate_is_one_minus_p(rate):
     rates = [crng.keep_mask(_key(tsmp.step_key(3, s)), 256, 256,
                             rate).float().mean().item() for s in range(3)]

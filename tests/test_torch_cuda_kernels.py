@@ -354,6 +354,33 @@ def test_cuda_tail_bwd_is_bit_identical_over_repeated_calls(cuda, b, d):
 
 
 @pytest.mark.cuda
+def test_cuda_tail_bwd_captured_replays_equal_eager_calls(cuda):
+    """Ten replays of a CUDA graph that captured one ``fused_layer_bwd``
+    at the training shape, counter keep bits, give the bits of ten eager
+    calls, dx and d_scale (the partial is taken per call from the graph's
+    pool, d_scale summed in a fixed order)."""
+    x, scale, _, _ = (None if a is None else torch.from_numpy(a).to(cuda)
+                      for a in _tail_case(8192, 256, False, False))
+    g = torch.randn((8192, 256), device=cuda)
+    kw = dict(dropout_key=_key(cuda), dropout_rate=0.3)
+    eager = [tfl.fused_layer_bwd(g, x, scale, None, **kw) for _ in range(10)]
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tfl.fused_layer_bwd(g, x, scale, None, **kw)
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=side):
+            out = tfl.fused_layer_bwd(g, x, scale, None, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    for want in eager:
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+    del graph
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("odd", ["g", "x", "mask"])
 def test_cuda_tail_bwd_odd_offset_view_takes_scalar_route(cuda, odd):
     """A contiguous view one element into its storage is not aligned for
