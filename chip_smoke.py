@@ -219,6 +219,32 @@ with a non-zero exit code:
 6b. llm-driver — the same engine behind ``ServingDriver``: a wave of 8
    prompts from 4 threads, each prompt's tokens those of the engine's
    direct run of the wave;
+6c. llm-moe — MoE serving: mixtral-8x7b at its published width (d_model
+   4096, 32/8 heads of 128, 8 experts of d_ff 14336, top-2, window 4096,
+   vocab 32000, bf16, seeded random weights) cut from 32 layers to 4,
+   behind the same ``LLMEngine`` and stream as phase 6 (the counts zeroed
+   just before: the flash kernel's bf16 route once per layer of every
+   prefill, its f32 route never); tok/s, prefill and decode p50/p95, peak
+   memory and the share of real (token, choice) pairs that capacity
+   dropped in prefill and in decode (``models/moe.py``'s ``RouteLog``);
+   then on 4 prompts a prefill and 8 decode steps through the kernel and
+   through the plain attention, teacher forced, every layer's routing
+   recorded on both (``moe_check``): a token whose experts differ (a
+   flip) while its inputs agree up to rounding must be a tie, the plain
+   path's k-th and (k+1)-th router logits within 0.1 of the row's largest
+   |router logit| (the flips after it are printed and counted), the
+   positions no flip touched within 5e-2 of the largest |logit|, and with
+   the plain path replaying the kernel path's experts every position's
+   logits within 5e-2; one profiled wave (the router, dispatch, experts
+   and combine spans, a decode step's device time beside the bytes it
+   must read); then the same widths in float32 at 2 layers: every route
+   equal and the logits within 1e-4 (the flash kernel's f32 route at hd
+   128);
+6d. llm-moe-scout — llama4-scout-17b-a16e at its published width (d_model
+   5120, 40/8 heads of 128, 16 experts of d_ff 8192 and the shared
+   expert, top-1, vocab 202048, bf16) cut from 48 layers to 2: a wave of
+   8 prompts (the counts as in 6c, drops by capacity), then 6c's bf16
+   route and logit check on them;
 7. llm-train — LLM training at tinyllama-1.1b's published width (seeded
    weights, ``TokenStream`` batches): (a) one bf16 gradient of
    ``lm_loss(forward_train(...))`` on 4 x 2048 tokens through the flash
@@ -282,6 +308,15 @@ FLASH_BF16_LSE_ATOL = 1e-4
 LLM_RTOL = 5e-2          # bf16 logits, kernel vs plain path, of max |logit|
 FLASH_BWD_RTOL = 1e-4    # f32 dq, dk, dv, of each one's largest |plain|
 LLM_LOSS_BF16_RTOL = 1e-2  # a bf16 full-width loss, kernels vs plain
+# the MoE phases (6c, 6d; moe_check): a flip of the k-th and (k+1)-th
+# expert between the kernel and the plain attention paths, at a token whose
+# inputs agree up to rounding, must be a tie within the logits' tolerance
+# on each side: the plain path's two router logits at most twice LLM_RTOL
+# of the row's largest |router logit| apart
+MOE_FLIP_RTOL = 2 * LLM_RTOL
+MOE_F32_RTOL = 1e-4      # f32 logits, kernel vs plain path, of max |logit|
+# (q heads, kv heads, head dim) of the MoE models at their published widths
+MOE_HEADS = {"mixtral": (32, 8, 128), "scout": (40, 8, 128)}
 
 # the kernels of the port: the module that counts their launches, the
 # count's name in it, and where the count is split (by route, or by the
@@ -1651,11 +1686,14 @@ def check_flash_attention(torch, np, dev) -> list:
             q, k, v = make(2, sq, t, h, kv, hd, dtype)
             err[dtype] = max(err[dtype], compare("sweep", q, k, v, causal,
                                                  window))
-    for name, (h, kv, hd) in (("LLM serving shape", (32, 4, 64)),
-                              ("qwen2-style, hd 128", (14, 2, 128))):
+    for name, (h, kv, hd), window in (
+            ("LLM serving shape", (32, 4, 64), None),
+            ("qwen2-style, hd 128", (14, 2, 128), None),
+            ("mixtral-8x7b prefill", MOE_HEADS["mixtral"], 4096),
+            ("llama4-scout prefill", MOE_HEADS["scout"], None)):
         q, k, v = make(1, 512, 512, h, kv, hd, torch.bfloat16)
         err[torch.bfloat16] = max(err[torch.bfloat16],
-                                  compare(name, q, k, v, True, None))
+                                  compare(name, q, k, v, True, window))
     # the f32 route where it runs: the backward's f32 shapes (the training
     # shape, hd 128, windows, non-causal ragged T, MHA)
     for label, b, sq, t, h, kv, hd, causal, window, dname in \
@@ -1666,28 +1704,41 @@ def check_flash_attention(torch, np, dev) -> list:
                                      compare(label, q, k, v, causal, window))
             del q, k, v
 
-    # (label, batch, sequence, type, the route's peak rate)
-    timed = (("serving", 1, 512, torch.bfloat16, BF16_TC_OPS_PER_S),
-             ("long", 8, 2048, torch.bfloat16, BF16_TC_OPS_PER_S),
-             ("train", 4, 2048, torch.bfloat16, BF16_TC_OPS_PER_S),
-             ("serving", 1, 512, torch.float32, F32_OPS_PER_S),
-             ("train", 2, 2048, torch.float32, F32_OPS_PER_S))
+    # (label, batch, sequence, type, the route's peak rate, heads (q, kv,
+    # hd), window): tinyllama-1.1b's heads, then the MoE models' prefills
+    tiny = (32, 4, 64)
+    timed = (("serving", 1, 512, torch.bfloat16, BF16_TC_OPS_PER_S, tiny,
+              None),
+             ("long", 8, 2048, torch.bfloat16, BF16_TC_OPS_PER_S, tiny, None),
+             ("train", 4, 2048, torch.bfloat16, BF16_TC_OPS_PER_S, tiny,
+              None),
+             ("mixtral prefill", 1, 512, torch.bfloat16, BF16_TC_OPS_PER_S,
+              MOE_HEADS["mixtral"], 4096),
+             ("scout prefill", 1, 512, torch.bfloat16, BF16_TC_OPS_PER_S,
+              MOE_HEADS["scout"], None),
+             ("serving", 1, 512, torch.float32, F32_OPS_PER_S, tiny, None),
+             ("train", 2, 2048, torch.float32, F32_OPS_PER_S, tiny, None),
+             ("mixtral prefill", 1, 512, torch.float32, F32_OPS_PER_S,
+              MOE_HEADS["mixtral"], 4096))
     shapes = {torch.float32: {}, torch.bfloat16: {}}
-    for label, b, s, dtype, peak in timed:
-        plan = fa.fwd_plan(b, s, s, 32, 4, 64, dtype, True)
+    for label, b, s, dtype, peak, (h, kv, hd), window in timed:
+        plan = fa.fwd_plan(b, s, s, h, kv, hd, dtype, True, window)
         kernel = plan.kernel()
-        q, k, v = make(b, s, s, 32, 4, 64, dtype)
-        reps, inner = (25, 10) if label == "serving" else (5, 4)
-        call = lambda: fa.flash_attention(q, k, v, True)
+        q, k, v = make(b, s, s, h, kv, hd, dtype)
+        short = b * s <= 512
+        reps, inner = (25, 10) if short else (5, 4)
+        call = lambda: fa.flash_attention(q, k, v, True, window)
         # the kernel alone first: after the plain version's gigabyte of
         # scores, a profiled window read the f32 kernel 7 % slower than
         # the event windows of the same run did
-        dev_ms = device_ms(torch, call, kernel,
-                           n=50 if label == "serving" else 20)
-        plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v,
-                                                                   True),
-                           reps=3, inner=2, warmup=1)
+        dev_ms = device_ms(torch, call, kernel, n=50 if short else 20)
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, True, window), reps=3, inner=2, warmup=1)
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))   # (B, H, S, hd)
+        # a window no shorter than the sequence masks nothing more than
+        # causality, so SDPA's causal call computes the same function
+        if window is not None and window < s:
+            raise AssertionError(f"SDPA has no window of {window} < {s}")
         sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh,
                                                       is_causal=True,
                                                       enable_gqa=True)
@@ -1698,14 +1749,14 @@ def check_flash_attention(torch, np, dev) -> list:
                  for fn in (call, sdpa, sdpa, call)]
         ms = (turns[0] + turns[3]) / 2
         library_ms = (turns[1] + turns[2]) / 2
-        n_ops, n_bytes = fa.flash_attention_cost(q, k, v, True, None)
+        n_ops, n_bytes = fa.flash_attention_cost(q, k, v, True, window)
         bound = bound_ms(n_bytes, n_ops, peak)
         by = "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / peak \
             else "operations"
         log(f"[kernels] flash_attention {label} shape, {kernel} "
             f"({plan.n_ctas} CTAs, {plan.k_block}-key blocks, the last "
             f"tile first: {plan.reverse}): q {tuple(q.shape)}, kv "
-            f"{tuple(k.shape)} {dtype} causal, "
+            f"{tuple(k.shape)} {dtype} causal, window {window}, "
             f"{n_bytes} B, {n_ops} ops: kernel {ms:.5f} ms per call "
             f"({dev_ms:.5f} ms on the device, "
             f"{n_ops / dev_ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.5f} ms, "
@@ -3601,49 +3652,81 @@ def fullbatch_path(torch, np, ds, train_plan, train_graph, train_pg,
 LLM_PROMPTS = 32
 LLM_CHECK_PROMPTS = 4
 LLM_CHECK_STEPS = 8
+LLM_SLOTS = 8
+LLM_PROMPT_CAP = 512
+LLM_NEW_TOKENS = 32
+# the MoE models' depth on the card (their widths are the published ones)
+MOE_DEPTH = {"mixtral-8x7b": 4, "llama4-scout-17b-a16e": 2}
+MOE_F32_DEPTH = 2
+MOE_SPANS = ("moe_router", "moe_dispatch", "moe_experts", "moe_combine")
 
 
-def phase_llm(torch, np, cfg, dev) -> dict:
-    """The main path of LLM serving: ``cfg`` (tinyllama-1.1b at full
-    width) behind ``LLMEngine``, a stream of 32 prompts through the flash
-    kernel; then the kernel path against the plain attention on 4 prompts,
-    teacher forced. Returns the launch counts of the stream."""
+def llm_model(torch, cfg, dev, tag):
+    """``cfg``'s model on the card with seeded random weights, its
+    parameter count held to the config's."""
     from repro_torch.models import transformer as TT
-    from repro_torch.serve import LLMEngine, LLMServeOptions
-
     t0 = time.monotonic()
     model = TT.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[llm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
-        f"vocab {cfg.vocab}, {cfg.param_dtype}; {n_params} parameters "
-        f"drawn in {time.monotonic() - t0:.2f} s")
+    moe = "" if cfg.moe is None else (
+        f", {cfg.moe.num_experts} experts, top-{cfg.moe.top_k}"
+        + (" + a shared expert" if cfg.moe.shared_expert else ""))
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}"
+        f"{moe}, window {cfg.sliding_window}, vocab {cfg.vocab}, "
+        f"{cfg.param_dtype}; {n_params} parameters "
+        f"({n_params * cfg.param_dtype.itemsize / 1e9:.3f} GB) drawn in "
+        f"{time.monotonic() - t0:.2f} s")
     # the config's count leaves out the final norm's scale
     if n_params != cfg.num_params() + cfg.d_model:
         raise AssertionError(f"{n_params} parameters, expected "
                              f"{cfg.num_params() + cfg.d_model}")
-    opts = LLMServeOptions(slots=8, max_prompt_len=512, max_new_tokens=32,
-                           device=str(dev))
-    eng = LLMEngine(model, cfg, opts)
+    return model
+
+
+def llm_engine(cfg, model, dev):
+    """The stream's engine: 8 slots, prompts padded to 512, 32 new
+    tokens."""
+    from repro_torch.serve import LLMEngine, LLMServeOptions
+    return LLMEngine(model, cfg, LLMServeOptions(
+        slots=LLM_SLOTS, max_prompt_len=LLM_PROMPT_CAP,
+        max_new_tokens=LLM_NEW_TOKENS, device=str(dev)))
+
+
+def llm_prompts(np, cfg) -> list:
+    """The stream's 32 prompts of 32-512 random tokens (seed 11)."""
     rng = np.random.default_rng(11)
-    lengths = rng.integers(32, 513, size=LLM_PROMPTS)
-    prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist()
-               for n in lengths]
+    lengths = rng.integers(32, LLM_PROMPT_CAP + 1, size=LLM_PROMPTS)
+    return [rng.integers(0, cfg.vocab, size=int(n)).tolist()
+            for n in lengths]
+
+
+def llm_stream(torch, np, eng, prompts, tag, route_log=None) -> tuple:
+    """The main path of LLM serving: after a first-call warm-up, the
+    prompts arrive one at a time with two decode pumps after each
+    (staggered), then the engine drains. The counts are zeroed just before
+    the stream and read just after, and the flash kernel's bf16 route must
+    run once per layer of every prefill, no other kernel; every completion
+    is checked and a slot must be refilled mid-stream. ``route_log`` (a
+    ``RouteLog``) is entered around the stream only. Returns (launches,
+    the engine's stats)."""
+    import contextlib
+    cfg = eng.cfg
     eng.generate([prompts[0][:32]])                 # first-call warm-up
     eng.reset_stats()
-
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     t0 = time.monotonic()
     rids = []
-    for p in prompts:             # staggered: two decode steps per arrival
-        rids.append(eng.submit(p))
-        eng.pump()
-        eng.pump()
-    eng.drain()
+    with route_log if route_log is not None else contextlib.nullcontext():
+        for p in prompts:         # staggered: two decode steps per arrival
+            rids.append(eng.submit(p))
+            eng.pump()
+            eng.pump()
+        eng.drain()
     torch.cuda.synchronize()
     dt = time.monotonic() - t0
     launches = read_launches()
@@ -3651,7 +3734,8 @@ def phase_llm(torch, np, cfg, dev) -> dict:
     st = eng.stats()
     n_tok = sum(len(done.get(r, ())) for r in rids)
     peak = torch.cuda.max_memory_allocated()
-    log(f"[llm] {len(rids)} prompts ({int(lengths.min())}-"
+    lengths = np.array([len(p) for p in prompts])
+    log(f"[{tag}] {len(rids)} prompts ({int(lengths.min())}-"
         f"{int(lengths.max())} tokens, mean {float(lengths.mean()):.1f}) in "
         f"{dt:.4f} s: {n_tok} tokens, {n_tok / dt:.1f} tok/s; prefill p50 "
         f"{st['prefill_p50_ms']:.4f} ms, p95 {st['prefill_p95_ms']:.4f} ms; "
@@ -3663,53 +3747,91 @@ def phase_llm(torch, np, cfg, dev) -> dict:
         f"memory {peak / 2**30:.3f} GiB")
     # every prefill layer through the tensor-core route, none through f32
     expect = _per_step(flash_attention=cfg.n_layers * st["prefills"])
-    if launches != expect or st["prefills"] != LLM_PROMPTS:
+    if launches != expect or st["prefills"] != len(prompts):
         raise AssertionError(f"kernel launches {launches} on the LLM path "
                              f"({st['prefills']} prefills), expected "
                              f"{expect}")
     for rid in rids:
         out = done.get(rid)
-        if out is None or out.shape != (opts.max_new_tokens,) \
+        if out is None or out.shape != (eng.opts.max_new_tokens,) \
                 or not np.all((out >= 0) & (out < cfg.vocab)):
             raise AssertionError(f"prompt {rid}: bad completion {out}")
     if st["mid_stream_refills"] == 0:
         raise AssertionError("no slot was refilled mid-stream")
+    return launches, st
+
+
+def teacher_forced(torch, model, cfg, prompts, dev, impl, forced) -> list:
+    """Each prompt prefilled into its slot of a pool of ``len(prompts)``,
+    then LLM_CHECK_STEPS decode steps over the pool, on the attention path
+    ``impl``. The kernel path (``"cuda"``, run first) appends its greedy
+    tokens to ``forced``, which then feeds both paths. Returns each step's
+    last-position logits, (prompts, Vp) in float32."""
+    from repro_torch.models import transformer as TT
+    n = len(prompts)
+    cache = TT.init_slot_cache(cfg, n, LLM_PROMPT_CAP + LLM_CHECK_STEPS + 1,
+                               dev)
+    steps, firsts = [], []
+    for i, p in enumerate(prompts):
+        padded = torch.zeros((1, LLM_PROMPT_CAP), dtype=torch.int32,
+                             device=dev)
+        padded[0, :len(p)] = torch.tensor(p, dtype=torch.int32)
+        tok, lg, cache = TT.prefill_into_slot(model, padded, len(p), cache,
+                                              i, cfg, attn_impl=impl)
+        firsts.append(tok)
+        steps.append(lg[:, -1].float())
+    steps = [torch.cat(steps)]
+    if impl == "cuda":
+        forced.append(torch.cat(firsts))
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    for step in range(LLM_CHECK_STEPS):
+        tok, lg, cache = TT.decode_step_slots(
+            model, forced[step][:, None], cache, cfg, active,
+            attn_impl=impl)
+        steps.append(lg[:, -1].float())
+        if impl == "cuda":
+            forced.append(tok)
+    torch.cuda.synchronize()
+    return steps
+
+
+def profile_wave(torch, eng, prompts, watch, spans=()) -> dict:
+    """One wave of prompts under the profiler: ``device_profile``'s
+    figures, with the engine's stats under ``"stats"``."""
+    from torch.profiler import ProfilerActivity, profile
+    eng.reset_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        eng.generate(prompts)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    st = eng.stats()
+    seen = device_profile(prof, wall_us, f"one wave of {len(prompts)} "
+                          f"prompts ({st['prefills']} prefills, "
+                          f"{st['decode_steps']} decode steps)",
+                          watch=watch, spans=spans)
+    return {**seen, "stats": st}
+
+
+def phase_llm(torch, np, cfg, dev) -> dict:
+    """The main path of LLM serving: ``cfg`` (tinyllama-1.1b at full
+    width) behind ``LLMEngine``, a stream of 32 prompts through the flash
+    kernel; then the kernel path against the plain attention on 4 prompts,
+    teacher forced. Returns the launch counts of the stream."""
+    model = llm_model(torch, cfg, dev, "llm")
+    eng = llm_engine(cfg, model, dev)
+    prompts = llm_prompts(np, cfg)
+    launches, _ = llm_stream(torch, np, eng, prompts, "llm")
 
     # the kernel path against the plain attention: a prefill and 8 decode
     # steps on 4 prompts, both fed the kernel path's tokens
-    n = LLM_CHECK_PROMPTS
     forced = []
-
-    def run(impl):
-        cache = TT.init_slot_cache(cfg, n, opts.max_prompt_len
-                                   + LLM_CHECK_STEPS + 1, dev)
-        steps, firsts = [], []
-        for i, p in enumerate(prompts[:n]):
-            padded = torch.zeros((1, opts.max_prompt_len), dtype=torch.int32,
-                                 device=dev)
-            padded[0, :len(p)] = torch.tensor(p, dtype=torch.int32)
-            tok, lg, cache = TT.prefill_into_slot(model, padded, len(p),
-                                                  cache, i, cfg,
-                                                  attn_impl=impl)
-            firsts.append(tok)
-            steps.append(lg[:, -1].float())
-        steps = [torch.cat(steps)]
-        cur = torch.cat(firsts)
-        if impl == "cuda":
-            forced.append(cur)
-        active = torch.ones(n, dtype=torch.bool, device=dev)
-        for step in range(LLM_CHECK_STEPS):
-            tok, lg, cache = TT.decode_step_slots(
-                model, forced[step][:, None], cache, cfg, active,
-                attn_impl=impl)
-            steps.append(lg[:, -1].float())
-            if impl == "cuda":
-                forced.append(tok)
-        torch.cuda.synchronize()
-        return steps
-
-    kernel_steps = run("cuda")
-    plain_steps = run("torch")
+    check = prompts[:LLM_CHECK_PROMPTS]
+    kernel_steps = teacher_forced(torch, model, cfg, check, dev, "cuda",
+                                  forced)
+    plain_steps = teacher_forced(torch, model, cfg, check, dev, "torch",
+                                 forced)
     worst = 0.0
     for a, b in zip(kernel_steps, plain_steps):
         a, b = a[:, :cfg.vocab], b[:, :cfg.vocab]
@@ -3717,27 +3839,299 @@ def phase_llm(torch, np, cfg, dev) -> dict:
                     / a.abs().max().item())
     agree = sum(int(torch.equal(a.argmax(-1), b.argmax(-1)))
                 for a, b in zip(kernel_steps, plain_steps))
-    log(f"[llm] {n} prompts, prefill + {LLM_CHECK_STEPS} decode steps, "
-        f"teacher forced: max |kernel - plain| logit "
+    log(f"[llm] {len(check)} prompts, prefill + {LLM_CHECK_STEPS} decode "
+        f"steps, teacher forced: max |kernel - plain| logit "
         f"{worst:.3e} of the largest |logit| (limit {LLM_RTOL}); the greedy "
         f"tokens agree at {agree} of {len(kernel_steps)} steps")
     if not worst <= LLM_RTOL:
         raise AssertionError(f"kernel and plain LLM paths differ by {worst}")
 
     # where the time goes: one wave of 8 prompts under the profiler
-    from torch.profiler import ProfilerActivity, profile
+    profile_wave(torch, eng, prompts[:LLM_SLOTS],
+                 watch=("flash_attention_mma_kernel",))
+    return launches, phase_llm_driver(torch, np, eng, prompts[:LLM_SLOTS])
+
+
+def moe_drops(torch, routes, cfg, tag) -> dict:
+    """The share of real (token, choice) pairs that capacity dropped, in
+    prefill (a prompt's tokens; its padding is routed after them and
+    cannot push one out) and in decode (the active slots' tokens; the free
+    slots are routed too), and of the decode drops those in an expert that
+    kept a free slot's pair. Returns (dropped, pairs, behind a free slot)
+    by kind."""
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    out = {}
+    for kind in ("prefill", "decode"):
+        rs = [r for r in routes.routes
+              if (r.ids.shape[0] == LLM_SLOTS) == (kind == "decode")]
+        if not rs:
+            raise AssertionError(f"no {kind} routes were recorded")
+        ids = torch.stack([r.ids for r in rs])              # (N, t, k)
+        keep = torch.stack([r.keep for r in rs])
+        real = torch.stack([r.real for r in rs])[..., None]  # (N, t, 1)
+        dropped = int((~keep & real).sum())
+        total = int(real.sum()) * k
+        onehot = ids[..., None] == torch.arange(e, device=ids.device)
+        free_kept = (onehot & (keep & ~real)[..., None]).any(2).any(1)
+        behind_free = int((~keep & real & (onehot & free_kept[:, None, None])
+                           .any(-1)).sum())
+        out[kind] = (dropped, total, behind_free)
+        log(f"[{tag}] {kind}: {dropped} of {total} real (token, choice) "
+            f"pairs dropped by capacity ({dropped / total:.4f}) over "
+            f"{len(rs)} layer calls"
+            + (f"; {behind_free} of them in an expert that kept a free "
+               f"slot's pair" if kind == "decode" else ""))
+    return out
+
+
+def moe_check(torch, model, cfg, prompts, dev, tag, f32=False) -> dict:
+    """The kernel path against the plain attention on ``prompts``, teacher
+    forced (``teacher_forced``), every layer's routing recorded.
+
+    Free routes: a token whose set of experts differs is a flip. A flip
+    at a token whose inputs agree up to rounding (no route differed at an
+    earlier layer for it or an earlier token of its sequence, nor earlier
+    in its decode) is primary; the rest follow from one (another expert's
+    output, then the attention over it). In float32 no route may differ,
+    and every position's logits (a prompt's last token in the prefill, a
+    decode step's token) are within ``MOE_F32_RTOL`` of its largest
+    |logit|.
+
+    bf16: a primary flip must be a tie within the logits' tolerance: the
+    plain path's k-th and (k+1)-th router logits at most
+    ``MOE_FLIP_RTOL`` of the row's largest |router logit| apart; the
+    positions no differing route touched hold their logits within
+    ``LLM_RTOL``. Then the plain path again, on the kernel path's experts
+    in every call (``RouteLog(force=...)``), so that only the attention
+    differs: every position's logits within ``LLM_RTOL`` of its largest
+    |logit|, and the router logits' largest difference over every layer
+    and real row printed beside it. Returns the kernel path's launch
+    counts (the flash route once a layer a prompt)."""
+    from repro_torch.models import moe as M
+    n, nl = len(prompts), cfg.n_layers
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    forced = []
+    torch.cuda.synchronize()
+    zero_launches()
+    with M.RouteLog() as klog:
+        kernel_steps = teacher_forced(torch, model, cfg, prompts, dev,
+                                      "cuda", forced)
+    launches = read_launches()
+    with M.RouteLog() as plog:
+        plain_steps = teacher_forced(torch, model, cfg, prompts, dev,
+                                     "torch", forced)
+    route = "flash_attention_f32" if f32 else "flash_attention"
+    expect = _per_step(**{route: nl * n})
+    if launches != expect:
+        raise AssertionError(f"[{tag}] launches {launches} in the check's "
+                             f"kernel path, expected {expect}")
+    if not len(klog.routes) == len(plog.routes) == nl * (n + LLM_CHECK_STEPS):
+        raise AssertionError(f"[{tag}] {len(klog.routes)} and "
+                             f"{len(plog.routes)} routes recorded")
+
+    def served(r):          # each row's kept experts, in order (e: dropped)
+        return torch.where(r.keep, r.ids, e).sort(dim=1).values
+
+    def logit_err(steps, where):
+        worst, compared = 0.0, 0
+        for j, (a, b) in enumerate(zip(kernel_steps, steps)):
+            a, b = a[:, :cfg.vocab], b[:, :cfg.vocab]
+            err = ((a - b).abs().amax(1) / a.abs().amax(1)).cpu()
+            for i in range(n):
+                if where[j, i]:
+                    compared += 1
+                    worst = max(worst, err[i].item())
+        return worst, compared
+
+    # touched[j, i]: a route of sequence i differed by step j (0: prefill)
+    touched = torch.zeros((1 + LLM_CHECK_STEPS, n), dtype=torch.bool)
+    first = [[LLM_PROMPT_CAP] * nl for _ in range(n)]  # prefill's first row
+    primary, downstream, moved_rows = [], 0, 0
+    for c, (a, b) in enumerate(zip(klog.routes, plog.routes)):
+        step, layer = divmod(c, nl)        # prefill calls first, a prompt each
+        flip = ((a.ids.sort(dim=1).values != b.ids.sort(dim=1).values)
+                .any(1) & b.real).cpu()
+        moved = ((served(a) != served(b)).any(1) & b.real).cpu()
+        moved_rows += int(moved.sum())
+        top = b.logits.sort(dim=1, descending=True).values
+        gap = ((top[:, k - 1] - top[:, k]) / b.logits.abs().amax(1)).cpu()
+        if step < n:                        # the prefill of prompt `step`
+            i = step
+            for row in flip.nonzero().flatten().tolist():
+                if all(first[i][lay] > row for lay in range(layer)):
+                    primary.append((f"prefill {i}", layer, row,
+                                    gap[row].item()))
+                else:
+                    downstream += 1
+            rows = moved.nonzero().flatten().tolist()
+            if rows:
+                first[i][layer] = min(rows)
+                touched[:, i] = True
+        else:                               # decode step j over the pool
+            j = (c - n * nl) // nl
+            if layer == 0:
+                step_moved = torch.zeros(n, dtype=torch.bool)
+            for row in flip.nonzero().flatten().tolist():
+                if touched[j, row] or step_moved[row]:
+                    downstream += 1
+                else:
+                    primary.append((f"decode step {j}", layer, row,
+                                    gap[row].item()))
+            step_moved |= moved
+            touched[1 + j:] |= moved
+    bad = [f for f in primary if f32 or f[3] > MOE_FLIP_RTOL]
+    tol = MOE_F32_RTOL if f32 else LLM_RTOL
+    worst, compared = logit_err(plain_steps, ~touched)
+    log(f"[{tag}] {n} prompts, prefill + {LLM_CHECK_STEPS} decode steps, "
+        f"teacher forced, {cfg.compute_dtype}, kernel against plain "
+        f"attention, free routes: {len(primary)} primary flips of the k-th "
+        f"and (k+1)-th expert (the widest gap "
+        f"{max((f[3] for f in primary), default=0.0):.4f} of the row's "
+        f"largest |router logit|), {len(bad)} beyond "
+        f"{'none' if f32 else MOE_FLIP_RTOL}; {downstream} flips "
+        f"downstream of one; {moved_rows} token rows served by other "
+        f"experts; {compared} of {touched.numel()} positions untouched, "
+        f"their max |kernel - plain| logit {worst:.3e} of the largest "
+        f"|logit| (limit {tol}); launches {launches}")
+    for where, layer, row, rel in primary[:24]:
+        log(f"[{tag}]   primary flip: {where}, layer {layer}, row {row}: "
+            f"the plain path's k-th and (k+1)-th router logits {rel:.4f} "
+            f"of the row's largest |logit| apart")
+    fails = []
+    if bad or worst > tol or (f32 and moved_rows):
+        fails.append(f"free routes: {len(bad)} primary flips beyond the "
+                     f"margin, {moved_rows} rows moved, logits {worst}")
+    if f32:
+        if fails:
+            raise AssertionError(f"[{tag}] {fails}")
+        return launches
+
+    with M.RouteLog(force=klog.routes) as flog:
+        forced_steps = teacher_forced(torch, model, cfg, prompts, dev,
+                                      "torch", forced)
+    same = all(torch.equal(served(a), served(b))
+               for a, b in zip(klog.routes, flog.routes))
+    router = max(
+        ((a.logits - b.logits).abs().amax(1)
+         / a.logits.abs().amax(1))[a.real].max().item()
+        for a, b in zip(klog.routes, flog.routes))
+    worst, compared = logit_err(forced_steps, torch.ones_like(touched))
+    log(f"[{tag}] routes replayed (the plain path on the kernel path's "
+        f"experts; kept pairs the same: {same}): max |kernel - plain| "
+        f"logit {worst:.3e} of the largest over all {compared} positions "
+        f"(limit {LLM_RTOL}); router logit {router:.3e} of the row's "
+        f"largest over every layer and real row")
+    if not same or worst > LLM_RTOL:
+        fails.append(f"replayed routes: logits {worst}, kept pairs the "
+                     f"same {same}")
+    if fails:
+        raise AssertionError(f"[{tag}] {fails}")
+    return launches
+
+
+def decode_bound(model, eng) -> tuple:
+    """(bytes, ms) of the least a decode step of the pool must move: every
+    weight but the embedding table (of which it reads a row a slot) and
+    the KV pool, each read once, over the card's memory rate."""
+    cfg = eng.cfg
+    n_bytes = sum(p.numel() * p.element_size()
+                  for name, p in model.named_parameters() if name != "embed")
+    n_bytes += LLM_SLOTS * cfg.d_model * model.embed.element_size()
+    kv = eng.backend._cache["self_kv"]
+    n_bytes += sum(t.numel() * t.element_size() for t in kv.values())
+    return n_bytes, n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_llm_moe(torch, np, cfg, dev) -> tuple:
+    """Phase 6c: mixtral-8x7b at its published width, cut to MOE_DEPTH
+    layers, behind ``LLMEngine``: the stream of 32 prompts (and its drops
+    by capacity), the bf16 route and logit check, one profiled wave, then
+    the same widths in float32 at MOE_F32_DEPTH layers, every route equal.
+    Returns the launch counts of the stream and of the f32 check's kernel
+    path."""
+    from repro_torch.models import moe as M
+    cfg = dataclasses.replace(cfg, n_layers=MOE_DEPTH[cfg.name])
+    if (cfg.n_heads, cfg.n_kv_heads, cfg.hd) != MOE_HEADS["mixtral"]:
+        raise AssertionError(f"{cfg.name}'s heads are not phase 3's")
+    model = llm_model(torch, cfg, dev, "llm-moe")
+    eng = llm_engine(cfg, model, dev)
+    prompts = llm_prompts(np, cfg)
+    routes = M.RouteLog()
+    launches, _ = llm_stream(torch, np, eng, prompts, "llm-moe", routes)
+    moe_drops(torch, routes, cfg, "llm-moe")
+    del routes
+    moe_check(torch, model, cfg, prompts[:LLM_CHECK_PROMPTS], dev, "llm-moe")
+
+    seen = profile_wave(torch, eng, prompts[:LLM_SLOTS],
+                        watch=("flash_attention_mma_kernel", "gemm"),
+                        spans=MOE_SPANS + ("llm_prefill", "llm_decode"))
+    steps = seen["stats"]["decode_steps"]
+    dec_ms = seen["span_us"]["llm_decode"] / steps / 1e3
+    n_bytes, bound = decode_bound(model, eng)
+    log(f"[profile]   a decode step of {LLM_SLOTS} slots: {dec_ms:.4f} ms "
+        f"of device time (the mean of {steps}), bound {bound:.4f} ms "
+        f"({n_bytes} B: every weight but the embedding table, and the KV "
+        f"pool; {bound / dec_ms:.3f} of it)")
+    del eng, model
+    torch.cuda.empty_cache()
+
+    c32 = dataclasses.replace(cfg, n_layers=MOE_F32_DEPTH,
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    model = llm_model(torch, c32, dev, "llm-moe-f32")
+    f32_launches = moe_check(torch, model, c32, prompts[:LLM_CHECK_PROMPTS],
+                             dev, "llm-moe-f32", f32=True)
+    del model
+    torch.cuda.empty_cache()
+    return launches, f32_launches
+
+
+def phase_llm_moe_scout(torch, np, cfg, dev) -> dict:
+    """Phase 6d: llama4-scout-17b-a16e at its published width, cut to
+    MOE_DEPTH layers, behind ``LLMEngine``: one wave of 8 prompts (counts
+    zeroed just before, read just after; its drops by capacity), then 6c's
+    bf16 route and logit check on the wave's prompts. Returns the wave's
+    launch counts."""
+    from repro_torch.models import moe as M
+    cfg = dataclasses.replace(cfg, n_layers=MOE_DEPTH[cfg.name])
+    if (cfg.n_heads, cfg.n_kv_heads, cfg.hd) != MOE_HEADS["scout"]:
+        raise AssertionError(f"{cfg.name}'s heads are not phase 3's")
+    model = llm_model(torch, cfg, dev, "llm-moe-scout")
+    eng = llm_engine(cfg, model, dev)
+    prompts = llm_prompts(np, cfg)[:LLM_SLOTS]
+    eng.generate([prompts[0][:32]])                 # first-call warm-up
     eng.reset_stats()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        eng.generate(prompts[:opts.slots])
-        torch.cuda.synchronize()
-        wall_us = (time.monotonic() - t0) * 1e6
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.monotonic()
+    with M.RouteLog() as routes:
+        outs = eng.generate(prompts)
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launches = read_launches()
     st = eng.stats()
-    device_profile(prof, wall_us, f"one wave of {opts.slots} prompts "
-                   f"({st['prefills']} prefills, {st['decode_steps']} "
-                   f"decode steps)", watch=("flash_attention_mma_kernel",))
-    return launches, phase_llm_driver(torch, np, eng, prompts[:opts.slots])
+    n_tok = sum(len(o) for o in outs)
+    log(f"[llm-moe-scout] a wave of {len(prompts)} prompts in {dt:.4f} s: "
+        f"{n_tok} tokens, {n_tok / dt:.1f} tok/s; prefill p50 "
+        f"{st['prefill_p50_ms']:.4f} ms, decode p50 "
+        f"{st['decode_p50_ms']:.4f} ms; {st['decode_steps']} decode steps; "
+        f"launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    expect = _per_step(flash_attention=cfg.n_layers * len(prompts))
+    if launches != expect or st["prefills"] != len(prompts):
+        raise AssertionError(f"kernel launches {launches} in the wave, "
+                             f"expected {expect}")
+    for out in outs:
+        if out.shape != (LLM_NEW_TOKENS,) or not np.all(
+                (out >= 0) & (out < cfg.vocab)):
+            raise AssertionError(f"bad completion {out}")
+    moe_drops(torch, routes, cfg, "llm-moe-scout")
+    del routes
+    moe_check(torch, model, cfg, prompts, dev, "llm-moe-scout")
+    del eng, model
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_llm_driver(torch, np, eng, prompts) -> dict:
@@ -4021,6 +4415,10 @@ def main() -> int:
     by_path["llm"], by_path["llm_driver"] = phase_llm(
         torch, np, get_config("tinyllama-1.1b"), dev)
     torch.cuda.empty_cache()
+    by_path["llm_moe"], by_path["llm_moe_f32"] = phase_llm_moe(
+        torch, np, get_config("mixtral-8x7b"), dev)
+    by_path["llm_moe_scout"] = phase_llm_moe_scout(
+        torch, np, get_config("llama4-scout-17b-a16e"), dev)
     by_path["llm_train_bf16"], by_path["llm_train"] = phase_llm_train(
         torch, np, get_config("tinyllama-1.1b"), dev)
     # each kernel's launches on the path that runs it, each route of the
@@ -4028,7 +4426,8 @@ def main() -> int:
     # the vector route and draw from the counter; LLM serving runs flash in
     # bf16, LLM training both its routes, forward and backward, the f32
     # routes over its 16 steps: the tail's scalar routes and keep_mask read
-    # 0)
+    # 0; the MoE phases run flash in bf16 in their streams and waves, and
+    # in f32 in 6c's f32 check)
     main_path = {"extract_dense_fused": "train",
                  "extract_dense_fused_bf16": "train_bf16",
                  "spmm_ell_bf16_f32": "train_bf16",

@@ -4,8 +4,9 @@ transformer registry (``--arch <id>``, counterpart of
 
 Each transformer module exposes ``config()`` (the published numbers, cited
 in its docstring) and ``smoke()`` (a reduced same-family variant for the
-CPU tests). The port has the reference's dense models; every other id of
-the reference's registry raises, naming the ROADMAP item that ports it.
+CPU tests). The port has the reference's dense and MoE models; every
+other id of the reference's registry raises, naming the ROADMAP item that
+ports it.
 """
 from __future__ import annotations
 
@@ -44,14 +45,13 @@ INPUT_SHAPES: Dict[str, InputShape] = {
     "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
 }
 
-_PORTED = ("tinyllama-1.1b", "qwen2-0.5b", "internlm2-1.8b",
-           "command-r-plus-104b")
+PORTED_IDS = ("tinyllama-1.1b", "qwen2-0.5b", "internlm2-1.8b",
+              "command-r-plus-104b", "mixtral-8x7b",
+              "llama4-scout-17b-a16e")
 
 # the part of ROADMAP queue 1, "The LLM stack beyond the dense serving
 # path", that ports each id
 _TODO = {
-    "llama4-scout-17b-a16e": "MoE",
-    "mixtral-8x7b": "MoE",
     "zamba2-2.7b": "SSM and hybrid",
     "mamba2-780m": "SSM and hybrid",
     "llama-3.2-vision-90b": "VLM and audio",
@@ -64,7 +64,7 @@ def _module(arch: str):
         raise NotImplementedError(
             f"{arch} is not ported yet: ROADMAP queue 1, \"The LLM stack "
             f"beyond the dense serving path\" ({_TODO[arch]})")
-    if arch not in _PORTED:
+    if arch not in PORTED_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     name = arch.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{name}")

@@ -19,6 +19,10 @@ learning rate), and its second ``forward_train`` then fails on the scan's
 mixed carry types. The port's AdamW updates in place and would keep bf16,
 a result the reference never gives, so :func:`train` refuses any other
 ``param_dtype``. A bf16 gradient (:func:`loss_and_grads`) is fine.
+
+MoE configs (mixtral, llama4-scout) serve but do not train yet: the
+gradient through the capacity dispatch is not held against the
+reference, so both entry points raise for them.
 """
 from __future__ import annotations
 
@@ -67,12 +71,21 @@ def _check_trainable(cfg: ModelConfig) -> None:
             "port trains float32 params only, as the reference does")
 
 
+def _check_dense(cfg: ModelConfig) -> None:
+    """Raise for the MoE family (the module docstring)."""
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            f"training the 'moe' family is not ported yet: ROADMAP queue 1, "
+            f"{TT.LLM_ITEM} (MoE training)")
+
+
 def loss_and_grads(params: TT.Transformer, tokens: torch.Tensor,
                    targets: torch.Tensor, cfg: ModelConfig, *,
                    attn_impl: str = "cuda"):
     """``lm_loss(forward_train(...)) + 0.01 * aux`` and its gradients, as
     ``(loss, grads)`` with ``grads`` in the layout of
-    ``TT.param_tree(params)``."""
+    ``TT.param_tree(params)``. Dense family only."""
+    _check_dense(cfg)
     tree = TT.param_tree(params)
     logits, aux = TT.forward_train(params, tokens, cfg, attn_impl=attn_impl)
     loss = TT.lm_loss(logits, targets, cfg.vocab) + AUX_WEIGHT * aux
@@ -110,6 +123,7 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     not below the first. ``params`` (trainable, updated in place) defaults
     to ``init_params`` from ``seed``; with ``ckpt_dir`` the final params
     are checkpointed at step ``steps``."""
+    _check_dense(cfg)
     _check_trainable(cfg)
     if steps < 1:
         raise ValueError(f"train: steps={steps}, expected at least 1")

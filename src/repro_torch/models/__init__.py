@@ -1,3 +1,4 @@
 """Transformer models (counterpart of ``repro/models``): the config
-(``config``), the building blocks (``layers``) and the dense decoder with
-its slot-indexed KV cache (``transformer``)."""
+(``config``), the building blocks (``layers``), the MoE layer (``moe``)
+and the dense and MoE decoders with their slot-indexed KV cache
+(``transformer``)."""

@@ -1,18 +1,20 @@
-"""Dense decoder-only transformer: init, weights from the reference, the
+"""Decoder-only transformer: init, weights from the reference, the
 full-sequence forward (for serving and, with gradients, for training), the
 LM loss and the slot-indexed KV cache of LLM serving.
 
 Counterpart of ``repro/models/transformer.py`` for the ``dense`` family
 (llama-style: pre-norm attention and MLP blocks, RoPE, GQA; qwen2's QKV
-bias and tied embeddings). Other families raise ``NotImplementedError``
-naming their ROADMAP item.
+bias and tied embeddings) and the ``moe`` family (mixtral, llama4-scout:
+the MLP replaced by ``models/moe.py``'s capacity-dispatched experts).
+Other families raise ``NotImplementedError`` naming their ROADMAP item.
 
 The model is an ``nn.Module`` (:class:`Transformer`) holding one
-:class:`DenseBlock` per layer, where the reference stacks every layer leaf
-with a leading L dim and scans over it; the public functions keep the
-reference's names and arguments (``params`` is the module). Weights carry
-no gradient unless built with ``trainable=True``; :func:`param_tree` lays
-them out in the reference's pytree order for the optimizer.
+:class:`DenseBlock` (or :class:`MoEBlock`) per layer, where the reference
+stacks every layer leaf with a leading L dim and scans over it; the public
+functions keep the reference's names and arguments (``params`` is the
+module). Weights carry no gradient unless built with ``trainable=True``;
+:func:`param_tree` lays them out in the reference's pytree order for the
+optimizer.
 
 Full-sequence attention goes through the CUDA flash kernels, forward and
 backward (``attn_impl="cuda"``, the default), or their plain versions
@@ -31,16 +33,19 @@ from torch import nn
 
 from repro_torch.device import resolve_device, use_full_f32_matmul
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import phase
 
 Cache = Dict[str, Any]
 
 LLM_ITEM = '"The LLM stack beyond the dense serving path"'
 
+FAMILIES = ("dense", "moe")
+
 # the part of ROADMAP queue 1, "The LLM stack beyond the dense serving
-# path", that ports each family
+# path", that ports each other family
 _FAMILY_TODO = {
-    "moe": "MoE",
     "ssm": "SSM and hybrid",
     "hybrid": "SSM and hybrid",
     "vlm": "VLM and audio",
@@ -49,37 +54,68 @@ _FAMILY_TODO = {
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported yet: ROADMAP queue 1, "
             f'{LLM_ITEM} ({_FAMILY_TODO.get(cfg.family, cfg.family)})')
 
 
-def _pdict(leaves: Mapping[str, torch.Tensor],
-           trainable: bool) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=trainable)
-                             for k, v in leaves.items()})
+def _pdict(leaves: Mapping, trainable: bool) -> nn.ParameterDict:
+    """A ``ParameterDict`` of ``leaves``; a nested mapping (the MoE
+    group's ``shared``) becomes a nested ``ParameterDict``."""
+    return nn.ParameterDict({
+        k: (_pdict(v, trainable) if isinstance(v, Mapping)
+            else nn.Parameter(v, requires_grad=trainable))
+        for k, v in leaves.items()})
 
 
 class DenseBlock(nn.Module):
     """One pre-norm layer: ``norm1`` -> attention -> residual, ``norm2``
-    -> MLP -> residual."""
+    -> feed-forward (the group ``FFN``, an MLP here) -> residual."""
+
+    FFN = "mlp"
 
     def __init__(self, attn: Mapping, norm1: Mapping, norm2: Mapping,
-                 mlp: Mapping, trainable: bool = False):
+                 ffn: Mapping, trainable: bool = False):
         super().__init__()
         self.attn = _pdict(attn, trainable)
         self.norm1 = _pdict(norm1, trainable)
         self.norm2 = _pdict(norm2, trainable)
-        self.mlp = _pdict(mlp, trainable)
+        setattr(self, self.FFN, _pdict(ffn, trainable))
+
+    def groups(self) -> tuple:
+        """The layer's parameter groups, as the reference's ``blocks``
+        names them."""
+        return ("attn", "norm1", "norm2", self.FFN)
+
+    def ffn(self, x: torch.Tensor, cfg: ModelConfig):
+        """(output, aux): the MLP, and no auxiliary loss."""
+        return L.mlp_block(self.mlp, x, cfg.mlp), None
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, *, attn_impl: str = "cuda",
                 return_kv: bool = False):
+        """``(h, aux)``, or ``(h, aux, (k, v))`` with ``return_kv``; aux
+        is None for an MLP layer."""
         return _dense_block(self, x, cfg, positions,
                             window=cfg.sliding_window,
                             rope_theta=cfg.rope_theta, attn_impl=attn_impl,
                             return_kv=return_kv)
+
+
+class MoEBlock(DenseBlock):
+    """A layer of the ``moe`` family: the MLP is the group ``moe``
+    (``router``, ``wg``, ``wu``, ``wd`` and llama4's ``shared``), run by
+    ``models/moe.py``, whose auxiliary loss the layer returns."""
+
+    FFN = "moe"
+
+    def ffn(self, x: torch.Tensor, cfg: ModelConfig):
+        return M.moe_ffn(self.moe, x, cfg)
+
+
+def _block_class(cfg: ModelConfig) -> type:
+    return MoEBlock if cfg.family == "moe" else DenseBlock
 
 
 class Transformer(nn.Module):
@@ -144,12 +180,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 "wo": dense(hq, d)}
         if cfg.qkv_bias:
             attn.update(bq=zeros(hq), bk=zeros(hkv), bv=zeros(hkv))
-        mlp = ({"wg": dense(d, f), "wu": dense(d, f), "wd": dense(f, d)}
-               if cfg.mlp == "swiglu" else
-               {"w1": dense(d, f), "b1": zeros(f), "w2": dense(f, d),
-                "b2": zeros(d)})
-        blocks.append(DenseBlock(attn, _norm_leaves(cfg, d, dev),
-                                 _norm_leaves(cfg, d, dev), mlp, trainable))
+        if cfg.family == "moe":         # the reference's _moe_params
+            e = cfg.moe.num_experts
+            ffn = {"router": dense(d, e), "wg": dense(e, d, f),
+                   "wu": dense(e, d, f), "wd": dense(e, f, d)}
+            if cfg.moe.shared_expert:
+                ffn["shared"] = {"wg": dense(d, f), "wu": dense(d, f),
+                                 "wd": dense(f, d)}
+        elif cfg.mlp == "swiglu":
+            ffn = {"wg": dense(d, f), "wu": dense(d, f), "wd": dense(f, d)}
+        else:
+            ffn = {"w1": dense(d, f), "b1": zeros(f), "w2": dense(f, d),
+                   "b2": zeros(d)}
+        blocks.append(_block_class(cfg)(
+            attn, _norm_leaves(cfg, d, dev), _norm_leaves(cfg, d, dev), ffn,
+            trainable))
     return Transformer(cfg, embed, _norm_leaves(cfg, d, dev), lm_head,
                        blocks, trainable)
 
@@ -160,9 +205,10 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
     """The model holding the values of the reference's parameter pytree,
     given as numpy arrays: ``embed``, ``final_norm``, ``lm_head`` (unless
     tied) and ``blocks.{attn, norm1, norm2, mlp}`` stacked with a leading
-    L dim. A bfloat16 leaf becomes float32 exactly, and the cast to
-    ``cfg.param_dtype`` gives back the same bits. ``trainable`` as in
-    :func:`init_params`."""
+    L dim, with ``blocks.moe.{router, wg, wu, wd, shared.{wg, wu, wd}}``
+    in place of ``mlp`` for the ``moe`` family. A bfloat16 leaf becomes
+    float32 exactly, and the cast to ``cfg.param_dtype`` gives back the
+    same bits. ``trainable`` as in :func:`init_params`."""
     _check_family(cfg)
     dev = resolve_device(device)
     use_full_f32_matmul()
@@ -171,11 +217,14 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
         a32 = np.array(a, dtype=np.float32)     # a writable copy
         return torch.from_numpy(a32).to(device=dev, dtype=cfg.param_dtype)
 
-    blk = tree["blocks"]
-    layer = lambda group, i: {k: t(np.asarray(v)[i])
-                              for k, v in blk[group].items()}
-    blocks = [DenseBlock(layer("attn", i), layer("norm1", i),
-                         layer("norm2", i), layer("mlp", i), trainable)
+    def layer(node, i):
+        if isinstance(node, Mapping):
+            return {k: layer(v, i) for k, v in node.items()}
+        return t(np.asarray(node)[i])
+
+    blk, block = tree["blocks"], _block_class(cfg)
+    blocks = [block(*(layer(blk[g], i) for g in
+                      ("attn", "norm1", "norm2", block.FFN)), trainable)
               for i in range(cfg.n_layers)]
     return Transformer(cfg, t(tree["embed"]),
                        {k: t(v) for k, v in tree["final_norm"].items()},
@@ -191,10 +240,8 @@ def params_to_numpy(params: Transformer) -> dict:
             "final_norm": {k: n(v) for k, v in params.final_norm.items()}}
     if params.lm_head is not None:
         tree["lm_head"] = n(params.lm_head)
-    tree["blocks"] = {
-        group: {k: np.stack([n(getattr(b, group)[k]) for b in params.blocks])
-                for k in getattr(params.blocks[0], group).keys()}
-        for group in ("attn", "norm1", "norm2", "mlp")}
+    tree["blocks"] = _stacked(params, lambda leaves: np.stack(
+        [n(x) for x in leaves]))
     return tree
 
 
@@ -207,11 +254,20 @@ def param_tree(params: Transformer) -> dict:
     tree = {"embed": params.embed, "final_norm": dict(params.final_norm)}
     if params.lm_head is not None:
         tree["lm_head"] = params.lm_head
-    tree["blocks"] = {
-        group: {k: [getattr(b, group)[k] for b in params.blocks]
-                for k in getattr(params.blocks[0], group).keys()}
-        for group in ("attn", "norm1", "norm2", "mlp")}
+    tree["blocks"] = _stacked(params, list)
     return tree
+
+
+def _stacked(params: Transformer, stack) -> dict:
+    """The blocks' groups with each leaf given as ``stack`` of its layers'
+    tensors (nested groups, the MoE's ``shared``, as nested dicts)."""
+    def walk(nodes):
+        if isinstance(nodes[0], (Mapping, nn.ParameterDict)):
+            return {k: walk([nd[k] for nd in nodes]) for k in nodes[0].keys()}
+        return stack(nodes)
+
+    return {group: walk([getattr(b, group) for b in params.blocks])
+            for group in params.blocks[0].groups()}
 
 
 # ---------------------------------------------------------------------------
@@ -234,8 +290,9 @@ def _dense_block(p: DenseBlock, x: torch.Tensor, cfg: ModelConfig,
         attn_impl=attn_impl, return_kv=return_kv)
     a, kv = a if return_kv else (a, None)
     h = x + a
-    h = h + L.mlp_block(p.mlp, _norm(h, p.norm2, cfg), cfg.mlp)
-    return (h, kv) if return_kv else h
+    y, aux = p.ffn(_norm(h, p.norm2, cfg), cfg)
+    h = h + y
+    return (h, aux, kv) if return_kv else (h, aux)
 
 
 def _embed(params: Transformer, tokens: torch.Tensor,
@@ -257,31 +314,35 @@ def _logits(params: Transformer, h: torch.Tensor,
 
 
 def _trunk(params: Transformer, h: torch.Tensor, cfg: ModelConfig,
-           positions: torch.Tensor, *,
-           attn_impl: str = "cuda") -> torch.Tensor:
-    """The layer stack over full-sequence hidden states (dense family)."""
+           positions: torch.Tensor, *, attn_impl: str = "cuda"):
+    """The layer stack over full-sequence hidden states: ``(h, aux)``,
+    the layers' auxiliary losses summed in float32 (zero for the dense
+    family)."""
     _check_family(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for blk in params.blocks:
-        h = blk(h, cfg, positions, attn_impl=attn_impl)
-    return h
+        h, a = blk(h, cfg, positions, attn_impl=attn_impl)
+        if a is not None:
+            aux = aux + a.float()
+    return h, aux
 
 
 def forward_train(params: Transformer, tokens: torch.Tensor,
                   cfg: ModelConfig, *, memory: Optional[torch.Tensor] = None,
                   attn_impl: str = "cuda"):
     """tokens (B, S) -> ``(logits (B, S, Vp), aux)`` with gradients, as the
-    reference's ``forward_train``: ``aux`` (the MoE auxiliary loss) is a
-    zero float32 scalar for the dense family. ``memory`` (image embeddings
-    or encoder frames) belongs to families not ported yet and raises."""
+    reference's ``forward_train``: ``aux`` is the MoE auxiliary loss summed
+    over the layers in float32 (a zero scalar for the dense family).
+    ``memory`` (image embeddings or encoder frames) belongs to families not
+    ported yet and raises."""
     if memory is not None:
         raise NotImplementedError(
             f"forward_train: memory is for the families not ported yet: "
             f"ROADMAP queue 1, {LLM_ITEM} (VLM and audio)")
     positions = torch.arange(tokens.shape[1], device=params.device)
-    h = _trunk(params, _embed(params, tokens, cfg), cfg, positions,
-               attn_impl=attn_impl)
-    return (_logits(params, h, cfg),
-            torch.zeros((), dtype=torch.float32, device=params.device))
+    h, aux = _trunk(params, _embed(params, tokens, cfg), cfg, positions,
+                    attn_impl=attn_impl)
+    return _logits(params, h, cfg), aux
 
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -300,8 +361,8 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
             attn_impl: str = "cuda") -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, Vp): the logits of the reference's
-    ``forward_train``, without its auxiliary loss (zero for dense
-    models), and without gradients."""
+    ``forward_train``, without its auxiliary loss, and without
+    gradients."""
     return forward_train(params, tokens, cfg, attn_impl=attn_impl)[0]
 
 
@@ -357,15 +418,19 @@ def prefill_into_slot(params: Transformer, tokens: torch.Tensor,
         raise ValueError(f"prompt capacity {s} exceeds KV cache length "
                          f"{kv['k'].shape[2]}")
     positions = torch.arange(s, device=params.device)
-    h = _embed(params, tokens, cfg)
-    for i, blk in enumerate(params.blocks):
-        h, (k, v) = blk(h, cfg, positions, attn_impl=attn_impl,
-                        return_kv=True)
-        kv["k"][i, slot, :s] = k[0]
-        kv["v"][i, slot, :s] = v[0]
-    cache["pos"][slot] = length
-    logits = _logits(params, h[:, length - 1:length], cfg)
-    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    log = M.active_log()
+    if log is not None:
+        log.mark_real(positions < length)
+    with phase("llm_prefill"):
+        h = _embed(params, tokens, cfg)
+        for i, blk in enumerate(params.blocks):
+            h, _, (k, v) = blk(h, cfg, positions, attn_impl=attn_impl,
+                               return_kv=True)
+            kv["k"][i, slot, :s] = k[0]
+            kv["v"][i, slot, :s] = v[0]
+        cache["pos"][slot] = length
+        logits = _logits(params, h[:, length - 1:length], cfg)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     return tok, logits, cache
 
 
@@ -408,14 +473,19 @@ def decode_step_slots(params: Transformer, token: torch.Tensor, cache: Cache,
     L._check_impl(attn_impl)
     _check_family(cfg)
     pos = cache["pos"]
-    h = _embed(params, token, cfg)
+    log = M.active_log()
+    if log is not None:
+        log.mark_real(active)
     kv = cache["self_kv"]
-    for i, blk in enumerate(params.blocks):
-        h = h + _attn_decode_slots(blk.attn, _norm(h, blk.norm1, cfg),
-                                   kv["k"][i], kv["v"][i], pos, cfg,
-                                   cfg.rope_theta)
-        h = h + L.mlp_block(blk.mlp, _norm(h, blk.norm2, cfg), cfg.mlp)
-    logits = _logits(params, h, cfg)
-    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-    pos += active.to(device=pos.device, dtype=pos.dtype)
+    with phase("llm_decode"):
+        h = _embed(params, token, cfg)
+        for i, blk in enumerate(params.blocks):
+            h = h + _attn_decode_slots(blk.attn, _norm(h, blk.norm1, cfg),
+                                       kv["k"][i], kv["v"][i], pos, cfg,
+                                       cfg.rope_theta)
+            # every slot is routed, free ones too, as in the reference
+            h = h + blk.ffn(_norm(h, blk.norm2, cfg), cfg)[0]
+        logits = _logits(params, h, cfg)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        pos += active.to(device=pos.device, dtype=pos.dtype)
     return tok, logits, cache

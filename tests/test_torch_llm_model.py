@@ -1,6 +1,8 @@
 """The port's transformer (``repro_torch.models``) against the JAX package's
-on the same weights and inputs, at the smoke configs of tinyllama-1.1b and
-qwen2-0.5b (QKV bias, tied embeddings).
+on the same weights and inputs, at the smoke configs of tinyllama-1.1b,
+qwen2-0.5b (QKV bias, tied embeddings) and the MoE family's mixtral-8x7b
+(top-2, a sliding window) and llama4-scout-17b-a16e (top-1, a shared
+expert).
 
 Weights go from the reference's pytree to the port through numpy
 (``params_from_numpy``). Full-sequence attention on CPU tensors is the
@@ -22,10 +24,12 @@ from repro.models import layers as JL  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
+from repro_torch import tree as ttree  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 
-ARCHS = ["tinyllama-1.1b", "qwen2-0.5b"]
-# every config the port has: the dense family
+MOE_ARCHS = ["mixtral-8x7b", "llama4-scout-17b-a16e"]
+ARCHS = ["tinyllama-1.1b", "qwen2-0.5b"] + MOE_ARCHS
+# every config the port has: the dense and MoE families
 PORTED = ARCHS + ["internlm2-1.8b", "command-r-plus-104b"]
 ATOL = 1e-4
 
@@ -65,6 +69,7 @@ def test_configs_match_the_reference():
                         == str(pd.pop(f)).removeprefix("torch."))
             assert rd == pd
             assert port.num_params() == ref.num_params()
+            assert port.num_active_params() == ref.num_active_params()
             assert port.kv_cache_len(100) == ref.kv_cache_len(100)
     for arch in set(jconfigs.ARCH_IDS) - set(PORTED):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
@@ -151,12 +156,49 @@ def test_attention_block_matches(model):
 
 
 def test_forward_logits_match_forward_train(model):
+    """Logits, and the auxiliary loss summed over the layers in float32
+    (the MoE family's; zero for the dense one)."""
     cfg, params, tcfg, tm = model
     toks = _tokens(cfg, (2, 24))
-    want, _ = JT.forward_train(params, jnp.asarray(toks), cfg)
+    want, want_aux = JT.forward_train(params, jnp.asarray(toks), cfg)
     got = TT.forward(tm, _t(toks), tcfg)
     assert got.shape == (2, 24, cfg.vocab_padded)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    with torch.no_grad():
+        logits, aux = TT.forward_train(tm, _t(toks), tcfg)
+    np.testing.assert_array_equal(logits.numpy(), got.numpy())
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    assert abs(float(aux) - float(want_aux)) <= ATOL
+    assert (float(aux) > 0) == (cfg.family == "moe")
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_param_tree_round_trip_in_the_reference_leaf_order(arch):
+    """``param_tree`` walks the reference's leaves in its order (each
+    stacked leaf giving its layers in turn), ``blocks.moe.shared`` nested
+    for llama4, and ``params_to_numpy`` of a model built from the tree's
+    values gives them back."""
+    cfg = jconfigs.get_smoke(arch)
+    params = JT.init_params(jax.random.PRNGKey(4), cfg)
+    tcfg = tconfigs.get_smoke(arch)
+    tm = TT.params_from_numpy(jax.tree.map(np.asarray, params), tcfg, "cpu")
+    tree = TT.param_tree(tm)
+    paths = [p for p, _ in ttree.flatten_with_paths(tree)]
+    ref = ["::".join(str(k.key) for k in path)
+           for path, _ in jax.tree_util.tree_leaves_with_path(params)]
+    assert ["::".join(p[:-1] if p[0] == "blocks" else p) for p in paths] \
+        == [r for r in ref for _ in range(
+            cfg.n_layers if r.startswith("blocks") else 1)]
+    assert any("shared" in r for r in ref) == cfg.moe.shared_expert
+    assert tree["blocks"]["moe"]["wg"][1] is tm.blocks[1].moe["wg"]
+    back = TT.params_to_numpy(TT.params_from_numpy(
+        TT.params_to_numpy(tm), tcfg, "cpu"))
+    assert len(jax.tree_util.tree_leaves(back)) == len(ref)
+    for path, leaf in jax.tree_util.tree_leaves_with_path(params):
+        got = back
+        for k in path:
+            got = got[k.key]
+        np.testing.assert_array_equal(got, np.asarray(leaf))
 
 
 def test_prefill_then_decode_slots_match(model):
@@ -215,10 +257,10 @@ def test_bf16_forward_within_reference_tolerance():
 
 
 def test_other_families_and_paths_raise():
-    moe = dataclasses.replace(tconfigs.get_smoke("tinyllama-1.1b"),
-                              family="moe")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TT.init_slot_cache(moe, 2, 8, "cpu")
+    ssm = dataclasses.replace(tconfigs.get_smoke("tinyllama-1.1b"),
+                              family="ssm")
+    with pytest.raises(NotImplementedError, match="SSM and hybrid"):
+        TT.init_slot_cache(ssm, 2, 8, "cpu")
     q = torch.zeros((1, 4, 2, 16))
     with pytest.raises(NotImplementedError, match="q_offset"):
         TL.blockwise_attention(q, q, q, q_offset=2)

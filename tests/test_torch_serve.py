@@ -309,7 +309,8 @@ def test_port_imports_neither_jax_nor_repro():
         "          'core.pipeline', 'kernels.counter_rng', 'train.state',\n"
         "          'optim.adamw', 'obs.comm', 'obs.bench', 'launch.roofline',\n"
         "          'launch.mesh', 'launch.dryrun', 'kernels._observe',\n"
-        "          'data.pipeline', 'launch.train_transformer'):\n"
+        "          'data.pipeline', 'launch.train_transformer',\n"
+        "          'models.moe', 'launch.serve_llm'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=src,

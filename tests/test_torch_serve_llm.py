@@ -3,17 +3,23 @@ the same weights and the same prompt stream: the greedy completions must be
 identical token for token, and the scheduler's counts equal.
 
 The JAX side is the tinyllama smoke model of ``tests/conftest.py``'s
-``llm_serving_setup``; its weights reach the port through numpy.
+``llm_serving_setup`` (and mixtral-8x7b's smoke model for the MoE
+stream); its weights reach the port through numpy.
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro import configs as jconfigs  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
 from repro.serve import LLMEngine as JEngine  # noqa: E402
 from repro.serve import LLMServeOptions as JOptions  # noqa: E402
 from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.launch import serve_llm  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serve import LLMEngine, LLMServeOptions  # noqa: E402
 
@@ -74,6 +80,36 @@ def test_stream_larger_than_pool_gives_identical_completions(
     assert st["mid_stream_refills"] > 0 and st["prefills"] == len(PROMPTS)
     assert max(teng.backend._slot_gen) > 1
     assert st["decode_p50_ms"] > 0 and st["prefill_p50_ms"] > 0
+
+
+def test_moe_stream_larger_than_pool_gives_identical_completions():
+    """mixtral-8x7b's smoke model (top-2 of 4 experts, a window of 16) at
+    capacity factor 0.5: 7 staggered prompts through 3 slots. A decode
+    step routes every slot, free ones included, and an expert then holds
+    one pair of the step, so a free slot's leftover token can take an
+    active slot's place: the port's engine must feed free slots what the
+    reference's engine does. Every completion equals the JAX engine's,
+    free slots decode beside active ones mid-stream, and the counts are
+    equal."""
+    moe = lambda c: dataclasses.replace(
+        c, moe=dataclasses.replace(c.moe, capacity_factor=0.5))
+    cfg = moe(jconfigs.get_smoke("mixtral-8x7b"))
+    params = JT.init_params(jax.random.PRNGKey(0), cfg)
+    tcfg = moe(get_smoke("mixtral-8x7b"))
+    model = TT.params_from_numpy(jax.tree.map(np.asarray, params), tcfg,
+                                 "cpu")
+    opts = dict(slots=3, max_prompt_len=8, max_new_tokens=MAX_NEW,
+                replay=True)
+    jeng = JEngine(params, cfg, JOptions(**opts))
+    teng = LLMEngine(model, tcfg, LLMServeOptions(device="cpu", **opts))
+    want, got = _stagger(jeng, PROMPTS), _stagger(teng, PROMPTS)
+    for a, b in zip(want, got):
+        assert b.dtype == np.int32 and b.shape == (MAX_NEW,)
+        np.testing.assert_array_equal(b, a)
+    assert _counts(teng) == _counts(jeng)
+    st = teng.stats()
+    assert st["mid_stream_refills"] > 0 and st["prefills"] == len(PROMPTS)
+    assert 0 < st["slot_occupancy"] < 1          # free slots were routed
 
 
 def test_static_batching_never_refills_mid_stream(llm_serving_setup,
@@ -137,3 +173,19 @@ def test_replay_streams_are_deterministic(port_model):
         device="cpu")).generate(PROMPTS, now=0.0) for _ in range(2)]
     for a, b in zip(*runs):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-scout-17b-a16e"])
+def test_cli_serves_on_the_cpu(arch, capsys):
+    """``launch/serve_llm.py``: 5 prompts through 2 slots behind the
+    driver, every prompt its full completion; ``--legacy-loop`` raises
+    and names its ROADMAP part."""
+    out = serve_llm.main(["--device", "cpu", "--arch", arch, "--batch",
+                          "5", "--prompt-len", "12", "--new-tokens", "4",
+                          "--slots", "2"])
+    assert out["tokens"] == 20 and out["stats"]["prefills"] == 5
+    assert all(o.shape == (4,) and o.dtype == np.int32
+               for o in out["outputs"])
+    assert "tok/s" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="scalar-pos prefill"):
+        serve_llm.main(["--device", "cpu", "--arch", arch, "--legacy-loop"])
