@@ -77,15 +77,16 @@ with a non-zero exit code:
    cores, 1e-4 absolute) and bf16 (tensor cores: out per element within
    1e-2 * (1 + |plain|) and at most 5e-2, lse within 1e-4), and in bf16 at
    the LLM serving shape (q (1, 512, 32, 64), 4 kv heads, causal) and a
-   qwen2-style one at hd 128 (14 q heads over 2, T 512), and in f32 at
-   the backward's f32 shapes below (the training shape (2, 2048), hd 128,
-   windows, non-causal ragged T, MHA); every compared call's second call
-   gives the same bits; the bf16 route is timed at the serving shape and
-   at (8, 2048, 32, 64), the f32 route at the serving shape, each beside
-   its bound and ``scaled_dot_product_attention`` on the same tensors in
-   turns (``library_ms``, a yardstick the port never calls); both routes
-   are also timed at the LLM training shapes (bf16 (4, 2048, 32/4, 64),
-   f32 (2, 2048, ...));
+   qwen2-style one at hd 128 (14 q heads over 2, T 512), on both routes at
+   zamba2-2.7b's prefill (8 x 512, 32/32 heads of 80, causal), and in f32
+   at the backward's f32 shapes below (the training shape (2, 2048), hd
+   128, windows, non-causal ragged T, MHA); every compared call's second
+   call gives the same bits; the bf16 route is timed at the serving shape
+   and at (8, 2048, 32, 64), the f32 route at the serving shape, each
+   beside its bound and ``scaled_dot_product_attention`` on the same
+   tensors in turns (``library_ms``, a yardstick the port never calls);
+   both routes are also timed at the LLM training shapes (bf16 (4, 2048,
+   32/4, 64), f32 (2, 2048, ...)) and at zamba2-2.7b's prefill;
    The flash-attention backward (``flash_attention_bwd``: a dq kernel, a
    dk/dv kernel whose units pair key blocks and may split the q heads,
    and then a fixed-order sum of the split's partials; bf16 on wgmma fed
@@ -215,7 +216,12 @@ with a non-zero exit code:
    and its f32 route never; then on 4 of
    the prompts a prefill and 8 decode steps through the kernel and
    through the plain attention, fed the same tokens, must give logits
-   within 5e-2 of the largest |logit|; then one profiled wave;
+   within 5e-2 of the largest |logit|; then one profiled wave; after 6b,
+   the wave's 8 prompts one at a time through the legacy loop (the
+   scalar-pos ``prefill`` and greedy ``decode_step``, counts zeroed just
+   before: flash's bf16 route once a layer a prompt), each giving the
+   slot engine's greedy tokens (where they part, the engine's token must
+   tie the legacy path's top logit within 1e-2 of the largest |logit|);
 6b. llm-driver — the same engine behind ``ServingDriver``: a wave of 8
    prompts from 4 threads, each prompt's tokens those of the engine's
    direct run of the wave;
@@ -245,6 +251,28 @@ with a non-zero exit code:
    expert, top-1, vocab 202048, bf16) cut from 48 layers to 2: a wave of
    8 prompts (the counts as in 6c, drops by capacity), then 6c's bf16
    route and logit check on them;
+6e. llm-ssm — mamba2-780m at its published width and depth (48 Mamba2
+   layers, d_model 1536, d_state 128, vocab 50280, bf16, seeded random
+   weights) through the legacy loop, the reference's only serving path
+   for the family: 8 prompts of 512 random tokens, 128 new tokens each,
+   counts zeroed just before and read just after (no kernel launches:
+   the SSD is plain PyTorch, as the reference's is plain jnp); prefill ms,
+   decode ms a step, tok/s, peak memory and one profiled decode step;
+   then at 2 layers in float32: the prefill and 16 teacher-forced decode
+   steps within 2e-3 of each row's largest |logit| of the full-sequence
+   forward at the same positions, and the prefill's final ssm and conv
+   state of layer 0 within 1e-4 of ``mamba2_decode`` stepped through the
+   same prompts;
+6f. llm-hybrid — zamba2-2.7b at its published width and depth (54 Mamba2
+   layers of d_model 2560, the shared attention block of 32/32 heads of
+   80 applied 9 times, bf16) the same way, the flash kernel's bf16 route
+   once per shared-block application of the prefill (hd 80); the kernel
+   against the plain attention in bf16: the first shared-block
+   application's output within 5e-2 of its largest |value|, and at full
+   depth the kernel path's logits no further from the same weights' f32
+   logits than the plain path's plus 5e-2 of the largest |logit| (54 bf16
+   layers amplify the rounding of p beyond 5e-2 between the two paths);
+   the f32 checks at 6 layers (one application, the f32 route at hd 80);
 7. llm-train — LLM training at tinyllama-1.1b's published width (seeded
    weights, ``TokenStream`` batches): (a) one bf16 gradient of
    ``lm_loss(forward_train(...))`` on 4 x 2048 tokens through the flash
@@ -317,6 +345,8 @@ MOE_FLIP_RTOL = 2 * LLM_RTOL
 MOE_F32_RTOL = 1e-4      # f32 logits, kernel vs plain path, of max |logit|
 # (q heads, kv heads, head dim) of the MoE models at their published widths
 MOE_HEADS = {"mixtral": (32, 8, 128), "scout": (40, 8, 128)}
+# zamba2-2.7b's shared attention block: MHA, 32 heads of 80
+ZAMBA_HEADS = (32, 32, 80)
 
 # the kernels of the port: the module that counts their launches, the
 # count's name in it, and where the count is split (by route, or by the
@@ -650,7 +680,7 @@ def phase_build() -> None:
     from repro_torch.kernels import flash_attention as fa
     dq, dkdv = ctypes.c_int(), ctypes.c_int()
     fwd, ctas = ctypes.c_int(), ctypes.c_int()
-    for hd in (16, 32, 64, 128):
+    for hd in fa.HEAD_DIMS:
         for bf16, route in ((1, "bf16"), (0, "f32")):
             _build.check(lib.repro_flash_attention_smem(
                 hd, bf16, ctypes.byref(fwd), ctypes.byref(ctas)),
@@ -661,12 +691,16 @@ def phase_build() -> None:
                 raise AssertionError(f"flash forward {route} hd {hd}: the "
                                      f"kernel stages {fwd.value} B, "
                                      f"fwd_plan says {plan.smem_bytes}")
-            _build.check(lib.repro_flash_attention_bwd_smem(
-                hd, bf16, ctypes.byref(dq), ctypes.byref(dkdv)),
-                "repro_flash_attention_bwd_smem")
+            bwd = "no backward kernel (BWD_HEAD_DIMS)"
+            if hd in fa.BWD_HEAD_DIMS:
+                _build.check(lib.repro_flash_attention_bwd_smem(
+                    hd, bf16, ctypes.byref(dq), ctypes.byref(dkdv)),
+                    "repro_flash_attention_bwd_smem")
+                bwd = (f"backward {dq.value} B (dq), {dkdv.value} B (dk/dv) "
+                       f"a CTA")
             log(f"[build] flash forward {route} hd {hd}: dynamic shared "
                 f"memory {fwd.value} B a CTA, {ctas.value} CTAs an SM; "
-                f"backward {dq.value} B (dq), {dkdv.value} B (dk/dv) a CTA")
+                f"{bwd}")
     if spills:
         raise AssertionError(f"ptxas spills registers in {spills}")
 
@@ -1639,7 +1673,9 @@ def check_flash_attention(torch, np, dev) -> list:
     second call; then the bf16 route timed at the serving shape, a long
     one and the LLM training shape (4, 2048), the f32 route at the serving
     shape and the training shape (2, 2048), beside the bound and, in turns,
-    SDPA on the same tensors. Returns one entry per route."""
+    SDPA on the same tensors; both routes also at zamba2-2.7b's prefill
+    (8 x 512, 32/32 heads of 80), compared and timed. Returns one entry per
+    route."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     rng = np.random.default_rng(3)
@@ -1694,6 +1730,14 @@ def check_flash_attention(torch, np, dev) -> list:
         q, k, v = make(1, 512, 512, h, kv, hd, torch.bfloat16)
         err[torch.bfloat16] = max(err[torch.bfloat16],
                                   compare(name, q, k, v, True, window))
+    # hd 80 at zamba2-2.7b's prefill (the phases 6f's 8 prompts of 512), on
+    # both routes: bf16 in its stream, f32 in its check
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = make(SSM_PROMPTS, SSM_PROMPT_LEN, SSM_PROMPT_LEN,
+                       *ZAMBA_HEADS, dtype)
+        err[dtype] = max(err[dtype], compare("zamba2-2.7b prefill, hd 80", q,
+                                             k, v, True, None))
+        del q, k, v
     # the f32 route where it runs: the backward's f32 shapes (the training
     # shape, hd 128, windows, non-causal ragged T, MHA)
     for label, b, sq, t, h, kv, hd, causal, window, dname in \
@@ -1716,10 +1760,14 @@ def check_flash_attention(torch, np, dev) -> list:
               MOE_HEADS["mixtral"], 4096),
              ("scout prefill", 1, 512, torch.bfloat16, BF16_TC_OPS_PER_S,
               MOE_HEADS["scout"], None),
+             ("zamba2 prefill", SSM_PROMPTS, SSM_PROMPT_LEN, torch.bfloat16,
+              BF16_TC_OPS_PER_S, ZAMBA_HEADS, None),
              ("serving", 1, 512, torch.float32, F32_OPS_PER_S, tiny, None),
              ("train", 2, 2048, torch.float32, F32_OPS_PER_S, tiny, None),
              ("mixtral prefill", 1, 512, torch.float32, F32_OPS_PER_S,
-              MOE_HEADS["mixtral"], 4096))
+              MOE_HEADS["mixtral"], 4096),
+             ("zamba2 prefill", SSM_PROMPTS, SSM_PROMPT_LEN, torch.float32,
+              F32_OPS_PER_S, ZAMBA_HEADS, None))
     shapes = {torch.float32: {}, torch.bfloat16: {}}
     for label, b, s, dtype, peak, (h, kv, hd), window in timed:
         plan = fa.fwd_plan(b, s, s, h, kv, hd, dtype, True, window)
@@ -3673,16 +3721,27 @@ def llm_model(torch, cfg, dev, tag):
     moe = "" if cfg.moe is None else (
         f", {cfg.moe.num_experts} experts, top-{cfg.moe.top_k}"
         + (" + a shared expert" if cfg.moe.shared_expert else ""))
+    ssm = "" if cfg.ssm is None else (
+        f", Mamba2 blocks of d_inner {cfg.ssm.d_inner(cfg.d_model)} "
+        f"({cfg.ssm.n_heads(cfg.d_model)} ssm heads of {cfg.ssm.head_dim}, "
+        f"d_state {cfg.ssm.d_state})"
+        + (f", a shared attention block every {cfg.shared_attn_every} layers"
+           if cfg.shared_attn_every else ""))
+    attn = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff "
+            f"{cfg.d_ff}" if cfg.n_heads else "no attention")
     log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}"
-        f"{moe}, window {cfg.sliding_window}, vocab {cfg.vocab}, "
+        f"{attn}{moe}{ssm}, window {cfg.sliding_window}, vocab {cfg.vocab}, "
         f"{cfg.param_dtype}; {n_params} parameters "
         f"({n_params * cfg.param_dtype.itemsize / 1e9:.3f} GB) drawn in "
         f"{time.monotonic() - t0:.2f} s")
-    # the config's count leaves out the final norm's scale
-    if n_params != cfg.num_params() + cfg.d_model:
-        raise AssertionError(f"{n_params} parameters, expected "
-                             f"{cfg.num_params() + cfg.d_model}")
+    # the config's count leaves out the final norm's scale, and counts a
+    # Mamba layer's norms as two of d_model where it holds one of d_model
+    # and the gated norm's d_inner
+    expect = cfg.num_params() + cfg.d_model
+    if cfg.ssm is not None:
+        expect += cfg.n_layers * (cfg.ssm.d_inner(cfg.d_model) - cfg.d_model)
+    if n_params != expect:
+        raise AssertionError(f"{n_params} parameters, expected {expect}")
     return model
 
 
@@ -3761,17 +3820,19 @@ def llm_stream(torch, np, eng, prompts, tag, route_log=None) -> tuple:
     return launches, st
 
 
-def teacher_forced(torch, model, cfg, prompts, dev, impl, forced) -> list:
+def teacher_forced(torch, model, cfg, prompts, dev, impl, forced,
+                   steps=LLM_CHECK_STEPS) -> list:
     """Each prompt prefilled into its slot of a pool of ``len(prompts)``,
-    then LLM_CHECK_STEPS decode steps over the pool, on the attention path
-    ``impl``. The kernel path (``"cuda"``, run first) appends its greedy
-    tokens to ``forced``, which then feeds both paths. Returns each step's
+    then ``steps`` decode steps over the pool, on the attention path
+    ``impl``, decode step j fed ``forced[j]`` (prompts,). A run given an
+    empty ``forced`` (the kernel path's, run first) appends its greedy
+    tokens to it, which then feed the other path. Returns each step's
     last-position logits, (prompts, Vp) in float32."""
     from repro_torch.models import transformer as TT
     n = len(prompts)
-    cache = TT.init_slot_cache(cfg, n, LLM_PROMPT_CAP + LLM_CHECK_STEPS + 1,
-                               dev)
-    steps, firsts = [], []
+    grow = not forced
+    cache = TT.init_slot_cache(cfg, n, LLM_PROMPT_CAP + steps + 1, dev)
+    out, firsts = [], []
     for i, p in enumerate(prompts):
         padded = torch.zeros((1, LLM_PROMPT_CAP), dtype=torch.int32,
                              device=dev)
@@ -3779,20 +3840,20 @@ def teacher_forced(torch, model, cfg, prompts, dev, impl, forced) -> list:
         tok, lg, cache = TT.prefill_into_slot(model, padded, len(p), cache,
                                               i, cfg, attn_impl=impl)
         firsts.append(tok)
-        steps.append(lg[:, -1].float())
-    steps = [torch.cat(steps)]
-    if impl == "cuda":
+        out.append(lg[:, -1].float())
+    out = [torch.cat(out)]
+    if grow:
         forced.append(torch.cat(firsts))
     active = torch.ones(n, dtype=torch.bool, device=dev)
-    for step in range(LLM_CHECK_STEPS):
+    for step in range(steps):
         tok, lg, cache = TT.decode_step_slots(
             model, forced[step][:, None], cache, cfg, active,
             attn_impl=impl)
-        steps.append(lg[:, -1].float())
-        if impl == "cuda":
+        out.append(lg[:, -1].float())
+        if grow:
             forced.append(tok)
     torch.cuda.synchronize()
-    return steps
+    return out
 
 
 def profile_wave(torch, eng, prompts, watch, spans=()) -> dict:
@@ -3818,7 +3879,9 @@ def phase_llm(torch, np, cfg, dev) -> dict:
     """The main path of LLM serving: ``cfg`` (tinyllama-1.1b at full
     width) behind ``LLMEngine``, a stream of 32 prompts through the flash
     kernel; then the kernel path against the plain attention on 4 prompts,
-    teacher forced. Returns the launch counts of the stream."""
+    teacher forced; then phase 6b and the wave's prompts through the legacy
+    loop (``phase_llm_legacy``). Returns the launch counts of the stream,
+    of the driven wave and of the legacy loop."""
     model = llm_model(torch, cfg, dev, "llm")
     eng = llm_engine(cfg, model, dev)
     prompts = llm_prompts(np, cfg)
@@ -3849,7 +3912,8 @@ def phase_llm(torch, np, cfg, dev) -> dict:
     # where the time goes: one wave of 8 prompts under the profiler
     profile_wave(torch, eng, prompts[:LLM_SLOTS],
                  watch=("flash_attention_mma_kernel",))
-    return launches, phase_llm_driver(torch, np, eng, prompts[:LLM_SLOTS])
+    return (launches, phase_llm_driver(torch, np, eng, prompts[:LLM_SLOTS]),
+            phase_llm_legacy(torch, np, model, eng, prompts[:LLM_SLOTS]))
 
 
 def moe_drops(torch, routes, cfg, tag) -> dict:
@@ -4186,6 +4250,315 @@ def phase_llm_driver(torch, np, eng, prompts) -> dict:
     return launches
 
 
+# phases 6e and 6f (mamba2-780m, zamba2-2.7b at their published widths and
+# depths, bf16): the legacy loop's static batch
+SSM_PROMPTS = 8
+SSM_PROMPT_LEN = 512
+SSM_NEW_TOKENS = 128
+# their f32 checks: the depth (zamba2: one shared-block application), the
+# prompts and the teacher-forced decode steps held to the full-sequence
+# forward within the reference's own tolerance (tests/test_models.py's
+# decode-vs-forward check), and the prefill's state to the stepped one
+SSM_F32_DEPTH = {"mamba2-780m": 2, "zamba2-2.7b": 6}
+SSM_CHECK_PROMPTS = 2
+SSM_CHECK_STEPS = 16
+SSM_RTOL = 2e-3          # f32 logits, decode vs forward, of a row's max |.|
+STATE_RTOL = 1e-4        # f32 chunked scan vs recurrence, of max |state|
+# where the legacy loop's greedy token and the slot engine's differ (phase 6),
+# the engine's token must tie the legacy path's on the legacy path's own bf16
+# logits: within 1e-2 of the row's largest |logit| below the top one (about
+# 2.5 bf16 ulps at the top of tinyllama's random-weight logits)
+LEGACY_TIE_RTOL = 1e-2
+# zamba2's full-depth bf16 prefill: the kernel path's distance from the f32
+# weights' logits at most this multiple of the plain attention path's
+HYBRID_EXCESS = 1.1
+
+
+def legacy_forced(torch, model, cfg, prompts, forced) -> list:
+    """The legacy loop teacher forced: one ``prefill`` of the (B, S)
+    ``prompts`` for a horizon of S + n + 1, then a ``decode_step`` fed each
+    column of ``forced`` (B, n) in turn. Returns the n + 1 calls'
+    last-position logits, (B, Vp) in float32."""
+    from repro_torch.models import transformer as TT
+    n = forced.shape[1]
+    logits, cache = TT.prefill(model, prompts, cfg,
+                               max_len=prompts.shape[1] + n + 1)
+    steps = [logits[:, -1].float()]
+    for j in range(n):
+        logits, cache = TT.decode_step(model, forced[:, j:j + 1], cache, cfg)
+        steps.append(logits[:, -1].float())
+    return steps
+
+
+def phase_llm_legacy(torch, np, model, eng, prompts) -> dict:
+    """Phase 6's scalar-pos check: each prompt of the wave alone through
+    the legacy loop (``launch/serve_llm.py``'s ``legacy_generate``: one
+    ``prefill``, then greedy ``decode_step`` calls), counted, against the
+    slot engine's greedy tokens for the same prompt. The two paths differ
+    in their GEMMs' shapes, so bf16 rounding may break a tie either way
+    and a free-running parting would leave the rest of the prompt
+    uncompared: so both paths are then teacher forced with the engine's
+    tokens at every step (``legacy_forced``, ``teacher_forced``). At every
+    step of every prompt the legacy path's greedy token must be the
+    engine's, or tie it within LEGACY_TIE_RTOL on the legacy path's
+    logits, and the two paths' logits must agree within LLM_RTOL of the
+    row's largest |logit|. Returns the launch counts of the legacy runs."""
+    from repro_torch.launch.serve_llm import legacy_generate
+    cfg = eng.cfg
+    direct = eng.generate(prompts)
+    dev = model.device
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.monotonic()
+    runs = [legacy_generate(model, cfg, torch.tensor(
+        [p], dtype=torch.int32, device=dev), LLM_NEW_TOKENS)
+        for p in prompts]
+    dt = time.monotonic() - t0
+    launches = read_launches()
+    free = sum(int(np.array_equal(run["tokens"][0].cpu().numpy(), want))
+               for run, want in zip(runs, direct))
+    del runs
+
+    want = torch.as_tensor(np.stack(direct), dtype=torch.int32, device=dev)
+    slot = teacher_forced(torch, model, cfg, prompts, dev, "cuda",
+                          list(want.T), steps=LLM_NEW_TOKENS - 1)
+    equal, ties, worst = 0, [], 0.0
+    for i, p in enumerate(prompts):
+        steps = legacy_forced(torch, model, cfg, torch.tensor(
+            [p], dtype=torch.int32, device=dev), want[i:i + 1, :-1])
+        for j, row in enumerate(steps):
+            row = row[0, :cfg.vocab]
+            ref = slot[j][i, :cfg.vocab]
+            worst = max(worst, ((row - ref).abs().max()
+                                / ref.abs().max()).item())
+            w = int(want[i, j])
+            if int(row.argmax()) == w:
+                equal += 1
+            else:
+                ties.append((i, j, (row.max() - row[w]).item()
+                             / row.abs().max().item()))
+    n_steps = len(prompts) * LLM_NEW_TOKENS
+    log(f"[llm-legacy] {len(prompts)} prompts ({min(map(len, prompts))}-"
+        f"{max(map(len, prompts))} tokens) one at a time through prefill + "
+        f"{LLM_NEW_TOKENS - 1} decode_step calls in {dt:.4f} s: free "
+        f"running, the slot engine's greedy tokens at every step for {free} "
+        f"of {len(prompts)} prompts; both paths fed the engine's tokens: "
+        f"the legacy path's greedy token is the engine's at {equal} of "
+        f"{n_steps} steps, and a tie at the others (prompt, step, the "
+        f"engine token's gap below the legacy top logit, of the largest "
+        f"|logit|): {ties} (limit {LEGACY_TIE_RTOL}); max |legacy - slot| "
+        f"logit {worst:.3e} of the row's largest |logit| (limit {LLM_RTOL}); "
+        f"launches {launches}")
+    if any(gap > LEGACY_TIE_RTOL for _, _, gap in ties) \
+            or not worst <= LLM_RTOL:
+        raise AssertionError(f"the legacy loop and the slot engine differ: "
+                             f"ties {ties}, logits {worst}")
+    expect = _per_step(flash_attention=cfg.n_layers * len(prompts))
+    if launches != expect:
+        raise AssertionError(f"kernel launches {launches} in the legacy "
+                             f"loop, expected {expect}")
+    return launches
+
+
+def _stepped_state(torch, model, cfg, tokens):
+    """Layer 0's Mamba inputs over ``tokens`` (after the hybrid's first
+    shared block, full sequence) and its (ssm, conv) state after stepping
+    ``mamba2_decode`` through them from zeros, one token at a time."""
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as TT
+    h = TT._embed(model, tokens, cfg)
+    if model.shared_attn is not None:
+        h = model.shared_attn(h, cfg, torch.arange(tokens.shape[1],
+                                                   device=h.device))
+    xn = TT._norm(h, model.blocks[0].norm, cfg)
+    din, gn, nh, k = SSM.mamba2_split_sizes(cfg)
+    b = tokens.shape[0]
+    conv = torch.zeros((b, k - 1, din + 2 * gn), dtype=cfg.compute_dtype,
+                       device=h.device)
+    ssm = torch.zeros((b, nh, cfg.ssm.head_dim, cfg.ssm.d_state),
+                      dtype=torch.float32, device=h.device)
+    for t in range(tokens.shape[1]):
+        _, conv, ssm = SSM.mamba2_decode(model.blocks[0].mamba,
+                                         xn[:, t:t + 1], cfg, conv, ssm)
+    return ssm, conv
+
+
+def ssm_checks(torch, np, cfg, dev, prompts, tag) -> dict:
+    """The f32 checks of phases 6e and 6f at published width and
+    SSM_F32_DEPTH layers: the legacy loop's logits at a prefill and
+    SSM_CHECK_STEPS teacher-forced decode steps within SSM_RTOL of each
+    row's largest |logit| of the full-sequence forward at the same
+    positions; the prefill's final ssm and conv state of layer 0 against
+    ``mamba2_decode`` stepped through the same prompt (STATE_RTOL of the
+    largest |state|).
+    Returns the launch counts of the decode-vs-forward check."""
+    from repro_torch.models import transformer as TT
+    c32 = dataclasses.replace(cfg, n_layers=SSM_F32_DEPTH[cfg.name],
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    model = llm_model(torch, c32, dev, f"{tag}-f32")
+    p = prompts[:SSM_CHECK_PROMPTS]
+    rng = np.random.default_rng(17)
+    forced = torch.as_tensor(rng.integers(0, cfg.vocab, (
+        p.shape[0], SSM_CHECK_STEPS)), dtype=torch.int32, device=dev)
+    zero_launches()
+    steps = legacy_forced(torch, model, c32, p, forced)
+    full = TT.forward(model, torch.cat([p, forced], dim=1), c32)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    s = p.shape[1]
+    worst = 0.0
+    for j, got in enumerate(steps):
+        ref = full[:, s - 1 + j, :cfg.vocab].float()
+        err = (got[:, :cfg.vocab] - ref).abs().amax(-1) / ref.abs().amax(-1)
+        worst = max(worst, err.max().item())
+    log(f"[{tag}-f32] {p.shape[0]} prompts of {s} tokens, prefill + "
+        f"{SSM_CHECK_STEPS} teacher-forced decode steps against the "
+        f"full-sequence forward at the same {SSM_CHECK_STEPS + 1} positions: "
+        f"max |decode - forward| logit {worst:.3e} of each row's largest "
+        f"|logit| (limit {SSM_RTOL}); launches {launches}")
+    if not worst <= SSM_RTOL:
+        raise AssertionError(f"{tag}: decode and forward logits differ by "
+                             f"{worst}")
+    _, cache = TT.prefill(model, p, c32, max_len=s + 1)
+    ssm, conv = _stepped_state(torch, model, c32, p)
+    errs = [((a - b).abs().max() / b.abs().max()).item()
+            for a, b in ((cache["ssm"][0], ssm), (cache["conv"][0], conv))]
+    log(f"[{tag}-f32] layer 0: the prefill's final ssm state "
+        f"{tuple(ssm.shape)} and conv state {tuple(conv.shape)} against "
+        f"mamba2_decode stepped through the {s} tokens: max |diff| "
+        f"{errs[0]:.3e} and {errs[1]:.3e} of the largest |state| (limit "
+        f"{STATE_RTOL})")
+    if not max(errs) <= STATE_RTOL:
+        raise AssertionError(f"{tag}: prefill state and stepped state "
+                             f"differ by {errs}")
+    del model, steps, full, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hybrid_kernel_check(torch, model, cfg, dev, prompts, tag) -> None:
+    """The hybrid's bf16 prefill through the flash kernel against the plain
+    attention: the first shared-block application's output, where the
+    kernel's error enters (everything else the same), within LLM_RTOL of
+    its largest |value|; then the full-depth prefill's logits, each path's
+    distance from the same seeded weights drawn in float32 (plain
+    attention): the kernel path's at most HYBRID_EXCESS times the plain
+    path's. (54 bf16 layers amplify the rounding of p, which the kernel
+    applies as the reference's Pallas kernel does, beyond LLM_RTOL between
+    the two bf16 paths themselves.)"""
+    from repro_torch.models import transformer as TT
+    rel = lambda x, ref: ((x.float() - ref.float()).abs().max()
+                          / ref.float().abs().max()).item()
+    h = TT._embed(model, prompts, cfg)
+    pos = torch.arange(prompts.shape[1], device=dev)
+    first = rel(model.shared_attn(h, cfg, pos),
+                model.shared_attn(h, cfg, pos, attn_impl="torch"))
+    del h
+    last = {}
+    for impl in ("cuda", "torch"):
+        logits, _ = TT.prefill(model, prompts, cfg,
+                               max_len=SSM_PROMPT_LEN + 1, attn_impl=impl)
+        last[impl] = logits[:, -1, :cfg.vocab].float()
+    c32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    m32 = TT.init_params(c32, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    logits, _ = TT.prefill(m32, prompts, c32, max_len=SSM_PROMPT_LEN + 1,
+                           attn_impl="torch")
+    ref = logits[:, -1, :cfg.vocab]
+    del m32, logits
+    torch.cuda.empty_cache()
+    between = rel(last["cuda"], last["torch"])
+    e_kernel, e_plain = rel(last["cuda"], ref), rel(last["torch"], ref)
+    agree = int((last["cuda"].argmax(-1) == last["torch"].argmax(-1)).sum())
+    log(f"[{tag}] {cfg.compute_dtype}, the flash kernel (hd {cfg.hd}) "
+        f"against the plain attention: the first shared-block "
+        f"application's output differs by {first:.3e} of its largest "
+        f"|value| (limit {LLM_RTOL}); the prefill's logits of the "
+        f"{SSM_PROMPTS} prompts at full depth by "
+        f"{between:.3e} of the largest |logit| (greedy tokens agree for "
+        f"{agree} of {SSM_PROMPTS}); from the float32 weights' logits (plain "
+        f"attention) the kernel path is {e_kernel:.3e} and the plain path "
+        f"{e_plain:.3e} of the largest |f32 logit| (limit {HYBRID_EXCESS} "
+        f"times the plain path's)")
+    if not (first <= LLM_RTOL and e_kernel <= HYBRID_EXCESS * e_plain):
+        raise AssertionError(f"{tag}: kernel and plain attention differ: "
+                             f"{first} at the first application, {e_kernel} "
+                             f"against {e_plain} from float32")
+
+
+def phase_llm_recurrent(torch, np, cfg, dev, tag) -> tuple:
+    """Phases 6e (mamba2-780m) and 6f (zamba2-2.7b): the model at its
+    published width and depth in bf16 serves SSM_PROMPTS prompts of
+    SSM_PROMPT_LEN random tokens through the legacy loop (the reference's
+    only path for these families), SSM_NEW_TOKENS greedy tokens each;
+    counts zeroed just before and read just after (the flash kernel's
+    bf16 route once a shared-block application of the prefill, never for
+    mamba2); prefill ms, decode ms a step, tok/s, peak memory, and one
+    profiled decode step. The hybrid's prefill through the kernel is then
+    held against the plain attention (``hybrid_kernel_check``), and both
+    run ``ssm_checks`` in f32. Returns the launch counts of the stream and
+    of the f32 check."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve_llm import legacy_generate
+    from repro_torch.models import transformer as TT
+    every = TT._shared_every(cfg)
+    if every and (cfg.n_heads, cfg.n_kv_heads, cfg.hd) != ZAMBA_HEADS:
+        raise AssertionError(f"{cfg.name}'s heads are not phase 3's")
+    model = llm_model(torch, cfg, dev, tag)
+    rng = np.random.default_rng(13)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (
+        SSM_PROMPTS, SSM_PROMPT_LEN)), dtype=torch.int32, device=dev)
+    legacy_generate(model, cfg, prompts[:1, :32], 2)     # first-call warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.monotonic()
+    run = legacy_generate(model, cfg, prompts, SSM_NEW_TOKENS)
+    dt = time.monotonic() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    toks = run["tokens"]
+    steps = SSM_NEW_TOKENS - 1
+    n_tok = toks.numel()
+    finite = all(bool(torch.isfinite(x).all()) for x in run["logits"])
+    log(f"[{tag}] {SSM_PROMPTS} prompts of {SSM_PROMPT_LEN} tokens through "
+        f"the legacy loop, {SSM_NEW_TOKENS} new tokens each, in {dt:.4f} s: "
+        f"{n_tok} tokens, {n_tok / dt:.1f} tok/s; prefill "
+        f"{run['prefill_ms']:.4f} ms, decode {run['decode_ms'] / steps:.4f} "
+        f"ms a step ({SSM_PROMPTS * steps / run['decode_ms'] * 1e3:.1f} tok/s "
+        f"over the {steps} decode steps); finite logits {finite}; launches "
+        f"{launches}; peak device memory {peak / 2**30:.3f} GiB")
+    n_apps = cfg.n_layers // every if every else 0
+    expect = _per_step(**({"flash_attention": n_apps} if n_apps else {}))
+    if launches != expect:
+        raise AssertionError(f"kernel launches {launches} on the {tag} "
+                             f"path, expected {expect}")
+    if toks.shape != (SSM_PROMPTS, SSM_NEW_TOKENS) or not finite or not (
+            (toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"{tag}: bad completions {toks.shape}")
+
+    # where a decode step's time goes: one more step of the 8 sequences
+    tok = toks[:, -1:]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        TT.decode_step(model, tok, run["cache"], cfg)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    device_profile(prof, wall_us, f"one {cfg.name} decode step of "
+                   f"{SSM_PROMPTS} sequences at position "
+                   f"{SSM_PROMPT_LEN + steps}", watch=("nvjet", "gemm"))
+    del run
+    if every:
+        hybrid_kernel_check(torch, model, cfg, dev, prompts, tag)
+    del model
+    torch.cuda.empty_cache()
+    return launches, ssm_checks(torch, np, cfg, dev, prompts, tag)
+
+
 LLM_TRAIN_BF16_BATCH = 4
 LLM_TRAIN_F32_BATCH = 2
 LLM_TRAIN_SEQ = 2048
@@ -4412,13 +4785,17 @@ def main() -> int:
                                              train_graph, train_pg, f32_step)
     del train_plan, train_graph, train_pg
     torch.cuda.empty_cache()
-    by_path["llm"], by_path["llm_driver"] = phase_llm(
-        torch, np, get_config("tinyllama-1.1b"), dev)
+    by_path["llm"], by_path["llm_driver"], by_path["llm_legacy"] = \
+        phase_llm(torch, np, get_config("tinyllama-1.1b"), dev)
     torch.cuda.empty_cache()
     by_path["llm_moe"], by_path["llm_moe_f32"] = phase_llm_moe(
         torch, np, get_config("mixtral-8x7b"), dev)
     by_path["llm_moe_scout"] = phase_llm_moe_scout(
         torch, np, get_config("llama4-scout-17b-a16e"), dev)
+    by_path["llm_ssm"], by_path["llm_ssm_f32"] = phase_llm_recurrent(
+        torch, np, get_config("mamba2-780m"), dev, "llm-ssm")
+    by_path["llm_hybrid"], by_path["llm_hybrid_f32"] = phase_llm_recurrent(
+        torch, np, get_config("zamba2-2.7b"), dev, "llm-hybrid")
     by_path["llm_train_bf16"], by_path["llm_train"] = phase_llm_train(
         torch, np, get_config("tinyllama-1.1b"), dev)
     # each kernel's launches on the path that runs it, each route of the
@@ -4427,7 +4804,9 @@ def main() -> int:
     # bf16, LLM training both its routes, forward and backward, the f32
     # routes over its 16 steps: the tail's scalar routes and keep_mask read
     # 0; the MoE phases run flash in bf16 in their streams and waves, and
-    # in f32 in 6c's f32 check)
+    # in f32 in 6c's f32 check; phase 6's legacy loop runs flash in bf16;
+    # mamba2 (6e) runs no kernel, zamba2 (6f) flash in bf16 at hd 80 in its
+    # stream and in f32 in its check)
     main_path = {"extract_dense_fused": "train",
                  "extract_dense_fused_bf16": "train_bf16",
                  "spmm_ell_bf16_f32": "train_bf16",

@@ -4,9 +4,9 @@ transformer registry (``--arch <id>``, counterpart of
 
 Each transformer module exposes ``config()`` (the published numbers, cited
 in its docstring) and ``smoke()`` (a reduced same-family variant for the
-CPU tests). The port has the reference's dense and MoE models; every
-other id of the reference's registry raises, naming the ROADMAP item that
-ports it.
+CPU tests). The port has the reference's dense, MoE, SSM and hybrid
+models; every other id of the reference's registry raises, naming the
+ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -47,13 +47,11 @@ INPUT_SHAPES: Dict[str, InputShape] = {
 
 PORTED_IDS = ("tinyllama-1.1b", "qwen2-0.5b", "internlm2-1.8b",
               "command-r-plus-104b", "mixtral-8x7b",
-              "llama4-scout-17b-a16e")
+              "llama4-scout-17b-a16e", "mamba2-780m", "zamba2-2.7b")
 
 # the part of ROADMAP queue 1, "The LLM stack beyond the dense serving
 # path", that ports each id
 _TODO = {
-    "zamba2-2.7b": "SSM and hybrid",
-    "mamba2-780m": "SSM and hybrid",
     "llama-3.2-vision-90b": "VLM and audio",
     "whisper-base": "VLM and audio",
 }

@@ -58,7 +58,7 @@
 // the softmax few beside the FMAs. One CTA of 4 warps owns 64 query rows of
 // one head of one batch row, kept in shared memory; K and V stream through
 // a cp.async double buffer (16 bytes a thread, zero-filled past T) in
-// blocks of 64 keys (32 at hd 128), block i + 1 loading while block i
+// blocks of 64 keys (32 at hd 80 and 128), block i + 1 loading while block i
 // computes (one CTA barrier a block), in rows padded by 16 bytes. Each warp owns 16 of the rows and
 // a lane 8 of those: it scores them against 4 keys of a 64-key block (12
 // float4 loads per 128 FMAs), reduces the running max over the 16 lanes
@@ -71,19 +71,29 @@
 // (tn_product, flash_tiles.cuh; 3 float4 loads per 32 FMAs). The mask is
 // applied only on the blocks that the ragged end of T, the diagonal or the
 // window edge cross; a warp skips the blocks none of its rows may see.
-// Shared memory is 102 KB a CTA at hd 64 and 107 KB at hd 128: two CTAs an
-// SM. Under a causal mask the tiles differ in work by up to T / 64, so the
-// grid puts (batch, head) fastest and the tile slowest, the last tile first
-// (flash_attention.fwd_plan lists each CTA's blocks): the heaviest tiles
-// start first and the light ones fill in. Nothing is summed across CTAs, so
-// two calls give the same bits. On an NVIDIA H100 80GB HBM3 at 700 W it
-// takes 0.96-0.97 ms on the device at the training shape, 0.53 of the
-// bound, with 210 registers a thread at hd 64 and no spill. By count,
-// loads, shuffles and the softmax take about 15 % of the issue slots from
-// the FMAs; the rest of the gap would be latency that 8 warps an SM do
-// not hide (no stall counters were read).
+// Shared memory is 102 KB a CTA at hd 64, 71 KB at hd 80 and 107 KB at hd
+// 128: two CTAs an SM or more. Under a causal mask the tiles differ in work
+// by up to T / 64, so the grid puts (batch, head) fastest and the tile
+// slowest, the last tile first (flash_attention.fwd_plan lists each CTA's
+// blocks): the heaviest tiles start first and the light ones fill in.
+// Nothing is summed across CTAs, so two calls give the same bits. On an
+// NVIDIA H100 80GB HBM3 at 700 W it takes 0.96-0.97 ms on the device at the
+// training shape, 0.53 of the bound, with 210 registers a thread at hd 64
+// and no spill. By count, loads, shuffles and the softmax take about 15 % of
+// the issue slots from the FMAs; the rest of the gap would be latency that 8
+// warps an SM do not hide (no stall counters were read).
 //
 // Both routes mask ragged Sq and T, so neither needs padding.
+//
+// Head dim 80 (zamba2's shared attention block): hd / 16 = 5 is odd, and
+// nothing above needs a power of two. The bf16 route takes 5 k-steps of
+// Q.K^T and 5 pairs of P.V n-tiles; its rows of 88 bf16 (176 B) are
+// 16-byte aligned for ldmatrix and cp.async, and ldmatrix's 8 row
+// addresses fall on 16-byte bank groups 11 r mod 8, all distinct. Its
+// registers are not capped (one CTA an SM by the bound, more by the
+// occupancy). The float32 route's lane owns 5 output columns: they are
+// loaded and stored one float at a time (5 dg is no multiple of 4), 16
+// lanes on 16 distinct banks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,10 +121,11 @@ constexpr int kWarps = 4;
 // backward's kXLd, padded by 64 bytes, puts 4 of them on each of 2)
 constexpr int kPtLd = kRows + 4;
 
-// keys of a staged K/V block: 32 at hd 128, so that two CTAs share an SM
+// keys of a staged K/V block: 32 at hd 80 and 128, so that two CTAs share
+// an SM (64 at hd 80 would stage 122 KB, one CTA an SM)
 template <int HD>
 __host__ __device__ constexpr int f32_k_block() {
-  return HD == 128 ? 32 : 64;
+  return HD >= 80 ? 32 : 64;
 }
 
 // the q tile, K and V double-buffered, p^T of the tile's rows
@@ -275,8 +286,8 @@ __global__ void __launch_bounds__(kTileThreads, 2) flash_attention_kernel(
             make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
       }
       __syncwarp();
-      tn_product<HD, KB, HD == 128 ? 4 : 16, kPtLd>(acc, pt, kb + KB * LD,
-                                                   r0 / 8, kg);
+      tn_product<HD, KB, KB == 32 ? 4 : 16, kPtLd>(acc, pt, kb + KB * LD,
+                                                  r0 / 8, kg);
     }
   }
   cp_async_wait<0>();  // in flight only where the tile saw no block
@@ -573,7 +584,7 @@ int launch(int bf16_route, const void* q, const void* k, const void* v,
 
 // q (b, sq, h, hd), k and v (b, t, kv, hd), out like q, lse (b, h, sq)
 // float32; all contiguous and 16-byte aligned, float32 (bf16 = 0) or
-// bfloat16 (bf16 = 1); hd in {16, 32, 64, 128}, h % kv == 0. Returns
+// bfloat16 (bf16 = 1); hd in {16, 32, 64, 80, 128}, h % kv == 0. Returns
 // the launch's cudaError_t (0 on success).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* out, void* lse, int b,
@@ -589,6 +600,9 @@ extern "C" int repro_flash_attention(
                         use_window, window, scale, s);
     case 64:
       return launch<64>(bf16, q, k, v, out, lse, b, sq, t, h, kv, causal,
+                        use_window, window, scale, s);
+    case 80:
+      return launch<80>(bf16, q, k, v, out, lse, b, sq, t, h, kv, causal,
                         use_window, window, scale, s);
     case 128:
       return launch<128>(bf16, q, k, v, out, lse, b, sq, t, h, kv, causal,
@@ -621,6 +635,7 @@ extern "C" int repro_flash_attention_smem(int hd, int bf16, int* bytes,
     REPRO_SMEM(16)
     REPRO_SMEM(32)
     REPRO_SMEM(64)
+    REPRO_SMEM(80)
     REPRO_SMEM(128)
 #undef REPRO_SMEM
     default:

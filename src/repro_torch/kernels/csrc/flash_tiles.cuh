@@ -84,8 +84,9 @@ __device__ __forceinline__ void ld_cols(float (&v)[DPT], const float* p) {
     const float2 f = *reinterpret_cast<const float2*>(p);
     v[0] = f.x;
     v[1] = f.y;
-  } else {
-    v[0] = p[0];
+  } else {  // 1, or 5 at hd 80: p is 4-byte aligned only
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) v[c] = p[c];
   }
 }
 template <int DPT>
@@ -97,8 +98,9 @@ __device__ __forceinline__ void st_cols(float* p, const float (&v)[DPT]) {
           make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]);
   } else if constexpr (DPT == 2) {
     *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  } else {
-    p[0] = v[0];
+  } else {  // 1, or 5 at hd 80
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) p[c] = v[c];
   }
 }
 

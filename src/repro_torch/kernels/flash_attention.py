@@ -14,14 +14,15 @@ reference's oracle ``ref.flash_attention_ref`` computes it, plus the lse —
 for CPU tensors; on the meta device it returns outputs of the right shape
 and computes nothing. :func:`flash_attention_cost` counts its work. q head
 ``h`` reads kv head ``h // (H / KV)``. The kernel takes hd in {16, 32, 64,
-128} and float32 or bfloat16; any Sq and T; q, k and v 16-byte aligned
+80, 128} and float32 or bfloat16; any Sq and T; q, k and v 16-byte aligned
 (both routes copy 16 bytes at a time). It has two routes, one per type,
 each a CTA of 4 warps per (batch row, q head, 64 query rows) that streams
 K/V through a ``cp.async`` double buffer: bfloat16 runs both products on
 the tensor cores (``flash_attention_mma_kernel``, ``mma.sync`` with
 float32 accumulation), float32 on the float32 CUDA cores
 (``flash_attention_kernel``), never through TF32, in register tiles: a
-lane scores 8 rows against 4 keys of a 64-key block (2 of 32 at hd 128),
+lane scores 8 rows against 4 keys of a 64-key block (2 of 32 at hd 80
+and 128),
 the running max is reduced over the 16 lanes of a row, p goes through the
 warp's own columns of shared memory, and the lane accumulates an 8 x hd/16
 tile of the output. The float32 route is bound by operations (2 * 2 * hd a
@@ -36,7 +37,9 @@ type from ``(q, k, v, out, lse, dout)``: the CUDA kernels of
 ``csrc/flash_attention_bwd.cu`` for CUDA tensors and
 :func:`flash_attention_bwd_plain` (the reference's ``layers._flash_bwd``
 in dense form) for CPU tensors. It has no TPU kernel to replace: the
-reference's backward is plain jnp. It is deterministic (no float atomics:
+reference's backward is plain jnp. Its kernels take hd in
+``BWD_HEAD_DIMS`` (hd 80 raises, naming the ROADMAP part that ports it).
+It is deterministic (no float atomics:
 a dq kernel, a dk/dv kernel whose units each sum a share of a kv head's q
 heads, and, when the heads are split, a pass that sums the shares in a
 fixed order), and it has the forward's two routes, counted in
@@ -64,7 +67,12 @@ ROUTE_LAUNCHES = {"mma": 0, "f32": 0}
 BWD_LAUNCHES = 0
 BWD_ROUTE_LAUNCHES = {"mma": 0, "f32": 0}
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
+# the backward's: hd 80 (zamba2's shared attention) comes with the SSM and
+# hybrid families' training
+BWD_HEAD_DIMS = (16, 32, 64, 128)
+BWD_TODO = ('ROADMAP queue 1, "The LLM stack beyond the dense serving path" '
+            '(SSM and hybrid training)')
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -225,7 +233,7 @@ def fwd_plan(b: int, sq: int, t: int, h: int, kv: int, hd: int,
         return FwdPlan(route="mma", k_block=64, n_qt=n_qt, reverse=True,
                        n_ctas=b * h * n_qt,
                        smem_bytes=(FWD_TILE + 4 * 64) * (hd + 8) * 2)
-    k_block = 32 if hd == 128 else 64
+    k_block = 32 if hd >= 80 else 64
     return FwdPlan(route="f32", k_block=k_block, n_qt=n_qt,
                    reverse=bool(causal), n_ctas=b * h * n_qt,
                    smem_bytes=4 * ((FWD_TILE + 4 * k_block) * (hd + 4)
@@ -462,9 +470,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
     b, sq, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
+    if hd in HEAD_DIMS and hd not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention_bwd: head dim {hd} (the forward's) is not "
+            f"ported to the backward kernels yet: {BWD_TODO}")
+    if hd not in BWD_HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: head dim {hd} not in "
-                         f"{HEAD_DIMS}")
+                         f"{BWD_HEAD_DIMS}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention_bwd: q must be float32 or "
                          f"bfloat16, got {q.dtype}")

@@ -3,9 +3,10 @@
 
 One frozen dataclass describes a model; every config in
 ``repro_torch/configs/`` instantiates it with the published numbers. The
-port runs the dense and MoE families so far (``models/transformer.py``,
-``models/moe.py``); the SSM and encoder settings are carried as plain data
-so that every config reads.
+port runs the dense, MoE, SSM and hybrid families
+(``models/transformer.py``, ``models/moe.py``, ``models/ssm.py``); the
+encoder and cross-attention settings are carried as plain data so that
+every config reads.
 """
 from __future__ import annotations
 

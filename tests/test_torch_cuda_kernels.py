@@ -1464,7 +1464,9 @@ def test_cuda_sampled_ids_equal_the_cpus(cuda, schedule, mode, g):
 # the sweep of tests/test_kernels_flash.py, then ragged Sq and T, hd 128,
 # GQA 8:1, a causal window, a window that leaves rows (and whole q tiles)
 # with no key, and the LLM serving shape (one prompt of 512, 32 q heads
-# over 4 kv heads) and a qwen2-style one (14 q heads over 2, hd 128)
+# over 4 kv heads) and a qwen2-style one (14 q heads over 2, hd 128); then
+# hd 80 (zamba2's shared attention): its prefill heads (32/32) causal, a
+# causal window with GQA, and non-causal over a ragged T
 FLASH_SHAPES = [
     (2, 64, 64, 4, 2, 32, True, None),
     (2, 32, 96, 4, 4, 16, False, None),
@@ -1478,6 +1480,9 @@ FLASH_SHAPES = [
     (1, 200, 64, 4, 2, 64, False, 32),
     (1, 512, 512, 32, 4, 64, True, None),
     (1, 512, 512, 14, 2, 128, True, None),
+    (1, 512, 512, 32, 32, 80, True, None),
+    (2, 130, 130, 4, 2, 80, True, 50),
+    (2, 77, 130, 4, 4, 80, False, None),
 ]
 # the LLM training shape at batch 1 (tinyllama-1.1b's 32/4 heads of 64 over
 # 2048 tokens), and hd 128 at internlm2's 16/8 heads over a T that is no
@@ -1691,6 +1696,18 @@ def test_cuda_flash_attention_bwd_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         tflash.flash_attention_bwd(q, k, v, out, lse,
                                    flat[1:].view(dout.shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_bwd_raises_at_hd_80(cuda, dtype):
+    """The forward takes hd 80; the backward kernels do not yet, and raise
+    naming the ROADMAP part that ports them, before any launch."""
+    args = _flash_bwd_case(1, 64, 64, 2, 2, 80, dtype, cuda, True, None)
+    n0 = tflash.BWD_LAUNCHES
+    with pytest.raises(NotImplementedError, match="SSM and hybrid training"):
+        tflash.flash_attention_bwd(*args, True, None)
+    assert tflash.BWD_LAUNCHES == n0
 
 
 def test_llm_engine_without_device_needs_a_card(monkeypatch):

@@ -28,8 +28,9 @@ SOURCE = (Path(tflash.__file__).resolve().parent / "csrc"
 
 # (b, sq, t, h, kv, hd, causal, window): the training shape's kind cut down,
 # causal, a window (causal and not), non-causal, ragged Sq and T, T shorter
-# and longer than Sq, MHA, every head dim, a window that leaves whole tiles
-# with no key
+# and longer than Sq, MHA, every head dim (hd 80: zamba2's prefill heads,
+# causal, and a window over a ragged T longer than Sq), a window that
+# leaves whole tiles with no key
 SHAPES = [
     (1, 256, 256, 32, 4, 64, True, None),
     (2, 300, 300, 4, 4, 64, True, None),
@@ -42,6 +43,8 @@ SHAPES = [
     (1, 130, 130, 4, 1, 128, True, 50),
     (1, 1000, 700, 8, 2, 32, True, None),
     (1, 500, 500, 8, 2, 64, False, 128),
+    (1, 512, 512, 32, 32, 80, True, None),
+    (2, 150, 333, 4, 2, 80, False, 100),
 ]
 DTYPES = [torch.bfloat16, torch.float32]
 
@@ -138,23 +141,23 @@ def test_training_shape_is_balanced_over_the_card():
     assert _makespan(work[::-1], slots) >= 1.125 * mean
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
 def test_plan_blocks_and_smem_are_the_sources(hd):
-    """The float32 route's key block is the source's (32 at hd 128, else
-    64) and its shared memory the q tile, K and V double-buffered and p^T
-    (rows padded by 16 bytes): two CTAs fit an SM's 228 KB at every head
-    dim, as the source note states for hd 64 and 128."""
+    """The float32 route's key block is the source's (32 at hd 80 and 128,
+    else 64) and its shared memory the q tile, K and V double-buffered and
+    p^T (rows padded by 16 bytes): two CTAs fit an SM's 228 KB at every
+    head dim, as the source note states for hd 64, 80 and 128."""
     note = re.sub(r"\n// ?", " ", SOURCE.read_text())
-    assert "return HD == 128 ? 32 : 64;" in note
-    assert ("Shared memory is 102 KB a CTA at hd 64 and 107 KB at hd 128: "
-            "two CTAs an SM") in note
+    assert "return HD >= 80 ? 32 : 64;" in note
+    assert ("Shared memory is 102 KB a CTA at hd 64, 71 KB at hd 80 and 107 "
+            "KB at hd 128: two CTAs an SM or more") in note
     plan = tflash.fwd_plan(1, 128, 128, 4, 2, hd, torch.float32)
-    assert plan.k_block == (32 if hd == 128 else 64)
+    assert plan.k_block == (32 if hd >= 80 else 64)
     kb = plan.k_block
     assert plan.smem_bytes == 4 * ((64 + 4 * kb) * (hd + 4) + kb * 68)
     assert 2 * (plan.smem_bytes + 1024) <= 228 * 1024
-    if hd in (64, 128):
-        assert plan.smem_bytes // 1024 == {64: 102, 128: 107}[hd]
+    if hd in (64, 80, 128):
+        assert plan.smem_bytes // 1024 == {64: 102, 80: 71, 128: 107}[hd]
     bf = tflash.fwd_plan(1, 128, 128, 4, 2, hd, torch.bfloat16)
     assert (bf.route, bf.k_block, bf.reverse) == ("mma", 64, True)
     assert bf.kernel() == "flash_attention_mma_kernel"
@@ -180,3 +183,20 @@ def test_fwd_cost_is_pinned_at_training_shapes(b, dtype, gflop, bound):
     peak = 989e12 if dtype == torch.bfloat16 else 67e12
     assert n_bytes / 3.35e12 < n_ops / peak
     assert round(n_ops / peak * 1e3, 6) == bound
+
+
+def test_hd_80_plan_and_the_backward_refusal():
+    """At hd 80 the float32 route stages 32-key blocks (64 would take 122 KB
+    of shared memory, one CTA an SM), the bfloat16 route 64-key blocks;
+    the backward kernels do not take hd 80 yet and name the ROADMAP part
+    that ports them (on the meta device, which checks as the card does)."""
+    f32 = tflash.fwd_plan(8, 512, 512, 32, 32, 80, torch.float32)
+    bf16 = tflash.fwd_plan(8, 512, 512, 32, 32, 80, torch.bfloat16)
+    assert (f32.k_block, f32.smem_bytes) == (32, 73216)
+    assert (bf16.k_block, bf16.smem_bytes) == (64, 56320)
+    assert 80 in tflash.HEAD_DIMS and 80 not in tflash.BWD_HEAD_DIMS
+    q = torch.empty((1, 64, 2, 80), device="meta")
+    out, lse = tflash.flash_attention(q, q, q)
+    assert out.shape == q.shape and lse.shape == (1, 2, 64)
+    with pytest.raises(NotImplementedError, match="SSM and hybrid training"):
+        tflash.flash_attention_bwd(q, q, q, out, lse, out)

@@ -29,8 +29,9 @@ from repro_torch.models import transformer as TT  # noqa: E402
 
 MOE_ARCHS = ["mixtral-8x7b", "llama4-scout-17b-a16e"]
 ARCHS = ["tinyllama-1.1b", "qwen2-0.5b"] + MOE_ARCHS
-# every config the port has: the dense and MoE families
-PORTED = ARCHS + ["internlm2-1.8b", "command-r-plus-104b"]
+# every config the port has: the dense, MoE, SSM and hybrid families
+PORTED = ARCHS + ["internlm2-1.8b", "command-r-plus-104b", "mamba2-780m",
+                  "zamba2-2.7b"]
 ATOL = 1e-4
 
 
@@ -257,10 +258,14 @@ def test_bf16_forward_within_reference_tolerance():
 
 
 def test_other_families_and_paths_raise():
-    ssm = dataclasses.replace(tconfigs.get_smoke("tinyllama-1.1b"),
-                              family="ssm")
-    with pytest.raises(NotImplementedError, match="SSM and hybrid"):
-        TT.init_slot_cache(ssm, 2, 8, "cpu")
+    vlm = dataclasses.replace(tconfigs.get_smoke("tinyllama-1.1b"),
+                              family="vlm")
+    with pytest.raises(NotImplementedError, match="VLM and audio"):
+        TT.init_slot_cache(vlm, 2, 8, "cpu")
+    # the slot API refuses the ssm family with the reference's own message
+    with pytest.raises(NotImplementedError,
+                       match="slot-scheduled serving supports dense/moe"):
+        TT.init_slot_cache(tconfigs.get_smoke("mamba2-780m"), 2, 8, "cpu")
     q = torch.zeros((1, 4, 2, 16))
     with pytest.raises(NotImplementedError, match="q_offset"):
         TL.blockwise_attention(q, q, q, q_offset=2)

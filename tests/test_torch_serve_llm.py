@@ -1,14 +1,18 @@
 """The port's ``LLMEngine`` (``device="cpu"``) against the JAX package's on
 the same weights and the same prompt stream: the greedy completions must be
-identical token for token, and the scheduler's counts equal.
+identical token for token, and the scheduler's counts equal. Then the
+legacy loop (the scalar-pos ``prefill`` / ``decode_step`` of every family
+the port serves) against the reference's, and the CLI.
 
 The JAX side is the tinyllama smoke model of ``tests/conftest.py``'s
 ``llm_serving_setup`` (and mixtral-8x7b's smoke model for the MoE
-stream); its weights reach the port through numpy.
+stream, and each family's smoke model for the legacy loop); its weights
+reach the port through numpy.
 """
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -178,8 +182,8 @@ def test_replay_streams_are_deterministic(port_model):
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-scout-17b-a16e"])
 def test_cli_serves_on_the_cpu(arch, capsys):
     """``launch/serve_llm.py``: 5 prompts through 2 slots behind the
-    driver, every prompt its full completion; ``--legacy-loop`` raises
-    and names its ROADMAP part."""
+    driver, every prompt its full completion; ``--legacy-loop`` serves 3
+    prompts of 20 tokens through the static-batch loop."""
     out = serve_llm.main(["--device", "cpu", "--arch", arch, "--batch",
                           "5", "--prompt-len", "12", "--new-tokens", "4",
                           "--slots", "2"])
@@ -187,5 +191,95 @@ def test_cli_serves_on_the_cpu(arch, capsys):
     assert all(o.shape == (4,) and o.dtype == np.int32
                for o in out["outputs"])
     assert "tok/s" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="scalar-pos prefill"):
-        serve_llm.main(["--device", "cpu", "--arch", arch, "--legacy-loop"])
+    # the static-batch loop, with prompts longer than mixtral's window of 16
+    out = serve_llm.main(["--device", "cpu", "--arch", arch, "--legacy-loop",
+                          "--batch", "3", "--prompt-len", "20",
+                          "--new-tokens", "4"])
+    assert out["tokens"] == 12 and len(out["outputs"]) == 3
+    assert all(o.shape == (4,) and o.dtype == np.int32
+               for o in out["outputs"])
+    printed = capsys.readouterr().out
+    assert "prefill 3x20" in printed and "falling back" not in printed
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b"])
+def test_cli_falls_back_to_the_legacy_loop_for_ssm_families(arch, capsys):
+    """The ssm and hybrid families have no slot scheduling: the CLI prints
+    the example's note and serves them through the legacy loop."""
+    out = serve_llm.main(["--device", "cpu", "--arch", arch, "--batch", "2",
+                          "--prompt-len", "10", "--new-tokens", "3"])
+    assert out["tokens"] == 6 and "stats" not in out
+    assert all(o.shape == (3,) and o.dtype == np.int32
+               for o in out["outputs"])
+    printed = capsys.readouterr().out
+    fam = get_smoke(arch).family
+    assert f"[{fam} family has no slot scheduling yet; falling back to " \
+        "--legacy-loop]" in printed
+
+
+# (arch, prompt length): every family the port serves, and a mixtral prompt
+# longer than its window of 16 (the prefill's ring reorder)
+LEGACY_CASES = [("tinyllama-1.1b", 12), ("mixtral-8x7b", 12),
+                ("mixtral-8x7b", 20), ("mamba2-780m", 12),
+                ("zamba2-2.7b", 12)]
+
+
+@pytest.fixture(scope="module")
+def legacy_models():
+    """Each arch's smoke model, built once: the reference's config and
+    params, its jitted ``decode_step``, and the port's config and model on
+    the same weights."""
+    built = {}
+
+    def get(arch):
+        if arch not in built:
+            cfg = jconfigs.get_smoke(arch)
+            params = jax.jit(lambda k: JT.init_params(k, cfg))(
+                jax.random.PRNGKey(0))
+            tcfg = get_smoke(arch)
+            model = TT.params_from_numpy(jax.tree.map(np.asarray, params),
+                                         tcfg, "cpu")
+            decode = jax.jit(lambda p, t, c: JT.decode_step(p, t, c, cfg))
+            built[arch] = cfg, params, decode, tcfg, model
+        return built[arch]
+    return get
+
+
+@pytest.mark.parametrize("arch,s", LEGACY_CASES,
+                         ids=[f"{a}-{s}" for a, s in LEGACY_CASES])
+def test_legacy_loop_matches_the_reference(legacy_models, arch, s):
+    """The example's legacy loop (one prefill of 2 prompts, then greedy
+    decode steps to 8 new tokens): the port's ``legacy_generate`` gives the
+    reference's ``prefill`` / ``decode_step`` greedy tokens, its logits
+    within 1e-4 at every step, and the final cache within 1e-4 (K/V rows,
+    a ring past the window, the conv and ssm states) at the same ``pos``."""
+    cfg, params, decode, tcfg, model = legacy_models(arch)
+    prompts = np.random.default_rng(8).integers(0, cfg.vocab, (2, s),
+                                                dtype=np.int32)
+    logits, cache = jax.jit(lambda p, t: JT.prefill(
+        p, t, cfg, max_len=s + MAX_NEW))(params, jnp.asarray(prompts))
+    want_logits, want_toks = [], []
+    for step in range(MAX_NEW):
+        if step:
+            logits, cache = decode(params, tok, cache)
+        want_logits.append(np.asarray(logits[:, -1]))
+        tok = jnp.argmax(logits[:, -1], axis=-1)[:, None].astype(jnp.int32)
+        want_toks.append(np.asarray(tok))
+    got = serve_llm.legacy_generate(model, tcfg, torch.from_numpy(prompts),
+                                    MAX_NEW)
+    assert got["tokens"].dtype == torch.int32
+    np.testing.assert_array_equal(got["tokens"].numpy(),
+                                  np.concatenate(want_toks, axis=1))
+    for a, w in zip(got["logits"], want_logits):
+        np.testing.assert_allclose(a.numpy(), w, atol=1e-4)
+    port_cache = got["cache"]
+    assert int(port_cache["pos"]) == int(cache["pos"]) == s + MAX_NEW - 1
+    for key, ref in cache.items():
+        if key == "pos":
+            continue
+        mine = port_cache[key]
+        pairs = ([(mine[k], ref[k]) for k in ("k", "v")]
+                 if isinstance(ref, dict) else [(mine, ref)])
+        for a, w in pairs:
+            assert tuple(a.shape) == w.shape
+            np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=1e-4)
