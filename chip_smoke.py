@@ -95,11 +95,14 @@ with a non-zero exit code:
    one's largest |plain| at the training shapes, at hd 128 with
    internlm2-1.8b's 16/8 heads, under a window, non-causal with a T that
    is no multiple of 64, on a plan that pairs and splits (1 x 2048), MHA,
-   and a window over a T of 333, a second call the same bits; each route
-   timed at its training shape, each kernel's device time beside the sum,
-   the kernels and the backward of ``scaled_dot_product_attention``
-   (autograd, without its forward) in turns, beside the bound and the
-   plain version;
+   and a window over a T of 333, and at hd 80 (zamba2-2.7b's shared
+   attention: its training shapes, GQA under a window with Sq != T, a plan
+   that pairs and splits, MHA without a mask over a ragged T), a second
+   call the same bits; each route timed at its training shapes
+   (tinyllama-1.1b's and zamba2-2.7b's), each kernel's device time beside
+   the sum, the kernels and the backward of
+   ``scaled_dot_product_attention`` (autograd, without its forward) in
+   turns, beside the bound and the plain version;
 4. serve   — the serving path: the port's ``InferenceEngine`` at the
    paper's width (d_hidden 256, 3 layers, seeded random weights) serves a
    Zipf(1.3) stream of single-vertex requests with both of its kernels on;
@@ -284,7 +287,36 @@ with a non-zero exit code:
    route, then ``launch.train_transformer.train`` for 16 eager AdamW
    steps (the loss falls; both f32 routes once a layer a step); ms/step,
    tokens/s, peak memory and MFU ((6 N tokens + attention) over 67
-   TFLOP/s).
+   TFLOP/s);
+7b. llm-train-moe — MoE training at the published widths, seeded weights,
+   2 x 2048 ``TokenStream`` tokens: (i) mixtral-8x7b at phase 6c's 4
+   layers, one bf16 gradient through the kernels and through the plain
+   attention replaying the kernel pass's routes (``RouteLog``; the pairs
+   capacity dropped and the primary flips printed): the loss within 1e-2
+   relative, every leaf within 5e-2 of its largest |plain|, the bf16
+   routes of flash forward and backward once a layer; (ii) mixtral at 2
+   layers in float32: the first step within 1e-5 (loss) and 1e-4 (each
+   leaf) of the plain attention on the same routes, then ``train`` for 24
+   eager AdamW steps (the loss falls; the f32 routes once a layer a step),
+   ms/step, tokens/s, peak memory, MFU over the active parameters (the
+   experts a token reaches) and a profiled step; (iii) llama4-scout at 2
+   layers, (i)'s bf16 gradient (its f32 AdamW state would not fit);
+7c. llm-train-recurrent — (i) mamba2-780m in float32: one gradient at 2
+   layers of its width on 1 x 512 tokens on the card and on the CPU
+   (1e-5 / 1e-4: no kernel runs on its path), then at full depth 7b
+   (ii)'s first step and ``train`` on 1 x 2048 (no kernel launches); (ii)
+   zamba2-2.7b at full depth, one bf16 gradient of 1 x 1024 through the
+   kernels and through the plain attention, the shared block's 9
+   applications through the hd-80 kernels (9 launches of each bf16
+   route): the losses within 1e-2, and the kernel path's relative L2
+   distance from the f32 gradient of the same seeded weights at most 1.1
+   times the plain path's (leaf by leaf the two bf16 paths part past
+   5e-2 where a sum over the tokens cancels); (iii) zamba2 in float32 on
+   1 x 512: the first step leaf by leaf (1e-5 / 1e-4) at 6 layers, one
+   shared-block application, and at full depth the loss within 1e-5 and
+   the gradients' relative L2 distance within 1e-4, then ``train`` as 7b
+   (ii), 9 launches of each f32 route a step. Every run's peak device
+   memory must stay under 70 GiB.
 
 The last two lines of standard output are one JSON object per kernel
 route (``{"kernels": [...]}``, each with its launches on every path and,
@@ -347,6 +379,11 @@ MOE_F32_RTOL = 1e-4      # f32 logits, kernel vs plain path, of max |logit|
 MOE_HEADS = {"mixtral": (32, 8, 128), "scout": (40, 8, 128)}
 # zamba2-2.7b's shared attention block: MHA, 32 heads of 80
 ZAMBA_HEADS = (32, 32, 80)
+# zamba2-2.7b's training batches in phase 7c, (batch, sequence): the bf16
+# gradient's and the f32 steps' (the SSD's float32 activations and the f32
+# AdamW state set them, PERF.md section 4)
+ZAMBA_TRAIN_BF16 = (1, 1024)
+ZAMBA_TRAIN_F32 = (1, 512)
 
 # the kernels of the port: the module that counts their launches, the
 # count's name in it, and where the count is split (by route, or by the
@@ -691,16 +728,12 @@ def phase_build() -> None:
                 raise AssertionError(f"flash forward {route} hd {hd}: the "
                                      f"kernel stages {fwd.value} B, "
                                      f"fwd_plan says {plan.smem_bytes}")
-            bwd = "no backward kernel (BWD_HEAD_DIMS)"
-            if hd in fa.BWD_HEAD_DIMS:
-                _build.check(lib.repro_flash_attention_bwd_smem(
-                    hd, bf16, ctypes.byref(dq), ctypes.byref(dkdv)),
-                    "repro_flash_attention_bwd_smem")
-                bwd = (f"backward {dq.value} B (dq), {dkdv.value} B (dk/dv) "
-                       f"a CTA")
+            _build.check(lib.repro_flash_attention_bwd_smem(
+                hd, bf16, ctypes.byref(dq), ctypes.byref(dkdv)),
+                "repro_flash_attention_bwd_smem")
             log(f"[build] flash forward {route} hd {hd}: dynamic shared "
                 f"memory {fwd.value} B a CTA, {ctas.value} CTAs an SM; "
-                f"{bwd}")
+                f"backward {dq.value} B (dq), {dkdv.value} B (dk/dv) a CTA")
     if spills:
         raise AssertionError(f"ptxas spills registers in {spills}")
 
@@ -1859,7 +1892,29 @@ FLASH_BWD_SHAPES = [
     ("MHA, ragged T", 2, 300, 300, 4, 4, 64, True, None, "float32"),
     ("window, ragged T", 2, 333, 333, 8, 2, 64, True, 100, "bfloat16"),
     ("window, ragged T", 2, 333, 333, 8, 2, 64, True, 100, "float32"),
+    # hd 80: zamba2-2.7b's shared attention at phase 7c's training shapes,
+    # GQA under a window with Sq != T, a plan that pairs and splits, and
+    # MHA without a mask over a ragged T
+    ("zamba2 train", *ZAMBA_TRAIN_BF16, ZAMBA_TRAIN_BF16[1], *ZAMBA_HEADS,
+     True, None, "bfloat16"),
+    ("zamba2 train", *ZAMBA_TRAIN_F32, ZAMBA_TRAIN_F32[1], *ZAMBA_HEADS,
+     True, None, "float32"),
+    ("hd 80 GQA, window, Sq != T", 2, 300, 333, 8, 2, 80, True, 100,
+     "bfloat16"),
+    ("hd 80 GQA, window, Sq != T", 2, 300, 333, 8, 2, 80, True, 100,
+     "float32"),
+    ("hd 80 paired and split", 1, 2048, 2048, 32, 4, 80, True, None,
+     "bfloat16"),
+    ("hd 80 paired and split", 1, 1024, 1024, 32, 4, 80, True, None,
+     "float32"),
+    ("hd 80 MHA, non-causal, ragged T", 2, 200, 333, 4, 4, 80, False, None,
+     "bfloat16"),
+    ("hd 80 MHA, non-causal, ragged T", 2, 200, 333, 4, 4, 80, False, None,
+     "float32"),
 ]
+# the backward's shapes timed in phase 3: each route's LLM training shape,
+# tinyllama-1.1b's and zamba2-2.7b's (hd 80)
+FLASH_BWD_TIMED = ("train", "zamba2 train")
 
 
 def check_flash_attention_bwd(torch, np, dev) -> list:
@@ -1909,7 +1964,7 @@ def check_flash_attention_bwd(torch, np, dev) -> list:
         err[dname] = max(err[dname], max(
             (a.float() - r.float()).abs().max().item()
             for a, r in zip(got, ref)))
-        if label != "train":
+        if label not in FLASH_BWD_TIMED:
             continue
         del got, again, ref
         torch.cuda.empty_cache()
@@ -3287,18 +3342,28 @@ def _times(counts: dict, k: int) -> dict:
     return {name: n * k for name, n in counts.items()}
 
 
+def worst_leaf(grads, ref) -> tuple:
+    """(max |grads - ref| over max |ref|, the leaf's path) of the leaf
+    where that is largest; ``ref``'s leaves may lie on another device."""
+    from repro_torch.tree import flatten_with_paths, leaves
+    return max(
+        ((a.float() - b.to(a.device).float()).abs().max().item()
+         / max(b.float().abs().max().item(), 1e-30), "/".join(map(str, p)))
+        for a, b, (p, _) in zip(leaves(grads), leaves(ref),
+                                flatten_with_paths(ref)))
+
+
 def _first_step_check(torch, tag, loss_k, grads_k, loss_p, grads_p,
-                      loss_rtol=LOSS_RTOL, grad_rtol=GRAD_RTOL):
+                      loss_rtol=LOSS_RTOL, grad_rtol=GRAD_RTOL,
+                      what="kernels vs plain versions"):
     """The first step's loss within ``loss_rtol`` and every gradient leaf
-    within ``grad_rtol`` of its max |.| of the plain versions' step."""
-    from repro_torch.tree import leaves
+    within ``grad_rtol`` of its max |.| of the plain versions' step (or
+    of the other run that ``what`` names)."""
     rel = abs(loss_k - loss_p) / abs(loss_p)
-    worst = max((a.float() - b.float()).abs().max().item()
-                / max(b.float().abs().max().item(), 1e-30)
-                for a, b in zip(leaves(grads_k), leaves(grads_p)))
-    log(f"[{tag}] first step, kernels vs plain versions: loss "
+    worst, where = worst_leaf(grads_k, grads_p)
+    log(f"[{tag}] first step, {what}: loss "
         f"{loss_k:.7f} vs {loss_p:.7f} (rel {rel:.3e}, limit {loss_rtol}), "
-        f"worst gradient leaf {worst:.3e} of its max |.| (limit "
+        f"worst gradient leaf {worst:.3e} of its max |.| ({where}; limit "
         f"{grad_rtol})")
     if not (rel <= loss_rtol and worst <= grad_rtol):
         raise AssertionError(f"{tag}: kernel and plain first steps differ")
@@ -4565,6 +4630,15 @@ LLM_TRAIN_SEQ = 2048
 LLM_TRAIN_STEPS = 16
 
 
+def llm_batch(torch, cfg, dev, b: int, s: int) -> tuple:
+    """(tokens, targets) of ``TokenStream``'s first batch of b x s (seed
+    0, coherence 0.8) on ``dev``."""
+    from repro_torch.data import TokenStream
+    stream = TokenStream(vocab_size=cfg.vocab, batch=b, seq_len=s, seed=0,
+                         coherence=0.8)
+    return tuple(torch.from_numpy(a).to(dev) for a in stream.batch_at(0))
+
+
 def phase_llm_train(torch, np, cfg, dev) -> dict:
     """Phase 7: LLM training at ``cfg``'s published width (tinyllama-1.1b).
     (a) one bf16 ``loss_and_grads`` on a 4 x 2048 ``TokenStream`` batch
@@ -4577,15 +4651,11 @@ def phase_llm_train(torch, np, cfg, dev) -> dict:
     ``train_transformer.train`` for 16 eager steps (the loss falls), the
     f32 routes of both kernels once a layer a step; ms/step, tokens/s,
     peak memory and MFU. Returns the launch counts of (a) and (b)."""
-    from repro_torch.data import TokenStream
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train_transformer as TTR
     from repro_torch.models import transformer as TT
 
-    def batch(b):
-        stream = TokenStream(vocab_size=cfg.vocab, batch=b,
-                             seq_len=LLM_TRAIN_SEQ, seed=0, coherence=0.8)
-        return tuple(torch.from_numpy(a).to(dev) for a in stream.batch_at(0))
+    batch = lambda b: llm_batch(torch, cfg, dev, b, LLM_TRAIN_SEQ)
 
     def timed_grads(model, c, toks, tgts, impl):
         torch.cuda.synchronize()
@@ -4706,6 +4776,389 @@ def profile_llm_step(torch, model, cfg, toks, tgts) -> None:
         f"{100 * bwd_us / max(seen['busy_us'], 1e-9):.2f} %")
 
 
+# phases 7b and 7c: the MoE, SSM and hybrid families' training at their
+# published widths, a run's (batch, sequence) each (PERF.md section 4: the
+# SSD's float32 activations and the f32 AdamW state set them); the MoE
+# depths are phase 6c's and 6d's cuts (MOE_DEPTH, MOE_F32_DEPTH), mamba2's
+# and zamba2's the full ones; mamba2's card gradient is held against the
+# CPU's at SSM_CPU_LAYERS layers and SSM_CPU_BATCH
+MOE_TRAIN_BATCH = (2, 2048)
+SSM_TRAIN_BATCH = (1, 2048)
+SSM_CPU_LAYERS = 2
+SSM_CPU_BATCH = (1, 512)
+FAMILY_TRAIN_STEPS = 24
+# zamba2's f32 first step is held leaf by leaf at one shared-block
+# application (phase 6f's f32 depth); at full depth 54 layers amplify the
+# attention's float32 rounding past 1e-4 in a leaf whose sum over the tokens
+# cancels (a Mamba block's conv_w), so there the gradients' relative L2
+# distance is held to 1e-4
+HYBRID_CHECK_LAYERS = 6
+PEAK_LIMIT_GIB = 70
+
+
+def attention_calls(cfg) -> int:
+    """Full-sequence attention calls in one forward: a layer each (dense
+    and MoE), the shared block's applications (hybrid), none (ssm)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    return cfg.n_layers
+
+
+def _family_grads(torch, model, cfg, toks, tgts, impl, force=None):
+    """``loss_and_grads`` through ``impl`` with every MoE call's route
+    recorded (replaying ``force``'s): (loss, grads, ms, routes)."""
+    from repro_torch.launch import train_transformer as TTR
+    from repro_torch.models import moe as M
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with M.RouteLog(force=force) as routes:
+        loss, grads = TTR.loss_and_grads(model, toks, tgts, cfg,
+                                         attn_impl=impl)
+        loss = loss.item()
+    return loss, grads, (time.perf_counter() - t0) * 1e3, routes.routes
+
+
+def replayed_routes(torch, tag, cfg, kernel, plain) -> dict:
+    """The plain pass replayed the kernel pass's experts: each call's
+    experts and kept pairs must be the kernel pass's. Prints the pairs
+    that capacity dropped and the primary flips, the rows whose own top
+    k in the plain pass differ from the replayed experts (the attention's
+    rounding alone moves the router's inputs: no expert output differs
+    upstream), with the widest gap between the k-th and (k+1)-th router
+    logits of such a row."""
+    k = cfg.moe.top_k
+    dropped = pairs = flips = 0
+    gap = 0.0
+    for a, b in zip(kernel, plain):
+        if not (torch.equal(a.ids, b.ids) and torch.equal(a.keep, b.keep)):
+            raise AssertionError(f"[{tag}] the replayed routes differ")
+        dropped += int((~a.keep).sum())
+        pairs += a.keep.numel()
+        top = torch.sort(b.logits, dim=1, descending=True, stable=True)
+        own = top.indices[:, :k].sort(dim=1).values
+        flip = (own != a.ids.sort(dim=1).values).any(1)
+        flips += int(flip.sum())
+        if flip.any():
+            rel = ((top.values[:, k - 1] - top.values[:, k])
+                   / b.logits.abs().amax(1))[flip]
+            gap = max(gap, rel.max().item())
+    log(f"[{tag}] routes: {len(kernel)} layer calls, {dropped} of {pairs} "
+        f"(token, choice) pairs dropped by capacity ({dropped / pairs:.4f}); "
+        f"{flips} primary flips (the plain pass's own top {k} against the "
+        f"replayed experts; widest gap {gap:.4f} of the row's largest "
+        f"|router logit|)")
+    return {"dropped": dropped, "pairs": pairs, "flips": flips}
+
+
+def _peak_gib(torch, tag, what, n_bytes=None) -> float:
+    """The peak device memory (``max_memory_allocated``, or ``n_bytes``)
+    in GiB, printed; raises above PEAK_LIMIT_GIB."""
+    peak = (torch.cuda.max_memory_allocated() if n_bytes is None
+            else n_bytes) / 2**30
+    log(f"[{tag}] {what}: peak device memory {peak:.3f} GiB")
+    if peak > PEAK_LIMIT_GIB:
+        raise AssertionError(f"[{tag}] {what} peaked at {peak:.3f} GiB, "
+                             f"above {PEAK_LIMIT_GIB} GiB")
+    return peak
+
+
+def family_bf16_gradient(torch, cfg, dev, tag, batch,
+                         from_f32=False) -> dict:
+    """One bf16 ``loss_and_grads`` of ``cfg`` (seeded weights) on a
+    ``batch`` = (b, s) ``TokenStream`` batch through the kernels, then
+    through the plain attention on the kernel pass's routes: the bf16
+    routes of the flash forward and backward once an attention call; the
+    loss within 1e-2 relative, and every gradient leaf within 5e-2 of its
+    largest |plain|, or, ``from_f32``, each path's distance from the
+    gradient of the same seeded weights drawn in float32 (plain
+    attention), ``grad_distance`` over every leaf: the kernel path's at
+    most HYBRID_EXCESS times the plain path's, each path's worst leaf
+    printed. (zamba2: leaf by leaf its two bf16 paths part beyond 5e-2, a
+    Mamba block's ``conv_w``, a sum over the tokens that cancels, 5.6e-2
+    apart at one shared-block application already; bf16 rounding, p's
+    among it, which the kernel rounds as the reference's Pallas kernel
+    does, amplified; phase 6f's finding for the logits.) Returns the
+    kernel pass's launch counts."""
+    from repro_torch import tree as tree_util
+    from repro_torch.launch import train_transformer as TTR
+    from repro_torch.models import transformer as TT
+    seeded = lambda c: TT.init_params(
+        c, torch.Generator(device=dev).manual_seed(0), dev, trainable=True)
+    toks, tgts = llm_batch(torch, cfg, dev, *batch)
+    torch.cuda.reset_peak_memory_stats()
+    if from_f32:
+        c32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                  compute_dtype=torch.float32)
+        m32 = seeded(c32)
+        loss32, g32, _, _ = _family_grads(torch, m32, c32, toks, tgts,
+                                          "torch")
+        g32 = tree_util.tree_map(lambda t: t.detach().cpu(), g32)
+        del m32
+        torch.cuda.empty_cache()
+    model = seeded(cfg)
+    TTR.loss_and_grads(model, toks[:, :128], tgts[:, :128], cfg)  # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    loss_k, grads_k, ms_k, routes = _family_grads(torch, model, cfg, toks,
+                                                  tgts, "cuda")
+    launches = read_launches()
+    loss_p, grads_p, ms_p, replayed = _family_grads(
+        torch, model, cfg, toks, tgts, "torch",
+        force=routes if cfg.moe is not None else None)
+    n = attention_calls(cfg)
+    log(f"[{tag}] {cfg.name} bf16 at {cfg.n_layers} layers, one gradient "
+        f"of {batch[0]} x {batch[1]} tokens: {ms_k:.1f} ms through the "
+        f"kernels, {ms_p:.1f} ms through the plain attention; launches "
+        f"{launches}")
+    expect = _per_step(flash_attention=n, flash_attention_bwd=n)
+    if launches != expect:
+        raise AssertionError(f"[{tag}] launches {launches} in a bf16 "
+                             f"gradient, expected {expect}")
+    if cfg.moe is not None:
+        replayed_routes(torch, tag, cfg, routes, replayed)
+    if not from_f32:
+        _first_step_check(torch, tag, loss_k, grads_k, loss_p, grads_p,
+                          LLM_LOSS_BF16_RTOL, BF16_TOL)
+    else:
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        between, where = worst_leaf(grads_k, grads_p)
+        e_kernel, e_plain = (grad_distance(grads_k, g32),
+                             grad_distance(grads_p, g32))
+        (w_kernel, at_k), (w_plain, at_p) = (worst_leaf(grads_k, g32),
+                                             worst_leaf(grads_p, g32))
+        log(f"[{tag}] loss {loss_k:.7f} vs {loss_p:.7f} (rel {rel:.3e}, "
+            f"limit {LLM_LOSS_BF16_RTOL}; float32 {loss32:.7f}); the worst "
+            f"leaf between the two paths {between:.3e} of its largest "
+            f"|plain| ({where}); from the float32 weights' gradient the "
+            f"kernel path is {e_kernel:.3e} and the plain path "
+            f"{e_plain:.3e} (relative L2 over every leaf; limit "
+            f"{HYBRID_EXCESS} times the plain path's), their worst leaves "
+            f"{w_kernel:.3e} ({at_k}) and {w_plain:.3e} ({at_p})")
+        if not (rel <= LLM_LOSS_BF16_RTOL
+                and e_kernel <= HYBRID_EXCESS * e_plain):
+            raise AssertionError(f"[{tag}] kernel and plain attention "
+                                 f"differ: loss {rel}, {e_kernel} against "
+                                 f"{e_plain} from float32")
+        del g32
+    _peak_gib(torch, tag, "the gradients")
+    del model, grads_k, grads_p, routes, replayed
+    torch.cuda.empty_cache()
+    return launches
+
+
+def family_f32_first_step(torch, cfg, dev, tag, batch, model,
+                          by_leaf=True) -> float:
+    """``model``'s (``cfg`` in float32) first step on a ``batch`` = (b, s)
+    ``TokenStream`` batch through the kernels against the plain attention
+    on the same weights, batch and (MoE) routes: the loss within 1e-5 and
+    every leaf within 1e-4 of its largest |plain|, or, with ``by_leaf``
+    False, the relative L2 distance over every leaf within 1e-4 (the
+    worst leaf printed). Returns the kernel pass's loss."""
+    toks, tgts = llm_batch(torch, cfg, dev, *batch)
+    loss_k, grads_k, ms_k, routes = _family_grads(torch, model, cfg, toks,
+                                                  tgts, "cuda")
+    loss_p, grads_p, ms_p, replayed = _family_grads(
+        torch, model, cfg, toks, tgts, "torch",
+        force=routes if cfg.moe is not None else None)
+    log(f"[{tag}] {cfg.name} float32 at {cfg.n_layers} layers, the first "
+        f"gradient of {batch[0]} x {batch[1]} tokens: {ms_k:.1f} ms through "
+        f"the kernels, {ms_p:.1f} ms through the plain attention")
+    if cfg.moe is not None:
+        replayed_routes(torch, tag, cfg, routes, replayed)
+    if by_leaf:
+        _first_step_check(torch, tag, loss_k, grads_k, loss_p, grads_p)
+    else:
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        dist = grad_distance(grads_k, grads_p)
+        worst, where = worst_leaf(grads_k, grads_p)
+        log(f"[{tag}] first step, kernels vs plain versions: loss "
+            f"{loss_k:.7f} vs {loss_p:.7f} (rel {rel:.3e}, limit "
+            f"{LOSS_RTOL}), the gradients {dist:.3e} apart (relative L2 "
+            f"over every leaf; limit {GRAD_RTOL}), the worst leaf "
+            f"{worst:.3e} of its max |.| ({where})")
+        if not (rel <= LOSS_RTOL and dist <= GRAD_RTOL):
+            raise AssertionError(f"{tag}: kernel and plain first steps "
+                                 f"differ")
+    return loss_k
+
+
+def family_f32_train(torch, np, cfg, dev, tag, batch,
+                     check_layers=None) -> dict:
+    """``cfg`` in float32: ``family_f32_first_step`` on seeded weights,
+    leaf by leaf (at ``check_layers`` layers when given, and then at full
+    depth by the relative L2 distance); then ``train_transformer.train``
+    for FAMILY_TRAIN_STEPS eager AdamW steps from the full model's
+    weights (the loss falls; the f32 routes of both flash kernels once an
+    attention call a step), ms/step, tokens/s, peak memory and MFU; then
+    one profiled step. Returns the train run's launch counts."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train_transformer as TTR
+    from repro_torch.models import transformer as TT
+    seeded = lambda c: TT.init_params(
+        c, torch.Generator(device=dev).manual_seed(0), dev, trainable=True)
+    if check_layers is not None:
+        cut = dataclasses.replace(cfg, n_layers=check_layers)
+        family_f32_first_step(torch, cut, dev, tag, batch, seeded(cut))
+        torch.cuda.empty_cache()
+    model = seeded(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    loss_k = family_f32_first_step(torch, cfg, dev, tag, batch, model,
+                                   by_leaf=check_layers is None)
+    _peak_gib(torch, tag, "the first step, both gradients")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    zero_launches()
+    steps = FAMILY_TRAIN_STEPS
+    run = TTR.train(cfg, steps=steps, batch=batch[0], seq=batch[1], seed=0,
+                    device=dev, params=model,
+                    log=lambda m: log(f"[{tag}] {m}"), log_every=4)
+    launches = read_launches()
+    n = attention_calls(cfg)
+    expect = _per_step(flash_attention_f32=n * steps,
+                       flash_attention_bwd_f32=n * steps)
+    if launches != expect:
+        raise AssertionError(f"[{tag}] launches {launches} in {steps} f32 "
+                             f"steps, expected {expect}")
+    if abs(run.losses[0] - loss_k) > LOSS_RTOL * abs(loss_k):
+        raise AssertionError(f"[{tag}] train()'s first loss "
+                             f"{run.losses[0]} is not the checked step's "
+                             f"{loss_k}")
+    tokens = batch[0] * batch[1]
+    # the experts a token does not reach: (1 - top_k / E) of their weights
+    idle = 0 if cfg.moe is None else round(
+        cfg.n_layers * cfg.moe.num_experts * 3 * cfg.d_model * cfg.d_ff
+        * (1 - cfg.moe.top_k / cfg.moe.num_experts))
+    attn_ops = 0
+    if n:
+        q = torch.empty((batch[0], batch[1], cfg.n_heads, cfg.hd),
+                        device="meta")
+        kv = torch.empty((batch[0], batch[1], cfg.n_kv_heads, cfg.hd),
+                         device="meta")
+        attn_ops = n * (fa.flash_attention_cost(
+            q, kv, kv, True, cfg.sliding_window)[0]
+            + fa.flash_attention_bwd_cost(q, kv, kv, q, None, q, True,
+                                          cfg.sliding_window)[0])
+    # the hybrid's shared block runs once an application
+    again = 0 if cfg.family != "hybrid" else (n - 1) * sum(
+        p.numel() for p in model.shared_attn.parameters())
+    active = run.n_params - idle + again
+    step_ops = 6 * active * tokens + attn_ops
+    mfu = step_ops / (run.ms_per_step / 1e3) / F32_OPS_PER_S
+    log(f"[{tag}] {cfg.name} float32, {steps} steps of {batch[0]} x "
+        f"{batch[1]} tokens: {run.ms_per_step:.3f} ms/step, "
+        f"{run.tokens_per_s:.1f} tokens/s, "
+        f"{run.n_params} parameters (N_active {active}: the experts "
+        f"a token reaches, the shared block once an application); 6 "
+        f"N_active tokens + attention = {step_ops / 1e12:.4f} "
+        f"TFLOP a step (attention {attn_ops / 1e12:.4f}), MFU {mfu:.4f} of "
+        f"67 TFLOP/s f32; losses {[round(x, 5) for x in run.losses]}; "
+        f"launches {launches}")
+    _peak_gib(torch, tag, f"{steps} steps of train()", run.peak_bytes)
+    _loss_falls(tag, run.losses, np)
+    profile_llm_step(torch, model, cfg, *llm_batch(torch, cfg, dev, *batch))
+    del model, run
+    torch.cuda.empty_cache()
+    return launches
+
+
+def grad_distance(grads, ref) -> float:
+    """The relative L2 distance of two gradients over all their leaves:
+    ||grads - ref|| / ||ref||, in float32; ``ref``'s leaves may lie on
+    another device."""
+    from repro_torch.tree import leaves
+    num = den = 0.0
+    for a, b in zip(leaves(grads), leaves(ref)):
+        b = b.to(a.device).float()
+        num += (a.float() - b).square().sum().item()
+        den += b.square().sum().item()
+    return (num / den) ** 0.5
+
+
+def ssm_grad_against_cpu(torch, np, cfg, dev, tag) -> None:
+    """``cfg`` (float32) at SSM_CPU_LAYERS layers of its published width:
+    one ``loss_and_grads`` on the card and on the CPU from the same
+    weights (``a_log`` and ``dt_bias`` drawn non-zero, so that the decay's
+    gradients count) and SSM_CPU_BATCH: the loss within 1e-5 and every
+    leaf within 1e-4 of its largest |CPU|: the card computes what the CPU
+    tests hold against the reference."""
+    from repro_torch import tree as tree_util
+    from repro_torch.launch import train_transformer as TTR
+    from repro_torch.models import transformer as TT
+    c = dataclasses.replace(cfg, n_layers=SSM_CPU_LAYERS)
+    weights = TT.params_to_numpy(TT.init_params(
+        c, torch.Generator().manual_seed(0), "cpu"))
+    rng = np.random.default_rng(3)
+    mamba = weights["blocks"]["mamba"]
+    for name, scale, shift in (("a_log", 1.0, 0.1), ("dt_bias", 0.5, 0.0)):
+        mamba[name] = (shift + scale * rng.normal(size=mamba[name].shape)
+                       ).astype(np.float32)
+    toks, tgts = llm_batch(torch, c, "cpu", *SSM_CPU_BATCH)
+    out = {}
+    for name, where in (("card", dev), ("cpu", "cpu")):
+        model = TT.params_from_numpy(weights, c, where, trainable=True)
+        loss, grads = TTR.loss_and_grads(model, toks.to(where),
+                                         tgts.to(where), c)
+        out[name] = (loss.item(), tree_util.tree_map(
+            lambda t: t.detach().cpu(), grads))
+    log(f"[{tag}] {c.name} float32 at {c.n_layers} layers, one gradient of "
+        f"{SSM_CPU_BATCH[0]} x {SSM_CPU_BATCH[1]} tokens:")
+    _first_step_check(torch, tag, *out["card"], *out["cpu"],
+                      what="the card vs the CPU")
+
+
+def phase_llm_train_moe(torch, np, dev) -> tuple:
+    """Phase 7b: MoE training at the published widths. (i) mixtral-8x7b at
+    MOE_DEPTH's 4 layers, one bf16 gradient; (ii) mixtral at
+    MOE_F32_DEPTH's 2 layers in float32, the first step and then
+    ``train``; (iii) llama4-scout-17b-a16e at 2 layers, one bf16 gradient
+    (its f32 AdamW state alone, 16 B a parameter, would pass 80 GB). Each
+    gradient's plain pass replays the kernel pass's routes. Returns the
+    launch counts of (i), (ii) and (iii)."""
+    from repro_torch.configs import get_config
+    mixtral = get_config("mixtral-8x7b")
+    scout = get_config("llama4-scout-17b-a16e")
+    bf16 = family_bf16_gradient(
+        torch, dataclasses.replace(mixtral,
+                                   n_layers=MOE_DEPTH[mixtral.name]),
+        dev, "llm-train-moe", MOE_TRAIN_BATCH)
+    f32 = family_f32_train(
+        torch, np, dataclasses.replace(
+            mixtral, n_layers=MOE_F32_DEPTH, param_dtype=torch.float32,
+            compute_dtype=torch.float32),
+        dev, "llm-train-moe", MOE_TRAIN_BATCH)
+    scout_bf16 = family_bf16_gradient(
+        torch, dataclasses.replace(scout, n_layers=MOE_DEPTH[scout.name]),
+        dev, "llm-train-moe-scout", MOE_TRAIN_BATCH)
+    return bf16, f32, scout_bf16
+
+
+def phase_llm_train_recurrent(torch, np, dev) -> tuple:
+    """Phase 7c: SSM and hybrid training at the published widths and
+    depths. (i) mamba2-780m in float32, the first gradient at 2 layers
+    against the CPU's (no kernel on its path), then the full model's first
+    step and ``train``; (ii) zamba2-2.7b, one bf16 gradient held by its
+    distance from float32 (the shared block's 9 applications through the
+    hd-80 kernels, forward and backward); (iii)
+    zamba2 in float32, the first step and then ``train``. Returns the
+    launch counts of (i), (ii) and (iii)."""
+    from repro_torch.configs import get_config
+    f32 = dict(param_dtype=torch.float32, compute_dtype=torch.float32)
+    mamba = dataclasses.replace(get_config("mamba2-780m"), **f32)
+    ssm_grad_against_cpu(torch, np, mamba, dev, "llm-train-ssm")
+    ssm = family_f32_train(torch, np, mamba, dev, "llm-train-ssm",
+                           SSM_TRAIN_BATCH)
+    zamba = get_config("zamba2-2.7b")
+    hybrid_bf16 = family_bf16_gradient(torch, zamba, dev,
+                                       "llm-train-hybrid", ZAMBA_TRAIN_BF16,
+                                       from_f32=True)
+    hybrid = family_f32_train(torch, np, dataclasses.replace(zamba, **f32),
+                              dev, "llm-train-hybrid", ZAMBA_TRAIN_F32,
+                              check_layers=HYBRID_CHECK_LAYERS)
+    return ssm, hybrid_bf16, hybrid
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--vertices", type=int, default=2_449_029,
@@ -4798,6 +5251,12 @@ def main() -> int:
         torch, np, get_config("zamba2-2.7b"), dev, "llm-hybrid")
     by_path["llm_train_bf16"], by_path["llm_train"] = phase_llm_train(
         torch, np, get_config("tinyllama-1.1b"), dev)
+    torch.cuda.empty_cache()
+    (by_path["llm_train_moe_bf16"], by_path["llm_train_moe"],
+     by_path["llm_train_moe_scout_bf16"]) = phase_llm_train_moe(torch, np,
+                                                                dev)
+    (by_path["llm_train_ssm"], by_path["llm_train_hybrid_bf16"],
+     by_path["llm_train_hybrid"]) = phase_llm_train_recurrent(torch, np, dev)
     # each kernel's launches on the path that runs it, each route of the
     # tail and of flash from its own count (the training path's tails take
     # the vector route and draw from the counter; LLM serving runs flash in

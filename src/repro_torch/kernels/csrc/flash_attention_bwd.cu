@@ -59,6 +59,13 @@
 // reference applies -- each while the next product runs: p while dp is
 // multiplied, ds while dv is. At hd 128 the dk/dv kernel takes query blocks
 // of 32, so that dk, dv, s, dp and K and V's fragments fit the registers.
+// At hd 80 (zamba2's shared attention) the 160-byte row has no swizzle of
+// its own: every tile is five 16-column panels of 32-byte rows
+// (wgmma.cuh's Tile<80, R>), five TMA boxes a tile, so that one descriptor
+// spans the row, the products over hd take their five k-steps a panel
+// each, and those whose N is hd run as one m64n80 wgmma; the dk/dv kernel
+// keeps 64-query blocks there (246 registers, no spill, no serialized
+// wgmma in ptxas's report).
 //
 // float32 (flash_bwd_*_f32_kernel): on the float32 CUDA cores, never
 // through TF32. The CTA's own tile (64 rows) stays in shared memory; the
@@ -67,7 +74,9 @@
 // past the end) while the previous block computes; rows are padded by 16
 // bytes. Each thread owns a 4 x 4 tile of s and dp (float4 loads along
 // hd), writes p and ds transposed to shared memory, and owns an 8 x hd/16
-// tile of dk and dv (or of dq) for the products over the streamed rows.
+// tile of dk and dv (or of dq) for the products over the streamed rows (at
+// hd 80 five columns, read and written one float at a time; 234 registers
+// in dk/dv at 32 rows a step, no spill).
 // The staging, the 8 x hd/16 product and the mask's block ranges are in
 // flash_tiles.cuh, shared with the forward's float32 route.
 
@@ -1086,12 +1095,12 @@ int launch(int bf16_route, const Args& a, cudaStream_t stream) {
 
 // q, out, dout, dq (b, sq, h, hd), k, v, dk, dv (b, t, kv, hd), lse (b, h,
 // sq) float32; all contiguous, float32 (bf16 = 0) or bfloat16 (bf16 = 1;
-// q, k, v, out and dout 16-byte aligned); hd in {16, 32, 64, 128}, h % kv
-// == 0, b, sq, t > 0. Scratch: stats (b * h, sq_pad) float2 with sq_pad =
-// sq rounded up to 64; part 2 * split * b * t * kv * hd floats when split >
-// 1 (else unused); split divides h / kv; pair only pairs key blocks. Two
-// kernels, or three with split > 1, in stream order. Returns the first
-// failed launch's cudaError_t (0 on success).
+// q, k, v, out and dout 16-byte aligned); hd in {16, 32, 64, 80, 128},
+// h % kv == 0, b, sq, t > 0. Scratch: stats (b * h, sq_pad) float2 with
+// sq_pad = sq rounded up to 64; part 2 * split * b * t * kv * hd floats
+// when split > 1 (else unused); split divides h / kv; pair only pairs key
+// blocks. Two kernels, or three with split > 1, in stream order. Returns
+// the first failed launch's cudaError_t (0 on success).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* out,
     const void* lse, const void* dout, void* stats, void* part, void* dq,
@@ -1114,6 +1123,8 @@ extern "C" int repro_flash_attention_bwd(
       return launch<32>(bf16, a, s);
     case 64:
       return launch<64>(bf16, a, s);
+    case 80:
+      return launch<80>(bf16, a, s);
     case 128:
       return launch<128>(bf16, a, s);
     default:
@@ -1138,6 +1149,7 @@ extern "C" int repro_flash_attention_bwd_smem(int hd, int bf16, int* dq,
     REPRO_SMEM(16)
     REPRO_SMEM(32)
     REPRO_SMEM(64)
+    REPRO_SMEM(80)
     REPRO_SMEM(128)
 #undef REPRO_SMEM
     default:

@@ -8,14 +8,18 @@
 // lands in shared memory as TMA writes it with the swizzle of its row:
 // rows of min(HD, 64) bf16 = 32, 64 or 128 bytes, swizzled over 8-row atoms
 // of 256, 512 or 1024 bytes; at HD 128 the tile is two such column panels,
-// one after the other. Every tile starts on a 1024-byte boundary. wgmma
-// reads the same bytes two ways:
+// one after the other. HD 80's 160-byte row has no swizzle of its own: its
+// tile is five panels of 16 columns (32-byte rows, 32-byte swizzle), so
+// that one descriptor and one m64n80 product span every column. Every tile
+// starts on a 1024-byte boundary. wgmma reads the same bytes two ways:
 //   K-major   (the reduction runs along the row, i.e. over hd: s = q . k^T):
 //             a k-step of 16 columns starts 32 bytes further along the row,
-//             in the next panel past 128 bytes; SBO = the atom (8 rows);
+//             in the next panel past the panel's row; SBO = the atom (8
+//             rows);
 //   MN-major  (the reduction runs over the rows: dq += ds . k, "transposed
 //             B"): a k-step of 16 rows starts two atoms further; SBO = the
-//             atom (the next 8 rows), LBO = the panel (the next 64 columns).
+//             atom (the next 8 rows), LBO = the panel (the next 64 columns,
+//             16 at HD 80).
 //
 // Accumulator layout of an m64nN product (PTX ISA, wgmma .f32): warp w of
 // the warpgroup holds rows 16w .. 16w + 15; lane l rows 16w + l/4 (d[4j],
@@ -137,6 +141,34 @@ struct Wgmma<64> {
 };
 
 template <>
+struct Wgmma<80> {
+  template <int TransB>
+  static __device__ __forceinline__ void rs(float (&d)[40],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39"
+        "}, {%40, %41, %42, %43}, %44, p, 1, 1, "
+        "%46;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TransB));
+  }
+};
+
+template <>
 struct Wgmma<128> {
   template <int TransB>
   static __device__ __forceinline__ void rs(float (&d)[64],
@@ -185,15 +217,20 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, int layout,
 // the layout of an R x HD bf16 tile (see the note at the top)
 template <int HD, int R>
 struct Tile {
-  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 128, "head dim");
+  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 80 || HD == 128,
+                "head dim");
   static_assert(R % 16 == 0, "rows");
-  static constexpr int kRowBytes = HD >= 64 ? 128 : HD * 2;
+  // a panel's row: 128 bytes at HD 64 and 128, the whole row below 64, and
+  // 32 at HD 80, whose 160-byte row is five 16-column panels of one swizzle
+  static constexpr int kRowBytes =
+      HD == 80 ? 32 : HD >= 64 ? 128 : HD * 2;
   static constexpr int kBoxCols = kRowBytes / 2;       // a TMA box's columns
-  static constexpr int kPanels = HD * 2 / kRowBytes;   // 2 at HD 128
+  static constexpr int kPanels = HD * 2 / kRowBytes;   // 2 at HD 128, 5 at 80
   static constexpr int kAtom = 8 * kRowBytes;
   static constexpr int kPanelBytes = R * kRowBytes;
   static constexpr int kBytes = R * HD * 2;
-  static constexpr int kLayout = HD >= 64 ? 1 : HD == 32 ? 2 : 3;
+  static constexpr int kLayout =
+      kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
 
   // K-major: columns 16 ks .. 16 ks + 15 of every row
   static __device__ __forceinline__ uint64_t k_major(uint32_t base, int ks) {

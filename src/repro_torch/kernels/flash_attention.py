@@ -37,9 +37,10 @@ type from ``(q, k, v, out, lse, dout)``: the CUDA kernels of
 ``csrc/flash_attention_bwd.cu`` for CUDA tensors and
 :func:`flash_attention_bwd_plain` (the reference's ``layers._flash_bwd``
 in dense form) for CPU tensors. It has no TPU kernel to replace: the
-reference's backward is plain jnp. Its kernels take hd in
-``BWD_HEAD_DIMS`` (hd 80 raises, naming the ROADMAP part that ports it).
-It is deterministic (no float atomics:
+reference's backward is plain jnp. Its kernels take the forward's head
+dims (hd 80, zamba2's shared attention, as five 16-column panels on the
+bfloat16 route and 5 columns a lane on the float32 route). It is
+deterministic (no float atomics:
 a dq kernel, a dk/dv kernel whose units each sum a share of a kv head's q
 heads, and, when the heads are split, a pass that sums the shares in a
 fixed order), and it has the forward's two routes, counted in
@@ -67,12 +68,7 @@ ROUTE_LAUNCHES = {"mma": 0, "f32": 0}
 BWD_LAUNCHES = 0
 BWD_ROUTE_LAUNCHES = {"mma": 0, "f32": 0}
 
-HEAD_DIMS = (16, 32, 64, 80, 128)
-# the backward's: hd 80 (zamba2's shared attention) comes with the SSM and
-# hybrid families' training
-BWD_HEAD_DIMS = (16, 32, 64, 128)
-BWD_TODO = ('ROADMAP queue 1, "The LLM stack beyond the dense serving path" '
-            '(SSM and hybrid training)')
+HEAD_DIMS = (16, 32, 64, 80, 128)       # the forward's and the backward's
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -325,8 +321,8 @@ def flash_attention_bwd_cost(q: torch.Tensor, k: torch.Tensor,
 # one or two BWD_TILE-key blocks, a share of the group's q heads) walking
 # (key block, q head, query block). The dk/dv kernel steps over 64 query
 # rows in bfloat16 and 32 in float32 (half as many at hd 128, for the
-# registers); the float32 dq kernel streams 32 keys a step, the bfloat16
-# one 64.
+# registers; hd 80 keeps 64 and 32: ptxas reports no spill there); the
+# float32 dq kernel streams 32 keys a step, the bfloat16 one 64.
 BWD_TILE = 64
 SMS = 132                 # the H100's streaming multiprocessors
 BWD_CTAS_PER_SM = 2       # dk/dv CTAs resident on one SM, either route
@@ -470,13 +466,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
     b, sq, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
-    if hd in HEAD_DIMS and hd not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention_bwd: head dim {hd} (the forward's) is not "
-            f"ported to the backward kernels yet: {BWD_TODO}")
-    if hd not in BWD_HEAD_DIMS:
+    if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: head dim {hd} not in "
-                         f"{BWD_HEAD_DIMS}")
+                         f"{HEAD_DIMS}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention_bwd: q must be float32 or "
                          f"bfloat16, got {q.dtype}")

@@ -1,4 +1,4 @@
-"""Train a dense transformer on the synthetic token stream — the LLM
+"""Train a transformer on the synthetic token stream — the LLM
 training path: token stream -> ``forward_train`` -> ``lm_loss`` ->
 backward (through the flash-attention backward kernel) -> AdamW ->
 checkpoint.
@@ -6,7 +6,7 @@ checkpoint.
 Counterpart of ``examples/train_transformer.py`` with its flags, plus
 ``--device``. As the example, the CLI trains the reduced ``get_smoke``
 config of ``--arch``; :func:`train` runs the same loop on any config (the
-card's smoke test calls it at tinyllama-1.1b's published width). It runs
+card's smoke test calls it at each family's published width). It runs
 on the card unless ``--device cpu`` (a rehearsal on the CPU, where the
 flash kernels run their plain versions)::
 
@@ -20,12 +20,12 @@ mixed carry types. The port's AdamW updates in place and would keep bf16,
 a result the reference never gives, so :func:`train` refuses any other
 ``param_dtype``. A bf16 gradient (:func:`loss_and_grads`) is fine.
 
-MoE configs (mixtral, llama4-scout) serve but do not train yet: the
-gradient through the capacity dispatch is not held against the
-reference, so both entry points raise for them. So do the SSM and hybrid
-configs (mamba2, zamba2): their gradients through the chunked SSD, and
-zamba2's through the flash backward at head dim 80, are not held against
-the reference either.
+Every family the port serves trains: dense, MoE (mixtral, llama4-scout:
+the gradient flows through the capacity dispatch, a dropped pair giving
+none, and the auxiliary loss), SSM (mamba2: through the chunked SSD) and
+hybrid (zamba2: the shared block's gradient summed over its
+applications, its attention's backward at head dim 80). VLM and audio
+configs raise in ``forward_train``.
 """
 from __future__ import annotations
 
@@ -74,29 +74,12 @@ def _check_trainable(cfg: ModelConfig) -> None:
             "port trains float32 params only, as the reference does")
 
 
-# the part of ROADMAP queue 1 that ports training of each family the port
-# serves but does not train yet
-_TRAIN_TODO = {"moe": "MoE training", "ssm": "SSM and hybrid training",
-               "hybrid": "SSM and hybrid training"}
-
-
-def _check_dense(cfg: ModelConfig) -> None:
-    """Raise for the MoE, SSM and hybrid families (the module
-    docstring): their gradients are not held against the reference's
-    yet."""
-    if cfg.family in _TRAIN_TODO:
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet: ROADMAP "
-            f"queue 1, {TT.LLM_ITEM} ({_TRAIN_TODO[cfg.family]})")
-
-
 def loss_and_grads(params: TT.Transformer, tokens: torch.Tensor,
                    targets: torch.Tensor, cfg: ModelConfig, *,
                    attn_impl: str = "cuda"):
     """``lm_loss(forward_train(...)) + 0.01 * aux`` and its gradients, as
     ``(loss, grads)`` with ``grads`` in the layout of
-    ``TT.param_tree(params)``. Dense family only."""
-    _check_dense(cfg)
+    ``TT.param_tree(params)``."""
     tree = TT.param_tree(params)
     logits, aux = TT.forward_train(params, tokens, cfg, attn_impl=attn_impl)
     loss = TT.lm_loss(logits, targets, cfg.vocab) + AUX_WEIGHT * aux
@@ -134,7 +117,6 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     not below the first. ``params`` (trainable, updated in place) defaults
     to ``init_params`` from ``seed``; with ``ckpt_dir`` the final params
     are checkpointed at step ``steps``."""
-    _check_dense(cfg)
     _check_trainable(cfg)
     if steps < 1:
         raise ValueError(f"train: steps={steps}, expected at least 1")

@@ -1589,6 +1589,15 @@ FLASH_BWD_PLAN_SHAPES = [
     (2, 333, 333, 8, 2, 64, True, 100),
 ]
 FLASH_BWD_SHAPES += FLASH_BWD_PLAN_SHAPES
+# hd 80 (zamba2-2.7b's shared attention; the bfloat16 route's five
+# 16-column panels, the float32 route's 5 columns a lane): MHA and GQA
+# causal, Sq != T under a window, and without a mask
+FLASH_BWD_SHAPES += [
+    (1, 256, 256, 32, 32, 80, True, None),
+    (2, 150, 150, 8, 2, 80, True, None),
+    (2, 100, 133, 8, 2, 80, True, 40),
+    (1, 90, 200, 4, 4, 80, False, None),
+]
 
 
 def _flash_bwd_case(b, sq, t, h, kv, hd, dtype, device, causal, window,
@@ -1631,7 +1640,7 @@ def test_cuda_flash_attention_bwd_matches_plain(cuda, b, sq, t, h, kv, hd,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
 def test_cuda_flash_attention_bwd_is_bit_identical_over_calls(cuda, dtype,
                                                               hd):
     """No float atomics: two calls give the same bits, at every head dim."""
@@ -1696,18 +1705,6 @@ def test_cuda_flash_attention_bwd_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         tflash.flash_attention_bwd(q, k, v, out, lse,
                                    flat[1:].view(dout.shape))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_flash_attention_bwd_raises_at_hd_80(cuda, dtype):
-    """The forward takes hd 80; the backward kernels do not yet, and raise
-    naming the ROADMAP part that ports them, before any launch."""
-    args = _flash_bwd_case(1, 64, 64, 2, 2, 80, dtype, cuda, True, None)
-    n0 = tflash.BWD_LAUNCHES
-    with pytest.raises(NotImplementedError, match="SSM and hybrid training"):
-        tflash.flash_attention_bwd(*args, True, None)
-    assert tflash.BWD_LAUNCHES == n0
 
 
 def test_llm_engine_without_device_needs_a_card(monkeypatch):

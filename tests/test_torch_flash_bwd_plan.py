@@ -26,6 +26,7 @@ SOURCE = (Path(tflash.__file__).resolve().parent / "csrc"
 
 # (b, sq, t, h, kv, hd, causal, window): both training shapes' kinds cut
 # down, causal (pairs), a window, non-causal, ragged Sq and T, MHA, hd 128
+# and hd 80
 SHAPES = [
     (1, 256, 256, 32, 4, 64, True, None),
     (2, 300, 300, 4, 4, 64, True, None),
@@ -37,6 +38,11 @@ SHAPES = [
     (1, 192, 192, 16, 8, 128, True, None),
     (1, 130, 130, 4, 1, 128, True, 50),
     (1, 1000, 700, 8, 2, 32, True, None),
+    # hd 80: zamba2-2.7b's shared attention (32/32 heads), GQA under a
+    # window with Sq != T, and without a mask over a ragged T
+    (1, 1024, 1024, 32, 32, 80, True, None),
+    (2, 300, 333, 8, 2, 80, True, 100),
+    (1, 90, 200, 4, 4, 80, False, None),
 ]
 DTYPES = [torch.bfloat16, torch.float32]
 
@@ -125,6 +131,37 @@ def test_training_shapes_run_one_balanced_wave(b, dtype, split):
     assert len({len(unit) for unit in dkdv}) == 1
     n_qb = 2048 // plan.q_block       # pairs see n_qb + 64 / q_block blocks
     assert len(dkdv[0]) == 32 // split // 4 * (n_qb + 64 // plan.q_block)
+
+
+@pytest.mark.parametrize("hd", tflash.HEAD_DIMS)
+def test_plan_q_block_is_the_kernels(hd):
+    """The dk/dv query block that ``bwd_plan`` lays out is the one the
+    kernels compile at each head dim: ``dkdv_q_block`` (bfloat16) and
+    ``dkdv_f32_q_block`` (float32), read from the source."""
+    src = SOURCE.read_text()
+    for fn, dtype in (("dkdv_q_block", torch.bfloat16),
+                      ("dkdv_f32_q_block", torch.float32)):
+        m = re.search(r"constexpr int " + fn + r"\(\) \{\s*return HD == "
+                      r"(\d+) \? (\d+) : (\d+);", src)
+        want = int(m.group(2)) if hd == int(m.group(1)) else int(m.group(3))
+        plan = tflash.bwd_plan(1, 64, 64, 1, 1, hd, dtype)
+        assert plan.q_block == want, fn
+
+
+@pytest.mark.parametrize("dtype,seq,units", [(torch.bfloat16, 1024, 256),
+                                             (torch.float32, 512, 128)],
+                         ids=["bf16-1x1024", "f32-1x512"])
+def test_zamba2_training_shapes_plan(dtype, seq, units):
+    """At zamba2-2.7b's training shapes (its shared attention: 32/32 heads
+    of 80, causal, one sequence) the dk/dv units pair key blocks, the
+    heads are not split (g = 1), every unit walks the same number of
+    steps, and one wave of the card's 2 x 132 slots holds them."""
+    plan = tflash.bwd_plan(1, seq, seq, 32, 32, 80, dtype, True, None)
+    assert plan.pair and plan.split == 1 and plan.part_floats == 0
+    assert plan.n_units == units <= tflash.SMS * tflash.BWD_CTAS_PER_SM
+    _, dkdv = tflash.bwd_steps(plan, 1, seq, seq, 32, 32, True, None)
+    n_qb = seq // plan.q_block        # pairs see n_qb + 64 / q_block blocks
+    assert {len(unit) for unit in dkdv} == {n_qb + 64 // plan.q_block}
 
 
 @pytest.mark.parametrize("b,dtype,gflop,bound", [

@@ -188,15 +188,16 @@ def test_fwd_cost_is_pinned_at_training_shapes(b, dtype, gflop, bound):
 def test_hd_80_plan_and_the_backward_refusal():
     """At hd 80 the float32 route stages 32-key blocks (64 would take 122 KB
     of shared memory, one CTA an SM), the bfloat16 route 64-key blocks;
-    the backward kernels do not take hd 80 yet and name the ROADMAP part
-    that ports them (on the meta device, which checks as the card does)."""
+    the backward refuses hd 80 no longer: on the meta device, which checks
+    as the card does, it returns dq, dk and dv of the inputs' shapes."""
     f32 = tflash.fwd_plan(8, 512, 512, 32, 32, 80, torch.float32)
     bf16 = tflash.fwd_plan(8, 512, 512, 32, 32, 80, torch.bfloat16)
     assert (f32.k_block, f32.smem_bytes) == (32, 73216)
     assert (bf16.k_block, bf16.smem_bytes) == (64, 56320)
-    assert 80 in tflash.HEAD_DIMS and 80 not in tflash.BWD_HEAD_DIMS
+    assert 80 in tflash.HEAD_DIMS
     q = torch.empty((1, 64, 2, 80), device="meta")
-    out, lse = tflash.flash_attention(q, q, q)
+    kv = torch.empty((1, 96, 1, 80), device="meta")
+    out, lse = tflash.flash_attention(q, kv, kv)
     assert out.shape == q.shape and lse.shape == (1, 2, 64)
-    with pytest.raises(NotImplementedError, match="SSM and hybrid training"):
-        tflash.flash_attention_bwd(q, q, q, out, lse, out)
+    dq, dk, dv = tflash.flash_attention_bwd(q, kv, kv, out, lse, out)
+    assert dq.shape == q.shape and dk.shape == dv.shape == kv.shape

@@ -66,8 +66,8 @@ def _rel_err(got, want) -> float:
 # ---------------------------------------------------------------------------
 
 # (b, sq, t, h, kv, hd, causal, window, kv_block): g = h / kv in {1, 2, 4};
-# hd 32 and 128; kv_block below T (and not dividing it) pads the reference's
-# K/V, the ragged T
+# hd 32, 128 and 80 (zamba2's shared attention); kv_block below T (and not
+# dividing it) pads the reference's K/V, the ragged T
 BWD_CASES = [
     (2, 64, 64, 4, 2, 32, True, None, 512),
     (2, 48, 48, 4, 4, 32, True, 16, 512),
@@ -75,6 +75,8 @@ BWD_CASES = [
     (1, 50, 100, 4, 1, 32, False, 30, 32),
     (2, 70, 70, 4, 1, 128, True, None, 32),
     (1, 32, 32, 2, 2, 128, False, None, 512),
+    (2, 70, 70, 4, 4, 80, True, None, 32),
+    (1, 40, 90, 4, 2, 80, True, 25, 512),
 ]
 
 
@@ -113,7 +115,7 @@ def test_plain_bwd_matches_the_reference_vjp(b, sq, t, h, kv, hd, causal,
 
 
 @pytest.mark.parametrize("b,sq,t,h,kv,hd,causal,window,kv_block",
-                         [BWD_CASES[0], BWD_CASES[4]])
+                         [BWD_CASES[0], BWD_CASES[4], BWD_CASES[6]])
 def test_plain_bwd_bf16_matches_the_reference_vjp(b, sq, t, h, kv, hd,
                                                   causal, window, kv_block):
     q, k, v, dout = _bwd_inputs(b, sq, t, h, kv, hd, seed=3)

@@ -183,18 +183,24 @@ def test_route_log_marks_the_real_rows():
 
 
 def test_moe_training_raises_until_its_slice():
-    """The gradient through the dispatch is not held against the
-    reference yet: both training entry points refuse the MoE family and
-    name the ROADMAP part that ports it."""
+    """Its slice has come: both training entry points take the MoE family
+    (``tests/test_torch_llm_train_families.py`` holds them against the
+    reference). The gradient reaches the router and every expert,
+    finite, and ``train`` still refuses bf16 params, as for every
+    family."""
     from repro_torch.launch import train_transformer as TTR
     cfg = tconfigs.get_smoke("mixtral-8x7b")
     model = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
                            trainable=True)
-    toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        TTR.loss_and_grads(model, toks, toks, cfg)
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        TTR.train(cfg, steps=1, batch=1, seq=8, device="cpu", params=model)
+    toks = torch.arange(16, dtype=torch.int32).reshape(1, 16)
+    loss, grads = TTR.loss_and_grads(model, toks, toks, cfg)
+    assert torch.isfinite(loss)
+    for name in ("router", "wg", "wu", "wd"):
+        for g in grads["blocks"]["moe"][name]:
+            assert torch.isfinite(g).all() and g.abs().max() > 0, name
+    with pytest.raises(ValueError, match="float32"):
+        TTR.train(dataclasses.replace(cfg, param_dtype=torch.bfloat16),
+                  steps=1, batch=1, seq=8, device="cpu")
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)

@@ -253,23 +253,35 @@ def test_bf16_params_keep_float32_ssm_leaves(arch):
 
 def test_families_the_port_does_not_serve_or_train_raise():
     """The slot API refuses the ssm family with the reference's message;
-    training refuses both new families, naming the ROADMAP part; the
+    both training entry points take the ssm and hybrid families (the
+    gradient reaches a_log, dt_bias and, in zamba2, the shared block;
+    ``tests/test_torch_llm_train_families.py`` holds them against the
+    reference) and refuse VLM and audio, naming the ROADMAP part; the
     hybrid family needs shared_attn_every to divide its layers."""
     cfg = tconfigs.get_smoke("mamba2-780m")
     with pytest.raises(NotImplementedError,
                        match="slot-scheduled serving supports dense/moe"):
         TT.init_slot_cache(cfg, 2, 8, "cpu")
+    toks = torch.arange(8, dtype=torch.int32).reshape(1, 8)
     for arch in SSM_ARCHS:
         c = tconfigs.get_smoke(arch)
         tm = TT.init_params(c, torch.Generator().manual_seed(0), "cpu",
                             trainable=True)
-        toks = torch.zeros((1, 8), dtype=torch.int32)
-        with pytest.raises(NotImplementedError,
-                           match="SSM and hybrid training"):
+        loss, grads = TTR.loss_and_grads(tm, toks, toks, c)
+        assert torch.isfinite(loss)
+        for name in ("a_log", "dt_bias"):
+            for g in grads["blocks"]["mamba"][name]:
+                assert torch.isfinite(g).all() and g.abs().max() > 0, name
+        assert ("shared_attn" in grads) == (c.family == "hybrid")
+    dense = tconfigs.get_smoke("tinyllama-1.1b")
+    tm = TT.init_params(dense, torch.Generator().manual_seed(0), "cpu",
+                        trainable=True)
+    for family in ("vlm", "audio"):
+        c = dataclasses.replace(dense, family=family)
+        with pytest.raises(NotImplementedError, match="VLM and audio"):
             TTR.loss_and_grads(tm, toks, toks, c)
-        with pytest.raises(NotImplementedError,
-                           match="SSM and hybrid training"):
-            TTR.train(c, steps=1, batch=1, seq=8, device="cpu", params=tm)
+        with pytest.raises(NotImplementedError, match="VLM and audio"):
+            TTR.train(c, steps=1, batch=1, seq=8, device="cpu")
     bad = dataclasses.replace(tconfigs.get_smoke("zamba2-2.7b"), n_layers=3)
     with pytest.raises(ValueError, match="shared_attn_every"):
         TT.init_cache(bad, 1, 8, "cpu")
