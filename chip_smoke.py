@@ -86,7 +86,14 @@ with a non-zero exit code:
    beside its bound and ``scaled_dot_product_attention`` on the same
    tensors in turns (``library_ms``, a yardstick the port never calls);
    both routes are also timed at the LLM training shapes (bf16 (4, 2048,
-   32/4, 64), f32 (2, 2048, ...)) and at zamba2-2.7b's prefill;
+   32/4, 64), f32 (2, 2048, ...)) and at zamba2-2.7b's prefill; the VLM
+   and audio families' shapes (``MM_FLASH_SHAPES``: whisper-base's encoder,
+   8 x 1500 over 1500 frames without a mask, and its cross-attention, 8 x
+   64 over 1500, both at 8/8 heads of 64; llama-3.2-vision-90b's
+   cross-attention, 8 x 512 over 1600 patches, and its causal
+   self-attention, 8 x 512, both at 64/8 heads of 128) are compared on both
+   routes and timed on the bf16 route (the encoder's on the f32 route
+   too), beside the bound and SDPA in turns;
    The flash-attention backward (``flash_attention_bwd``: a dq kernel, a
    dk/dv kernel whose units pair key blocks and may split the q heads,
    and then a fixed-order sum of the split's partials; bf16 on wgmma fed
@@ -97,9 +104,13 @@ with a non-zero exit code:
    is no multiple of 64, on a plan that pairs and splits (1 x 2048), MHA,
    and a window over a T of 333, and at hd 80 (zamba2-2.7b's shared
    attention: its training shapes, GQA under a window with Sq != T, a plan
-   that pairs and splits, MHA without a mask over a ragged T), a second
+   that pairs and splits, MHA without a mask over a ragged T), and at
+   phase 7d's shapes (vision's cross-attention 2 x 2048 over 1600 and
+   self-attention 2 x 2048 at 64/8 heads of 128 in bf16, whisper's encoder
+   8 x 1500 and cross-attention 8 x 448 over 1500 in both types), a second
    call the same bits; each route timed at its training shapes
-   (tinyllama-1.1b's and zamba2-2.7b's), each kernel's device time beside
+   (tinyllama-1.1b's, zamba2-2.7b's, vision's cross-attention and
+   whisper's encoder and cross-attention), each kernel's device time beside
    the sum, the kernels and the backward of
    ``scaled_dot_product_attention`` (autograd, without its forward) in
    turns, beside the bound and the plain version;
@@ -276,6 +287,28 @@ with a non-zero exit code:
    logits than the plain path's plus 5e-2 of the largest |logit| (54 bf16
    layers amplify the rounding of p beyond 5e-2 between the two paths);
    the f32 checks at 6 layers (one application, the f32 route at hd 80);
+6g. llm-vlm — llama-3.2-vision-90b at its published width (d_model 8192,
+   64/8 heads of 128, d_ff 28672, vocab 128256, bf16) cut from 100 layers
+   to 2 whole [cross + 4 self] groups (10 layers, 10.66 B parameters)
+   through the legacy loop, the reference's only serving path for the
+   family: seeded weights with each cross layer's ``gate_attn`` and
+   ``gate_mlp`` drawn N(0, 1) (zero at init, where a cross layer adds
+   nothing), 8 prompts of 512 random tokens, each with 1600 x 8192 patch
+   embeddings (the example's stub: N(0, 1) in the compute dtype, drawn
+   after the prompts), 32 new tokens each; counts zeroed just before and
+   read just after (the flash forward's bf16 route once an attention call
+   of the prefill, 10; its f32 route and the backward never); prefill ms,
+   decode ms a step, tok/s, peak memory and one profiled decode step; then
+   on 4 prompts a prefill and 8 teacher-forced decode steps through the
+   kernel and through the plain attention, the logits within 5e-2 of the
+   largest |logit|, and the same at 1 group in float32 within 1e-4 (the
+   f32 route once an attention call);
+6h. llm-audio — whisper-base whole (6 encoder and 6 decoder layers of
+   512, 8/8 heads of 64, vocab 51865, bf16) the same way, its LayerNorm
+   and MLP biases drawn N(0, 0.02) (zero at init): 8 prompts of 64 tokens,
+   each with 1500 x 512 frame embeddings, 128 new tokens (64 + 128 within
+   its 448-position decoder context); the bf16 route 18 times a prefill
+   (6 encoder, 6 self, 6 cross); the f32 check at full size;
 7. llm-train — LLM training at tinyllama-1.1b's published width (seeded
    weights, ``TokenStream`` batches): (a) one bf16 gradient of
    ``lm_loss(forward_train(...))`` on 4 x 2048 tokens through the flash
@@ -316,7 +349,22 @@ with a non-zero exit code:
    shared-block application, and at full depth the loss within 1e-5 and
    the gradients' relative L2 distance within 1e-4, then ``train`` as 7b
    (ii), 9 launches of each f32 route a step. Every run's peak device
-   memory must stay under 70 GiB.
+   memory must stay under 70 GiB;
+7d. llm-train-multimodal — the VLM and audio families' gradient, the
+   reference's only training of them (its dry run's ``train_step``;
+   ``train`` refuses them, as its example does), ``loss_and_grads(memory=)``
+   through the kernels and through the plain attention on 6g's and 6h's
+   seeded weights: (i) llama-3.2-vision-90b at one group (5 layers, 6.38
+   B) in bf16 on 2 x 2048 tokens with 2 x 1600 patch embeddings (the
+   losses within 1e-2 relative; leaf by leaf the two paths part beyond
+   5e-2 where a sum over the tokens cancels, a norm's scale, so, as
+   zamba2's in 7c, the kernel path's relative L2 distance from the
+   gradient of the same weights in float32, taken a row at a time, at most
+   1.1 times the plain path's; the bf16 forward and backward 5 times
+   each); (ii)
+   whisper-base whole in float32 on 8 x 448 tokens with 8 x 1500 frames
+   (1e-5 / 1e-4, the encoder's leaves among them; the f32 routes 18 times
+   each); (iii) the same in bf16 (1e-2 / 5e-2). Peaks under 70 GiB.
 
 The last two lines of standard output are one JSON object per kernel
 route (``{"kernels": [...]}``, each with its launches on every path and,
@@ -384,6 +432,25 @@ ZAMBA_HEADS = (32, 32, 80)
 # AdamW state set them, PERF.md section 4)
 ZAMBA_TRAIN_BF16 = (1, 1024)
 ZAMBA_TRAIN_F32 = (1, 512)
+# (q heads, kv heads, head dim) of llama-3.2-vision-90b and whisper-base
+VLM_HEADS = (64, 8, 128)
+WHISPER_HEADS = (8, 8, 64)
+# phases 6g and 6h: llama-3.2-vision-90b cut to whole [cross + 4 self]
+# groups (2 in bf16, 1 in its f32 check), whisper-base whole; prompts of
+# (prompts, tokens) and their new tokens (whisper's 64 + 128 stay within
+# its 448-position decoder context); the kernel-against-plain checks on
+# 4 of them, 8 teacher-forced decode steps
+VLM_GROUPS = 2
+VLM_F32_GROUPS = 1
+MM_PROMPTS = 8
+MM_SERVE = {"llama-3.2-vision-90b": (512, 32), "whisper-base": (64, 128)}
+MM_CHECK_PROMPTS = 4
+MM_CHECK_STEPS = 8
+MM_F32_RTOL = 1e-4       # f32 logits, kernel vs plain path, of max |logit|
+# phase 7d's gradients, (batch, sequence): vision at one group (bf16),
+# whisper whole (float32, then bf16)
+VLM_TRAIN_BATCH = (2, 2048)
+WHISPER_TRAIN_BATCH = (8, 448)
 
 # the kernels of the port: the module that counts their launches, the
 # count's name in it, and where the count is split (by route, or by the
@@ -1771,6 +1838,14 @@ def check_flash_attention(torch, np, dev) -> list:
         err[dtype] = max(err[dtype], compare("zamba2-2.7b prefill, hd 80", q,
                                              k, v, True, None))
         del q, k, v
+    # the VLM and audio families' shapes (phases 6g, 6h and 7d), on both
+    # routes: whisper's encoder and cross-attention, vision's cross- and
+    # self-attention at 64/8 heads of 128
+    for name, b, sq, t, heads, causal in MM_FLASH_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = make(b, sq, t, *heads, dtype)
+            err[dtype] = max(err[dtype], compare(name, q, k, v, causal, None))
+            del q, k, v
     # the f32 route where it runs: the backward's f32 shapes (the training
     # shape, hd 128, windows, non-causal ragged T, MHA)
     for label, b, sq, t, h, kv, hd, causal, window, dname in \
@@ -1781,47 +1856,52 @@ def check_flash_attention(torch, np, dev) -> list:
                                      compare(label, q, k, v, causal, window))
             del q, k, v
 
-    # (label, batch, sequence, type, the route's peak rate, heads (q, kv,
-    # hd), window): tinyllama-1.1b's heads, then the MoE models' prefills
+    # (label, batch, queries, keys, type, the route's peak rate, heads (q,
+    # kv, hd), window, causal): tinyllama-1.1b's heads, then the MoE
+    # models' and zamba2's prefills, then the VLM and audio families'
     tiny = (32, 4, 64)
-    timed = (("serving", 1, 512, torch.bfloat16, BF16_TC_OPS_PER_S, tiny,
-              None),
-             ("long", 8, 2048, torch.bfloat16, BF16_TC_OPS_PER_S, tiny, None),
-             ("train", 4, 2048, torch.bfloat16, BF16_TC_OPS_PER_S, tiny,
-              None),
-             ("mixtral prefill", 1, 512, torch.bfloat16, BF16_TC_OPS_PER_S,
-              MOE_HEADS["mixtral"], 4096),
-             ("scout prefill", 1, 512, torch.bfloat16, BF16_TC_OPS_PER_S,
-              MOE_HEADS["scout"], None),
-             ("zamba2 prefill", SSM_PROMPTS, SSM_PROMPT_LEN, torch.bfloat16,
-              BF16_TC_OPS_PER_S, ZAMBA_HEADS, None),
-             ("serving", 1, 512, torch.float32, F32_OPS_PER_S, tiny, None),
-             ("train", 2, 2048, torch.float32, F32_OPS_PER_S, tiny, None),
-             ("mixtral prefill", 1, 512, torch.float32, F32_OPS_PER_S,
-              MOE_HEADS["mixtral"], 4096),
-             ("zamba2 prefill", SSM_PROMPTS, SSM_PROMPT_LEN, torch.float32,
-              F32_OPS_PER_S, ZAMBA_HEADS, None))
+    bf16 = (torch.bfloat16, BF16_TC_OPS_PER_S)
+    f32 = (torch.float32, F32_OPS_PER_S)
+    timed = (("serving", 1, 512, 512, *bf16, tiny, None, True),
+             ("long", 8, 2048, 2048, *bf16, tiny, None, True),
+             ("train", 4, 2048, 2048, *bf16, tiny, None, True),
+             ("mixtral prefill", 1, 512, 512, *bf16, MOE_HEADS["mixtral"],
+              4096, True),
+             ("scout prefill", 1, 512, 512, *bf16, MOE_HEADS["scout"], None,
+              True),
+             ("zamba2 prefill", SSM_PROMPTS, SSM_PROMPT_LEN, SSM_PROMPT_LEN,
+              *bf16, ZAMBA_HEADS, None, True),
+             *((name, b, sq, t, *bf16, heads, None, causal)
+               for name, b, sq, t, heads, causal in MM_FLASH_SHAPES),
+             ("serving", 1, 512, 512, *f32, tiny, None, True),
+             ("train", 2, 2048, 2048, *f32, tiny, None, True),
+             ("mixtral prefill", 1, 512, 512, *f32, MOE_HEADS["mixtral"],
+              4096, True),
+             ("zamba2 prefill", SSM_PROMPTS, SSM_PROMPT_LEN, SSM_PROMPT_LEN,
+              *f32, ZAMBA_HEADS, None, True),
+             ("whisper encoder", 8, 1500, 1500, *f32, WHISPER_HEADS, None,
+              False))
     shapes = {torch.float32: {}, torch.bfloat16: {}}
-    for label, b, s, dtype, peak, (h, kv, hd), window in timed:
-        plan = fa.fwd_plan(b, s, s, h, kv, hd, dtype, True, window)
+    for label, b, sq, t, dtype, peak, (h, kv, hd), window, causal in timed:
+        plan = fa.fwd_plan(b, sq, t, h, kv, hd, dtype, causal, window)
         kernel = plan.kernel()
-        q, k, v = make(b, s, s, h, kv, hd, dtype)
-        short = b * s <= 512
+        q, k, v = make(b, sq, t, h, kv, hd, dtype)
+        short = b * sq <= 512
         reps, inner = (25, 10) if short else (5, 4)
-        call = lambda: fa.flash_attention(q, k, v, True, window)
+        call = lambda: fa.flash_attention(q, k, v, causal, window)
         # the kernel alone first: after the plain version's gigabyte of
         # scores, a profiled window read the f32 kernel 7 % slower than
         # the event windows of the same run did
         dev_ms = device_ms(torch, call, kernel, n=50 if short else 20)
         plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
-            q, k, v, True, window), reps=3, inner=2, warmup=1)
+            q, k, v, causal, window), reps=3, inner=2, warmup=1)
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))   # (B, H, S, hd)
         # a window no shorter than the sequence masks nothing more than
         # causality, so SDPA's causal call computes the same function
-        if window is not None and window < s:
-            raise AssertionError(f"SDPA has no window of {window} < {s}")
+        if window is not None and window < t:
+            raise AssertionError(f"SDPA has no window of {window} < {t}")
         sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh,
-                                                      is_causal=True,
+                                                      is_causal=causal,
                                                       enable_gqa=True)
         lib_err = (sdpa().transpose(1, 2).float()
                    - call()[0].float()).abs().max().item()
@@ -1830,14 +1910,14 @@ def check_flash_attention(torch, np, dev) -> list:
                  for fn in (call, sdpa, sdpa, call)]
         ms = (turns[0] + turns[3]) / 2
         library_ms = (turns[1] + turns[2]) / 2
-        n_ops, n_bytes = fa.flash_attention_cost(q, k, v, True, window)
+        n_ops, n_bytes = fa.flash_attention_cost(q, k, v, causal, window)
         bound = bound_ms(n_bytes, n_ops, peak)
         by = "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / peak \
             else "operations"
         log(f"[kernels] flash_attention {label} shape, {kernel} "
             f"({plan.n_ctas} CTAs, {plan.k_block}-key blocks, the last "
             f"tile first: {plan.reverse}): q {tuple(q.shape)}, kv "
-            f"{tuple(k.shape)} {dtype} causal, window {window}, "
+            f"{tuple(k.shape)} {dtype} causal={causal}, window {window}, "
             f"{n_bytes} B, {n_ops} ops: kernel {ms:.5f} ms per call "
             f"({dev_ms:.5f} ms on the device, "
             f"{n_ops / dev_ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.5f} ms, "
@@ -1911,10 +1991,39 @@ FLASH_BWD_SHAPES = [
      "bfloat16"),
     ("hd 80 MHA, non-causal, ragged T", 2, 200, 333, 4, 4, 80, False, None,
      "float32"),
+    # the VLM and audio families' gradients (phase 7d): vision's cross-
+    # and self-attention at one group's training shape (2 x 2048 over 1600
+    # patches, 64/8 heads of 128), whisper's encoder and cross-attention
+    # at 8 x 448 over 1500 frames (8/8 heads of 64) in both types
+    ("vision cross train", 2, 2048, 1600, *VLM_HEADS, False, None,
+     "bfloat16"),
+    ("vision self train", 2, 2048, 2048, *VLM_HEADS, True, None,
+     "bfloat16"),
+    ("whisper encoder train", 8, 1500, 1500, *WHISPER_HEADS, False, None,
+     "bfloat16"),
+    ("whisper encoder train", 8, 1500, 1500, *WHISPER_HEADS, False, None,
+     "float32"),
+    ("whisper cross train", 8, 448, 1500, *WHISPER_HEADS, False, None,
+     "bfloat16"),
+    ("whisper cross train", 8, 448, 1500, *WHISPER_HEADS, False, None,
+     "float32"),
 ]
 # the backward's shapes timed in phase 3: each route's LLM training shape,
-# tinyllama-1.1b's and zamba2-2.7b's (hd 80)
-FLASH_BWD_TIMED = ("train", "zamba2 train")
+# tinyllama-1.1b's and zamba2-2.7b's (hd 80), and the VLM and audio
+# families' (phase 7d)
+FLASH_BWD_TIMED = ("train", "zamba2 train", "vision cross train",
+                   "whisper encoder train", "whisper cross train")
+# the VLM and audio families' forward shapes (label, batch, queries, keys,
+# heads (q, kv, hd), causal), compared and timed in phase 3: whisper's
+# encoder over its 1500 frames, its cross-attention from phase 6h's
+# 64-token prompts, vision's cross-attention from phase 6g's 512-token
+# prompts over 1600 patches and its self-attention
+MM_FLASH_SHAPES = [
+    ("whisper encoder", 8, 1500, 1500, WHISPER_HEADS, False),
+    ("whisper cross", 8, 64, 1500, WHISPER_HEADS, False),
+    ("vision cross", 8, 512, 1600, VLM_HEADS, False),
+    ("vision self", 8, 512, 512, VLM_HEADS, True),
+]
 
 
 def check_flash_attention_bwd(torch, np, dev) -> list:
@@ -1980,7 +2089,7 @@ def check_flash_attention_bwd(torch, np, dev) -> list:
         q, k, v, _, _, dout = args
         leaves = [x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v)]                      # (B, H, S, hd)
-        sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+        sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                                   enable_gqa=True)
         sdpa_dout = dout.transpose(1, 2)
         sdpa = lambda: torch.autograd.grad(sdpa_out, leaves, sdpa_dout,
@@ -3801,12 +3910,64 @@ def llm_model(torch, cfg, dev, tag):
         f"{time.monotonic() - t0:.2f} s")
     # the config's count leaves out the final norm's scale, and counts a
     # Mamba layer's norms as two of d_model where it holds one of d_model
-    # and the gated norm's d_inner
+    # and the gated norm's d_inner; the vlm and audio families' is a rough
+    # one (multimodal_params)
     expect = cfg.num_params() + cfg.d_model
     if cfg.ssm is not None:
         expect += cfg.n_layers * (cfg.ssm.d_inner(cfg.d_model) - cfg.d_model)
+    if cfg.family in ("vlm", "audio"):
+        expect = multimodal_params(cfg)
+        log(f"[{tag}] the reference's structure holds {expect} parameters "
+            f"(the config's analytic count says {cfg.num_params()})")
     if n_params != expect:
         raise AssertionError(f"{n_params} parameters, expected {expect}")
+    return model
+
+
+def multimodal_params(cfg) -> int:
+    """The parameters of the reference's vlm or audio pytree: the
+    embedding and head, the final norm, the vlm's self layers (attention,
+    MLP, two norms) and cross layers (the same and two 0-d gates), or
+    whisper's decoder layers (self and cross attention, MLP with its
+    biases, three LayerNorms with theirs), encoder layers and
+    ``enc_norm``."""
+    from repro_torch.models import transformer as TT
+    d, a = cfg.d_model, cfg._attn_params()
+    mlp = cfg._mlp_params(False) + (cfg.d_ff + d if cfg.mlp == "gelu" else 0)
+    norm = 2 * d if cfg.norm == "layernorm" else d
+    head = cfg.vocab_padded * d * (1 if cfg.tie_embeddings else 2) + norm
+    if cfg.family == "vlm":
+        n_cross, per = TT._cross_groups(cfg)
+        return head + n_cross * (per * (a + mlp + 2 * norm)
+                                 + a + mlp + 2 * norm + 2)
+    return (head + cfg.n_layers * (2 * a + mlp + 3 * norm)
+            + cfg.encoder.n_layers * (a + mlp + 2 * norm) + norm)
+
+
+def multimodal_model(torch, cfg, dev, tag, trainable=False):
+    """``cfg``'s seeded model (``init_params``), then, for the vlm and
+    audio families, every leaf that init sets to zero drawn from a second
+    seeded generator, so that every layer counts: the cross layers'
+    ``gate_attn`` and ``gate_mlp`` N(0, 1) (at zero a cross layer adds
+    nothing, whatever its attention computes), whisper's LayerNorm and MLP
+    biases N(0, 0.02). Other families are ``init_params``'s as they are."""
+    from repro_torch.models import transformer as TT
+    if trainable:
+        model = TT.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               dev, trainable=True)
+    else:
+        model = llm_model(torch, cfg, dev, tag)
+    if cfg.family not in TT.MEMORY_FAMILIES:
+        return model
+    gen = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            scale = {"gate_attn": 1.0, "gate_mlp": 1.0, "bias": 0.02,
+                     "b1": 0.02, "b2": 0.02}.get(leaf)
+            if scale is not None:
+                p.copy_(scale * torch.randn(p.shape, generator=gen,
+                                            device=dev))
     return model
 
 
@@ -4339,15 +4500,18 @@ LEGACY_TIE_RTOL = 1e-2
 HYBRID_EXCESS = 1.1
 
 
-def legacy_forced(torch, model, cfg, prompts, forced) -> list:
+def legacy_forced(torch, model, cfg, prompts, forced, memory=None,
+                  impl="cuda") -> list:
     """The legacy loop teacher forced: one ``prefill`` of the (B, S)
-    ``prompts`` for a horizon of S + n + 1, then a ``decode_step`` fed each
-    column of ``forced`` (B, n) in turn. Returns the n + 1 calls'
-    last-position logits, (B, Vp) in float32."""
+    ``prompts`` (with ``memory``, on the attention path ``impl``) for a
+    horizon of S + n + 1, then a ``decode_step`` fed each column of
+    ``forced`` (B, n) in turn. Returns the n + 1 calls' last-position
+    logits, (B, Vp) in float32."""
     from repro_torch.models import transformer as TT
     n = forced.shape[1]
     logits, cache = TT.prefill(model, prompts, cfg,
-                               max_len=prompts.shape[1] + n + 1)
+                               max_len=prompts.shape[1] + n + 1,
+                               memory=memory, attn_impl=impl)
     steps = [logits[:, -1].float()]
     for j in range(n):
         logits, cache = TT.decode_step(model, forced[:, j:j + 1], cache, cfg)
@@ -4431,10 +4595,10 @@ def _stepped_state(torch, model, cfg, tokens):
     ``mamba2_decode`` through them from zeros, one token at a time."""
     from repro_torch.models import ssm as SSM
     from repro_torch.models import transformer as TT
-    h = TT._embed(model, tokens, cfg)
+    pos = torch.arange(tokens.shape[1], device=model.device)
+    h = TT._embed(model, tokens, cfg, pos)
     if model.shared_attn is not None:
-        h = model.shared_attn(h, cfg, torch.arange(tokens.shape[1],
-                                                   device=h.device))
+        h = model.shared_attn(h, cfg, pos)
     xn = TT._norm(h, model.blocks[0].norm, cfg)
     din, gn, nh, k = SSM.mamba2_split_sizes(cfg)
     b = tokens.shape[0]
@@ -4515,8 +4679,8 @@ def hybrid_kernel_check(torch, model, cfg, dev, prompts, tag) -> None:
     from repro_torch.models import transformer as TT
     rel = lambda x, ref: ((x.float() - ref.float()).abs().max()
                           / ref.float().abs().max()).item()
-    h = TT._embed(model, prompts, cfg)
     pos = torch.arange(prompts.shape[1], device=dev)
+    h = TT._embed(model, prompts, cfg, pos)
     first = rel(model.shared_attn(h, cfg, pos),
                 model.shared_attn(h, cfg, pos, attn_impl="torch"))
     del h
@@ -4565,8 +4729,6 @@ def phase_llm_recurrent(torch, np, cfg, dev, tag) -> tuple:
     held against the plain attention (``hybrid_kernel_check``), and both
     run ``ssm_checks`` in f32. Returns the launch counts of the stream and
     of the f32 check."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.launch.serve_llm import legacy_generate
     from repro_torch.models import transformer as TT
     every = TT._shared_every(cfg)
@@ -4605,23 +4767,144 @@ def phase_llm_recurrent(torch, np, cfg, dev, tag) -> tuple:
             (toks >= 0) & (toks < cfg.vocab)).all():
         raise AssertionError(f"{tag}: bad completions {toks.shape}")
 
-    # where a decode step's time goes: one more step of the 8 sequences
-    tok = toks[:, -1:]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        TT.decode_step(model, tok, run["cache"], cfg)
-        torch.cuda.synchronize()
-        wall_us = (time.monotonic() - t0) * 1e6
-    device_profile(prof, wall_us, f"one {cfg.name} decode step of "
-                   f"{SSM_PROMPTS} sequences at position "
-                   f"{SSM_PROMPT_LEN + steps}", watch=("nvjet", "gemm"))
+    profile_decode_step(torch, model, cfg, toks[:, -1:], run["cache"])
     del run
     if every:
         hybrid_kernel_check(torch, model, cfg, dev, prompts, tag)
     del model
     torch.cuda.empty_cache()
     return launches, ssm_checks(torch, np, cfg, dev, prompts, tag)
+
+
+def profile_decode_step(torch, model, cfg, tok, cache) -> dict:
+    """Where a decode step's time goes: one more ``decode_step`` of the
+    legacy loop's sequences (``tok`` (B, 1), the loop's final ``cache``)
+    under the profiler: ``device_profile``'s busy share and top ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as TT
+    at = int(cache["pos"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        TT.decode_step(model, tok, cache, cfg)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    return device_profile(prof, wall_us, f"one {cfg.name} decode step of "
+                          f"{tok.shape[0]} sequences at position {at}",
+                          watch=("nvjet", "gemm"))
+
+
+def multimodal_check(torch, model, cfg, prompts, memory, forced, tag,
+                     rtol) -> dict:
+    """The legacy loop teacher forced (``legacy_forced``: a prefill and a
+    decode step a column of ``forced``) through the flash kernel and
+    through the plain attention on the same prompts and memory: every
+    call's logits within ``rtol`` of the largest |logit|. The counts are
+    zeroed before the kernel path and read after it: the flash forward's
+    route of ``cfg``'s compute dtype once an attention call of the
+    prefill. Returns those counts."""
+    zero_launches()
+    kernel = legacy_forced(torch, model, cfg, prompts, forced, memory, "cuda")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    plain = legacy_forced(torch, model, cfg, prompts, forced, memory,
+                          "torch")
+    worst, agree = 0.0, 0
+    for a, b in zip(kernel, plain):
+        a, b = a[:, :cfg.vocab], b[:, :cfg.vocab]
+        worst = max(worst, ((a - b).abs().max() / b.abs().max()).item())
+        agree += int(torch.equal(a.argmax(-1), b.argmax(-1)))
+    route = ("flash_attention" if cfg.compute_dtype == torch.bfloat16
+             else "flash_attention_f32")
+    log(f"[{tag}] {cfg.compute_dtype} at {cfg.n_layers} layers, "
+        f"{prompts.shape[0]} prompts, prefill + {forced.shape[1]} "
+        f"teacher-forced decode steps through the kernel and the plain "
+        f"attention: max |kernel - plain| logit {worst:.3e} of the largest "
+        f"|logit| (limit {rtol}); the greedy tokens agree at {agree} of "
+        f"{len(kernel)} calls; the kernel path's launches {launches}")
+    expect = _per_step(**{route: attention_calls(cfg)})
+    if launches != expect:
+        raise AssertionError(f"[{tag}] launches {launches} in a prefill, "
+                             f"expected {expect}")
+    if not worst <= rtol:
+        raise AssertionError(f"[{tag}] kernel and plain paths differ by "
+                             f"{worst}")
+    return launches
+
+
+def phase_llm_multimodal(torch, np, cfg, f32_layers, dev, tag) -> tuple:
+    """Phases 6g (llama-3.2-vision-90b, cut to VLM_GROUPS whole groups)
+    and 6h (whisper-base, whole) through the legacy loop, the reference's
+    only serving path for these families. Seeded weights with non-zero
+    gates and biases (``multimodal_model``); MM_PROMPTS prompts of
+    random tokens, then the memory stub from the same generator in the
+    compute dtype, as the example draws it (1600 x 8192 patch or 1500 x
+    512 frame embeddings a prompt). The counts are zeroed just before the
+    run and read just after: the flash forward's bf16 route once an
+    attention call of the prefill (vision: its cross and self layers;
+    whisper: the encoder's, and the decoder's self and cross layers), the
+    f32 route and the backward never. Prefill ms, decode ms a step, tok/s,
+    peak memory and one profiled decode step; then ``multimodal_check``
+    on 4 prompts in bf16 (LLM_RTOL), and at ``f32_layers`` layers in
+    float32 (MM_F32_RTOL). Returns the run's and the f32 check's counts."""
+    from repro_torch.launch.serve_llm import legacy_generate, memory_stub
+    s, new = MM_SERVE[cfg.name]
+    heads = VLM_HEADS if cfg.family == "vlm" else WHISPER_HEADS
+    if (cfg.n_heads, cfg.n_kv_heads, cfg.hd) != heads:
+        raise AssertionError(f"{cfg.name}'s heads are not phase 3's")
+    model = multimodal_model(torch, cfg, dev, tag)
+    rng = np.random.default_rng(19)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (MM_PROMPTS, s)),
+                              dtype=torch.int32, device=dev)
+    memory = memory_stub(cfg, MM_PROMPTS, rng, dev)
+    legacy_generate(model, cfg, prompts[:1, :32], 2,
+                    memory=memory[:1])                   # first-call warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.monotonic()
+    run = legacy_generate(model, cfg, prompts, new, memory=memory)
+    dt = time.monotonic() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    toks = run["tokens"]
+    steps = new - 1
+    finite = all(bool(torch.isfinite(x).all()) for x in run["logits"])
+    log(f"[{tag}] {MM_PROMPTS} prompts of {s} tokens, each with "
+        f"{memory.shape[1]} x {memory.shape[2]} {memory.dtype} memory "
+        f"embeddings, through the legacy loop, {new} new tokens each, in "
+        f"{dt:.4f} s: {toks.numel()} tokens, {toks.numel() / dt:.1f} tok/s; "
+        f"prefill {run['prefill_ms']:.4f} ms, decode "
+        f"{run['decode_ms'] / steps:.4f} ms a step "
+        f"({MM_PROMPTS * steps / run['decode_ms'] * 1e3:.1f} tok/s over the "
+        f"{steps} decode steps); finite logits {finite}; launches "
+        f"{launches}; peak device memory {peak / 2**30:.3f} GiB")
+    expect = _per_step(flash_attention=attention_calls(cfg))
+    if launches != expect:
+        raise AssertionError(f"kernel launches {launches} on the {tag} "
+                             f"path, expected {expect}")
+    if toks.shape != (MM_PROMPTS, new) or not finite or not (
+            (toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"{tag}: bad completions {toks.shape}")
+    profile_decode_step(torch, model, cfg, toks[:, -1:], run["cache"])
+    n = MM_CHECK_PROMPTS
+    forced = toks[:n, :MM_CHECK_STEPS]
+    del run
+    multimodal_check(torch, model, cfg, prompts[:n], memory[:n], forced,
+                     tag, LLM_RTOL)
+    del model
+    torch.cuda.empty_cache()
+    c32 = dataclasses.replace(cfg, n_layers=f32_layers,
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    model = multimodal_model(torch, c32, dev, f"{tag}-f32")
+    f32 = multimodal_check(torch, model, c32, prompts[:n],
+                           memory[:n].float(), forced, f"{tag}-f32",
+                           MM_F32_RTOL)
+    del model
+    torch.cuda.empty_cache()
+    return launches, f32
 
 
 LLM_TRAIN_BF16_BATCH = 4
@@ -4798,24 +5081,30 @@ PEAK_LIMIT_GIB = 70
 
 def attention_calls(cfg) -> int:
     """Full-sequence attention calls in one forward: a layer each (dense
-    and MoE), the shared block's applications (hybrid), none (ssm)."""
+    and MoE; the vlm's cross and self layers alike), the shared block's
+    applications (hybrid), none (ssm), and for whisper the encoder's
+    layers and two a decoder layer (self and cross)."""
     if cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.shared_attn_every
+    if cfg.family == "audio":
+        return cfg.encoder.n_layers + 2 * cfg.n_layers
     return cfg.n_layers
 
 
-def _family_grads(torch, model, cfg, toks, tgts, impl, force=None):
-    """``loss_and_grads`` through ``impl`` with every MoE call's route
-    recorded (replaying ``force``'s): (loss, grads, ms, routes)."""
+def _family_grads(torch, model, cfg, toks, tgts, impl, force=None,
+                  memory=None):
+    """``loss_and_grads`` (with ``memory``) through ``impl`` with every MoE
+    call's route recorded (replaying ``force``'s): (loss, grads, ms,
+    routes)."""
     from repro_torch.launch import train_transformer as TTR
     from repro_torch.models import moe as M
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with M.RouteLog(force=force) as routes:
         loss, grads = TTR.loss_and_grads(model, toks, tgts, cfg,
-                                         attn_impl=impl)
+                                         memory=memory, attn_impl=impl)
         loss = loss.item()
     return loss, grads, (time.perf_counter() - t0) * 1e3, routes.routes
 
@@ -4922,30 +5211,41 @@ def family_bf16_gradient(torch, cfg, dev, tag, batch,
         _first_step_check(torch, tag, loss_k, grads_k, loss_p, grads_p,
                           LLM_LOSS_BF16_RTOL, BF16_TOL)
     else:
-        rel = abs(loss_k - loss_p) / abs(loss_p)
-        between, where = worst_leaf(grads_k, grads_p)
-        e_kernel, e_plain = (grad_distance(grads_k, g32),
-                             grad_distance(grads_p, g32))
-        (w_kernel, at_k), (w_plain, at_p) = (worst_leaf(grads_k, g32),
-                                             worst_leaf(grads_p, g32))
-        log(f"[{tag}] loss {loss_k:.7f} vs {loss_p:.7f} (rel {rel:.3e}, "
-            f"limit {LLM_LOSS_BF16_RTOL}; float32 {loss32:.7f}); the worst "
-            f"leaf between the two paths {between:.3e} of its largest "
-            f"|plain| ({where}); from the float32 weights' gradient the "
-            f"kernel path is {e_kernel:.3e} and the plain path "
-            f"{e_plain:.3e} (relative L2 over every leaf; limit "
-            f"{HYBRID_EXCESS} times the plain path's), their worst leaves "
-            f"{w_kernel:.3e} ({at_k}) and {w_plain:.3e} ({at_p})")
-        if not (rel <= LLM_LOSS_BF16_RTOL
-                and e_kernel <= HYBRID_EXCESS * e_plain):
-            raise AssertionError(f"[{tag}] kernel and plain attention "
-                                 f"differ: loss {rel}, {e_kernel} against "
-                                 f"{e_plain} from float32")
+        l2_from_f32_check(tag, loss_k, grads_k, loss_p, grads_p, loss32, g32)
         del g32
     _peak_gib(torch, tag, "the gradients")
     del model, grads_k, grads_p, routes, replayed
     torch.cuda.empty_cache()
     return launches
+
+
+def l2_from_f32_check(tag, loss_k, grads_k, loss_p, grads_p, loss32,
+                      g32) -> None:
+    """A bf16 gradient held by its distance from float32: the two paths'
+    losses within 1e-2 relative, and the kernel path's relative L2
+    distance from the float32 gradient ``g32`` (``grad_distance`` over
+    every leaf; its leaves may lie on the host) at most HYBRID_EXCESS
+    times the plain path's; the worst leaf between the paths and each
+    path's worst leaf from float32 printed."""
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    between, where = worst_leaf(grads_k, grads_p)
+    e_kernel, e_plain = (grad_distance(grads_k, g32),
+                         grad_distance(grads_p, g32))
+    (w_kernel, at_k), (w_plain, at_p) = (worst_leaf(grads_k, g32),
+                                         worst_leaf(grads_p, g32))
+    log(f"[{tag}] loss {loss_k:.7f} vs {loss_p:.7f} (rel {rel:.3e}, "
+        f"limit {LLM_LOSS_BF16_RTOL}; float32 {loss32:.7f}); the worst "
+        f"leaf between the two paths {between:.3e} of its largest "
+        f"|plain| ({where}); from the float32 weights' gradient the "
+        f"kernel path is {e_kernel:.3e} and the plain path "
+        f"{e_plain:.3e} (relative L2 over every leaf; limit "
+        f"{HYBRID_EXCESS} times the plain path's), their worst leaves "
+        f"{w_kernel:.3e} ({at_k}) and {w_plain:.3e} ({at_p})")
+    if not (rel <= LLM_LOSS_BF16_RTOL
+            and e_kernel <= HYBRID_EXCESS * e_plain):
+        raise AssertionError(f"[{tag}] kernel and plain attention "
+                             f"differ: loss {rel}, {e_kernel} against "
+                             f"{e_plain} from float32")
 
 
 def family_f32_first_step(torch, cfg, dev, tag, batch, model,
@@ -5159,6 +5459,131 @@ def phase_llm_train_recurrent(torch, np, dev) -> tuple:
     return ssm, hybrid_bf16, hybrid
 
 
+def f32_rowwise_grads(torch, cfg, dev, tag, toks, tgts, memory) -> tuple:
+    """The loss and gradient of ``cfg``'s seeded weights (``multimodal_model``)
+    drawn in float32, through the plain attention, on the host: one row of
+    the batch at a time, the rows' gradients averaged (the loss is a mean
+    over rows of equal length), so that the device holds one row's
+    activations beside the float32 weights and gradient."""
+    from repro_torch import tree as tree_util
+    c32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    m32 = multimodal_model(torch, c32, dev, f"{tag}-f32", trainable=True)
+    b = toks.shape[0]
+    loss32, total = 0.0, None
+    for i in range(b):
+        loss, grads, _, _ = _family_grads(
+            torch, m32, c32, toks[i:i + 1], tgts[i:i + 1], "torch",
+            memory=None if memory is None else memory[i:i + 1].float())
+        loss32 += loss / b
+        if total is None:
+            total = tree_util.tree_map(lambda t: t.detach().cpu(), grads)
+        else:
+            for acc, g in zip(tree_util.leaves(total),
+                              tree_util.leaves(grads)):
+                acc.add_(g.detach().cpu())
+        del grads
+    _peak_gib(torch, tag, f"the float32 gradient, {b} rows one at a time")
+    for acc in tree_util.leaves(total):
+        acc.div_(b)
+    del m32
+    torch.cuda.empty_cache()
+    return loss32, total
+
+
+def multimodal_gradient(torch, np, cfg, dev, tag, batch,
+                        from_f32=False) -> dict:
+    """One ``loss_and_grads(memory=)`` of ``cfg`` at its published width
+    (``multimodal_model``'s seeded weights, trainable; a ``TokenStream``
+    batch of ``batch`` = (b, s) and the memory stub of b rows) through the
+    kernels, then through the plain attention: in bf16 the loss within
+    1e-2 relative and every leaf within 5e-2 of its largest |plain|, in
+    float32 1e-5 and 1e-4; the gates' and the encoder's leaves among them.
+    With ``from_f32`` the bf16 gradient is held by its distance from the
+    float32 gradient of the same seeded weights (``f32_rowwise_grads``,
+    ``l2_from_f32_check``) instead: llama-3.2-vision's bf16 leaves part
+    beyond 5e-2 where a sum over the tokens cancels (a norm's scale;
+    PERF.md section 6). The counts are zeroed just before the
+    kernel pass and read just after: the flash forward's and backward's
+    routes of the compute dtype once an attention call each. The peak
+    device memory stays under 70 GiB. Returns the kernel pass's counts."""
+    from repro_torch.launch import train_transformer as TTR
+    from repro_torch.launch.serve_llm import memory_stub
+    bf16 = cfg.compute_dtype == torch.bfloat16
+    torch.cuda.reset_peak_memory_stats()
+    toks, tgts = llm_batch(torch, cfg, dev, *batch)
+    memory = memory_stub(cfg, batch[0], np.random.default_rng(23), dev)
+    if from_f32:
+        loss32, g32 = f32_rowwise_grads(torch, cfg, dev, tag, toks, tgts,
+                                        memory)
+        torch.cuda.reset_peak_memory_stats()
+    model = multimodal_model(torch, cfg, dev, tag, trainable=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    TTR.loss_and_grads(model, toks[:, :128], tgts[:, :128], cfg,
+                       memory=memory)                    # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    loss_k, grads_k, ms_k, _ = _family_grads(torch, model, cfg, toks, tgts,
+                                             "cuda", memory=memory)
+    launches = read_launches()
+    loss_p, grads_p, ms_p, _ = _family_grads(torch, model, cfg, toks, tgts,
+                                             "torch", memory=memory)
+    n = attention_calls(cfg)
+    log(f"[{tag}] {cfg.name} {cfg.compute_dtype} at {cfg.n_layers} layers "
+        f"({n_params} parameters), one gradient of {batch[0]} x {batch[1]} "
+        f"tokens with {memory.shape[1]} x {memory.shape[2]} memory "
+        f"embeddings a row: {ms_k:.1f} ms through the kernels, {ms_p:.1f} "
+        f"ms through the plain attention; launches {launches}")
+    route = "" if bf16 else "_f32"
+    expect = _per_step(**{f"flash_attention{route}": n,
+                          f"flash_attention_bwd{route}": n})
+    if launches != expect:
+        raise AssertionError(f"[{tag}] launches {launches} in a gradient, "
+                             f"expected {expect}")
+    gates = [(k, grads_k["cross_blocks"][k][0].item())
+             for k in ("gate_attn", "gate_mlp")] if cfg.family == "vlm" \
+        else []
+    if gates:
+        log(f"[{tag}] the first cross layer's gate gradients, kernel path: "
+            f"{gates}")
+    if from_f32:
+        l2_from_f32_check(tag, loss_k, grads_k, loss_p, grads_p, loss32, g32)
+        del g32
+    elif bf16:
+        _first_step_check(torch, tag, loss_k, grads_k, loss_p, grads_p,
+                          LLM_LOSS_BF16_RTOL, BF16_TOL)
+    else:
+        _first_step_check(torch, tag, loss_k, grads_k, loss_p, grads_p)
+    _peak_gib(torch, tag, "the gradients")
+    del model, grads_k, grads_p, memory
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_llm_train_multimodal(torch, np, dev) -> tuple:
+    """Phase 7d: the VLM and audio families' gradient at their published
+    widths, the reference's only training of them (its dry run's
+    ``train_step``): (i) llama-3.2-vision-90b at one whole group (a cross
+    and 4 self layers, 6.38 B parameters) in bf16 on 2 x 2048 tokens with
+    2 x 1600 patch embeddings, held by its distance from float32; (ii) whisper-base whole in float32 on 8 x
+    448 tokens with 8 x 1500 frames, then (iii) the same in bf16. Returns
+    the launch counts of (i), (ii) and (iii)."""
+    from repro_torch.configs import get_config
+    vision = get_config("llama-3.2-vision-90b")
+    vision = dataclasses.replace(
+        vision, n_layers=vision.cross_attn_every * VLM_F32_GROUPS)
+    whisper = get_config("whisper-base")
+    f32 = dict(param_dtype=torch.float32, compute_dtype=torch.float32)
+    return (multimodal_gradient(torch, np, vision, dev,
+                                "llm-train-multimodal", VLM_TRAIN_BATCH,
+                                from_f32=True),
+            multimodal_gradient(torch, np, dataclasses.replace(whisper, **f32),
+                                dev, "llm-train-multimodal",
+                                WHISPER_TRAIN_BATCH),
+            multimodal_gradient(torch, np, whisper, dev,
+                                "llm-train-multimodal", WHISPER_TRAIN_BATCH))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--vertices", type=int, default=2_449_029,
@@ -5249,6 +5674,14 @@ def main() -> int:
         torch, np, get_config("mamba2-780m"), dev, "llm-ssm")
     by_path["llm_hybrid"], by_path["llm_hybrid_f32"] = phase_llm_recurrent(
         torch, np, get_config("zamba2-2.7b"), dev, "llm-hybrid")
+    vision = get_config("llama-3.2-vision-90b")
+    by_path["llm_vlm"], by_path["llm_vlm_f32"] = phase_llm_multimodal(
+        torch, np, dataclasses.replace(
+            vision, n_layers=vision.cross_attn_every * VLM_GROUPS),
+        vision.cross_attn_every * VLM_F32_GROUPS, dev, "llm-vlm")
+    whisper = get_config("whisper-base")
+    by_path["llm_audio"], by_path["llm_audio_f32"] = phase_llm_multimodal(
+        torch, np, whisper, whisper.n_layers, dev, "llm-audio")
     by_path["llm_train_bf16"], by_path["llm_train"] = phase_llm_train(
         torch, np, get_config("tinyllama-1.1b"), dev)
     torch.cuda.empty_cache()
@@ -5257,6 +5690,9 @@ def main() -> int:
                                                                 dev)
     (by_path["llm_train_ssm"], by_path["llm_train_hybrid_bf16"],
      by_path["llm_train_hybrid"]) = phase_llm_train_recurrent(torch, np, dev)
+    (by_path["llm_train_vlm_bf16"], by_path["llm_train_audio"],
+     by_path["llm_train_audio_bf16"]) = phase_llm_train_multimodal(torch, np,
+                                                                   dev)
     # each kernel's launches on the path that runs it, each route of the
     # tail and of flash from its own count (the training path's tails take
     # the vector route and draw from the counter; LLM serving runs flash in
@@ -5265,7 +5701,9 @@ def main() -> int:
     # 0; the MoE phases run flash in bf16 in their streams and waves, and
     # in f32 in 6c's f32 check; phase 6's legacy loop runs flash in bf16;
     # mamba2 (6e) runs no kernel, zamba2 (6f) flash in bf16 at hd 80 in its
-    # stream and in f32 in its check)
+    # stream and in f32 in its check; vision (6g) and whisper (6h) flash in
+    # bf16 in their runs and in f32 in their checks, and 7d both routes of
+    # the forward and the backward at their cross-attention shapes)
     main_path = {"extract_dense_fused": "train",
                  "extract_dense_fused_bf16": "train_bf16",
                  "spmm_ell_bf16_f32": "train_bf16",

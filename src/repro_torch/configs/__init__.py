@@ -4,9 +4,8 @@ transformer registry (``--arch <id>``, counterpart of
 
 Each transformer module exposes ``config()`` (the published numbers, cited
 in its docstring) and ``smoke()`` (a reduced same-family variant for the
-CPU tests). The port has the reference's dense, MoE, SSM and hybrid
-models; every other id of the reference's registry raises, naming the
-ROADMAP item that ports it.
+CPU tests). The port has every model of the reference's registry: the
+dense, MoE, SSM, hybrid, VLM and audio families.
 """
 from __future__ import annotations
 
@@ -45,24 +44,9 @@ INPUT_SHAPES: Dict[str, InputShape] = {
     "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
 }
 
-PORTED_IDS = ("tinyllama-1.1b", "qwen2-0.5b", "internlm2-1.8b",
-              "command-r-plus-104b", "mixtral-8x7b",
-              "llama4-scout-17b-a16e", "mamba2-780m", "zamba2-2.7b")
-
-# the part of ROADMAP queue 1, "The LLM stack beyond the dense serving
-# path", that ports each id
-_TODO = {
-    "llama-3.2-vision-90b": "VLM and audio",
-    "whisper-base": "VLM and audio",
-}
-
 
 def _module(arch: str):
-    if arch in _TODO:
-        raise NotImplementedError(
-            f"{arch} is not ported yet: ROADMAP queue 1, \"The LLM stack "
-            f"beyond the dense serving path\" ({_TODO[arch]})")
-    if arch not in PORTED_IDS:
+    if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     name = arch.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{name}")

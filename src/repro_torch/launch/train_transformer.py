@@ -20,12 +20,18 @@ mixed carry types. The port's AdamW updates in place and would keep bf16,
 a result the reference never gives, so :func:`train` refuses any other
 ``param_dtype``. A bf16 gradient (:func:`loss_and_grads`) is fine.
 
-Every family the port serves trains: dense, MoE (mixtral, llama4-scout:
-the gradient flows through the capacity dispatch, a dropped pair giving
-none, and the auxiliary loss), SSM (mamba2: through the chunked SSD) and
-hybrid (zamba2: the shared block's gradient summed over its
-applications, its attention's backward at head dim 80). VLM and audio
-configs raise in ``forward_train``.
+Every decoder-only family trains: dense, MoE (mixtral, llama4-scout: the
+gradient flows through the capacity dispatch, a dropped pair giving none,
+and the auxiliary loss), SSM (mamba2: through the chunked SSD) and hybrid
+(zamba2: the shared block's gradient summed over its applications, its
+attention's backward at head dim 80). The VLM and audio families
+(llama-3.2-vision, whisper) have a gradient, :func:`loss_and_grads` with
+their ``memory`` (the reference's dry-run ``train_step`` takes
+``jax.value_and_grad`` of ``forward_train(memory=)``): it reaches the
+cross layers' gates and whisper's encoder, through the flash backward at
+the cross-attention's and the encoder's shapes. :func:`train` and the CLI
+refuse them with the example's message, as the reference has no training
+loop for them.
 """
 from __future__ import annotations
 
@@ -63,8 +69,13 @@ class LMTrainLog:
 
 
 def _check_trainable(cfg: ModelConfig) -> None:
-    """Raise unless the reference can train ``cfg`` for more than one
-    step: its params must be float32 (module docstring)."""
+    """Raise unless the reference trains ``cfg``: a decoder-only family
+    (its example refuses the others), and float32 params (module
+    docstring)."""
+    if cfg.family in TT.MEMORY_FAMILIES:
+        raise ValueError(f"{cfg.name}: LM pretraining example targets "
+                         "decoder-only families; the multimodal stubs are "
+                         "exercised by the dry-run and smoke tests")
     if cfg.param_dtype != torch.float32:
         raise ValueError(
             f"train: param_dtype {cfg.param_dtype} is not float32. The "
@@ -76,12 +87,15 @@ def _check_trainable(cfg: ModelConfig) -> None:
 
 def loss_and_grads(params: TT.Transformer, tokens: torch.Tensor,
                    targets: torch.Tensor, cfg: ModelConfig, *,
+                   memory: Optional[torch.Tensor] = None,
                    attn_impl: str = "cuda"):
     """``lm_loss(forward_train(...)) + 0.01 * aux`` and its gradients, as
     ``(loss, grads)`` with ``grads`` in the layout of
-    ``TT.param_tree(params)``."""
+    ``TT.param_tree(params)`` (every leaf: for the vlm and audio families,
+    which need ``memory``, the gates and the encoder too)."""
     tree = TT.param_tree(params)
-    logits, aux = TT.forward_train(params, tokens, cfg, attn_impl=attn_impl)
+    logits, aux = TT.forward_train(params, tokens, cfg, memory=memory,
+                                   attn_impl=attn_impl)
     loss = TT.lm_loss(logits, targets, cfg.vocab) + AUX_WEIGHT * aux
     grads = torch.autograd.grad(loss, tree_util.leaves(tree))
     return loss.detach(), tree_util.unflatten(tree, list(grads))
@@ -175,6 +189,7 @@ def main(argv=None) -> LMTrainLog:
     args = ap.parse_args(argv)
 
     cfg = get_smoke(args.arch)
+    _check_trainable(cfg)
     print(f"training {cfg.name} ({cfg.family}) on synthetic tokens")
     log = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                 device=args.device, ckpt_dir=args.ckpt_dir)

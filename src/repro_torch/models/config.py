@@ -3,10 +3,9 @@
 
 One frozen dataclass describes a model; every config in
 ``repro_torch/configs/`` instantiates it with the published numbers. The
-port runs the dense, MoE, SSM and hybrid families
-(``models/transformer.py``, ``models/moe.py``, ``models/ssm.py``); the
-encoder and cross-attention settings are carried as plain data so that
-every config reads.
+port runs all six families (``models/transformer.py``, ``models/moe.py``,
+``models/ssm.py``): dense, MoE, SSM, hybrid, VLM (``cross_attn_every``,
+``n_image_tokens``) and audio (``encoder``).
 """
 from __future__ import annotations
 

@@ -130,17 +130,20 @@ def decode_attention(
     """Single-token attention over a (possibly ring) KV cache, in float32.
     Slots below ``min(cache_len, T)`` hold data, which covers a ring buffer
     that has wrapped (every slot valid) and one that has not, so the
-    reference's ``ring`` flag is not an argument."""
+    reference's ``ring`` flag is not an argument. An int ``cache_len`` of
+    at least T (a cross K/V, every entry valid) masks nothing, and reads
+    nothing from the host."""
     b, _, h, hd = q.shape
     t, kv = k_cache.shape[1], k_cache.shape[2]
     g = h // kv
     scale = hd ** -0.5
     qg = q.reshape(b, kv, g, hd).float()
     s = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.float()) * scale
-    slot = torch.arange(t, device=q.device)
-    cl = torch.as_tensor(cache_len, device=q.device)
-    valid = slot[None] < torch.clamp(cl, max=t)               # (1|B, T)
-    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    if not (isinstance(cache_len, int) and cache_len >= t):
+        slot = torch.arange(t, device=q.device)
+        cl = torch.as_tensor(cache_len, device=q.device)
+        valid = slot[None] < torch.clamp(cl, max=t)           # (1|B, T)
+        s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", p, v_cache.float())
     return out.reshape(b, 1, h, hd).to(q.dtype)
@@ -177,6 +180,27 @@ def attention_block(
         k = rope(k, positions, rope_theta)
     out = blockwise_attention(q, k, v, causal=causal, window=window,
                               attn_impl=attn_impl)
+    y = out.reshape(b, s, n_heads * hd) @ p["wo"]
+    return (y, (k, v)) if return_kv else y
+
+
+def cross_attention_block(
+    p: Mapping, x: torch.Tensor, kv_src: torch.Tensor, *, n_heads: int,
+    n_kv: int, hd: int, attn_impl: str = "cuda", return_kv: bool = False,
+):
+    """Cross-attention (the VLM's image layers, whisper's decoder): q from
+    ``x``, k and v from the memory ``kv_src``, no RoPE and no mask, no
+    bias (the reference's projections have none). The reference's
+    ``kv_block`` halving only picks its scan's block for a memory that is
+    no multiple of 512; the kernels stage 64-key blocks of any T, so it is
+    not an argument. With ``return_kv`` also returns ``(k, v)``, so that a
+    prefill projects the memory once for its cache."""
+    b, s, _ = x.shape
+    t = kv_src.shape[1]
+    q = (x @ p["wq"]).reshape(b, s, n_heads, hd)
+    k = (kv_src @ p["wk"]).reshape(b, t, n_kv, hd)
+    v = (kv_src @ p["wv"]).reshape(b, t, n_kv, hd)
+    out = blockwise_attention(q, k, v, causal=False, attn_impl=attn_impl)
     y = out.reshape(b, s, n_heads * hd) @ p["wo"]
     return (y, (k, v)) if return_kv else y
 

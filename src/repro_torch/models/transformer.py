@@ -1,32 +1,40 @@
-"""Decoder-only language models: init, weights from the reference, the
-full-sequence forward (for serving and, with gradients, for training), the
-LM loss, the scalar-pos decode cache (``prefill`` / ``decode_step``) and
-the slot-indexed KV cache of LLM serving.
+"""Language models: init, weights from the reference, the full-sequence
+forward (for serving and, with gradients, for training), the LM loss, the
+scalar-pos decode cache (``prefill`` / ``decode_step``) and the
+slot-indexed KV cache of LLM serving.
 
-Counterpart of ``repro/models/transformer.py`` for the ``dense`` family
-(llama-style: pre-norm attention and MLP blocks, RoPE, GQA; qwen2's QKV
-bias and tied embeddings), the ``moe`` family (mixtral, llama4-scout: the
-MLP replaced by ``models/moe.py``'s capacity-dispatched experts), the
-``ssm`` family (mamba2: pre-norm Mamba2 blocks of ``models/ssm.py``) and
-the ``hybrid`` family (zamba2: Mamba2 blocks with one weight-shared
-attention and MLP block applied before every ``shared_attn_every`` of
-them). The ``vlm`` and ``audio`` families raise ``NotImplementedError``
-naming their ROADMAP item.
+Counterpart of ``repro/models/transformer.py`` for all six of its
+families: ``dense`` (llama-style: pre-norm attention and MLP blocks, RoPE,
+GQA; qwen2's QKV bias and tied embeddings), ``moe`` (mixtral,
+llama4-scout: the MLP replaced by ``models/moe.py``'s capacity-dispatched
+experts), ``ssm`` (mamba2: pre-norm Mamba2 blocks of ``models/ssm.py``),
+``hybrid`` (zamba2: Mamba2 blocks with one weight-shared attention and MLP
+block applied before every ``shared_attn_every`` of them), ``vlm``
+(llama-3.2-vision: a gated cross-attention layer to the given image
+embeddings before each group of self layers) and ``audio`` (whisper: a
+non-causal encoder over the given frame embeddings, then decoder layers of
+causal self-attention, cross-attention to the encoder's output and an
+MLP; absolute sinusoidal positions in place of RoPE). The vlm and audio
+families take that ``memory`` in ``forward_train`` and ``prefill``, and
+``prefill`` projects its cross K/V once into the cache.
 
 The model is an ``nn.Module`` (:class:`Transformer`) holding one
-:class:`DenseBlock` (:class:`MoEBlock`, :class:`MambaBlock`) per layer,
-and zamba2's :class:`SharedAttnBlock` once, where the reference stacks
-every layer leaf with a leading L dim and scans over it; the public
-functions keep the reference's names and arguments (``params`` is the
-module). Weights carry no gradient unless built with ``trainable=True``;
+:class:`DenseBlock` (:class:`MoEBlock`, :class:`MambaBlock`,
+:class:`AudioBlock`) per layer, zamba2's :class:`SharedAttnBlock` once,
+the VLM's :class:`CrossBlock` per group and whisper's
+:class:`EncoderBlock` per encoder layer, where the reference stacks every
+layer leaf with a leading L dim and scans over it; the public functions
+keep the reference's names and arguments (``params`` is the module).
+Weights carry no gradient unless built with ``trainable=True``;
 :func:`param_tree` lays them out in the reference's pytree order for the
 optimizer.
 
-Full-sequence attention goes through the CUDA flash kernels, forward and
-backward (``attn_impl="cuda"``, the default), or their plain versions
-(``attn_impl="torch"``); decode attention is plain PyTorch in float32 on
-both. Unlike the reference, which returns a new cache, the decode caches
-are updated in place: :func:`decode_step`, :func:`prefill_into_slot` and
+Full-sequence attention (self, cross and encoder) goes through the CUDA
+flash kernels, forward and backward (``attn_impl="cuda"``, the default),
+or their plain versions (``attn_impl="torch"``); decode attention, over
+the self and the cross K/V alike, is plain PyTorch in float32 on both.
+Unlike the reference, which returns a new cache, the decode caches are
+updated in place: :func:`decode_step`, :func:`prefill_into_slot` and
 :func:`decode_step_slots` write into ``cache`` and return that same dict
 (:func:`prefill` returns the cache it filled).
 """
@@ -47,23 +55,17 @@ from repro_torch.obs import phase
 
 Cache = Dict[str, Any]
 
-LLM_ITEM = '"The LLM stack beyond the dense serving path"'
-
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-# the part of ROADMAP queue 1, "The LLM stack beyond the dense serving
-# path", that ports each other family
-_FAMILY_TODO = {
-    "vlm": "VLM and audio",
-    "audio": "VLM and audio",
-}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+# the families whose forward takes a memory: image embeddings (vlm) or
+# frame embeddings, run through the encoder (audio)
+MEMORY_FAMILIES = ("vlm", "audio")
+# leaves kept in float32 whatever ``param_dtype`` is, as in the reference
+F32_LEAVES = SSM.F32_LEAVES + ("gate_attn", "gate_mlp")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet: ROADMAP queue 1, "
-            f'{LLM_ITEM} ({_FAMILY_TODO.get(cfg.family, cfg.family)})')
+        raise ValueError(f"unknown family {cfg.family!r}; known: {FAMILIES}")
 
 
 def _pdict(leaves: Mapping, trainable: bool) -> nn.ParameterDict:
@@ -194,9 +196,126 @@ class SharedAttnBlock(nn.Module):
         return h + L.mlp_block(self.mlp, _norm(h, self.norm2, cfg), cfg.mlp)
 
 
+class EncoderBlock(DenseBlock):
+    """whisper's encoder layer: a :class:`DenseBlock`'s groups, its
+    self-attention over the frames without a mask and without RoPE."""
+
+    def forward(self, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor, *, attn_impl: str = "cuda"):
+        h = x + L.attention_block(
+            self.attn, _norm(x, self.norm1, cfg), n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, hd=cfg.hd, rope_theta=None,
+            positions=positions, causal=False, attn_impl=attn_impl)
+        return h + L.mlp_block(self.mlp, _norm(h, self.norm2, cfg), cfg.mlp)
+
+
+class CrossBlock(nn.Module):
+    """The VLM's gated cross-attention layer, run before each group of
+    self layers: ``norm1`` -> cross-attention to the image embeddings ->
+    ``h + tanh(gate_attn) * .``, ``norm2`` -> MLP -> ``h + tanh(gate_mlp)
+    * .``. The gates are 0-d float32 leaves (the reference stacks them as
+    (n_cross,)), zero at init, so that a fresh layer adds nothing."""
+
+    GROUPS = ("attn", "mlp", "norm1", "norm2", "gate_attn", "gate_mlp")
+
+    def __init__(self, attn: Mapping, mlp: Mapping, norm1: Mapping,
+                 norm2: Mapping, gate_attn: torch.Tensor,
+                 gate_mlp: torch.Tensor, trainable: bool = False):
+        super().__init__()
+        for name, leaves in zip(self.GROUPS[:4], (attn, mlp, norm1, norm2)):
+            setattr(self, name, _pdict(leaves, trainable))
+        self.gate_attn = nn.Parameter(gate_attn, requires_grad=trainable)
+        self.gate_mlp = nn.Parameter(gate_mlp, requires_grad=trainable)
+
+    @classmethod
+    def groups(cls) -> tuple:
+        return cls.GROUPS
+
+    def _gated_mlp(self, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+        m = L.mlp_block(self.mlp, _norm(h, self.norm2, cfg), cfg.mlp)
+        return h + torch.tanh(self.gate_mlp).to(h.dtype) * m
+
+    def forward(self, x: torch.Tensor, cfg: ModelConfig,
+                memory: torch.Tensor, *, attn_impl: str = "cuda",
+                return_kv: bool = False):
+        """``h``, or ``(h, (k, v))`` with ``return_kv``: the memory's
+        cross K/V, for the decode cache."""
+        a = L.cross_attention_block(
+            self.attn, _norm(x, self.norm1, cfg), memory,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
+            attn_impl=attn_impl, return_kv=return_kv)
+        a, kv = a if return_kv else (a, None)
+        h = self._gated_mlp(x + torch.tanh(self.gate_attn).to(x.dtype) * a,
+                            cfg)
+        return (h, kv) if return_kv else h
+
+    def decode(self, x: torch.Tensor, cfg: ModelConfig,
+               k_layer: torch.Tensor, v_layer: torch.Tensor) -> torch.Tensor:
+        """One token a row against the layer's cross K/V cache."""
+        a = _cross_decode(self.attn, _norm(x, self.norm1, cfg), k_layer,
+                          v_layer, cfg)
+        return self._gated_mlp(x + torch.tanh(self.gate_attn).to(x.dtype)
+                               * a, cfg)
+
+
+class AudioBlock(nn.Module):
+    """whisper's decoder layer: ``norm1`` -> causal self-attention (no
+    RoPE: the positions are in the embedding) -> residual, ``norm2`` ->
+    cross-attention to the encoder's output -> residual, ``norm3`` -> MLP
+    -> residual."""
+
+    GROUPS = ("attn", "cross", "mlp", "norm1", "norm2", "norm3")
+
+    def __init__(self, attn: Mapping, cross: Mapping, mlp: Mapping,
+                 norm1: Mapping, norm2: Mapping, norm3: Mapping,
+                 trainable: bool = False):
+        super().__init__()
+        for name, leaves in zip(self.GROUPS,
+                                (attn, cross, mlp, norm1, norm2, norm3)):
+            setattr(self, name, _pdict(leaves, trainable))
+
+    @classmethod
+    def groups(cls) -> tuple:
+        return cls.GROUPS
+
+    def forward(self, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor, memory: torch.Tensor, *,
+                attn_impl: str = "cuda", return_kv: bool = False):
+        """``h``, or ``(h, (k, v), (cross k, cross v))`` with
+        ``return_kv``."""
+        a = L.attention_block(
+            self.attn, _norm(x, self.norm1, cfg), n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, hd=cfg.hd, rope_theta=cfg.rope_theta,
+            positions=positions, causal=True, attn_impl=attn_impl,
+            return_kv=return_kv)
+        a, kv = a if return_kv else (a, None)
+        h = x + a
+        c = L.cross_attention_block(
+            self.cross, _norm(h, self.norm2, cfg), memory,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
+            attn_impl=attn_impl, return_kv=return_kv)
+        c, ckv = c if return_kv else (c, None)
+        h = h + c
+        h = h + L.mlp_block(self.mlp, _norm(h, self.norm3, cfg), cfg.mlp)
+        return (h, kv, ckv) if return_kv else h
+
+    def decode(self, x: torch.Tensor, cfg: ModelConfig,
+               kv: Mapping, cross_kv: Mapping, i: int,
+               pos: torch.Tensor) -> torch.Tensor:
+        """One token a row at the scalar position ``pos``: layer ``i``'s
+        K/V written into ``kv`` in place, its cross K/V read."""
+        h = x + _attn_decode_slots(self.attn, _norm(x, self.norm1, cfg),
+                                   kv["k"][i], kv["v"][i],
+                                   pos.expand(x.shape[0]), cfg,
+                                   cfg.rope_theta)
+        h = h + _cross_decode(self.cross, _norm(h, self.norm2, cfg),
+                              cross_kv["k"][i], cross_kv["v"][i], cfg)
+        return h + L.mlp_block(self.mlp, _norm(h, self.norm3, cfg), cfg.mlp)
+
+
 def _block_class(cfg: ModelConfig) -> type:
-    return {"moe": MoEBlock, "ssm": MambaBlock,
-            "hybrid": MambaBlock}.get(cfg.family, DenseBlock)
+    return {"moe": MoEBlock, "ssm": MambaBlock, "hybrid": MambaBlock,
+            "audio": AudioBlock}.get(cfg.family, DenseBlock)
 
 
 def _shared_every(cfg: ModelConfig) -> Optional[int]:
@@ -211,21 +330,51 @@ def _shared_every(cfg: ModelConfig) -> Optional[int]:
     return k
 
 
+def _cross_groups(cfg: ModelConfig) -> tuple:
+    """The vlm family's ``(n_cross, per)``: one cross layer every
+    ``cross_attn_every`` layers, each followed by ``per`` self layers (the
+    self layers must split evenly, as the reference asserts)."""
+    k = cfg.cross_attn_every
+    n_cross = cfg.n_layers // k if k else 0
+    if not n_cross or (cfg.n_layers - n_cross) % n_cross:
+        raise ValueError(f"{cfg.name}: cross_attn_every={k} does not split "
+                         f"{cfg.n_layers} layers into whole groups")
+    return n_cross, (cfg.n_layers - n_cross) // n_cross
+
+
+def _layer_counts(cfg: ModelConfig) -> dict:
+    """The stacked groups of the reference's pytree and their layers:
+    ``blocks`` (the vlm's self layers only), and ``cross_blocks`` (vlm) or
+    ``enc_blocks`` (audio)."""
+    if cfg.family == "vlm":
+        n_cross, per = _cross_groups(cfg)
+        return {"blocks": n_cross * per, "cross_blocks": n_cross}
+    if cfg.family == "audio":
+        return {"blocks": cfg.n_layers, "enc_blocks": cfg.encoder.n_layers}
+    return {"blocks": cfg.n_layers}
+
+
 class Transformer(nn.Module):
     """The model: embedding, the blocks, the final norm and the LM head
-    (absent with tied embeddings), and the hybrid family's shared block.
-    With ``trainable`` every weight requires grad (the blocks are built
-    with the same flag)."""
+    (absent with tied embeddings), the hybrid family's shared block, the
+    vlm family's cross layers and the audio family's encoder (its blocks
+    and final norm). With ``trainable`` every weight requires grad (the
+    blocks are built with the same flag)."""
 
     def __init__(self, cfg: ModelConfig, embed: torch.Tensor,
                  final_norm: Mapping, lm_head: Optional[torch.Tensor],
                  blocks: list, trainable: bool = False,
-                 shared_attn: Optional[SharedAttnBlock] = None):
+                 shared_attn: Optional[SharedAttnBlock] = None,
+                 cross_blocks: Optional[list] = None,
+                 enc_blocks: Optional[list] = None,
+                 enc_norm: Optional[Mapping] = None):
         super().__init__()
         _check_family(cfg)
-        if (shared_attn is None) != (cfg.family != "hybrid"):
-            raise ValueError("a shared attention block goes with the hybrid "
-                             "family, and only with it")
+        for part, family in ((shared_attn, "hybrid"), (cross_blocks, "vlm"),
+                             (enc_blocks, "audio"), (enc_norm, "audio")):
+            if (part is None) != (cfg.family != family):
+                raise ValueError(f"the {family} family's own blocks go with "
+                                 f"it, and only with it ({cfg.family!r})")
         self.cfg = cfg
         self.embed = nn.Parameter(embed, requires_grad=trainable)
         self.final_norm = _pdict(final_norm, trainable)
@@ -233,6 +382,19 @@ class Transformer(nn.Module):
                         else nn.Parameter(lm_head, requires_grad=trainable))
         self.blocks = nn.ModuleList(blocks)
         self.shared_attn = shared_attn
+        self.cross_blocks = (None if cross_blocks is None
+                             else nn.ModuleList(cross_blocks))
+        self.enc_blocks = (None if enc_blocks is None
+                           else nn.ModuleList(enc_blocks))
+        self.enc_norm = (None if enc_norm is None
+                         else _pdict(enc_norm, trainable))
+
+    def stacked_groups(self) -> dict:
+        """The reference's stacked groups (``blocks``, ``cross_blocks``,
+        ``enc_blocks``) that this model has, each a list of its layers."""
+        groups = {"blocks": self.blocks, "cross_blocks": self.cross_blocks,
+                  "enc_blocks": self.enc_blocks}
+        return {k: v for k, v in groups.items() if v is not None}
 
     @property
     def device(self) -> torch.device:
@@ -298,13 +460,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                                          device=dev),
                 "out_proj": dense(din, d)}
 
+    norm = lambda: _norm_leaves(cfg, d, dev)
+    gate = lambda: torch.zeros((), dtype=torch.float32, device=dev)
     embed = dense(vp, d)
     lm_head = None if cfg.tie_embeddings else dense(d, vp)
+    counts = _layer_counts(cfg)
     blocks = []
-    for _ in range(cfg.n_layers):
+    for _ in range(counts["blocks"]):
         if cfg.family in ("ssm", "hybrid"):
-            blocks.append(MambaBlock(mamba(), _norm_leaves(cfg, d, dev),
-                                     trainable))
+            blocks.append(MambaBlock(mamba(), norm(), trainable))
+            continue
+        if cfg.family == "audio":
+            blocks.append(AudioBlock(attn(), attn(), mlp(), norm(), norm(),
+                                     norm(), trainable))
             continue
         if cfg.family == "moe":         # the reference's _moe_params
             e = cfg.moe.num_experts
@@ -315,15 +483,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                                  "wd": dense(f, d)}
         else:
             ffn = mlp()
-        blocks.append(_block_class(cfg)(
-            attn(), _norm_leaves(cfg, d, dev), _norm_leaves(cfg, d, dev), ffn,
-            trainable))
-    shared = None
+        blocks.append(_block_class(cfg)(attn(), norm(), norm(), ffn,
+                                        trainable))
+    extra = {}
     if cfg.family == "hybrid":
-        shared = SharedAttnBlock(attn(), _norm_leaves(cfg, d, dev), mlp(),
-                                 _norm_leaves(cfg, d, dev), trainable)
-    return Transformer(cfg, embed, _norm_leaves(cfg, d, dev), lm_head,
-                       blocks, trainable, shared)
+        extra["shared_attn"] = SharedAttnBlock(attn(), norm(), mlp(), norm(),
+                                               trainable)
+    if cfg.family == "vlm":
+        extra["cross_blocks"] = [
+            CrossBlock(attn(), mlp(), norm(), norm(), gate(), gate(),
+                       trainable) for _ in range(counts["cross_blocks"])]
+    if cfg.family == "audio":
+        extra["enc_blocks"] = [
+            EncoderBlock(attn(), norm(), norm(), mlp(), trainable)
+            for _ in range(counts["enc_blocks"])]
+        extra["enc_norm"] = norm()
+    return Transformer(cfg, embed, norm(), lm_head, blocks, trainable,
+                       **extra)
 
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig,
@@ -335,36 +511,49 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
     L dim, with ``blocks.moe.{router, wg, wu, wd, shared.{wg, wu, wd}}``
     in place of ``mlp`` for the ``moe`` family, ``blocks.{mamba, norm}``
     for the ``ssm`` and ``hybrid`` families and, for ``hybrid``, the
-    unstacked ``shared_attn.{attn, norm, mlp, norm2}``. A bfloat16 leaf
-    becomes float32 exactly, and the cast to ``cfg.param_dtype`` gives
-    back the same bits; a Mamba block's ``a_log``, ``d_skip`` and
-    ``dt_bias`` stay float32, as in the reference. ``trainable`` as in
-    :func:`init_params`."""
+    unstacked ``shared_attn.{attn, norm, mlp, norm2}``; for ``vlm`` the
+    self layers' ``blocks`` and the stacked ``cross_blocks.{attn, mlp,
+    norm1, norm2, gate_attn, gate_mlp}`` (the gates (n_cross,)); for
+    ``audio`` ``blocks.{attn, cross, mlp, norm1, norm2, norm3}``, the
+    encoder's stacked ``enc_blocks.{attn, mlp, norm1, norm2}`` and
+    ``enc_norm``. A bfloat16 leaf becomes float32 exactly, and the cast to
+    ``cfg.param_dtype`` gives back the same bits; a Mamba block's
+    ``a_log``, ``d_skip`` and ``dt_bias`` and a cross layer's gates stay
+    float32, as in the reference. ``trainable`` as in :func:`init_params`."""
     _check_family(cfg)
     dev = resolve_device(device)
     use_full_f32_matmul()
 
     def t(a, name="") -> torch.Tensor:
         a32 = np.array(a, dtype=np.float32)     # a writable copy
-        dtype = torch.float32 if name in SSM.F32_LEAVES else cfg.param_dtype
+        dtype = torch.float32 if name in F32_LEAVES else cfg.param_dtype
         return torch.from_numpy(a32).to(device=dev, dtype=dtype)
 
-    def group(node, i=None):
-        return {k: group(v, i) if isinstance(v, Mapping)
-                else t(np.asarray(v) if i is None else np.asarray(v)[i], k)
-                for k, v in node.items()}
+    def group(node, i=None, name=""):
+        if not isinstance(node, Mapping):
+            return t(np.asarray(node) if i is None else np.asarray(node)[i],
+                     name)
+        return {k: group(v, i, k) for k, v in node.items()}
 
-    blk, block = tree["blocks"], _block_class(cfg)
-    blocks = [block(*(group(blk[g], i) for g in block.groups()), trainable)
-              for i in range(cfg.n_layers)]
-    shared = None
+    classes = {"blocks": _block_class(cfg), "cross_blocks": CrossBlock,
+               "enc_blocks": EncoderBlock}
+    layers = {name: [classes[name](*(group(tree[name][g], i, g)
+                                     for g in classes[name].groups()),
+                                   trainable) for i in range(n)]
+              for name, n in _layer_counts(cfg).items()}
+    extra = {}
     if cfg.family == "hybrid":
-        shared = SharedAttnBlock(*(group(tree["shared_attn"][g])
-                                   for g in SharedAttnBlock.GROUPS),
-                                 trainable)
+        extra["shared_attn"] = SharedAttnBlock(
+            *(group(tree["shared_attn"][g]) for g in SharedAttnBlock.GROUPS),
+            trainable)
+    if cfg.family == "vlm":
+        extra["cross_blocks"] = layers["cross_blocks"]
+    if cfg.family == "audio":
+        extra["enc_blocks"] = layers["enc_blocks"]
+        extra["enc_norm"] = group(tree["enc_norm"])
     return Transformer(cfg, t(tree["embed"]), group(tree["final_norm"]),
                        None if cfg.tie_embeddings else t(tree["lm_head"]),
-                       blocks, trainable, shared)
+                       layers["blocks"], trainable, **extra)
 
 
 def params_to_numpy(params: Transformer) -> dict:
@@ -375,12 +564,15 @@ def params_to_numpy(params: Transformer) -> dict:
             "final_norm": {k: n(v) for k, v in params.final_norm.items()}}
     if params.lm_head is not None:
         tree["lm_head"] = n(params.lm_head)
-    tree["blocks"] = _stacked(params, lambda leaves: np.stack(
-        [n(x) for x in leaves]))
+    for name, blocks in params.stacked_groups().items():
+        tree[name] = _stacked(blocks, lambda leaves: np.stack(
+            [n(x) for x in leaves]))
     if params.shared_attn is not None:
         tree["shared_attn"] = {
             g: {k: n(v) for k, v in getattr(params.shared_attn, g).items()}
             for g in SharedAttnBlock.GROUPS}
+    if params.enc_norm is not None:
+        tree["enc_norm"] = {k: n(v) for k, v in params.enc_norm.items()}
     return tree
 
 
@@ -393,23 +585,27 @@ def param_tree(params: Transformer) -> dict:
     tree = {"embed": params.embed, "final_norm": dict(params.final_norm)}
     if params.lm_head is not None:
         tree["lm_head"] = params.lm_head
-    tree["blocks"] = _stacked(params, list)
+    for name, blocks in params.stacked_groups().items():
+        tree[name] = _stacked(blocks, list)
     if params.shared_attn is not None:
         tree["shared_attn"] = {g: dict(getattr(params.shared_attn, g))
                                for g in SharedAttnBlock.GROUPS}
+    if params.enc_norm is not None:
+        tree["enc_norm"] = dict(params.enc_norm)
     return tree
 
 
-def _stacked(params: Transformer, stack) -> dict:
-    """The blocks' groups with each leaf given as ``stack`` of its layers'
-    tensors (nested groups, the MoE's ``shared``, as nested dicts)."""
+def _stacked(blocks, stack) -> dict:
+    """The groups of ``blocks`` (one stacked group's layers) with each
+    leaf given as ``stack`` of its layers' tensors (nested groups, the
+    MoE's ``shared``, as nested dicts; a cross layer's gates as leaves)."""
     def walk(nodes):
         if isinstance(nodes[0], (Mapping, nn.ParameterDict)):
             return {k: walk([nd[k] for nd in nodes]) for k in nodes[0].keys()}
         return stack(nodes)
 
-    return {group: walk([getattr(b, group) for b in params.blocks])
-            for group in params.blocks[0].groups()}
+    return {group: walk([getattr(b, group) for b in blocks])
+            for group in blocks[0].groups()}
 
 
 # ---------------------------------------------------------------------------
@@ -437,11 +633,69 @@ def _dense_block(p: DenseBlock, x: torch.Tensor, cfg: ModelConfig,
     return (h, aux, kv) if return_kv else (h, aux)
 
 
-def _embed(params: Transformer, tokens: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
-    """Token embeddings; positions enter through RoPE (the absolute
-    sinusoidal positions of the reference's whisper are not ported)."""
-    return params.embed[tokens.long()].to(cfg.compute_dtype)
+def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """The absolute sinusoidal table, (..., d) float32 of ``positions``
+    (...): sines then cosines of ``half = d // 2`` frequencies
+    ``exp(-i * log(10000) / max(half - 1, 1))``, as the reference's."""
+    half = d // 2
+    # the float32 quotient, exact as a Python float: no copy to the card
+    step = (torch.log(torch.tensor(10000.0)) / max(half - 1, 1)).item()
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device) * step)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _embed(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
+           positions: torch.Tensor) -> torch.Tensor:
+    """Token embeddings in the compute dtype; a model without RoPE
+    (whisper) adds the sinusoidal table at ``positions`` ((S,), or (B, 1)
+    in decode)."""
+    h = params.embed[tokens.long()].to(cfg.compute_dtype)
+    if cfg.rope_theta is None:
+        h = h + _sinusoidal(positions, cfg.d_model).to(h.dtype)
+    return h
+
+
+def _check_memory(cfg: ModelConfig, memory: Optional[torch.Tensor],
+                  batch: int) -> None:
+    """The vlm and audio families need a (B, n, d_model) memory of the
+    config's ``n_image_tokens`` / ``encoder.n_frames`` entries (the
+    reference's decode attends to exactly that many); the vlm's in the
+    compute dtype (the reference would promote ``memory @ wk`` to float32,
+    a product that ``torch.matmul`` refuses to mix). The other families
+    take none."""
+    if cfg.family not in MEMORY_FAMILIES:
+        if memory is not None:
+            raise ValueError(f"{cfg.name}: the {cfg.family!r} family takes "
+                             f"no memory")
+        return
+    what = "image" if cfg.family == "vlm" else "frame"
+    n = cfg.n_image_tokens if cfg.family == "vlm" else cfg.encoder.n_frames
+    if memory is None:
+        raise ValueError(f"{cfg.name}: the {cfg.family!r} family needs a "
+                         f"memory of {n} {what} embeddings")
+    if tuple(memory.shape) != (batch, n, cfg.d_model):
+        raise ValueError(f"{cfg.name}: memory of shape {tuple(memory.shape)}"
+                         f", expected {(batch, n, cfg.d_model)} ({n} {what} "
+                         f"embeddings a row)")
+    if cfg.family == "vlm" and memory.dtype != cfg.compute_dtype:
+        raise ValueError(f"{cfg.name}: image embeddings in {memory.dtype}, "
+                         f"expected the compute dtype {cfg.compute_dtype}")
+
+
+def _run_encoder(params: Transformer, frames: torch.Tensor,
+                 cfg: ModelConfig, *, attn_impl: str = "cuda"
+                 ) -> torch.Tensor:
+    """The audio encoder over the given frame embeddings (B, F, D): cast
+    to the compute dtype, the sinusoidal table added, the non-causal
+    encoder layers, ``enc_norm``."""
+    h = frames.to(cfg.compute_dtype)
+    pos = torch.arange(frames.shape[1], device=h.device)
+    h = h + _sinusoidal(pos, cfg.d_model).to(h.dtype)
+    for blk in params.enc_blocks:
+        h = blk(h, cfg, pos, attn_impl=attn_impl)
+    return _norm(h, params.enc_norm, cfg)
 
 
 def _logits(params: Transformer, h: torch.Tensor,
@@ -456,11 +710,15 @@ def _logits(params: Transformer, h: torch.Tensor,
 
 
 def _trunk(params: Transformer, h: torch.Tensor, cfg: ModelConfig,
-           positions: torch.Tensor, *, attn_impl: str = "cuda"):
+           positions: torch.Tensor, *, memory: Optional[torch.Tensor] = None,
+           attn_impl: str = "cuda"):
     """The layer stack over full-sequence hidden states: ``(h, aux)``,
-    the layers' auxiliary losses summed in float32 (zero for the dense,
-    ssm and hybrid families). The hybrid family applies its shared block
-    before each group of ``shared_attn_every`` Mamba layers."""
+    the layers' auxiliary losses summed in float32 (zero for every family
+    but moe). The hybrid family applies its shared block before each group
+    of ``shared_attn_every`` Mamba layers; the vlm family a cross layer to
+    ``memory`` (the image embeddings) before each group of self layers;
+    the audio family attends to ``memory`` (the encoder's output) in every
+    layer."""
     _check_family(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family in ("ssm", "hybrid"):
@@ -470,6 +728,17 @@ def _trunk(params: Transformer, h: torch.Tensor, cfg: ModelConfig,
                 h = params.shared_attn(h, cfg, positions,
                                        attn_impl=attn_impl)
             h = blk(h, cfg)
+        return h, aux
+    if cfg.family == "vlm":
+        _, per = _cross_groups(cfg)
+        for c, cross in enumerate(params.cross_blocks):
+            h = cross(h, cfg, memory, attn_impl=attn_impl)
+            for blk in params.blocks[c * per:(c + 1) * per]:
+                h, _ = blk(h, cfg, positions, attn_impl=attn_impl)
+        return h, aux
+    if cfg.family == "audio":
+        for blk in params.blocks:
+            h = blk(h, cfg, positions, memory, attn_impl=attn_impl)
         return h, aux
     for blk in params.blocks:
         h, a = blk(h, cfg, positions, attn_impl=attn_impl)
@@ -484,14 +753,17 @@ def forward_train(params: Transformer, tokens: torch.Tensor,
     """tokens (B, S) -> ``(logits (B, S, Vp), aux)`` with gradients, as the
     reference's ``forward_train``: ``aux`` is the MoE auxiliary loss summed
     over the layers in float32 (a zero scalar for the other families).
-    ``memory`` (image embeddings or encoder frames) belongs to families not
-    ported yet and raises."""
-    if memory is not None:
-        raise NotImplementedError(
-            f"forward_train: memory is for the families not ported yet: "
-            f"ROADMAP queue 1, {LLM_ITEM} (VLM and audio)")
+    ``memory`` is the vlm family's (B, n_image_tokens, D) image embeddings
+    or the audio family's (B, n_frames, D) frame embeddings, which the
+    encoder runs over first; the other families take none
+    (:func:`_check_memory`)."""
+    _check_family(cfg)
+    _check_memory(cfg, memory, tokens.shape[0])
     positions = torch.arange(tokens.shape[1], device=params.device)
-    h, aux = _trunk(params, _embed(params, tokens, cfg), cfg, positions,
+    h = _embed(params, tokens, cfg, positions)
+    if cfg.family == "audio":
+        memory = _run_encoder(params, memory, cfg, attn_impl=attn_impl)
+    h, aux = _trunk(params, h, cfg, positions, memory=memory,
                     attn_impl=attn_impl)
     return _logits(params, h, cfg), aux
 
@@ -510,11 +782,13 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
 
 @torch.no_grad()
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
+            memory: Optional[torch.Tensor] = None,
             attn_impl: str = "cuda") -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, Vp): the logits of the reference's
-    ``forward_train``, without its auxiliary loss, and without
-    gradients."""
-    return forward_train(params, tokens, cfg, attn_impl=attn_impl)[0]
+    ``forward_train`` (``memory`` as there), without its auxiliary loss,
+    and without gradients."""
+    return forward_train(params, tokens, cfg, memory=memory,
+                         attn_impl=attn_impl)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -530,21 +804,31 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     the compute dtype; the ssm and hybrid families' ``conv`` (L, batch,
     d_conv - 1, conv channels) in the compute dtype and ``ssm`` (L, batch,
     heads, head_dim, d_state) in float32, and the hybrid's ``shared_kv``,
-    one K/V per application of the shared block. ``max_len`` is the
-    sequence horizon (a sliding-window model allocates only its window, a
-    ring)."""
+    one K/V per application of the shared block; the vlm family's
+    ``self_kv`` of its self layers only and ``cross_kv``, (n_cross, batch,
+    n_image_tokens, KV, hd), the audio family's ``self_kv`` and
+    ``cross_kv`` (L, batch, n_frames, KV, hd), the cross K/V in the compute
+    dtype, filled once by :func:`prefill`. ``max_len`` is the sequence
+    horizon (a sliding-window model allocates only its window, a ring)."""
     _check_family(cfg)
     dev = resolve_device(device)
     t = cfg.kv_cache_len(max_len)
     cache: Cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
-    def kv(layers: int) -> dict:
-        shape = (layers, batch, t, cfg.n_kv_heads, cfg.hd)
+    def kv(layers: int, length: int = t) -> dict:
+        shape = (layers, batch, length, cfg.n_kv_heads, cfg.hd)
         return {name: torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)
                 for name in ("k", "v")}
 
     if cfg.family in ("dense", "moe"):
         cache["self_kv"] = kv(cfg.n_layers)
+        return cache
+    if cfg.family in MEMORY_FAMILIES:
+        counts = _layer_counts(cfg)
+        cache["self_kv"] = kv(counts["blocks"])
+        cache["cross_kv"] = (
+            kv(counts["cross_blocks"], max(cfg.n_image_tokens, 1))
+            if cfg.family == "vlm" else kv(cfg.n_layers, cfg.encoder.n_frames))
         return cache
     din, gn, nh, k = SSM.mamba2_split_sizes(cfg)
     cache["conv"] = torch.zeros((cfg.n_layers, batch, k - 1, din + 2 * gn),
@@ -599,23 +883,46 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     (the flash kernel on the attention layers, which hand back their roped
     K/V), the K/V written into the cache (a ring for a window), the Mamba
     layers' final ``ssm`` state and ``conv`` tail carried, ``pos`` = S.
-    ``memory`` belongs to the families not ported yet and raises."""
+    ``memory`` as in :func:`forward_train`: the vlm family's cross layers
+    and the audio family's decoder layers (after the encoder) project it
+    once into ``cross_kv``."""
     _check_family(cfg)
     L._check_impl(attn_impl)
-    if memory is not None:
-        raise NotImplementedError(
-            f"prefill: memory is for the families not ported yet: ROADMAP "
-            f"queue 1, {LLM_ITEM} (VLM and audio)")
     b, s = tokens.shape
+    _check_memory(cfg, memory, b)
     cache = init_cache(cfg, b, max_len, params.device)
     positions = torch.arange(s, device=params.device)
+
+    def self_layer(i: int, h: torch.Tensor) -> torch.Tensor:
+        h, _, (k, v) = params.blocks[i](h, cfg, positions,
+                                        attn_impl=attn_impl, return_kv=True)
+        _bulk_insert(cache["self_kv"], i, k, v, cfg.sliding_window)
+        return h
+
+    def cross_into(i: int, kv: tuple) -> None:
+        cache["cross_kv"]["k"][i] = kv[0]
+        cache["cross_kv"]["v"][i] = kv[1]
+
     with phase("llm_prefill"):
-        h = _embed(params, tokens, cfg)
+        h = _embed(params, tokens, cfg, positions)
         if cfg.family in ("dense", "moe"):
+            for i in range(len(params.blocks)):
+                h = self_layer(i, h)
+        elif cfg.family == "vlm":
+            _, per = _cross_groups(cfg)
+            for c, cross in enumerate(params.cross_blocks):
+                h, kv = cross(h, cfg, memory, attn_impl=attn_impl,
+                              return_kv=True)
+                cross_into(c, kv)
+                for i in range(c * per, (c + 1) * per):
+                    h = self_layer(i, h)
+        elif cfg.family == "audio":
+            enc = _run_encoder(params, memory, cfg, attn_impl=attn_impl)
             for i, blk in enumerate(params.blocks):
-                h, _, (k, v) = blk(h, cfg, positions, attn_impl=attn_impl,
-                                   return_kv=True)
-                _bulk_insert(cache["self_kv"], i, k, v, cfg.sliding_window)
+                h, (k, v), kv = blk(h, cfg, positions, enc,
+                                    attn_impl=attn_impl, return_kv=True)
+                _bulk_insert(cache["self_kv"], i, k, v, None)
+                cross_into(i, kv)
         else:
             every = _shared_every(cfg)
             for i, blk in enumerate(params.blocks):
@@ -635,19 +942,32 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
 def decode_step(params: Transformer, token: torch.Tensor, cache: Cache,
                 cfg: ModelConfig, *, attn_impl: str = "cuda"):
     """token (B, 1) + cache -> ``(logits (B, 1, Vp), cache)``, every row at
-    the cache's scalar ``pos``, as the reference's ``decode_step``; the
-    cache is updated in place (K/V rows, conv and ssm states, ``pos`` + 1)
-    and returned. Decode attention is plain PyTorch in float32 whatever
-    ``attn_impl`` says (the reference's is plain jnp); the argument is
-    checked so that both paths take the same arguments."""
+    the cache's scalar ``pos``, as the reference's ``decode_step`` (a model
+    without RoPE adds the sinusoidal table at ``pos``); the cache is
+    updated in place (K/V rows, conv and ssm states, ``pos`` + 1; the
+    cross K/V only read) and returned. Decode attention, over the self and
+    the cross K/V, is plain PyTorch in float32 whatever ``attn_impl`` says
+    (the reference's is plain jnp); the argument is checked so that both
+    paths take the same arguments."""
     L._check_impl(attn_impl)
     _check_family(cfg)
     pos = cache["pos"]
+    rows = pos.expand(token.shape[0])
     with phase("llm_decode"):
-        h = _embed(params, token, cfg)
+        h = _embed(params, token, cfg, rows[:, None])
         if cfg.family in ("dense", "moe"):
-            h = _decode_layers(params, h, cache["self_kv"],
-                               pos.expand(h.shape[0]), cfg)
+            h = _decode_layers(params, h, cache["self_kv"], rows, cfg)
+        elif cfg.family == "vlm":
+            _, per = _cross_groups(cfg)
+            ckv = cache["cross_kv"]
+            for c, cross in enumerate(params.cross_blocks):
+                h = cross.decode(h, cfg, ckv["k"][c], ckv["v"][c])
+                h = _decode_layers(params, h, cache["self_kv"], rows, cfg,
+                                   range(c * per, (c + 1) * per))
+        elif cfg.family == "audio":
+            for i, blk in enumerate(params.blocks):
+                h = blk.decode(h, cfg, cache["self_kv"], cache["cross_kv"],
+                               i, pos)
         else:
             every = _shared_every(cfg)
             for i, blk in enumerate(params.blocks):
@@ -668,8 +988,9 @@ def init_slot_cache(cfg: ModelConfig, slots: int, max_len: int,
                     ) -> Cache:
     """A pooled decode cache: batch dim = scheduler slots, per-slot
     ``pos`` (slots,). Dense/MoE only, as in the reference: the SSM and
-    hybrid families' recurrent states need per-slot handling that neither
-    package has, and they serve through the scalar-pos API."""
+    hybrid families' recurrent states and the VLM and audio families'
+    cross K/V need per-slot handling that neither package has, and they
+    serve through the scalar-pos API."""
     _check_family(cfg)
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
@@ -706,7 +1027,7 @@ def prefill_into_slot(params: Transformer, tokens: torch.Tensor,
     if log is not None:
         log.mark_real(positions < length)
     with phase("llm_prefill"):
-        h = _embed(params, tokens, cfg)
+        h = _embed(params, tokens, cfg, positions)
         for i, blk in enumerate(params.blocks):
             h, _, (k, v) = blk(h, cfg, positions, attn_impl=attn_impl,
                                return_kv=True)
@@ -743,12 +1064,25 @@ def _attn_decode_slots(p: Mapping, x: torch.Tensor, k_layer: torch.Tensor,
     return out.reshape(b, 1, cfg.n_heads * cfg.hd) @ p["wo"]
 
 
+def _cross_decode(p: Mapping, x: torch.Tensor, k_layer: torch.Tensor,
+                  v_layer: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One token a row against a layer's (B, n_mem, KV, hd) cross K/V, every
+    entry valid (the reference's ``_cross_decode``: q without bias, no
+    RoPE)."""
+    b = x.shape[0]
+    q = (x @ p["wq"]).reshape(b, 1, cfg.n_heads, cfg.hd)
+    out = L.decode_attention(q, k_layer, v_layer, k_layer.shape[1])
+    return out.reshape(b, 1, cfg.n_heads * cfg.hd) @ p["wo"]
+
+
 def _decode_layers(params: Transformer, h: torch.Tensor, kv: Mapping,
-                   pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The dense and moe families' layers for one token a row at the
-    per-row positions ``pos`` (B,), each layer's K/V written into ``kv``
-    in place."""
-    for i, blk in enumerate(params.blocks):
+                   pos: torch.Tensor, cfg: ModelConfig,
+                   layers: Optional[range] = None) -> torch.Tensor:
+    """The dense and moe families' layers (the vlm family's self layers
+    ``layers``) for one token a row at the per-row positions ``pos`` (B,),
+    each layer's K/V written into ``kv`` in place."""
+    for i in range(len(params.blocks)) if layers is None else layers:
+        blk = params.blocks[i]
         h = h + _attn_decode_slots(blk.attn, _norm(h, blk.norm1, cfg),
                                    kv["k"][i], kv["v"][i], pos, cfg,
                                    cfg.rope_theta)
@@ -776,7 +1110,7 @@ def decode_step_slots(params: Transformer, token: torch.Tensor, cache: Cache,
     if log is not None:
         log.mark_real(active)
     with phase("llm_decode"):
-        h = _decode_layers(params, _embed(params, token, cfg),
+        h = _decode_layers(params, _embed(params, token, cfg, pos[:, None]),
                            cache["self_kv"], pos, cfg)
         logits = _logits(params, h, cfg)
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)

@@ -1494,6 +1494,16 @@ FLASH_LONG_SHAPES = [
     (2, 200, 333, 16, 8, 128, False, None),
 ]
 FLASH_SHAPES += FLASH_LONG_SHAPES
+# the VLM and audio families (chip_smoke phases 6g, 6h): whisper-base's
+# encoder (8/8 heads of 64, no mask, 1500 frames) and cross-attention from
+# a short prompt, llama-3.2-vision-90b's cross-attention over 1600 patches
+# and its causal self-attention (64/8 heads of 128)
+FLASH_SHAPES += [
+    (1, 1500, 1500, 8, 8, 64, False, None),
+    (2, 64, 1500, 8, 8, 64, False, None),
+    (1, 128, 1600, 64, 8, 128, False, None),
+    (1, 256, 256, 64, 8, 128, True, None),
+]
 
 
 def _flash_case(b, sq, t, h, kv, hd, dtype, device, seed=0):
@@ -1597,6 +1607,15 @@ FLASH_BWD_SHAPES += [
     (2, 150, 150, 8, 2, 80, True, None),
     (2, 100, 133, 8, 2, 80, True, 40),
     (1, 90, 200, 4, 4, 80, False, None),
+]
+# the VLM and audio families' gradients (chip_smoke phase 7d): vision's
+# cross-attention over 1600 patches and causal self-attention at 64/8
+# heads of 128, whisper's encoder and cross-attention over 1500 frames
+FLASH_BWD_SHAPES += [
+    (1, 256, 1600, 64, 8, 128, False, None),
+    (1, 256, 256, 64, 8, 128, True, None),
+    (1, 1500, 1500, 8, 8, 64, False, None),
+    (2, 448, 1500, 8, 8, 64, False, None),
 ]
 
 

@@ -29,9 +29,10 @@ from repro_torch.models import transformer as TT  # noqa: E402
 
 MOE_ARCHS = ["mixtral-8x7b", "llama4-scout-17b-a16e"]
 ARCHS = ["tinyllama-1.1b", "qwen2-0.5b"] + MOE_ARCHS
-# every config the port has: the dense, MoE, SSM and hybrid families
+# every config the port has: the dense, MoE, SSM, hybrid, VLM and audio
+# families
 PORTED = ARCHS + ["internlm2-1.8b", "command-r-plus-104b", "mamba2-780m",
-                  "zamba2-2.7b"]
+                  "zamba2-2.7b", "llama-3.2-vision-90b", "whisper-base"]
 ATOL = 1e-4
 
 
@@ -72,9 +73,12 @@ def test_configs_match_the_reference():
             assert port.num_params() == ref.num_params()
             assert port.num_active_params() == ref.num_active_params()
             assert port.kv_cache_len(100) == ref.kv_cache_len(100)
-    for arch in set(jconfigs.ARCH_IDS) - set(PORTED):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            tconfigs.get_config(arch)
+    # every id of the reference's registry resolves in the port
+    assert set(jconfigs.ARCH_IDS) == set(PORTED) == set(tconfigs.ARCH_IDS)
+    for arch in jconfigs.ARCH_IDS:
+        assert tconfigs.get_config(arch).name == arch
+    with pytest.raises(KeyError, match="unknown arch"):
+        tconfigs.get_config("gpt-2")
 
 
 def test_params_round_trip_through_numpy(model):
@@ -258,10 +262,12 @@ def test_bf16_forward_within_reference_tolerance():
 
 
 def test_other_families_and_paths_raise():
-    vlm = dataclasses.replace(tconfigs.get_smoke("tinyllama-1.1b"),
-                              family="vlm")
-    with pytest.raises(NotImplementedError, match="VLM and audio"):
-        TT.init_slot_cache(vlm, 2, 8, "cpu")
+    # the slot API refuses the vlm and audio families with the reference's
+    # own message: their cross K/V is per-request state
+    for arch in ("llama-3.2-vision-90b", "whisper-base"):
+        with pytest.raises(NotImplementedError,
+                           match="slot-scheduled serving supports dense/moe"):
+            TT.init_slot_cache(tconfigs.get_smoke(arch), 2, 8, "cpu")
     # the slot API refuses the ssm family with the reference's own message
     with pytest.raises(NotImplementedError,
                        match="slot-scheduled serving supports dense/moe"):

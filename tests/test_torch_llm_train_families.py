@@ -1,16 +1,21 @@
-"""Training of the MoE, SSM and hybrid families: the port against the JAX
-package, on the CPU.
+"""Training of the MoE, SSM, hybrid, VLM and audio families: the port
+against the JAX package, on the CPU.
 
 At the float32 smoke configs of mixtral-8x7b (top-2 of 4 experts, a window
 of 16), llama4-scout-17b-a16e (top-1 and the shared expert), mamba2-780m
 and zamba2-2.7b (Mamba2 layers and the weight-shared attention block),
-``train_transformer.loss_and_grads`` against ``jax.value_and_grad`` of
-the reference's ``lm_loss(forward_train(...)) + 0.01 * aux`` on the same
-weights (``params_from_numpy``) and ``TokenStream`` batch, and four AdamW
-steps against the reference's jitted step. The Mamba blocks' ``a_log`` and
-``dt_bias`` (zeros at init) are drawn non-zero so that their gradients
-count; every MoE batch drops pairs by capacity, so the gradient through a
-dropped pair is held too. Tolerances as ``test_torch_llm_train.py``'s:
+llama-3.2-vision-90b (a gated cross layer to image embeddings) and
+whisper-base (the encoder over frame embeddings, cross-attention in every
+decoder layer), ``train_transformer.loss_and_grads`` against
+``jax.value_and_grad`` of the reference's ``lm_loss(forward_train(...,
+memory=)) + 0.01 * aux`` on the same weights (``params_from_numpy``),
+``TokenStream`` batch and seeded memory, and four AdamW steps against the
+reference's jitted step (the reference trains the VLM and audio families
+only in its dry run's ``train_step``; the steps use the port's ``AdamW`` on
+``param_tree`` directly). The Mamba blocks' ``a_log`` and ``dt_bias``, the
+cross layers' gates and whisper's LayerNorm and MLP biases (zeros at init)
+are drawn non-zero so that their gradients count; every MoE batch drops
+pairs by capacity, so the gradient through a dropped pair is held too. Tolerances as ``test_torch_llm_train.py``'s:
 loss 1e-5 relative, each gradient leaf 1e-4 of its largest |.|; after four
 steps each loss within 1e-4 and each param within 1e-3 of its leaf's
 largest |.|, but for the elements whose gradient was float noise at every
@@ -43,21 +48,30 @@ from repro_torch.models import moe as TM  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.optim import AdamW, linear_warmup_cosine  # noqa: E402
 from test_torch_llm_train import (GRAD_RTOL, LOSS_RTOL,  # noqa: E402
-                                  TRAJ_RTOL, _assert_tree_close, _j_loss,
+                                  TRAJ_RTOL, _assert_tree_close,
                                   _numpy_tree)
+from test_torch_multimodal import memory_for, nonzero_leaves  # noqa: E402
 
 ARCHS = ["mixtral-8x7b", "llama4-scout-17b-a16e", "mamba2-780m",
-         "zamba2-2.7b"]
+         "zamba2-2.7b", "llama-3.2-vision-90b", "whisper-base"]
 BATCH, SEQ, STEPS = 2, 64, 4
 NOISE = 1e-6   # a gradient element this far below its leaf's largest |.|
+
+
+def _j_loss(cfg, p, toks, tgts, memory):
+    logits, aux = JT.forward_train(p, toks, cfg, memory=memory)
+    return JT.lm_loss(logits, tgts, cfg.vocab) \
+        + 0.01 * jnp.asarray(aux, jnp.float32)
 
 
 @pytest.fixture(scope="module", params=ARCHS)
 def run(request):
     """The reference's four steps (a jitted value_and_grad and AdamW
     update) from seeded weights, the Mamba blocks' ``a_log`` and
-    ``dt_bias`` drawn non-zero. Returns (port cfg, initial weights,
-    batches, per step (loss, grads), final params)."""
+    ``dt_bias``, the gates and the biases drawn non-zero, and, for the VLM
+    and audio families, a seeded memory. Returns (port cfg, initial
+    weights, batches, per step (loss, grads), final params, the memory as
+    a tensor or None)."""
     cfg = jconfigs.get_smoke(request.param)
     params = JT.init_params(jax.random.PRNGKey(0), cfg)
     if cfg.ssm is not None:
@@ -66,13 +80,16 @@ def run(request):
                                                  mamba["a_log"].shape)
         mamba["dt_bias"] = 0.5 * jax.random.normal(jax.random.PRNGKey(2),
                                                    mamba["dt_bias"].shape)
-    init = jax.tree.map(np.asarray, params)
+    init = nonzero_leaves(jax.tree.map(np.asarray, params))
+    params = jax.tree.map(jnp.asarray, init)
+    memory = (memory_for(cfg, BATCH) if cfg.family in ("vlm", "audio")
+              else None)
     opt = JAdamW(lr=j_sched(3e-3, 10, STEPS), grad_clip=1.0)
 
     @jax.jit
-    def step(p, o, toks, tgts):
+    def step(p, o, toks, tgts, mem):
         loss, grads = jax.value_and_grad(
-            functools.partial(_j_loss, cfg))(p, toks, tgts)
+            functools.partial(_j_loss, cfg))(p, toks, tgts, mem)
         p2, o2 = opt.update(p, grads, o)
         return p2, o2, loss, grads
 
@@ -80,22 +97,26 @@ def run(request):
     batches = [stream.batch_at(s) for s in range(STEPS)]
     state, per_step = opt.init(params), []
     for toks, tgts in batches:
-        params, state, loss, grads = step(params, state, jnp.asarray(toks),
-                                          jnp.asarray(tgts))
+        params, state, loss, grads = step(
+            params, state, jnp.asarray(toks), jnp.asarray(tgts),
+            None if memory is None else jnp.asarray(memory))
         per_step.append((float(loss), jax.tree.map(np.asarray, grads)))
     return (tconfigs.get_smoke(request.param), init, batches, per_step,
-            jax.tree.map(np.asarray, params))
+            jax.tree.map(np.asarray, params),
+            None if memory is None else torch.from_numpy(memory))
 
 
 def test_loss_and_grads_match_the_reference(run):
     """One gradient, every leaf (the router, the experts, the shared
     expert, a_log, dt_bias, d_skip, the conv, the shared block's leaves
-    summed over its applications); an MoE batch drops pairs."""
-    tcfg, init, batches, per_step, _ = run
+    summed over its applications, the cross layers' gates, the encoder's
+    leaves); an MoE batch drops pairs."""
+    tcfg, init, batches, per_step, _, memory = run
     model = TT.params_from_numpy(init, tcfg, "cpu", trainable=True)
     toks, tgts = (torch.from_numpy(a) for a in batches[0])
     with TM.RouteLog() as log:
-        loss, grads = TTR.loss_and_grads(model, toks, tgts, tcfg)
+        loss, grads = TTR.loss_and_grads(model, toks, tgts, tcfg,
+                                         memory=memory)
     want_loss, want_grads = per_step[0]
     assert abs(float(loss) - want_loss) <= LOSS_RTOL * abs(want_loss)
     _assert_tree_close(_numpy_tree(grads), want_grads, GRAD_RTOL, "grad")
@@ -112,7 +133,7 @@ def test_four_adamw_steps_match_the_reference(run):
     the params after four steps within ``TRAJ_RTOL`` (the elements of
     float-noise gradients within twice the learning rates' sum, module
     docstring); the Mamba blocks' float32 leaves stay float32."""
-    tcfg, init, batches, per_step, final = run
+    tcfg, init, batches, per_step, final, memory = run
     model = TT.params_from_numpy(init, tcfg, "cpu", trainable=True)
     tree = TT.param_tree(model)
     sched = linear_warmup_cosine(3e-3, 10, STEPS)
@@ -122,7 +143,8 @@ def test_four_adamw_steps_match_the_reference(run):
     noise = None
     for (toks, tgts), (want_loss, want_grads) in zip(batches, per_step):
         loss, grads = TTR.loss_and_grads(model, torch.from_numpy(toks),
-                                         torch.from_numpy(tgts), tcfg)
+                                         torch.from_numpy(tgts), tcfg,
+                                         memory=memory)
         assert abs(float(loss) - want_loss) <= GRAD_RTOL * abs(want_loss)
         step_noise = jax.tree.map(lambda a, b: quiet(a) & quiet(b),
                                   _numpy_tree(grads), want_grads)
@@ -146,15 +168,22 @@ def test_four_adamw_steps_match_the_reference(run):
 
 def test_param_tree_walks_the_reference_leaf_order(run):
     """``param_tree`` in the reference's leaf order, each stacked leaf's
-    layers in turn, zamba2's unstacked ``shared_attn`` once."""
+    layers in turn (the vlm's self layers in ``blocks``, its cross layers
+    in ``cross_blocks``, whisper's encoder in ``enc_blocks``), zamba2's
+    unstacked ``shared_attn`` and whisper's ``enc_norm`` once."""
     tcfg, init, *_ = run
     model = TT.params_from_numpy(init, tcfg, "cpu")
     paths = [p for p, _ in ttree.flatten_with_paths(TT.param_tree(model))]
     ref = ["::".join(str(k.key) for k in path)
            for path, _ in jax.tree_util.tree_leaves_with_path(init)]
-    assert ["::".join(p[:-1] if p[0] == "blocks" else p) for p in paths] \
-        == [r for r in ref for _ in range(
-            tcfg.n_layers if r.startswith("blocks") else 1)]
+    counts = {"blocks": tcfg.n_layers}
+    if tcfg.family == "vlm":
+        n_cross = tcfg.n_layers // tcfg.cross_attn_every
+        counts = {"blocks": tcfg.n_layers - n_cross, "cross_blocks": n_cross}
+    if tcfg.family == "audio":
+        counts["enc_blocks"] = tcfg.encoder.n_layers
+    assert ["::".join(p[:-1] if p[0] in counts else p) for p in paths] \
+        == [r for r in ref for _ in range(counts.get(r.split("::")[0], 1))]
     assert any(r.startswith("shared_attn") for r in ref) \
         == (tcfg.family == "hybrid")
 

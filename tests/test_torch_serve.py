@@ -310,7 +310,8 @@ def test_port_imports_neither_jax_nor_repro():
         "          'optim.adamw', 'obs.comm', 'obs.bench', 'launch.roofline',\n"
         "          'launch.mesh', 'launch.dryrun', 'kernels._observe',\n"
         "          'data.pipeline', 'launch.train_transformer',\n"
-        "          'models.moe', 'models.ssm', 'launch.serve_llm'):\n"
+        "          'models.moe', 'models.ssm', 'launch.serve_llm',\n"
+        "          'configs.llama_3_2_vision_90b', 'configs.whisper_base'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=src,

@@ -256,8 +256,10 @@ def test_families_the_port_does_not_serve_or_train_raise():
     both training entry points take the ssm and hybrid families (the
     gradient reaches a_log, dt_bias and, in zamba2, the shared block;
     ``tests/test_torch_llm_train_families.py`` holds them against the
-    reference) and refuse VLM and audio, naming the ROADMAP part; the
-    hybrid family needs shared_attn_every to divide its layers."""
+    reference); ``loss_and_grads`` takes VLM and audio with their memory
+    and raises without it, and ``train`` refuses them with the reference
+    example's message; the hybrid family needs shared_attn_every to
+    divide its layers."""
     cfg = tconfigs.get_smoke("mamba2-780m")
     with pytest.raises(NotImplementedError,
                        match="slot-scheduled serving supports dense/moe"):
@@ -273,14 +275,21 @@ def test_families_the_port_does_not_serve_or_train_raise():
             for g in grads["blocks"]["mamba"][name]:
                 assert torch.isfinite(g).all() and g.abs().max() > 0, name
         assert ("shared_attn" in grads) == (c.family == "hybrid")
-    dense = tconfigs.get_smoke("tinyllama-1.1b")
-    tm = TT.init_params(dense, torch.Generator().manual_seed(0), "cpu",
-                        trainable=True)
-    for family in ("vlm", "audio"):
-        c = dataclasses.replace(dense, family=family)
-        with pytest.raises(NotImplementedError, match="VLM and audio"):
+    for arch in ("llama-3.2-vision-90b", "whisper-base"):
+        c = tconfigs.get_smoke(arch)
+        tm = TT.init_params(c, torch.Generator().manual_seed(0), "cpu",
+                            trainable=True)
+        n = c.n_image_tokens if c.family == "vlm" else c.encoder.n_frames
+        mem = torch.randn((1, n, c.d_model),
+                          generator=torch.Generator().manual_seed(1))
+        loss, grads = TTR.loss_and_grads(tm, toks, toks, c, memory=mem)
+        assert torch.isfinite(loss)
+        assert ("cross_blocks" in grads) == (c.family == "vlm")
+        assert ("enc_blocks" in grads) == (c.family == "audio")
+        with pytest.raises(ValueError, match="needs a memory"):
             TTR.loss_and_grads(tm, toks, toks, c)
-        with pytest.raises(NotImplementedError, match="VLM and audio"):
+        with pytest.raises(ValueError, match="LM pretraining example "
+                                             "targets decoder-only"):
             TTR.train(c, steps=1, batch=1, seq=8, device="cpu")
     bad = dataclasses.replace(tconfigs.get_smoke("zamba2-2.7b"), n_layers=3)
     with pytest.raises(ValueError, match="shared_attn_every"):

@@ -8,7 +8,10 @@ Each argument is ``ARCH:LAYERS:BxS:DTYPE`` (DTYPE ``bf16`` or ``f32``).
 The model is built at the config's published widths with ``LAYERS``
 layers on the meta device (no memory, no card: every shape, nothing
 computed), and ``lm_loss(forward_train(...))`` runs through the flash
-wrapper's meta route under ``torch.autograd.graph.saved_tensors_hooks``.
+wrapper's meta route under ``torch.autograd.graph.saved_tensors_hooks``
+(the VLM and audio families with a memory of the config's image tokens or
+frames a row; a VLM's ``LAYERS`` is whole groups' worth, e.g. 5 for
+llama-3.2-vision-90b's one cross and four self layers).
 It prints the parameters' bytes and the bytes of the tensors autograd
 saves for the backward, each tensor object once and the parameters left
 out. Views of one tensor saved by several nodes count once a view, so the
@@ -36,12 +39,30 @@ def meta_model(cfg) -> TT.Transformer:
         shape, dtype=dtype, device="meta")
     d, f = cfg.d_model, cfg.d_ff
     hq, hkv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
-    norm = lambda: {"scale": e(d)}
+    norm = lambda: ({"scale": e(d), "bias": e(d)} if cfg.norm == "layernorm"
+                    else {"scale": e(d)})
     attn = lambda: {"wq": e(d, hq), "wk": e(d, hkv), "wv": e(d, hkv),
                     "wo": e(hq, d)}
-    mlp = lambda: {"wg": e(d, f), "wu": e(d, f), "wd": e(f, d)}
+    mlp = lambda: ({"wg": e(d, f), "wu": e(d, f), "wd": e(f, d)}
+                   if cfg.mlp == "swiglu" else
+                   {"w1": e(d, f), "b1": e(f), "w2": e(f, d), "b2": e(d)})
+    counts = TT._layer_counts(cfg)
+    extra = {}
+    if cfg.family == "vlm":
+        gate = lambda: e(dtype=torch.float32)
+        extra["cross_blocks"] = [
+            TT.CrossBlock(attn(), mlp(), norm(), norm(), gate(), gate(), True)
+            for _ in range(counts["cross_blocks"])]
+    if cfg.family == "audio":
+        extra["enc_blocks"] = [TT.EncoderBlock(attn(), norm(), norm(), mlp(),
+                                               True)
+                               for _ in range(counts["enc_blocks"])]
+        extra["enc_norm"] = norm()
+    if cfg.family == "hybrid":
+        extra["shared_attn"] = TT.SharedAttnBlock(attn(), norm(), mlp(),
+                                                  norm(), True)
     blocks = []
-    for _ in range(cfg.n_layers):
+    for _ in range(counts["blocks"]):
         if cfg.family in ("ssm", "hybrid"):
             din, gn, nh, k = SSM.mamba2_split_sizes(cfg)
             f32 = torch.float32
@@ -57,13 +78,14 @@ def meta_model(cfg) -> TT.Transformer:
             if cfg.moe.shared_expert:
                 ffn["shared"] = mlp()
             blocks.append(TT.MoEBlock(attn(), norm(), norm(), ffn, True))
+        elif cfg.family == "audio":
+            blocks.append(TT.AudioBlock(attn(), attn(), mlp(), norm(), norm(),
+                                        norm(), True))
         else:
             blocks.append(TT.DenseBlock(attn(), norm(), norm(), mlp(), True))
-    shared = (TT.SharedAttnBlock(attn(), norm(), mlp(), norm(), True)
-              if cfg.family == "hybrid" else None)
     return TT.Transformer(cfg, e(cfg.vocab_padded, d), norm(),
                           None if cfg.tie_embeddings
-                          else e(d, cfg.vocab_padded), blocks, True, shared)
+                          else e(d, cfg.vocab_padded), blocks, True, **extra)
 
 
 def estimate(arch: str, layers: int, b: int, s: int, dtype: str) -> tuple:
@@ -82,8 +104,13 @@ def estimate(arch: str, layers: int, b: int, s: int, dtype: str) -> tuple:
         return t
 
     toks = torch.zeros((b, s), dtype=torch.int32, device="meta")
+    memory = None
+    if cfg.family in TT.MEMORY_FAMILIES:
+        n = (cfg.n_image_tokens if cfg.family == "vlm"
+             else cfg.encoder.n_frames)
+        memory = torch.zeros((b, n, cfg.d_model), dtype=dt, device="meta")
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-        logits, _ = TT.forward_train(model, toks, cfg)
+        logits, _ = TT.forward_train(model, toks, cfg, memory=memory)
         TT.lm_loss(logits, toks, cfg.vocab)
     n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     return n_bytes, sum(saved.values())
