@@ -365,6 +365,27 @@ with a non-zero exit code:
    whisper-base whole in float32 on 8 x 448 tokens with 8 x 1500 frames
    (1e-5 / 1e-4, the encoder's leaves among them; the f32 routes 18 times
    each); (iii) the same in bf16 (1e-2 / 5e-2). Peaks under 70 GiB.
+8. llm-mesh — the LLM production mesh (``models/sharding.py``,
+   ``models/sharded.py``): (8a) the flash kernels with a query offset at
+   tinyllama-1.1b's production sequence shard (16 x 256 queries over 4096
+   keys, 32/4 heads of 64, offsets 0, 7 x 256 and 15 x 256) and at the
+   reference's q chunk (2 x 2048 queries at offset 2048 over 4096 keys),
+   forward and backward, both routes, held against their plain versions
+   (f32 within 1e-5, bf16 5e-2, of each output's largest |plain|) and
+   timed beside the bound, the plain version and SDPA with the offset as
+   a boolean mask, in turns; (8b) the 16 sequence shards of one (2, 4096)
+   causal call: out, lse and dq concatenate to the unsharded call's bit
+   for bit, dk and dv sum to its within 1e-5 (f32) / 5e-2 (bf16); (8c)
+   tinyllama-1.1b at full width in a NCCL group of one rank on the (1, 1)
+   mesh, ``remat``: one float32 step of 2 x 4096 with and without
+   ``set_q_chunk(2048)`` (loss within 1e-5, gradients within 1e-4 of each
+   leaf's largest |.|, of the unsharded ``loss_and_grads``), its ms/step,
+   peak and a profiled step, and the flash kernels' launches counted over
+   the run; (8d) the production dry run (``repro_torch.launch.dryrun``)
+   of the four dense archs' ``train_4k`` on both meshes in a child process
+   that sees no card, started before 8a and read after 8c: every record
+   ``ok``, each rank's FLOPs, bytes, collective bytes by kind and
+   arguments + temp logged.
 
 The last two lines of standard output are one JSON object per kernel
 route (``{"kernels": [...]}``, each with its launches on every path and,
@@ -5584,6 +5605,355 @@ def phase_llm_train_multimodal(torch, np, dev) -> tuple:
                                 "llm-train-multimodal", WHISPER_TRAIN_BATCH))
 
 
+# phase 8: the LLM production mesh. tinyllama-1.1b's sequence shard of the
+# (16, 16) mesh's train_4k (256 rows a DP rank, 4096 tokens over 16 model
+# ranks: 16 rows of 256 queries against 4096 keys) at the first, a middle
+# and the last rank's offsets, and the reference's q chunk of 2048 at its
+# second chunk; the sharded step's batch; the dry run's combinations here
+MESH_SHARD = (16, 256, 4096)
+MESH_OFFSETS = (0, 256 * 7, 256 * 15)
+MESH_QCHUNK = (2, 2048, 4096, 2048)
+MESH_F32_RTOL = 1e-5     # f32 offset kernels, of each output's max |plain|
+MESH_STEP_BATCH = (2, 4096)
+MESH_RECOMPOSE = (2, 4096, 16)     # batch, tokens, sequence shards
+# the four dense archs' train_4k (command-r-plus-104b walks 8 micro-batches
+# of 64 layers, about a minute a mesh); the other shapes run from the dry
+# run's CLI (PERF.md section 5)
+MESH_DRYRUN_ARCHS = ("tinyllama-1.1b", "qwen2-0.5b", "internlm2-1.8b",
+                     "command-r-plus-104b")
+MESH_DRYRUN_SHAPES = ("train_4k",)
+
+
+def check_flash_offsets(torch, np, dev) -> dict:
+    """8a: the forward and the backward with a query offset, both routes,
+    at MESH_SHARD's offsets and MESH_QCHUNK, against their plain versions;
+    timed (device ms of the kernels alone, ms a call in CUDA-event windows)
+    beside the bound of ``flash_attention_cost`` /
+    ``flash_attention_bwd_cost`` at the offset, the plain version and
+    ``scaled_dot_product_attention`` (and its autograd backward) with the
+    offset's boolean mask, kernel / SDPA / SDPA / kernel. Returns the
+    figures by route and shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(11)
+    h, kv, hd = 32, 4, 64
+    cases = [(f"shard, offset {o}", MESH_SHARD[0], MESH_SHARD[1],
+              MESH_SHARD[2], o) for o in MESH_OFFSETS]
+    cases.append(("q chunk", *MESH_QCHUNK))
+    out = {}
+    for dtype, peak, route in ((torch.float32, F32_OPS_PER_S, "f32"),
+                               (torch.bfloat16, BF16_TC_OPS_PER_S, "mma")):
+        tol = MESH_F32_RTOL if dtype == torch.float32 else BF16_TOL
+        for label, b, sq, t, o in cases:
+            mk = lambda *sh: torch.from_numpy(
+                rng.normal(size=sh).astype(np.float32)).to(dev, dtype)
+            q, k, v, dout = mk(b, sq, h, hd), mk(b, t, kv, hd), \
+                mk(b, t, kv, hd), mk(b, sq, h, hd)
+            o_k, lse_k = fa.flash_attention(q, k, v, True, None, o)
+            o_p, lse_p = fa.flash_attention_plain(q, k, v, True, None, o)
+            bwd_args = (q, k, v, o_k, lse_k, dout, True, None, o)
+            got = fa.flash_attention_bwd(*bwd_args)
+            want = fa.flash_attention_bwd_plain(*bwd_args)
+            rel = {n: (a.float() - r.float()).abs().max().item()
+                   / max(r.float().abs().max().item(), 1e-30)
+                   for n, a, r in zip(("out", "lse", "dq", "dk", "dv"),
+                                      (o_k, lse_k, *got),
+                                      (o_p, lse_p, *want))}
+            dead = not got[1][:, o + sq:].any() and \
+                not got[2][:, o + sq:].any()
+            log(f"[llm-mesh] offset kernels {label} {route}: q ({b}, {sq}, "
+                f"{h}, {hd}) at offset {o}, kv ({b}, {t}, {kv}, {hd}): "
+                + ", ".join(f"{n} {e:.3e}" for n, e in rel.items())
+                + f" of the largest |plain| (limit {tol}); dk, dv past the "
+                f"last row zero: {dead}")
+            if max(rel.values()) > tol or not dead:
+                raise AssertionError(f"offset kernels {label} {route}: "
+                                     f"{rel}, zero tail {dead}")
+            del o_p, lse_p, got, want
+            torch.cuda.empty_cache()
+            fwd = lambda: fa.flash_attention(q, k, v, True, None, o)
+            bwd = lambda: fa.flash_attention_bwd(*bwd_args)
+            fplan = fa.fwd_plan(b, sq, t, h, kv, hd, dtype, True, None)
+            bplan = fa.bwd_plan(b, sq, t, h, kv, hd, dtype, True, None, o)
+            mask = fa.attention_mask(sq, t, True, None, dev, o)  # SDPA's
+            qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, enable_gqa=True)
+            leaves = [x.detach().requires_grad_(True) for x in (qh, kh, vh)]
+            s_out = F.scaled_dot_product_attention(
+                *leaves, attn_mask=mask, enable_gqa=True)
+            s_dout = dout.transpose(1, 2)
+            sdpa_bwd = lambda: torch.autograd.grad(s_out, leaves, s_dout,
+                                                   retain_graph=True)
+            fig = {}
+            for what, call, plain, cost, names, lib in (
+                    ("fwd", fwd, lambda: fa.flash_attention_plain(
+                        q, k, v, True, None, o),
+                     fa.flash_attention_cost(q, k, v, True, None, o),
+                     fplan.kernel(), sdpa),
+                    ("bwd", bwd, lambda: fa.flash_attention_bwd_plain(
+                        *bwd_args),
+                     fa.flash_attention_bwd_cost(*bwd_args),
+                     bplan.kernels(), sdpa_bwd)):
+                dev_ms = device_ms(torch, call, names, n=10)
+                plain_ms = time_ms(torch, plain, reps=3, inner=1, warmup=1)
+                torch.cuda.empty_cache()
+                turns = [time_ms(torch, fn, reps=5, inner=3, warmup=2)
+                         for fn in (call, lib, lib, call)]
+                n_ops, n_bytes = cost
+                bound = bound_ms(n_bytes, n_ops, peak)
+                fig[what] = {"device_ms": dev_ms,
+                             "ms": (turns[0] + turns[3]) / 2,
+                             "library_ms": (turns[1] + turns[2]) / 2,
+                             "plain_ms": plain_ms, "bound_ms": bound,
+                             "bound_by": _bound_by(n_bytes, n_ops * (
+                                 F32_OPS_PER_S / peak)),
+                             "turns_ms": turns, "ops": n_ops,
+                             "bytes": n_bytes}
+                log(f"[llm-mesh] {what} {label} {route}: kernels "
+                    f"{fig[what]['ms']:.5f} ms a call ({dev_ms:.5f} ms on "
+                    f"the device, {bound / dev_ms:.3f} of the bound "
+                    f"{bound:.6f} ms, {fig[what]['bound_by']}), plain "
+                    f"{plain_ms:.5f} ms, SDPA with the offset's mask "
+                    f"{fig[what]['library_ms']:.5f} ms; in turns "
+                    + " / ".join(f"{x:.5f}" for x in turns) + " ms")
+            fig["pairs"] = f"{bplan.pair_lo}..{bplan.pair_hi}"
+            fig["split"] = bplan.split
+            out[f"{route} {label}"] = fig
+            del q, k, v, dout, o_k, lse_k, bwd_args, leaves, s_out, qh, kh
+            del vh, mask
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_shards_recompose(torch, np, dev) -> dict:
+    """8b: one (2, 4096) causal call (32/4 heads of 64) against its 16
+    sequence shards at their offsets, both routes: out, lse and dq
+    concatenated equal the unsharded call's bit for bit (each row walks
+    the same key blocks in the same order); dk and dv summed over the
+    shards within 1e-5 (f32) / 5e-2 (bf16) of the largest |.|."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(13)
+    (b, s, n), (h, kv, hd) = MESH_RECOMPOSE, (32, 4, 64)
+    rows = s // n
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        mk = lambda *sh: torch.from_numpy(
+            rng.normal(size=sh).astype(np.float32)).to(dev, dtype)
+        q, k, v, dout = mk(b, s, h, hd), mk(b, s, kv, hd), mk(b, s, kv, hd), \
+            mk(b, s, h, hd)
+        out, lse = fa.flash_attention(q, k, v, True, None)
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, dout, True,
+                                            None)
+        outs, lses, dqs = [], [], []
+        dk_sum = torch.zeros(dk.shape, dtype=torch.float32, device=dev)
+        dv_sum = torch.zeros_like(dk_sum)
+        for r in range(n):
+            sl = slice(r * rows, (r + 1) * rows)
+            qs = q[:, sl].contiguous()
+            o_r, l_r = fa.flash_attention(qs, k, v, True, None, r * rows)
+            g = fa.flash_attention_bwd(qs, k, v, o_r, l_r,
+                                       dout[:, sl].contiguous(), True, None,
+                                       r * rows)
+            outs.append(o_r)
+            lses.append(l_r)
+            dqs.append(g[0])
+            dk_sum += g[1].float()
+            dv_sum += g[2].float()
+        same = {"out": torch.equal(torch.cat(outs, 1), out),
+                "lse": torch.equal(torch.cat(lses, 2), lse),
+                "dq": torch.equal(torch.cat(dqs, 1), dq)}
+        rel = {name: (x - ref.float()).abs().max().item()
+               / ref.float().abs().max().item()
+               for name, x, ref in (("dk", dk_sum, dk), ("dv", dv_sum, dv))}
+        tol = MESH_F32_RTOL if dtype == torch.float32 else BF16_TOL
+        log(f"[llm-mesh] {n} sequence shards of a ({b}, {s}) causal call, "
+            f"{dtype}: bit for bit {same}; dk, dv summed over the shards "
+            f"within {rel['dk']:.3e}, {rel['dv']:.3e} of the largest |.| "
+            f"(limit {tol})")
+        if not all(same.values()) or max(rel.values()) > tol:
+            raise AssertionError(f"the shards do not recompose: {same}, "
+                                 f"{rel}")
+        res[str(dtype)] = {"bit_for_bit": same, **rel}
+        del q, k, v, dout, out, lse, dq, dk, dv, outs, lses, dqs
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_llm_mesh(torch, np, dev) -> tuple:
+    """8c: tinyllama-1.1b at its published width in float32 through the
+    sharded step (``loss_and_grads(mesh=)``, ``remat``, the sequence over
+    ``model``) on the (1, 1) mesh in a NCCL group of one rank, one step of
+    MESH_STEP_BATCH, without and with ``set_q_chunk(2048)``, held against
+    the unsharded ``loss_and_grads`` of the same weights; then one AdamW
+    step, the ms/step of the sharded step, its peak, and a profiled step.
+    The launch counts are zeroed before the sharded runs and read after
+    them. Returns (the launches, figures)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train_transformer as TTR
+    from repro_torch.models import layers as L
+    from repro_torch.models import sharded, sharding
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    toks, tgts = llm_batch(torch, cfg, dev, *MESH_STEP_BATCH)
+    model = TT.init_params(cfg, torch.Generator(dev).manual_seed(0), dev,
+                           trainable=True)
+    torch.cuda.reset_peak_memory_stats()
+    loss_p, grads_p = TTR.loss_and_grads(model, toks, tgts, cfg)
+    grads_p = [g.detach() for g in leaves(grads_p)]
+    figures = {}
+
+    def body():
+        mesh = sharding.make_llm_mesh((1, 1), ("data", "model"))
+        sharded.shard_model(model, mesh, fsdp=False)
+        seq_par = sharding.P("data", "model", None)
+        zero_launches()
+        for qc in (None, 2048):
+            L.set_q_chunk(qc)
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                ms = []            # the checked step, then a timed one
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with TT.run_options(act_sharding=seq_par, remat=True):
+                        loss, grads = TTR.loss_and_grads(model, toks, tgts,
+                                                         cfg, mesh=mesh)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    if len(ms) == 1:
+                        first = (loss, grads)
+                    del grads
+                loss, grads = first
+                ms = ms[1]
+            finally:
+                L.set_q_chunk(None)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            lrel = abs(loss.item() - loss_p.item()) / abs(loss_p.item())
+            worst = max((g - w).abs().max().item()
+                        / max(w.abs().max().item(), 1e-30)
+                        for g, w in zip(leaves(grads), grads_p))
+            log(f"[llm-mesh] {cfg.name} f32 sharded step on the (1, 1) mesh "
+                f"({MESH_STEP_BATCH[0]} x {MESH_STEP_BATCH[1]}, remat, "
+                f"q_chunk {qc}): loss {loss.item():.6f} against the "
+                f"unsharded {loss_p.item():.6f} ({lrel:.3e} relative, limit "
+                f"{LOSS_RTOL}); worst gradient leaf {worst:.3e} of its "
+                f"largest |.| (limit {GRAD_RTOL}); {ms:.1f} ms a step (the "
+                f"second), peak {peak:.3f} GiB")
+            if lrel > LOSS_RTOL or worst > GRAD_RTOL:
+                raise AssertionError(f"the sharded step (q_chunk {qc}) "
+                                     f"differs: loss {lrel}, grads {worst}")
+            figures[f"q_chunk {qc}"] = {"ms": ms, "peak_gib": peak,
+                                        "loss_rel": lrel, "grad_rel": worst}
+            del grads, first
+        counts = read_launches()
+        tree = TT.param_tree(model)
+        opt = AdamW(lr=1e-4)
+        state = opt.init(tree)
+        with TT.run_options(act_sharding=seq_par, remat=True):
+            _, grads = TTR.loss_and_grads(model, toks, tgts, cfg, mesh=mesh)
+        opt.update(tree, grads, state)
+        del grads
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with TT.run_options(act_sharding=seq_par, remat=True):
+                _, grads = TTR.loss_and_grads(model, toks, tgts, cfg,
+                                              mesh=mesh)
+            opt.update(tree, grads, state)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        seen = device_profile(
+            prof, wall_us, f"one {cfg.name} f32 sharded step (remat) with "
+            f"AdamW, {MESH_STEP_BATCH[0]} x {MESH_STEP_BATCH[1]}",
+            watch=("gemm", "flash_attention_kernel<", "flash_bwd_"))
+        figures["profiled"] = {k: seen[k] for k in ("busy_us", "wall_us",
+                                                   "launches")}
+        return counts
+
+    counts = in_nccl_group(torch, "8c", body)
+    log(f"[llm-mesh] launches over the sharded steps: flash_attention_f32 "
+        f"{counts['flash_attention_f32']}, flash_attention_bwd_f32 "
+        f"{counts['flash_attention_bwd_f32']}")
+    if not counts["flash_attention_f32"] or \
+            not counts["flash_attention_bwd_f32"]:
+        raise AssertionError(f"the sharded step launched no flash kernel: "
+                             f"{counts}")
+    del model, grads_p
+    torch.cuda.empty_cache()
+    return counts, figures
+
+
+def start_llm_mesh_dryrun():
+    """8d, started before 8a: the LLM dry run (``launch.dryrun.run_one``)
+    of MESH_DRYRUN_ARCHS x MESH_DRYRUN_SHAPES on both production meshes,
+    as rank 0, in a child process that sees no card; its walk (about two
+    minutes on the host alone) runs beside the card's 8a-8c. Returns the
+    running child; :func:`finish_llm_mesh_dryrun` reads it."""
+    import tempfile
+    combos = [(a, s, m) for a in MESH_DRYRUN_ARCHS
+              for s in MESH_DRYRUN_SHAPES for m in (False, True)]
+    script = ("import json, sys\n"
+              "from repro_torch.launch import dryrun\n"
+              f"for a, s, m in {combos!r}:\n"
+              "    rec = dryrun.run_one(a, s, m)\n"
+              "    rec.pop('traceback', None)\n"
+              "    print('REC ' + json.dumps(rec, default=str), flush=True)\n")
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c", script], cwd=ROOT,
+                            stdout=out, stderr=err, text=True,
+                            env=dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                                     PYTHONPATH=str(ROOT / "src")))
+    proc.smoke = (combos, out, err, time.monotonic())
+    return proc
+
+
+def finish_llm_mesh_dryrun(proc) -> dict:
+    """Wait for 8d's child (at most DRYRUN_TIMEOUT_S from its start) and
+    log its records; every record ``ok``."""
+    combos, out, err, t0 = proc.smoke
+    proc.wait(timeout=max(DRYRUN_TIMEOUT_S - (time.monotonic() - t0), 1))
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    recs = [json.loads(x[4:]) for x in stdout.splitlines()
+            if x.startswith("REC ")]
+    table = {}
+    for rec in recs:
+        key = f"{rec['arch']} {rec['shape']} {rec['mesh']}"
+        if rec["status"] != "ok":
+            log(f"[llm-mesh] dry run {key}: {rec['status']} "
+                f"{rec.get('error')}")
+            continue
+        mem = rec["memory"]
+        coll = {k: v for k, v in rec["collective_bytes_per_device"].items()
+                if v}
+        log(f"[llm-mesh] dry run {key}, rank 0 of {rec['n_devices']} "
+            f"(counts on the meta device, not times; walked in "
+            f"{rec['walk_s']} s): {rec['flops_per_device']:.4e} FLOPs, "
+            f"{rec['bytes_per_device']:.4e} bytes, collective bytes {coll}, "
+            f"by scope {rec['collective_bytes_by_scope']}, arguments "
+            f"{mem['argument_bytes'] / 2**30:.3f} GiB + temp "
+            f"{mem['temp_bytes'] / 2**30:.3f} GiB")
+        table[key] = {k: rec[k] for k in (
+            "flops_per_device", "bytes_per_device",
+            "collective_bytes_per_device", "memory", "walk_s")}
+    log(f"[llm-mesh] dry run of {len(combos)} combinations in "
+        f"{time.monotonic() - t0:.1f} s from its start (beside 8a-8c), "
+        f"exit code {proc.returncode}")
+    if proc.returncode != 0 or len(table) != len(combos):
+        raise AssertionError(f"the LLM dry run failed:\n{stdout[-3000:]}"
+                             f"\n{stderr[-3000:]}")
+    return table
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--vertices", type=int, default=2_449_029,
@@ -5693,6 +6063,21 @@ def main() -> int:
     (by_path["llm_train_vlm_bf16"], by_path["llm_train_audio"],
      by_path["llm_train_audio_bf16"]) = phase_llm_train_multimodal(torch, np,
                                                                    dev)
+    torch.cuda.empty_cache()
+    t8 = time.monotonic()
+    dry = start_llm_mesh_dryrun()
+    try:
+        mesh_figures = {"offsets": check_flash_offsets(torch, np, dev),
+                        "shards": check_shards_recompose(torch, np, dev)}
+        by_path["llm_mesh"], mesh_figures["step"] = phase_llm_mesh(
+            torch, np, dev)
+        mesh_figures["dryrun"] = finish_llm_mesh_dryrun(dry)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    log(f"[llm-mesh] phase 8 in {time.monotonic() - t8:.1f} s")
+    print("[llm-mesh] " + json.dumps(mesh_figures, default=str))
     # each kernel's launches on the path that runs it, each route of the
     # tail and of flash from its own count (the training path's tails take
     # the vector route and draw from the counter; LLM serving runs flash in

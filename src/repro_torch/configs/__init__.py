@@ -58,3 +58,11 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke(arch: str) -> ModelConfig:
     return _module(arch).smoke()
+
+
+def shape_applicable(cfg: ModelConfig, shape: InputShape) -> bool:
+    """long_500k only for a sub-quadratic decode state
+    (``ModelConfig.supports_long_decode``), as in the reference."""
+    if shape.name == "long_500k":
+        return cfg.supports_long_decode
+    return True

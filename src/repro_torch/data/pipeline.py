@@ -14,6 +14,7 @@ import dataclasses
 from typing import Iterator, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -60,9 +61,20 @@ def make_lm_batches(vocab_size: int, batch: int, seq_len: int,
 
 def shard_batch_for_mesh(mesh, tokens: np.ndarray, targets: np.ndarray,
                          batch_axes=("pod", "data")):
-    """Placing a batch on the LLM mesh needs ``models/sharding.py``, which
-    is not ported yet."""
-    raise NotImplementedError(
-        "shard_batch_for_mesh needs the LLM mesh of models/sharding.py, "
-        "not ported yet: ROADMAP queue 1, \"The LLM stack beyond the dense "
-        "serving path\" (models/sharding.py and data/pipeline.py)")
+    """This rank's rows of a host batch on the mesh's device: the batch
+    split over the DP axes among ``batch_axes`` (pod outer, data inner,
+    the reference's ``P(("pod", "data"), None)``), replicated over the
+    rest. A batch the DP size does not divide raises ``ValueError``, as
+    the reference's ``jax.device_put`` does."""
+    axes = tuple(a for a in batch_axes if a in mesh.axis_names)
+    idx, n = 0, 1
+    for a in axes:
+        idx, n = idx * mesh.shape[a] + mesh.coords[a], n * mesh.shape[a]
+    b = tokens.shape[0]
+    if b % n:
+        raise ValueError(f"a batch of {b} rows does not divide over the "
+                         f"{n} ranks of the axes {axes}")
+    rows = slice(idx * (b // n), (idx + 1) * (b // n))
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a[rows])).to(
+        mesh.device)
+    return put(tokens), put(targets)

@@ -50,16 +50,17 @@ SIGNATURES = {
     "repro_spmm_ell_dx": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _P],
     # q, k, v, out, lse, b, sq, t, h, kv, hd, causal, use_window, window,
-    # scale, bf16, stream
+    # q_offset, scale, bf16, stream
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _F, _I, _P],
+                              _I, _I, _I, _I, _F, _I, _P],
     # hd, bf16, &bytes, &CTAs an SM: the forward's dynamic shared memory
     "repro_flash_attention_smem": [_I, _I, _P, _P],
     # q, k, v, out, lse, dout, stats, part|null, dq, dk, dv, b, sq, t, h,
-    # kv, hd, causal, use_window, window, pair, split, scale, bf16, stream
+    # kv, hd, causal, use_window, window, q_offset, pair_lo, pair_hi,
+    # split, scale, bf16, stream
     "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                  _I, _I, _F, _I, _P],
+                                  _I, _I, _I, _I, _F, _I, _P],
     # hd, bf16, &dq bytes, &dk/dv bytes: the kernels' dynamic shared memory
     "repro_flash_attention_bwd_smem": [_I, _I, _P, _P],
     # key, n, out, stream

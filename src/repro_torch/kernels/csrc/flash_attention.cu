@@ -17,6 +17,15 @@
 // K/V per q head. As in the TPU kernel, p is rounded to the input type
 // before the p @ v product (a no-op in float32). Two routes, one per type.
 //
+// Query row i sits at q_pos = q_offset + i (q_offset >= 0; the TPU kernel
+// knows only 0): the reference's q-chunked causal attention passes a
+// chunk's first row, and a sequence-sharded hidden state a shard's first
+// row, against all the keys. A CTA walks only the key blocks its rows can
+// see (blocks wholly past its last row's position are never loaded), so a
+// row walks the same key blocks, in the same order, at any offset: the
+// shards of one call concatenate to the unsharded call's out and lse bit
+// for bit. Under a causal mask the last tile still sees the most keys.
+//
 // What bounds it on the H100. At the serving shape (q (1, 512, 32, 64), K/V
 // with 4 heads, bf16, causal) bytes: q, k, v, out and the lse are about
 // 4.6 MB, 1.4 us at 3.35 TB/s, against 2*2*32*512*512*64 / 2 = 1.1 GFLOP
@@ -171,7 +180,7 @@ __global__ void __launch_bounds__(kTileThreads, 2) flash_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out,
     float* __restrict__ lse, int sq, int t, int h, int kv, int causal,
-    int use_window, int window, float scale, float scale_log2) {
+    int use_window, int window, int qo, float scale, float scale_log2) {
   constexpr int LD = HD + 4, KB = f32_k_block<HD>(), KJ = KB / 16;
   constexpr int DPT = HD / 16;  // output columns a lane
   extern __shared__ float4 smem4[];
@@ -190,7 +199,7 @@ __global__ void __launch_bounds__(kTileThreads, 2) flash_attention_kernel(
   const size_t q_head = (static_cast<size_t>(b) * sq * h + head) * HD;
   const size_t kv_head = (static_cast<size_t>(b) * t * kv + kvh) * HD;
   int kb_begin, kb_end;
-  key_blocks(q0, kRows, KB, sq, t, causal, use_window, window, kb_begin,
+  key_blocks(q0, kRows, KB, sq, t, causal, use_window, window, qo, kb_begin,
              kb_end);
   const int n = kb_end - kb_begin;
   auto load_kv = [&](int i, int buf) {
@@ -235,20 +244,21 @@ __global__ void __launch_bounds__(kTileThreads, 2) flash_attention_kernel(
     const int k0 = (kb_begin + i) * KB;
     // a block that no row of this warp may see (past sq, above the
     // diagonal, or before the window) leaves its state as it is
-    const bool visible = w_first < sq && !(causal && k0 > w_last) &&
-                         !(use_window && k0 + KB - 1 <= w_first - window);
+    const bool visible =
+        w_first < sq && !(causal && k0 > w_last + qo) &&
+        !(use_window && k0 + KB - 1 <= w_first + qo - window);
     if (visible) {
       float s[8][KJ];
       qk_product<HD, KB>(s, qs + r0 * LD, kb + kg * LD);
       // mask only where the block needs it
       if (!all_visible(w_first, 16, k0, KB, sq, t, causal, use_window,
-                       window)) {
+                       window, qo)) {
 #pragma unroll
         for (int r = 0; r < 8; ++r)
 #pragma unroll
           for (int j = 0; j < KJ; ++j)
             if (!allowed(q0 + r0 + r, k0 + kg + 16 * j, sq, t, causal,
-                         use_window, window))
+                         use_window, window, qo))
               s[r][j] = -INFINITY;
       }
       // running statistics: a row lives on 16 lanes; p = 2^(s * scale *
@@ -329,7 +339,7 @@ __global__ void __launch_bounds__(kWarps * 32, HD <= 64 ? 4 : 1)
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ out,
     float* __restrict__ lse, int sq, int t, int h, int kv, int causal,
-    int use_window, int window, float scale_log2) {
+    int use_window, int window, int qo, float scale_log2) {
   constexpr int S = mma_stride<HD>();
   constexpr int kThreads = kWarps * 32;
   constexpr int kPieces = HD / 8;  // 16-byte pieces in a row
@@ -351,16 +361,9 @@ __global__ void __launch_bounds__(kWarps * 32, HD <= 64 ? 4 : 1)
   const size_t kv_base = (static_cast<size_t>(b) * t * kv + kvh) * HD;
 
   // the key blocks this tile can see
-  int kb_end = (t + kKeys - 1) / kKeys;
-  if (causal) {
-    const int last = min(q0 + kRows, sq) - 1;
-    kb_end = min(kb_end, last / kKeys + 1);
-  }
-  int kb_begin = 0;
-  if (use_window) {
-    const int first = q0 - window + 1;  // smallest key the window reaches
-    kb_begin = first > 0 ? first / kKeys : 0;
-  }
+  int kb_begin, kb_end;
+  key_blocks(q0, kRows, kKeys, sq, t, causal, use_window, window, qo,
+             kb_begin, kb_end);
 
   for (int i = tid; i < kRows * kPieces; i += kThreads) {
     const int r = i / kPieces, c = i % kPieces;
@@ -392,10 +395,11 @@ __global__ void __launch_bounds__(kWarps * 32, HD <= 64 ? 4 : 1)
   for (int ds = 0; ds < kDSteps; ++ds)
     load_a(qf[ds], qs + warp * 16 * S + ds * 16, S, lane);
 
-  // the warp's rows, this lane's two of them (g and g + 8), their state
-  const int w_first = q0 + warp * 16, w_last = w_first + 15;
-  const int row_a = w_first + (lane >> 2);
-  const int row_b = row_a + 8;
+  // the warp's rows at their positions (row + qo, what the masks compare),
+  // this lane's two of them (g and g + 8), their state
+  const bool live = q0 + warp * 16 < sq;
+  const int p_first = q0 + warp * 16 + qo, p_last = p_first + 15;
+  const int p_a = p_first + (lane >> 2), p_b = p_a + 8;
   float m[2] = {-INFINITY, -INFINITY};  // running max of the raw scores
   float l[2] = {0.0f, 0.0f};            // this lane's part of the row sums
   float o[2 * kDSteps][4];
@@ -415,8 +419,9 @@ __global__ void __launch_bounds__(kWarps * 32, HD <= 64 ? 4 : 1)
     // a block that no row of this warp may see (past sq, above the
     // diagonal, or before the window) leaves its state as it is
     const int k0 = kb * kKeys;
-    const bool visible = w_first < sq && !(causal && k0 > w_last) &&
-                         !(use_window && k0 + kKeys - 1 <= w_first - window);
+    const bool visible =
+        live && !(causal && k0 > p_last) &&
+        !(use_window && k0 + kKeys - 1 <= p_first - window);
     if (visible) {
       // s = q . k^T for the warp's 16 rows and the block's 64 keys
       float s[kNTiles][4];
@@ -436,17 +441,17 @@ __global__ void __launch_bounds__(kWarps * 32, HD <= 64 ? 4 : 1)
 
       // mask only where the block needs it
       const bool edge = k0 + kKeys > t ||
-                        (causal && k0 + kKeys - 1 > w_first) ||
-                        (use_window && k0 <= w_last - window);
+                        (causal && k0 + kKeys - 1 > p_first) ||
+                        (use_window && k0 <= p_last - window);
       if (edge) {
 #pragma unroll
         for (int n = 0; n < kNTiles; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int key = k0 + n * 8 + (lane & 3) * 2 + (e & 1);
-            const int row = e < 2 ? row_a : row_b;
-            const bool ok = key < t && (!causal || key <= row) &&
-                            (!use_window || key > row - window);
+            const int pos = e < 2 ? p_a : p_b;
+            const bool ok = key < t && (!causal || key <= pos) &&
+                            (!use_window || key > pos - window);
             s[n][e] = ok ? s[n][e] : -INFINITY;
           }
       }
@@ -503,7 +508,8 @@ __global__ void __launch_bounds__(kWarps * 32, HD <= 64 ? 4 : 1)
   }
   cp_async_wait<0>();
 
-  const int rows[2] = {row_a, row_b};
+  const int row_a = q0 + warp * 16 + (lane >> 2);
+  const int rows[2] = {row_a, row_a + 8};
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -532,7 +538,8 @@ __global__ void __launch_bounds__(kWarps * 32, HD <= 64 ? 4 : 1)
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                void* lse, int b, int sq, int t, int h, int kv, int causal,
-               int use_window, int window, float scale, cudaStream_t stream) {
+               int use_window, int window, int qo, float scale,
+               cudaStream_t stream) {
   constexpr size_t smem = f32_smem_bytes<HD>();
   auto kernel = flash_attention_kernel<HD>;
   static bool opted_in = false;
@@ -544,14 +551,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out),
       static_cast<float*>(lse), sq, t, h, kv, causal, use_window, window,
-      scale, scale * 1.4426950408889634f);
+      qo, scale, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 void* lse, int b, int sq, int t, int h, int kv, int causal,
-                int use_window, int window, float scale,
+                int use_window, int window, int qo, float scale,
                 cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<HD>();
   auto kernel = flash_attention_mma_kernel<HD>;
@@ -564,49 +571,46 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
       static_cast<float*>(lse), sq, t, h, kv, causal, use_window, window,
-      scale * 1.4426950408889634f);
+      qo, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch(int bf16_route, const void* q, const void* k, const void* v,
            void* out, void* lse, int b, int sq, int t, int h, int kv,
-           int causal, int use_window, int window, float scale,
+           int causal, int use_window, int window, int qo, float scale,
            cudaStream_t stream) {
   return bf16_route
              ? launch_bf16<HD>(q, k, v, out, lse, b, sq, t, h, kv, causal,
-                               use_window, window, scale, stream)
+                               use_window, window, qo, scale, stream)
              : launch_f32<HD>(q, k, v, out, lse, b, sq, t, h, kv, causal,
-                              use_window, window, scale, stream);
+                              use_window, window, qo, scale, stream);
 }
 
 }  // namespace
 
 // q (b, sq, h, hd), k and v (b, t, kv, hd), out like q, lse (b, h, sq)
 // float32; all contiguous and 16-byte aligned, float32 (bf16 = 0) or
-// bfloat16 (bf16 = 1); hd in {16, 32, 64, 80, 128}, h % kv == 0. Returns
-// the launch's cudaError_t (0 on success).
+// bfloat16 (bf16 = 1); hd in {16, 32, 64, 80, 128}, h % kv == 0; query row
+// i at position q_offset + i (q_offset >= 0). Returns the launch's
+// cudaError_t (0 on success).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* out, void* lse, int b,
     int sq, int t, int h, int kv, int hd, int causal, int use_window,
-    int window, float scale, int bf16, void* stream) {
+    int window, int q_offset, float scale, int bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_offset < 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 16:
-      return launch<16>(bf16, q, k, v, out, lse, b, sq, t, h, kv, causal,
-                        use_window, window, scale, s);
-    case 32:
-      return launch<32>(bf16, q, k, v, out, lse, b, sq, t, h, kv, causal,
-                        use_window, window, scale, s);
-    case 64:
-      return launch<64>(bf16, q, k, v, out, lse, b, sq, t, h, kv, causal,
-                        use_window, window, scale, s);
-    case 80:
-      return launch<80>(bf16, q, k, v, out, lse, b, sq, t, h, kv, causal,
-                        use_window, window, scale, s);
-    case 128:
-      return launch<128>(bf16, q, k, v, out, lse, b, sq, t, h, kv, causal,
-                         use_window, window, scale, s);
+#define REPRO_HD(HD)                                                      \
+  case HD:                                                                \
+    return launch<HD>(bf16, q, k, v, out, lse, b, sq, t, h, kv, causal,   \
+                      use_window, window, q_offset, scale, s);
+    REPRO_HD(16)
+    REPRO_HD(32)
+    REPRO_HD(64)
+    REPRO_HD(80)
+    REPRO_HD(128)
+#undef REPRO_HD
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

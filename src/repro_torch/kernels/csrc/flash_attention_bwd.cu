@@ -34,6 +34,13 @@
 //           share of the group's q heads). Under a causal mask (and no
 //           window) a unit pairs key blocks j and n - 1 - j, so every unit
 //           walks n + 1 query blocks a head and none waits on the heaviest.
+//           With a query offset (query row i at position q_offset + i, the
+//           reference's q chunks and a sequence shard's rows) the visible
+//           rectangle is no square triangle: the key blocks every row sees
+//           whole run one a unit, those the diagonal crosses are paired
+//           among themselves (bwd_plan's pair_lo .. pair_hi), and the
+//           blocks past the last row's position get no unit: their dk and
+//           dv rows are set to zero (a memset), their keys never loaded.
 //           The group's g q heads may be split over `split` units: each
 //           then sums dk and dv over its g / split heads and writes float32
 //           partials to `part` (2 x split x B x T x KV x hd floats, dk's
@@ -100,32 +107,50 @@ constexpr int kThreads = 128;  // one warpgroup
 constexpr int kOther = 32;     // keys the f32 dq kernel streams a step
 constexpr float kLog2e = 1.4426950408889634f;
 
-// the query blocks (of qb rows) that can see keys [k0, k0 + kn)
+// the query blocks (of qb rows, row i at position qo + i) that can see
+// keys [k0, k0 + kn)
 __device__ __forceinline__ void query_blocks(int k0, int kn, int sq, int qb,
                                              int causal, int use_window,
-                                             int window, int& begin,
+                                             int window, int qo, int& begin,
                                              int& end) {
   end = (sq + qb - 1) / qb;
-  begin = causal ? k0 / qb : 0;  // rows >= the first key
-  if (use_window) {              // rows < the last key + window
-    const long long last = static_cast<long long>(k0) + kn + window - 2;
+  begin = causal ? max(k0 - qo, 0) / qb : 0;  // positions >= the first key
+  if (causal && k0 - qo >= sq) end = 0;       // past the last row
+  if (use_window) {  // positions < the last key + window
+    const long long last =
+        static_cast<long long>(k0) + kn + window - 2 - qo;
     end = last < 0 ? 0 : min(static_cast<long long>(end), last / qb + 1);
   }
   if (end < begin) end = begin;
 }
 
+// The dk/dv units of one (batch row, kv head, share): key blocks [0,
+// pair_lo) one a unit, blocks [pair_lo, pair_hi) paired j with pair_lo +
+// pair_hi - 1 - j (under a causal mask their work falls along the
+// diagonal, so every pair walks about the same number of query blocks);
+// without pairing pair_lo = pair_hi = the key blocks. Blocks from pair_hi
+// on (past the last query's position under a causal mask) get no unit:
+// the launch sets their dk and dv rows to zero, without a load.
+__host__ __device__ __forceinline__ int units_per_head(int pair_lo,
+                                                      int pair_hi) {
+  return pair_lo + (pair_hi - pair_lo + 1) / 2;
+}
+
 // A dk/dv unit: blockIdx.x = ((b * kv + kv head) * split + share) * n_units
-// + u; its key blocks are u and, paired, n_kb - 1 - u; its q heads the
+// + u; its key blocks as units_per_head lays them out; its q heads the
 // share-th g / split of the group; its steps (key block, q head, query
 // block) in that order, the query blocks of each key block those that see
-// it.
+// it (none for a key block that no row of a window sees: its dk and dv
+// are written as zeros, without a load).
 struct Unit {
   int b, kvh, share, head0, heads;  // q heads head0 .. head0 + heads - 1
   int n_blocks, kb0, kb1, qbb0, qbe0, qbb1, qbe1, steps0, steps1, total;
 
-  __device__ Unit(int n_kb, int pair, int split, int kv, int h, int sq,
-                  int qb, int causal, int use_window, int window) {
-    const int n_units = pair ? (n_kb + 1) / 2 : n_kb;
+  __device__ Unit(int pair_lo, int pair_hi, int split, int kv, int h,
+                  int sq, int qb, int causal, int use_window, int window,
+                  int qo) {
+    const int n_pairs = (pair_hi - pair_lo + 1) / 2;
+    const int n_units = units_per_head(pair_lo, pair_hi);
     const int u = blockIdx.x % n_units;
     int r = blockIdx.x / n_units;
     share = r % split;
@@ -135,12 +160,12 @@ struct Unit {
     heads = h / kv / split;
     head0 = kvh * (h / kv) + share * heads;
     kb0 = u;
-    kb1 = n_kb - 1 - u;
-    n_blocks = pair && kb1 != kb0 ? 2 : 1;
-    query_blocks(kb0 * kTile, kTile, sq, qb, causal, use_window, window, qbb0,
-                 qbe0);
-    query_blocks(kb1 * kTile, kTile, sq, qb, causal, use_window, window, qbb1,
-                 qbe1);
+    kb1 = u < pair_lo ? u : pair_hi - 1 - (u - pair_lo);
+    n_blocks = kb1 != kb0 ? 2 : 1;
+    query_blocks(kb0 * kTile, kTile, sq, qb, causal, use_window, window, qo,
+                 qbb0, qbe0);
+    query_blocks(kb1 * kTile, kTile, sq, qb, causal, use_window, window, qo,
+                 qbb1, qbe1);
     steps0 = heads * (qbe0 - qbb0);
     steps1 = n_blocks == 2 ? heads * (qbe1 - qbb1) : 0;
     total = steps0 + steps1;
@@ -217,7 +242,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_wgmma_kernel(
     const bf16* __restrict__ out, const bf16* __restrict__ dout,
     const float* __restrict__ lse, float2* __restrict__ stats,
     bf16* __restrict__ dq, int sq, int sq_pad, int t, int h, int kv,
-    int causal, int use_window, int window, float scale) {
+    int causal, int use_window, int window, int qo, float scale) {
   using T = Tile<HD, kTile>;
   using L = DqLayout<HD>;
   constexpr int kStages = L::kStages;
@@ -236,8 +261,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_wgmma_kernel(
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heaviest first
   const int kvh = head / (h / kv);
   int kb_begin, kb_end;
-  key_blocks(q0, kTile, kTile, sq, t, causal, use_window, window, kb_begin,
-             kb_end);
+  key_blocks(q0, kTile, kTile, sq, t, causal, use_window, window, qo,
+             kb_begin, kb_end);
   const int n = kb_end - kb_begin;
   const uint32_t bar0 = smem_addr(&bars[0]);
 
@@ -341,7 +366,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_wgmma_kernel(
     wgmma_wait<1>();
     own(s);
     const bool full = all_visible(q0, kTile, k0, kTile, sq, t, causal,
-                                  use_window, window);
+                                  use_window, window, qo);
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j)
 #pragma unroll
@@ -350,7 +375,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_wgmma_kernel(
         const bool hi = e >= 2;
         const int key = k0 + 8 * j + (lane & 3) * 2 + (e & 1);
         const bool ok = full || allowed(hi ? row_b : row_a, key, sq, t,
-                                        causal, use_window, window);
+                                        causal, use_window, window, qo);
         s[idx] = ok ? fast_exp2(fmaf(s[idx], scale_log2,
                                      -(hi ? lse_b : lse_a)))
                     : 0.0f;
@@ -453,9 +478,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_dout,
     const __grid_constant__ CUtensorMap tm_stats, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ dk, bf16* __restrict__ dv,
-    float* __restrict__ part, int nb, int sq, int t, int h, int kv, int n_kb,
-    int pair, int split, int causal, int use_window, int window,
-    float scale) {
+    float* __restrict__ part, int nb, int sq, int t, int h, int kv,
+    int pair_lo, int pair_hi, int split, int causal, int use_window,
+    int window, int qo, float scale) {
   using L = DkdvLayout<HD>;
   using TQ = typename L::TQ;
   constexpr int QB = L::QB;
@@ -468,8 +493,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wgmma_kernel(
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const Unit unit(n_kb, pair, split, kv, h, sq, QB, causal, use_window,
-                  window);
+  const Unit unit(pair_lo, pair_hi, split, kv, h, sq, QB, causal,
+                  use_window, window, qo);
   const int b = unit.b, kvh = unit.kvh;
   const uint32_t bar0 = smem_addr(&bars[0]);
 
@@ -509,12 +534,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wgmma_kernel(
     const int k0 = unit.kb(c) * kTile;
     const int key_a = k0 + warp * 16 + (lane >> 2);  // and key_a + 8
     const int nq = unit.n_qb(c);
-    // K and V of this lane's keys as the A operands of s^T and dp^T
+    // K and V of this lane's keys as the A operands of s^T and dp^T (a key
+    // block that no query sees is not loaded: its dk and dv are zeros)
     uint32_t kf[HD / 16][4], vf[HD / 16][4];
-    load_a_rows<HD>(kf, k + kv_head, static_cast<size_t>(kv) * HD, key_a, t,
-                    lane);
-    load_a_rows<HD>(vf, v + kv_head, static_cast<size_t>(kv) * HD, key_a, t,
-                    lane);
+    const int limit = nq > 0 ? t : 0;
+    load_a_rows<HD>(kf, k + kv_head, static_cast<size_t>(kv) * HD, key_a,
+                    limit, lane);
+    load_a_rows<HD>(vf, v + kv_head, static_cast<size_t>(kv) * HD, key_a,
+                    limit, lane);
     float dka[HD / 2], dva[HD / 2];
 #pragma unroll
     for (int e = 0; e < HD / 2; ++e) dka[e] = dva[e] = 0.0f;
@@ -555,7 +582,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wgmma_kernel(
       wgmma_wait<1>();
       own(sa);
       const bool full = all_visible(q0, QB, k0, kTile, sq, t, causal,
-                                    use_window, window);
+                                    use_window, window, qo);
 #pragma unroll
       for (int j = 0; j < QB / 8; ++j) {
         const int col = 8 * j + (lane & 3) * 2;
@@ -566,7 +593,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wgmma_kernel(
           const bool odd = e & 1;
           const bool ok =
               full || allowed(q0 + col + odd, key_a + (e >= 2 ? 8 : 0), sq,
-                              t, causal, use_window, window);
+                              t, causal, use_window, window, qo);
           sa[idx] = ok ? fast_exp2(fmaf(sa[idx], scale_log2,
                                         -(odd ? sv.z : sv.x)))
                        : 0.0f;
@@ -683,7 +710,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(
     const float* __restrict__ v, const float* __restrict__ out,
     const float* __restrict__ lse, const float* __restrict__ dout,
     float2* __restrict__ stats, float* __restrict__ dq, int sq, int sq_pad,
-    int t, int h, int kv, int causal, int use_window, int window,
+    int t, int h, int kv, int causal, int use_window, int window, int qo,
     float scale) {
   constexpr int LD = HD + 4, DPT = HD / 16;
   extern __shared__ float4 smem4[];
@@ -702,8 +729,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(
   const size_t q_head = (static_cast<size_t>(b) * sq * h + head) * HD;
   const size_t kv_head = (static_cast<size_t>(b) * t * kv + kvh) * HD;
   int kb_begin, kb_end;
-  key_blocks(q0, kTile, kOther, sq, t, causal, use_window, window, kb_begin,
-             kb_end);
+  key_blocks(q0, kTile, kOther, sq, t, causal, use_window, window, qo,
+             kb_begin, kb_end);
   const int n = kb_end - kb_begin;
   auto load_kv = [&](int i, int buf) {
     float* kb = kvbuf + buf * 2 * kOther * LD;
@@ -781,14 +808,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(
     float s[4][4], dp[4][4];
     nt_products<HD, kOther>(s, dp, qs, kb, dos, vb, og, xg);
     const bool full = all_visible(q0, kTile, k0, kOther, sq, t, causal,
-                                  use_window, window);
+                                  use_window, window, qo);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int row = q0 + og + 16 * a, key = k0 + xg + 8 * j;
         const bool ok =
-            full || allowed(row, key, sq, t, causal, use_window, window);
+            full || allowed(row, key, sq, t, causal, use_window, window, qo);
         const float p = ok ? exp2f(fmaf(s[a][j], scale_log2, -l2[a])) : 0.0f;
         dst[(xg + 8 * j) * kXLd + og + 16 * a] =
             p * (dp[a][j] - dd[a]) * scale;
@@ -824,14 +851,16 @@ __host__ __device__ constexpr size_t dkdv_f32_smem_bytes() {
          sizeof(float);
 }
 
+// two CTAs an SM (bwd_plan's BWD_CTAS_PER_SM): without the bound ptxas
+// capped hd 16 at 168 registers and spilled
 template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_f32_kernel(
+__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkdv_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float2* __restrict__ stats, float* __restrict__ dk,
     float* __restrict__ dv, float* __restrict__ part, int nb, int sq,
-    int sq_pad, int t, int h, int kv, int n_kb, int pair, int split,
-    int causal, int use_window, int window, float scale) {
+    int sq_pad, int t, int h, int kv, int pair_lo, int pair_hi, int split,
+    int causal, int use_window, int window, int qo, float scale) {
   constexpr int LD = HD + 4, DPT = HD / 16;
   constexpr int OT = dkdv_f32_q_block<HD>();
   constexpr int kBuf = 2 * OT * LD + 2 * OT;  // q, dout, stats
@@ -843,11 +872,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_f32_kernel(
   float* dst = pt + OT * kXLd;                  // ds^T [OT][kXLd]
 
   const int tid = threadIdx.x;
-  const Unit unit(n_kb, pair, split, kv, h, sq, OT, causal, use_window,
-                  window);
+  const Unit unit(pair_lo, pair_hi, split, kv, h, sq, OT, causal,
+                  use_window, window, qo);
   const int b = unit.b, kvh = unit.kvh;
   const size_t kv_head = (static_cast<size_t>(b) * t * kv + kvh) * HD;
-  auto load_kv = [&](int c) {
+  auto load_kv = [&](int c) {  // none for a key block no query sees
+    if (unit.steps(c) == 0) return;
     const int k0 = unit.kb(c) * kTile;
     stage_rows<HD>(ks, k + kv_head, static_cast<size_t>(kv) * HD, k0, kTile,
                    t, tid);
@@ -898,7 +928,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_f32_kernel(
       float st[4][OT / 8], dpt[4][OT / 8];
       nt_products<HD, OT>(st, dpt, ks, bq, vs, bdo, og, xg);
       const bool full = all_visible(q0, OT, k0, kTile, sq, t, causal,
-                                    use_window, window);
+                                    use_window, window, qo);
 #pragma unroll
       for (int j = 0; j < OT / 8; ++j) {
         const int qi = xg + 8 * j;
@@ -907,7 +937,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_f32_kernel(
         for (int a = 0; a < 4; ++a) {
           const int key = k0 + og + 16 * a;
           const bool ok = full || allowed(q0 + qi, key, sq, t, causal,
-                                          use_window, window);
+                                          use_window, window, qo);
           const float p = ok ? exp2f(fmaf(st[a][j], scale_log2, -sv.x)) : 0.0f;
           pt[qi * kXLd + og + 16 * a] = p;
           dst[qi * kXLd + og + 16 * a] = p * (dpt[a][j] - sv.y) * scale;
@@ -987,13 +1017,30 @@ __global__ void flash_bwd_reduce_kernel(const float* __restrict__ part,
 struct Args {
   const void *q, *k, *v, *out, *lse, *dout;
   void *stats, *dq, *dk, *dv, *part;
-  int b, sq, sq_pad, t, h, kv, causal, use_window, window, pair, split;
+  int b, sq, sq_pad, t, h, kv, causal, use_window, window, qo, pair_lo,
+      pair_hi, split;
   float scale;
 };
 
 int n_units(const Args& a) {
-  const int n_kb = (a.t + kTile - 1) / kTile;
-  return (a.pair ? (n_kb + 1) / 2 : n_kb) * a.split * a.kv * a.b;
+  return units_per_head(a.pair_lo, a.pair_hi) * a.split * a.kv * a.b;
+}
+
+// dk and dv rows of the key blocks from pair_hi on, which no unit walks
+// (no query sees them): zeros, after the reduce (which sums the partials'
+// whole planes)
+template <typename T, int HD>
+int zero_tail(const Args& a, cudaStream_t stream) {
+  const int k0 = a.pair_hi * kTile;
+  if (k0 >= a.t) return static_cast<int>(cudaSuccess);
+  const size_t row = static_cast<size_t>(a.kv) * HD * sizeof(T);
+  for (void* x : {a.dk, a.dv}) {
+    const cudaError_t e = cudaMemset2DAsync(
+        static_cast<char*>(x) + k0 * row, a.t * row, 0, (a.t - k0) * row,
+        a.b, stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
 template <typename T, int HD>
@@ -1023,7 +1070,8 @@ int launch_f32(const Args& a, cudaStream_t stream) {
       static_cast<F>(a.q), static_cast<F>(a.k), static_cast<F>(a.v),
       static_cast<F>(a.out), static_cast<F>(a.lse), static_cast<F>(a.dout),
       static_cast<float2*>(a.stats), static_cast<float*>(a.dq), a.sq,
-      a.sq_pad, a.t, a.h, a.kv, a.causal, a.use_window, a.window, a.scale);
+      a.sq_pad, a.t, a.h, a.kv, a.causal, a.use_window, a.window, a.qo,
+      a.scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   dkdv_kernel<<<n_units(a), kThreads, smem_dkdv, stream>>>(
@@ -1031,11 +1079,12 @@ int launch_f32(const Args& a, cudaStream_t stream) {
       static_cast<F>(a.dout), static_cast<const float2*>(a.stats),
       static_cast<float*>(a.dk), static_cast<float*>(a.dv),
       static_cast<float*>(a.part), a.b, a.sq, a.sq_pad, a.t, a.h, a.kv,
-      (a.t + kTile - 1) / kTile, a.pair, a.split, a.causal, a.use_window,
-      a.window, a.scale);
+      a.pair_lo, a.pair_hi, a.split, a.causal, a.use_window, a.window, a.qo,
+      a.scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  return reduce<float, HD>(a, stream);
+  const int rc = reduce<float, HD>(a, stream);
+  return rc ? rc : zero_tail<float, HD>(a, stream);
 }
 
 template <int HD>
@@ -1072,18 +1121,19 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
                         static_cast<const float*>(a.lse),
                         static_cast<float2*>(a.stats),
                         static_cast<bf16*>(a.dq), a.sq, a.sq_pad, a.t, a.h,
-                        a.kv, a.causal, a.use_window, a.window, a.scale);
+                        a.kv, a.causal, a.use_window, a.window, a.qo,
+                        a.scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   dkdv_kernel<<<n_units(a), kThreads, smem_dkdv, stream>>>(
       qq, dod, st, static_cast<B>(a.k), static_cast<B>(a.v),
       static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
-      static_cast<float*>(a.part), a.b, a.sq, a.t, a.h, a.kv,
-      (a.t + kTile - 1) / kTile, a.pair, a.split, a.causal, a.use_window,
-      a.window, a.scale);
+      static_cast<float*>(a.part), a.b, a.sq, a.t, a.h, a.kv, a.pair_lo,
+      a.pair_hi, a.split, a.causal, a.use_window, a.window, a.qo, a.scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  return reduce<bf16, HD>(a, stream);
+  const int rc = reduce<bf16, HD>(a, stream);
+  return rc ? rc : zero_tail<bf16, HD>(a, stream);
 }
 
 template <int HD>
@@ -1098,23 +1148,29 @@ int launch(int bf16_route, const Args& a, cudaStream_t stream) {
 // q, k, v, out and dout 16-byte aligned); hd in {16, 32, 64, 80, 128},
 // h % kv == 0, b, sq, t > 0. Scratch: stats (b * h, sq_pad) float2 with
 // sq_pad = sq rounded up to 64; part 2 * split * b * t * kv * hd floats
-// when split > 1 (else unused); split divides h / kv; pair only pairs key
-// blocks. Two kernels, or three with split > 1, in stream order. Returns
-// the first failed launch's cudaError_t (0 on success).
+// when split > 1 (else unused); split divides h / kv; key blocks
+// [pair_lo, pair_hi) are paired (units_per_head) and those from pair_hi on
+// zeroed, 0 <= pair_lo <= pair_hi <= the key blocks of 64; query row i at
+// position q_offset + i (q_offset >= 0). Two kernels, or three with split
+// > 1, in stream order, then the zeroed rows' memsets. Returns the first
+// failed launch's cudaError_t (0 on success).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* out,
     const void* lse, const void* dout, void* stats, void* part, void* dq,
     void* dk, void* dv, int b, int sq, int t, int h, int kv, int hd,
-    int causal, int use_window, int window, int pair, int split, float scale,
-    int bf16, void* stream) {
+    int causal, int use_window, int window, int q_offset, int pair_lo,
+    int pair_hi, int split, float scale, int bf16, void* stream) {
   const int sq_pad = (sq + kTile - 1) / kTile * kTile;
+  const int n_kb = (t + kTile - 1) / kTile;
   if (b <= 0 || sq <= 0 || t <= 0 || kv <= 0 || h % kv != 0 || split <= 0 ||
-      (h / kv) % split != 0 || (split > 1 && part == nullptr))
+      (h / kv) % split != 0 || (split > 1 && part == nullptr) ||
+      q_offset < 0 || pair_lo < 0 || pair_lo > pair_hi || pair_hi > n_kb)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q,      k,    v,      out,        lse,    dout,
-               stats,  dq,   dk,     dv,         part,   b,
-               sq,     sq_pad, t,    h,          kv,     causal,
-               use_window, window, pair, split,  scale};
+  const Args a{q,       k,       v,      out,    lse,        dout,
+               stats,   dq,      dk,     dv,     part,       b,
+               sq,      sq_pad,  t,      h,      kv,         causal,
+               use_window, window, q_offset, pair_lo, pair_hi, split,
+               scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16:

@@ -18,30 +18,38 @@ namespace {
 constexpr int kTileThreads = 128;     // a float32 CTA: one warpgroup
 constexpr int kXLd = 64 + 16;         // a row of p^T / ds^T (f32), padded
 
+// Query row qp (of sq) sits at position qp + qo against keys 0 .. t - 1:
+// qo > 0 is a query offset (a sequence shard's first row, or a q chunk's),
+// and the masks compare keys with that position.
 __device__ __forceinline__ bool allowed(int qp, int key, int sq, int t,
                                         int causal, int use_window,
-                                        int window) {
-  return qp < sq && key < t && (!causal || key <= qp) &&
-         (!use_window || key > qp - window);
+                                        int window, int qo) {
+  const int pos = qp + qo;
+  return qp < sq && key < t && (!causal || key <= pos) &&
+         (!use_window || key > pos - window);
 }
 
 // every (query, key) pair of the block is allowed: no mask to apply
 __device__ __forceinline__ bool all_visible(int q0, int qn, int k0, int kn,
                                             int sq, int t, int causal,
-                                            int use_window, int window) {
-  return q0 + qn <= sq && k0 + kn <= t && (!causal || k0 + kn - 1 <= q0) &&
-         (!use_window || k0 > q0 + qn - 1 - window);
+                                            int use_window, int window,
+                                            int qo) {
+  return q0 + qn <= sq && k0 + kn <= t &&
+         (!causal || k0 + kn - 1 <= q0 + qo) &&
+         (!use_window || k0 > q0 + qo + qn - 1 - window);
 }
 
-// the key blocks (of kn) that query rows [q0, q0 + qn) can see
+// the key blocks (of kn) that query rows [q0, q0 + qn) can see: blocks
+// wholly past the last row's position are never walked
 __device__ __forceinline__ void key_blocks(int q0, int qn, int kn, int sq,
                                            int t, int causal, int use_window,
-                                           int window, int& begin, int& end) {
+                                           int window, int qo, int& begin,
+                                           int& end) {
   end = (t + kn - 1) / kn;
-  if (causal) end = min(end, (min(q0 + qn, sq) - 1) / kn + 1);
+  if (causal) end = min(end, (min(q0 + qn, sq) - 1 + qo) / kn + 1);
   begin = 0;
   if (use_window) {
-    const int first = q0 - window + 1;  // smallest key the window reaches
+    const int first = q0 + qo - window + 1;  // smallest key the window reaches
     begin = first > 0 ? first / kn : 0;
   }
   if (end < begin) end = begin;

@@ -6,7 +6,10 @@ Counterpart of ``repro/kernels/flash_attention.py``. For
     q : (B, Sq, H, hd)      k, v : (B, T, KV, hd)      H % KV == 0
 
 with a causal mask (``k_pos <= q_pos``), an optional sliding window
-(``k_pos > q_pos - window``) or neither, :func:`flash_attention` returns
+(``k_pos > q_pos - window``) or neither, query row ``i`` at ``q_pos =
+q_offset + i`` (``q_offset >= 0``: 0 but for the reference's q-chunked
+attention and a sequence-sharded hidden state, whose shard of rows attends
+to all the keys), :func:`flash_attention` returns
 ``(out (B, Sq, H, hd) in q's type, lse (B, H, Sq) float32)``: the CUDA
 kernel (``csrc/flash_attention.cu``) for CUDA tensors, and
 :func:`flash_attention_plain` — the dense masked softmax in float32, as the
@@ -46,9 +49,10 @@ heads, and, when the heads are split, a pass that sums the shares in a
 fixed order), and it has the forward's two routes, counted in
 ``BWD_ROUTE_LAUNCHES``: bfloat16 on ``wgmma`` fed by TMA, float32 in
 register tiles on the CUDA cores. :func:`bwd_plan` chooses the dk/dv
-kernel's units from the shape (key blocks paired under a causal mask, the
-q heads split as far as the card needs) and :func:`bwd_steps` lists the
-work that plan gives each CTA.
+kernel's units from the shape (under a causal mask the key blocks the
+diagonal crosses paired, those past the last query's position zeroed
+without a unit; the q heads split as far as the card needs) and
+:func:`bwd_steps` lists the work that plan gives each CTA.
 """
 from __future__ import annotations
 
@@ -73,9 +77,10 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def attention_mask(sq: int, t: int, causal: bool, window: Optional[int],
-                   device: torch.device) -> torch.Tensor:
-    """(Sq, T) bool: which keys each query row may see."""
-    qp = torch.arange(sq, device=device)[:, None]
+                   device: torch.device, q_offset: int = 0) -> torch.Tensor:
+    """(Sq, T) bool: which keys each query row (at position q_offset + its
+    index) may see."""
+    qp = torch.arange(sq, device=device)[:, None] + q_offset
     kp = torch.arange(t, device=device)[None, :]
     allow = torch.ones((sq, t), dtype=torch.bool, device=device)
     if causal:
@@ -85,8 +90,29 @@ def attention_mask(sq: int, t: int, causal: bool, window: Optional[int],
     return allow
 
 
+def visible_pairs(sq: int, t: int, causal: bool = True,
+                  window: Optional[int] = None, q_offset: int = 0) -> int:
+    """The (query, key) pairs that :func:`attention_mask` lets through,
+    counted row by row in closed form (no (Sq, T) mask is built)."""
+    pos = torch.arange(sq, dtype=torch.int64) + q_offset
+    hi = torch.full_like(pos, t - 1)
+    if causal:
+        hi = torch.minimum(hi, pos)
+    lo = (torch.clamp(pos - window + 1, min=0) if window is not None
+          else torch.zeros_like(pos))
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def _check_offset(q_offset: int, what: str) -> int:
+    if int(q_offset) != q_offset or q_offset < 0:
+        raise ValueError(f"{what}: q_offset must be an int >= 0, got "
+                         f"{q_offset!r}")
+    return int(q_offset)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True, window: Optional[int] = None
+                          causal: bool = True, window: Optional[int] = None,
+                          q_offset: int = 0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch: the dense masked softmax in
     float32 over K/V repeated per q head, and the lse; a row with no key
@@ -98,7 +124,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kk = k.float().repeat_interleave(g, dim=2)
     vv = v.float().repeat_interleave(g, dim=2)
     s = torch.einsum("bqhd,bthd->bhqt", q.float(), kk) / math.sqrt(hd)
-    allow = attention_mask(sq, t, causal, window, q.device)
+    allow = attention_mask(sq, t, causal, window, q.device, q_offset)
     s = s.masked_fill(~allow, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -109,18 +135,32 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype).contiguous(), lse
 
 
+def _visible_keys(sq: int, t: int, causal: bool, window: Optional[int],
+                  q_offset: int) -> int:
+    """How many keys any query row can see: the K/V rows a call must read
+    (keys 0 .. q_offset + Sq - 1 under a causal mask, from the first row's
+    window start under a window)."""
+    hi = min(t, q_offset + sq) if causal else t
+    lo = max(0, q_offset - window + 1) if window is not None else 0
+    return max(hi - lo, 0)
+
+
 def flash_attention_cost(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor, causal: bool = True,
-                         window: Optional[int] = None, *, out=None) -> tuple:
+                         window: Optional[int] = None, q_offset: int = 0, *,
+                         out=None) -> tuple:
     """(operations, bytes) of :func:`flash_attention`: 2 * hd for q.k and
     2 * hd for p.v over the (query, key) pairs that the mask lets through
-    (counted on the CPU, whatever the device); q, k and v read once, out
-    and the lse written once."""
+    (:func:`visible_pairs`, counted on the CPU, whatever the device); q and
+    the K/V rows some row can see read once (under a query offset the keys
+    past the last row's position are never read), out and the lse written
+    once."""
     b, sq, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
-    n_bytes = q.element_size() * (2 * b * sq * h * hd + 2 * b * t * kv * hd) \
+    tv = _visible_keys(sq, t, causal, window, q_offset)
+    n_bytes = q.element_size() * (2 * b * sq * h * hd + 2 * b * tv * kv * hd) \
         + 4 * b * h * sq
-    pairs = int(attention_mask(sq, t, causal, window, "cpu").sum())
+    pairs = visible_pairs(sq, t, causal, window, q_offset)
     return 4 * hd * pairs * b * h, n_bytes
 
 
@@ -136,11 +176,14 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
 
 @_observe.counted(flash_attention_cost)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: Optional[int] = None
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention of ``q`` over ``k``/``v``; returns ``(out, lse)``."""
+    """Attention of ``q`` over ``k``/``v``, query row i at position
+    ``q_offset + i``; returns ``(out, lse)``."""
+    q_offset = _check_offset(q_offset, "flash_attention")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, window)
+        return flash_attention_plain(q, k, v, causal, window, q_offset)
     dev = q.device
     if dev.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {dev}")
@@ -178,7 +221,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, sq, t, h, kv, hd, int(causal),
         int(window is not None), 0 if window is None else int(window),
-        float(hd ** -0.5), int(q.dtype == torch.bfloat16),
+        q_offset, float(hd ** -0.5), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "flash_attention")
     global LAUNCHES
@@ -200,9 +243,10 @@ class FwdPlan:
     tile, the last tile first when ``reverse``; each walks the
     ``k_block``-key blocks its FWD_TILE rows can see, staged through
     ``smem_bytes`` of shared memory. Under a causal mask the last tile
-    sees the most keys, up to T / 64 times the first's: both routes launch
-    it first, so that no CTA starts after one with less work and the light
-    ones fill the card's last wave. Under a causal window a tile walks at
+    sees the most keys, up to T / 64 times the first's, at any query
+    offset (a tile's last visible key is its last row's position): both
+    routes launch it first, so that no CTA starts after one with less work
+    and the light ones fill the card's last wave. Under a causal window a tile walks at
     most the blocks the window spans; under a window alone the first tile
     sees the most keys, and without a mask every tile sees every key: the
     float32 route keeps the tiles in order there, and the bfloat16 route
@@ -223,7 +267,9 @@ class FwdPlan:
 def fwd_plan(b: int, sq: int, t: int, h: int, kv: int, hd: int,
              dtype: torch.dtype, causal: bool = True,
              window: Optional[int] = None) -> FwdPlan:
-    """The plan :func:`flash_attention` launches for this shape."""
+    """The plan :func:`flash_attention` launches for this shape, at any
+    query offset (the offset moves which key blocks a tile walks,
+    :func:`fwd_steps`, not the grid)."""
     n_qt = -(-sq // FWD_TILE)
     if dtype == torch.bfloat16:
         return FwdPlan(route="mma", k_block=64, n_qt=n_qt, reverse=True,
@@ -237,8 +283,8 @@ def fwd_plan(b: int, sq: int, t: int, h: int, kv: int, hd: int,
 
 
 def fwd_steps(plan: FwdPlan, b: int, sq: int, t: int, h: int, kv: int,
-              causal: bool = True, window: Optional[int] = None
-              ) -> List[list]:
+              causal: bool = True, window: Optional[int] = None,
+              q_offset: int = 0) -> List[list]:
     """The work of each CTA under ``plan``, in launch order (blockIdx.y *
     B * H + blockIdx.x), as the kernel indexes it: a list of (batch row, q
     head, query tile of FWD_TILE, key block of plan.k_block) in the order
@@ -247,7 +293,7 @@ def fwd_steps(plan: FwdPlan, b: int, sq: int, t: int, h: int, kv: int,
     for y in range(plan.n_qt):
         tile = plan.n_qt - 1 - y if plan.reverse else y
         kb0, kb1 = _key_blocks(tile * FWD_TILE, FWD_TILE, plan.k_block, sq,
-                               t, causal, window)
+                               t, causal, window, q_offset)
         for x in range(b * h):
             bi, head = divmod(x, h)
             ctas.append([(bi, head, tile, kb) for kb in range(kb0, kb1)])
@@ -263,7 +309,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, out: torch.Tensor,
                               lse: torch.Tensor, dout: torch.Tensor,
                               causal: bool = True,
-                              window: Optional[int] = None
+                              window: Optional[int] = None,
+                              q_offset: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """The backward's function in plain PyTorch, with the reference's
@@ -283,7 +330,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     delta = torch.einsum("bqkgd,bqkgd->bkgq", dog,
                          f(out).reshape(b, sq, kv, g, hd))
     s = torch.einsum("bqkgd,btkd->bkgqt", qg, f(k)) * scale
-    allow = attention_mask(sq, t, causal, window, q.device)
+    allow = attention_mask(sq, t, causal, window, q.device, q_offset)
     p = torch.where(allow, torch.exp(s - lse.reshape(b, kv, g, sq, 1)),
                     0.0)
     del s
@@ -300,18 +347,20 @@ def flash_attention_bwd_cost(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              lse: torch.Tensor, dout: torch.Tensor,
                              causal: bool = True,
-                             window: Optional[int] = None, *,
-                             out=None) -> tuple:
+                             window: Optional[int] = None,
+                             q_offset: int = 0, *, out=None) -> tuple:
     """(operations, bytes) of the backward's function, whatever computes
     it: five products (s, dp, dv, dk, dq), each 2 * hd a visible (query,
-    key) pair and q head; q, k, v, out, dout and the lse read once, dq, dk
-    and dv written once."""
+    key) pair and q head; q, out, dout, the lse and the K/V rows some row
+    can see read once, dq and those rows' dk and dv written once (the
+    others are zeros, written without a read)."""
     b, sq, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     es = q.element_size()
-    n_bytes = es * (4 * b * sq * h * hd + 4 * b * t * kv * hd) \
+    tv = _visible_keys(sq, t, causal, window, q_offset)
+    n_bytes = es * (4 * b * sq * h * hd + 4 * b * tv * kv * hd) \
         + 4 * b * h * sq
-    pairs = int(attention_mask(sq, t, causal, window, "cpu").sum())
+    pairs = visible_pairs(sq, t, causal, window, q_offset)
     return 10 * hd * pairs * b * h, n_bytes
 
 
@@ -330,9 +379,17 @@ BWD_CTAS_PER_SM = 2       # dk/dv CTAs resident on one SM, either route
 
 @dataclass(frozen=True)
 class BwdPlan:
-    """The backward kernels' work for one shape: ``pair`` puts key blocks
-    j and n_kb - 1 - j in one unit (under a causal mask without a window,
-    so that every unit walks the same number of query blocks); ``split``
+    """The backward kernels' work for one shape: key blocks [0,
+    ``pair_lo``) are one a unit, blocks [``pair_lo``, ``pair_hi``) are
+    paired j with pair_lo + pair_hi - 1 - j, and blocks from ``pair_hi``
+    on get no unit. Under a causal mask without a window the first are the
+    blocks that every query row sees whole (none without a query offset),
+    the paired ones those the diagonal crosses (their work falls along it,
+    so every pair walks about the same number of query blocks: j and
+    n_kb - 1 - j of a square triangle), and the last those past the last
+    row's position, whose dk and dv rows the launch sets to zero; otherwise
+    no block is paired (pair_lo = pair_hi = n_kb). ``pair`` says whether
+    any unit holds two; ``split``
     shares a kv head's g q heads over that many units, whose float32
     partials (``part_floats``) a third kernel sums in order; ``stats``
     holds (lse * log2 e, D) of every query row, padded to ``sq_pad``."""
@@ -341,6 +398,8 @@ class BwdPlan:
     k_block: int          # dq: keys a step
     n_kb: int             # BWD_TILE-key blocks
     pair: bool
+    pair_lo: int
+    pair_hi: int
     split: int
     n_units: int          # dk/dv CTAs
     sq_pad: int
@@ -356,9 +415,18 @@ class BwdPlan:
                         else ())
 
 
+def _pair_range(sq: int, n_kb: int, causal: bool, window: Optional[int],
+                q_offset: int) -> Tuple[int, int]:
+    """(pair_lo, pair_hi) of :class:`BwdPlan`."""
+    if not causal or window is not None:
+        return n_kb, n_kb
+    return (min(n_kb, (q_offset + 1) // BWD_TILE),
+            min(n_kb, (q_offset + sq - 1) // BWD_TILE + 1))
+
+
 def bwd_plan(b: int, sq: int, t: int, h: int, kv: int, hd: int,
              dtype: torch.dtype, causal: bool = True,
-             window: Optional[int] = None) -> BwdPlan:
+             window: Optional[int] = None, q_offset: int = 0) -> BwdPlan:
     """The plan :func:`flash_attention_bwd` launches for this shape. The
     split is the divisor s of g = h / kv that minimises
     ceil(units * s / slots) / s, the waves of BWD_CTAS_PER_SM * SMS slots
@@ -368,8 +436,8 @@ def bwd_plan(b: int, sq: int, t: int, h: int, kv: int, hd: int,
     route = "mma" if dtype == torch.bfloat16 else "f32"
     g = h // kv
     n_kb = -(-t // BWD_TILE)
-    pair = bool(causal) and window is None and n_kb > 1
-    base = (-(-n_kb // 2) if pair else n_kb) * kv * b
+    lo, hi = _pair_range(sq, n_kb, causal, window, q_offset)
+    base = (lo + -(-(hi - lo) // 2)) * kv * b
     slots = SMS * BWD_CTAS_PER_SM
     split = min((s for s in range(1, g + 1) if g % s == 0),
                 key=lambda s: (-(-base * s // slots) / s, s))
@@ -379,38 +447,43 @@ def bwd_plan(b: int, sq: int, t: int, h: int, kv: int, hd: int,
         q_block=(32 if hd == 128 else 64) if route == "mma"
         else (16 if hd == 128 else 32),
         k_block=64 if route == "mma" else 32,
-        n_kb=n_kb, pair=pair, split=split, n_units=base * split,
+        n_kb=n_kb, pair=hi - lo > 1, pair_lo=lo, pair_hi=hi, split=split,
+        n_units=base * split,
         sq_pad=sq_pad, stats_floats=2 * b * h * sq_pad,
         part_floats=2 * split * b * t * kv * hd if split > 1 else 0)
 
 
-def _key_blocks(q0, qn, kn, sq, t, causal, window):
+def _key_blocks(q0, qn, kn, sq, t, causal, window, q_offset=0):
     """The kernels' ``key_blocks``: [begin, end) of the kn-key blocks
-    that query rows [q0, q0 + qn) can see."""
+    that query rows [q0, q0 + qn) (at positions q_offset + row) can
+    see."""
     end = -(-t // kn)
     if causal:
-        end = min(end, (min(q0 + qn, sq) - 1) // kn + 1)
+        end = min(end, (min(q0 + qn, sq) - 1 + q_offset) // kn + 1)
     begin = 0
     if window is not None:
-        first = q0 - window + 1
+        first = q0 + q_offset - window + 1
         begin = first // kn if first > 0 else 0
     return begin, max(end, begin)
 
 
-def _query_blocks(k0, kn, sq, qb, causal, window):
+def _query_blocks(k0, kn, sq, qb, causal, window, q_offset=0):
     """The kernels' ``query_blocks``: [begin, end) of the qb-row query
-    blocks that can see keys [k0, k0 + kn)."""
+    blocks (row i at position q_offset + i) that can see keys [k0, k0 +
+    kn)."""
     end = -(-sq // qb)
-    begin = k0 // qb if causal else 0
+    begin = max(k0 - q_offset, 0) // qb if causal else 0
+    if causal and k0 - q_offset >= sq:          # past the last row
+        end = 0
     if window is not None:
-        last = k0 + kn + window - 2
+        last = k0 + kn + window - 2 - q_offset
         end = 0 if last < 0 else min(end, last // qb + 1)
     return begin, max(end, begin)
 
 
 def bwd_steps(plan: BwdPlan, b: int, sq: int, t: int, h: int, kv: int,
-              causal: bool = True, window: Optional[int] = None
-              ) -> Tuple[List[list], List[list]]:
+              causal: bool = True, window: Optional[int] = None,
+              q_offset: int = 0) -> Tuple[List[list], List[list]]:
     """The work of each CTA under ``plan``, as the kernels index it: the dq
     kernel's CTAs (batch row, q head, 64-row block), each a list of
     (batch row, q head, query block, key block of plan.k_block); and the
@@ -424,21 +497,23 @@ def bwd_steps(plan: BwdPlan, b: int, sq: int, t: int, h: int, kv: int,
         for head in range(h):
             for qb in range(n_qb):
                 kb0, kb1 = _key_blocks(qb * BWD_TILE, BWD_TILE,
-                                       plan.k_block, sq, t, causal, window)
+                                       plan.k_block, sq, t, causal, window,
+                                       q_offset)
                 dq.append([(bi, head, qb, kb) for kb in range(kb0, kb1)])
-    n_u = -(-plan.n_kb // 2) if plan.pair else plan.n_kb
+    lo, hi = plan.pair_lo, plan.pair_hi
+    n_u = lo + -(-(hi - lo) // 2)
     heads = g // plan.split
     dkdv = []
     for x in range(plan.n_units):
         u, r = x % n_u, x // n_u
         share, r = r % plan.split, r // plan.split
         kvh, bi = r % kv, r // kv
-        kbs = [u] + ([plan.n_kb - 1 - u]
-                     if plan.pair and plan.n_kb - 1 - u != u else [])
+        kbs = [u] + ([hi - 1 - (u - lo)]
+                     if lo <= u != hi - 1 - (u - lo) else [])
         steps = []
         for kb in kbs:
             q0, q1 = _query_blocks(kb * BWD_TILE, BWD_TILE, sq, plan.q_block,
-                                   causal, window)
+                                   causal, window, q_offset)
             for head in range(kvh * g + share * heads,
                               kvh * g + (share + 1) * heads):
                 steps.extend((bi, head, qb, kb) for qb in range(q0, q1))
@@ -450,14 +525,15 @@ def bwd_steps(plan: BwdPlan, b: int, sq: int, t: int, h: int, kv: int,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, causal: bool = True,
-                        window: Optional[int] = None
+                        window: Optional[int] = None, q_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor,
                                    torch.Tensor]:
     """``(dq, dk, dv)`` of :func:`flash_attention` at ``dout``, from the
-    forward's saved ``out`` and ``lse``."""
+    forward's saved ``out`` and ``lse`` (``q_offset`` as there)."""
+    q_offset = _check_offset(q_offset, "flash_attention_bwd")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal,
-                                         window)
+                                         window, q_offset)
     dev = q.device
     if dev.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_bwd: unsupported device {dev}")
@@ -495,7 +571,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk, dv
     if min(b, sq, t, h) == 0:     # nothing to see: every gradient is 0
         return dq.zero_(), dk.zero_(), dv.zero_()
-    plan = bwd_plan(b, sq, t, h, kv, hd, q.dtype, causal, window)
+    plan = bwd_plan(b, sq, t, h, kv, hd, q.dtype, causal, window, q_offset)
     stats = torch.empty(plan.stats_floats, dtype=torch.float32, device=dev)
     part = (torch.empty(plan.part_floats, dtype=torch.float32, device=dev)
             if plan.part_floats else None)
@@ -506,7 +582,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         None if part is None else part.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, sq, t, h, kv, hd, int(causal),
         int(window is not None), 0 if window is None else int(window),
-        int(plan.pair), plan.split, float(hd ** -0.5),
+        q_offset, plan.pair_lo, plan.pair_hi, plan.split, float(hd ** -0.5),
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "flash_attention_bwd")

@@ -131,32 +131,35 @@ class _FlashAttention(torch.autograd.Function):
     """out of grouped-query attention; saves (q, k, v, out, lse) and
     recomputes the scores in the backward. ``plain`` takes the plain
     forward and backward on any device (``attn_impl="torch"``), else the
-    kernels (their plain versions for CPU tensors)."""
+    kernels (their plain versions for CPU tensors); ``q_offset`` (query
+    row i at position q_offset + i) goes to both."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, plain):
+    def forward(ctx, q, k, v, causal, window, plain, q_offset):
         fwd = _flash.flash_attention_plain if plain else _flash.flash_attention
-        out, lse = fwd(q, k, v, causal, window)
+        out, lse = fwd(q, k, v, causal, window, q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.cfg = (causal, window, plain)
+        ctx.cfg = (causal, window, plain, q_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, window, plain = ctx.cfg
+        causal, window, plain, q_offset = ctx.cfg
         bwd = (_flash.flash_attention_bwd_plain if plain
                else _flash.flash_attention_bwd)
         dq, dk, dv = bwd(q, k, v, out, lse, dout.contiguous(), causal,
-                         window)
-        return dq, dk, dv, None, None, None
+                         window, q_offset)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None, *,
-                    plain: bool = False) -> torch.Tensor:
+                    plain: bool = False, q_offset: int = 0) -> torch.Tensor:
     """Grouped-query attention with a running softmax and its autograd
     rule; returns ``out`` (B, Sq, H, hd) in q's type: the CUDA kernels
     (forward and backward) for CUDA tensors, their plain versions for CPU
-    tensors or, with ``plain``, on any device."""
-    return _FlashAttention.apply(q, k, v, causal, window, plain)
+    tensors or, with ``plain``, on any device. Query row i sits at position
+    ``q_offset + i`` against keys 0 .. T - 1."""
+    return _FlashAttention.apply(q, k, v, causal, window, plain,
+                                 int(q_offset))

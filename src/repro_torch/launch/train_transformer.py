@@ -88,15 +88,19 @@ def _check_trainable(cfg: ModelConfig) -> None:
 def loss_and_grads(params: TT.Transformer, tokens: torch.Tensor,
                    targets: torch.Tensor, cfg: ModelConfig, *,
                    memory: Optional[torch.Tensor] = None,
-                   attn_impl: str = "cuda"):
+                   attn_impl: str = "cuda", mesh=None):
     """``lm_loss(forward_train(...)) + 0.01 * aux`` and its gradients, as
     ``(loss, grads)`` with ``grads`` in the layout of
     ``TT.param_tree(params)`` (every leaf: for the vlm and audio families,
-    which need ``memory``, the gates and the encoder too)."""
+    which need ``memory``, the gates and the encoder too). With ``mesh``
+    (``models/sharded.py``) the params are this rank's blocks, ``tokens``
+    and ``targets`` its batch rows; the loss is the global batch's and
+    the gradients are those of the blocks, summed over the ranks."""
     tree = TT.param_tree(params)
     logits, aux = TT.forward_train(params, tokens, cfg, memory=memory,
-                                   attn_impl=attn_impl)
-    loss = TT.lm_loss(logits, targets, cfg.vocab) + AUX_WEIGHT * aux
+                                   attn_impl=attn_impl, mesh=mesh)
+    loss = TT.lm_loss(logits, targets, cfg.vocab, mesh=mesh) \
+        + AUX_WEIGHT * aux
     grads = torch.autograd.grad(loss, tree_util.leaves(tree))
     return loss.detach(), tree_util.unflatten(tree, list(grads))
 

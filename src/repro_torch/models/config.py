@@ -101,6 +101,14 @@ class ModelConfig:
         masked)."""
         return _round_up(self.vocab, 128)
 
+    @property
+    def supports_long_decode(self) -> bool:
+        """True if the decode state is O(1) or bounded (SSM/hybrid state,
+        or a sliding-window KV): these run the long_500k shape. Pure
+        full-attention archs skip it, as in the reference."""
+        return (self.family in ("ssm", "hybrid")
+                or self.sliding_window is not None)
+
     def kv_cache_len(self, seq_len: int) -> int:
         """Decode KV footprint: ring buffer of `sliding_window` if SWA."""
         if self.sliding_window is not None:

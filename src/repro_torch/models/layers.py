@@ -6,7 +6,8 @@ dict of tensors and on the ``nn.ParameterDict``s of
 float32 whatever the compute dtype, as in the reference; GQA stays grouped
 (no K/V repetition in memory).
 
-Full-sequence attention (:func:`blockwise_attention`) goes through
+Full-sequence attention (:func:`blockwise_attention`, with the
+reference's query offset and its q-chunked causal path) goes through
 ``kernels.ops.flash_attention`` — the CUDA flash kernel for CUDA tensors —
 where the reference runs its jnp running-softmax scan; the two compute the
 same function (``tests/test_kernels_flash.py`` holds the reference's Pallas
@@ -93,6 +94,33 @@ def _check_impl(attn_impl: str) -> None:
                          f"{ATTN_IMPLS}")
 
 
+# Causal q-chunking (the reference's perf knob): when set, causal
+# self-attention over a whole sequence splits the queries into chunks of
+# this many rows and chunk i attends only to its KV prefix, with its first
+# row's position as the query offset. None = off.
+_Q_CHUNK: Optional[int] = None
+
+# The reference's attention layout knob (its ``set_attn_sharding``):
+# stored, read nowhere (see set_attn_sharding).
+_ATTN_SHARDING = None
+
+
+def set_q_chunk(n: Optional[int]) -> None:
+    global _Q_CHUNK
+    _Q_CHUNK = n
+
+
+def set_attn_sharding(qs_kv: Optional[tuple]) -> None:
+    """The reference's layout constraint for the attention operands,
+    ``(q_sharding, kv_sharding)``: q over the sequence, K and V whole (its
+    GSPMD would otherwise contract over a sharded head dim). The port's
+    sharded step always lays attention out that way (a rank's query rows
+    against the K/V gathered over ``model``, ``models/sharded.py``), so
+    the argument is kept and changes nothing."""
+    global _ATTN_SHARDING
+    _ATTN_SHARDING = qs_kv
+
+
 def blockwise_attention(
     q: torch.Tensor,                 # (B, Sq, H, hd)
     k: torch.Tensor,                 # (B, T, KV, hd)
@@ -104,21 +132,29 @@ def blockwise_attention(
     attn_impl: str = "cuda",
 ) -> torch.Tensor:
     """Running-softmax attention, (B, Sq, H, hd) in q's type, with its
-    autograd rule. The kernels stage their own blocks of 64 keys, so the
-    reference's ``kv_block`` is not an argument. ``q_offset`` other than 0
-    and the reference's q-chunked path (``_Q_CHUNK``) are not ported: only
-    the reference's dry run sets them, and they go with its LLM
-    combinations (ROADMAP queue 1, "The LLM stack beyond the dense serving
-    path", models/sharding.py and data/pipeline.py)."""
+    autograd rule; query row i sits at position ``q_offset + i`` against
+    keys 0 .. T - 1. The kernels stage their own blocks of 64 keys, so the
+    reference's ``kv_block`` is not an argument. Under ``set_q_chunk(qc)``
+    the reference's q-chunked path runs, on the reference's condition
+    (causal, no window, ``q_offset == 0``, ``Sq == T``, ``Sq % qc == 0``,
+    ``Sq > qc``): chunk [qs, qs + qc) attends to keys [0, qs + qc) with
+    ``q_offset = qs`` (the reference rounds that prefix up to its
+    ``kv_block``, keys its causal mask hides), and the gradients of the
+    key slices add up across the chunks."""
     _check_impl(attn_impl)
-    if q_offset != 0:
-        raise NotImplementedError(
-            "blockwise_attention: q_offset != 0 is not ported: only the "
-            "reference's dry run sets it (ROADMAP queue 1, \"The LLM stack "
-            "beyond the dense serving path\", models/sharding.py and "
-            "data/pipeline.py)")
-    return ops.flash_attention(q, k, v, causal, window,
-                               plain=attn_impl == "torch")
+    plain = attn_impl == "torch"
+    sq, t = q.shape[1], k.shape[1]
+    qc = _Q_CHUNK
+    if (qc and causal and window is None and q_offset == 0 and sq == t
+            and sq % qc == 0 and sq > qc):
+        return torch.cat([
+            ops.flash_attention(q[:, qs:qs + qc].contiguous(),
+                                k[:, :qs + qc].contiguous(),
+                                v[:, :qs + qc].contiguous(), causal, None,
+                                plain=plain, q_offset=qs)
+            for qs in range(0, sq, qc)], dim=1)
+    return ops.flash_attention(q, k, v, causal, window, plain=plain,
+                               q_offset=q_offset)
 
 
 def decode_attention(

@@ -40,11 +40,14 @@ updated in place: :func:`decode_step`, :func:`prefill_into_slot` and
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device, use_full_f32_matmul
 from repro_torch.models import layers as L
@@ -66,6 +69,76 @@ F32_LEAVES = SSM.F32_LEAVES + ("gate_attn", "gate_mlp")
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}; known: {FAMILIES}")
+
+
+def _device(device) -> torch.device:
+    """``resolve_device``, and the meta device of the dry run (shapes
+    only)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
+# ---------------------------------------------------------------------------
+# Run options: activation layout and rematerialisation
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RunOptions:
+    """The reference's knobs, set around a step (``run_options``).
+
+    ``act_sharding`` — the spec of the (B, S, D) hidden states between
+    layers under a mesh (``models/sharded.py``): the reference's dry run
+    gives ``P(dp, "model", None)``, the sequence over ``model``, the
+    sharded step's layout; None (or a sequence the model axis does not
+    divide) keeps every rank's rows whole. ``remat`` — each layer runs
+    under ``torch.utils.checkpoint`` (non-reentrant), so the backward
+    recomputes its activations, a sharded layer's weight gathers included.
+    ``head_sharding`` and ``inner_act_sharding`` pin layouts for the
+    reference's GSPMD (the logits weight; Megatron-style replicated block
+    inputs); the port gathers every weight whole inside its block and keeps
+    the block's rows local, so they are kept and change nothing."""
+    act_sharding: Any = None
+    remat: bool = False
+    head_sharding: Any = None
+    inner_act_sharding: Any = None
+
+
+_RUN_OPTS = RunOptions()
+
+
+@contextlib.contextmanager
+def run_options(act_sharding=None, remat: bool = False, head_sharding=None,
+                inner_act_sharding=None):
+    global _RUN_OPTS
+    prev = _RUN_OPTS
+    _RUN_OPTS = RunOptions(act_sharding=act_sharding, remat=remat,
+                           head_sharding=head_sharding,
+                           inner_act_sharding=inner_act_sharding)
+    try:
+        yield
+    finally:
+        _RUN_OPTS = prev
+
+
+def run_opts() -> RunOptions:
+    """The options in force."""
+    return _RUN_OPTS
+
+
+def _layer(fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` with ``remat``
+    while gradients are on."""
+    if _RUN_OPTS.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _mesh_path(cfg: ModelConfig, what: str):
+    """The sharded step's module, for the families it covers."""
+    from repro_torch.models import sharded
+    sharded.check_family(cfg, what)
+    return sharded
 
 
 def _pdict(leaves: Mapping, trainable: bool) -> nn.ParameterDict:
@@ -420,14 +493,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     block's conv N(0, 0.2)), unit norm scales and zero biases; a Mamba
     block's ``a_log`` 0, ``d_skip`` 1 and ``dt_bias`` 0 in float32
     whatever ``param_dtype`` is. ``device`` None means the card;
-    ``trainable`` makes every weight require grad."""
+    ``"meta"`` gives the shapes and types alone, drawing nothing
+    (:func:`abstract_params`); ``trainable`` makes every weight require
+    grad."""
     _check_family(cfg)
-    dev = resolve_device(device)
+    dev = _device(device)
     use_full_f32_matmul()
     d, vp, f = cfg.d_model, cfg.vocab_padded, cfg.d_ff
     hq, hkv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
 
     def dense(*shape, scale=0.02):
+        if dev.type == "meta":
+            return torch.empty(shape, dtype=cfg.param_dtype, device=dev)
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=generator.device) * scale
         return w.to(device=dev, dtype=cfg.param_dtype)
@@ -500,6 +577,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         extra["enc_norm"] = norm()
     return Transformer(cfg, embed, norm(), lm_head, blocks, trainable,
                        **extra)
+
+
+def abstract_params(cfg: ModelConfig, *, trainable: bool = False
+                    ) -> Transformer:
+    """The model on the meta device: every weight's shape and type, no
+    storage and no draw (the dry run's; the reference's ``eval_shape`` of
+    ``init_params``)."""
+    return init_params(cfg, torch.Generator(), "meta", trainable=trainable)
 
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig,
@@ -721,27 +806,30 @@ def _trunk(params: Transformer, h: torch.Tensor, cfg: ModelConfig,
     layer."""
     _check_family(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    kw = dict(attn_impl=attn_impl)
     if cfg.family in ("ssm", "hybrid"):
         every = _shared_every(cfg)
         for i, blk in enumerate(params.blocks):
             if every and i % every == 0:
-                h = params.shared_attn(h, cfg, positions,
-                                       attn_impl=attn_impl)
-            h = blk(h, cfg)
+                h = _layer(lambda x: params.shared_attn(x, cfg, positions,
+                                                        **kw), h)
+            h = _layer(lambda x, blk=blk: blk(x, cfg), h)
         return h, aux
     if cfg.family == "vlm":
         _, per = _cross_groups(cfg)
         for c, cross in enumerate(params.cross_blocks):
-            h = cross(h, cfg, memory, attn_impl=attn_impl)
+            h = _layer(lambda x, cross=cross: cross(x, cfg, memory, **kw), h)
             for blk in params.blocks[c * per:(c + 1) * per]:
-                h, _ = blk(h, cfg, positions, attn_impl=attn_impl)
+                h = _layer(lambda x, blk=blk: blk(x, cfg, positions,
+                                                  **kw)[0], h)
         return h, aux
     if cfg.family == "audio":
         for blk in params.blocks:
-            h = blk(h, cfg, positions, memory, attn_impl=attn_impl)
+            h = _layer(lambda x, blk=blk: blk(x, cfg, positions, memory,
+                                              **kw), h)
         return h, aux
     for blk in params.blocks:
-        h, a = blk(h, cfg, positions, attn_impl=attn_impl)
+        h, a = _layer(lambda x, blk=blk: blk(x, cfg, positions, **kw), h)
         if a is not None:
             aux = aux + a.float()
     return h, aux
@@ -749,14 +837,20 @@ def _trunk(params: Transformer, h: torch.Tensor, cfg: ModelConfig,
 
 def forward_train(params: Transformer, tokens: torch.Tensor,
                   cfg: ModelConfig, *, memory: Optional[torch.Tensor] = None,
-                  attn_impl: str = "cuda"):
+                  attn_impl: str = "cuda", mesh=None):
     """tokens (B, S) -> ``(logits (B, S, Vp), aux)`` with gradients, as the
     reference's ``forward_train``: ``aux`` is the MoE auxiliary loss summed
     over the layers in float32 (a zero scalar for the other families).
     ``memory`` is the vlm family's (B, n_image_tokens, D) image embeddings
     or the audio family's (B, n_frames, D) frame embeddings, which the
     encoder runs over first; the other families take none
-    (:func:`_check_memory`)."""
+    (:func:`_check_memory`). With ``mesh`` (a ``sharding.LLMMesh``) the
+    params are this rank's blocks (``sharded.shard_model``), ``tokens``
+    this rank's batch rows, and the logits those of its rows of the
+    sequence (``models/sharded.py``; the dense family)."""
+    if mesh is not None:
+        return _mesh_path(cfg, "forward_train").forward_train(
+            params, tokens, cfg, mesh, attn_impl=attn_impl)
     _check_family(cfg)
     _check_memory(cfg, memory, tokens.shape[0])
     positions = torch.arange(tokens.shape[1], device=params.device)
@@ -769,10 +863,15 @@ def forward_train(params: Transformer, tokens: torch.Tensor,
 
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
-            vocab: int) -> torch.Tensor:
+            vocab: int, *, mesh=None) -> torch.Tensor:
     """Mean next-token cross-entropy in float32: logsumexp over the
     (padded, masked) vocabulary minus the target's logit. ``vocab`` is
-    the reference's argument, unused there too."""
+    the reference's argument, unused there too. With ``mesh``, the mean
+    over the global batch from a rank's logits (``forward_train(mesh=)``)
+    and its batch rows' ``targets`` (``sharded.lm_loss``)."""
+    if mesh is not None:
+        from repro_torch.models import sharded
+        return sharded.lm_loss(logits, targets, mesh)
     del vocab
     x = logits.float()
     logz = torch.logsumexp(x, dim=-1)
@@ -809,9 +908,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     n_image_tokens, KV, hd), the audio family's ``self_kv`` and
     ``cross_kv`` (L, batch, n_frames, KV, hd), the cross K/V in the compute
     dtype, filled once by :func:`prefill`. ``max_len`` is the sequence
-    horizon (a sliding-window model allocates only its window, a ring)."""
+    horizon (a sliding-window model allocates only its window, a ring);
+    ``device`` may be ``"meta"``."""
     _check_family(cfg)
-    dev = resolve_device(device)
+    dev = _device(device)
     t = cfg.kv_cache_len(max_len)
     cache: Cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
@@ -876,7 +976,7 @@ def _conv_tail(conv_in: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 @torch.no_grad()
 def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
             max_len: int, *, memory: Optional[torch.Tensor] = None,
-            attn_impl: str = "cuda"):
+            attn_impl: str = "cuda", mesh=None):
     """Process the (B, S) prompts, build the decode cache for a horizon of
     ``max_len`` tokens, return ``(last-position logits (B, 1, Vp),
     cache)``, as the reference's ``prefill``: the full-sequence trunk
@@ -885,7 +985,12 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     layers' final ``ssm`` state and ``conv`` tail carried, ``pos`` = S.
     ``memory`` as in :func:`forward_train`: the vlm family's cross layers
     and the audio family's decoder layers (after the encoder) project it
-    once into ``cross_kv``."""
+    once into ``cross_kv``. With ``mesh`` as in :func:`forward_train`:
+    the cache is this rank's block of ``sharding.cache_pspecs``'s layout
+    and the logits are every rank's, for its batch rows."""
+    if mesh is not None:
+        return _mesh_path(cfg, "prefill").prefill(
+            params, tokens, cfg, max_len, mesh, attn_impl=attn_impl)
     _check_family(cfg)
     L._check_impl(attn_impl)
     b, s = tokens.shape
@@ -940,7 +1045,7 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
 
 @torch.no_grad()
 def decode_step(params: Transformer, token: torch.Tensor, cache: Cache,
-                cfg: ModelConfig, *, attn_impl: str = "cuda"):
+                cfg: ModelConfig, *, attn_impl: str = "cuda", mesh=None):
     """token (B, 1) + cache -> ``(logits (B, 1, Vp), cache)``, every row at
     the cache's scalar ``pos``, as the reference's ``decode_step`` (a model
     without RoPE adds the sinusoidal table at ``pos``); the cache is
@@ -948,8 +1053,12 @@ def decode_step(params: Transformer, token: torch.Tensor, cache: Cache,
     cross K/V only read) and returned. Decode attention, over the self and
     the cross K/V, is plain PyTorch in float32 whatever ``attn_impl`` says
     (the reference's is plain jnp); the argument is checked so that both
-    paths take the same arguments."""
+    paths take the same arguments. With ``mesh`` the cache is the block
+    that :func:`prefill` with the mesh gives (``models/sharded.py``)."""
     L._check_impl(attn_impl)
+    if mesh is not None:
+        return _mesh_path(cfg, "decode_step").decode_step(
+            params, token, cache, cfg, mesh)
     _check_family(cfg)
     pos = cache["pos"]
     rows = pos.expand(token.shape[0])

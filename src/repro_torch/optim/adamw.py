@@ -22,6 +22,12 @@ from repro_torch.tree import leaves, tree_map
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 
+# AdamW updates a leaf of more elements than this a slice at a time: the
+# same elementwise arithmetic, so the same bits, with the update's
+# temporaries bounded by the slice (a leaf of 1.75 GiB held five of its
+# own size at once)
+UPDATE_SLICE = 1 << 26
+
 
 def _to_schedule(lr) -> Schedule:
     if callable(lr):
@@ -35,6 +41,18 @@ def _step_counter(params) -> torch.Tensor:
     flat = leaves(params)
     return torch.zeros((), dtype=torch.int32,
                        device=flat[0].device if flat else None)
+
+
+def _slices(*ts: torch.Tensor):
+    """``ts`` (tensors of one shape) whole, or, above UPDATE_SLICE
+    elements and contiguous, as matching slices of their flat views."""
+    n = ts[0].numel()
+    if n <= UPDATE_SLICE or not all(t.is_contiguous() for t in ts):
+        yield ts
+        return
+    flat = [t.view(-1) for t in ts]
+    for s in range(0, n, UPDATE_SLICE):
+        yield tuple(f[s:s + UPDATE_SLICE] for f in flat)
 
 
 @torch.no_grad()
@@ -77,14 +95,15 @@ class AdamW:
         b1, b2 = self.b1, self.b2
         bc1 = 1 - b1 ** step.to(torch.float32)
         bc2 = 1 - b2 ** step.to(torch.float32)
-        for p, g, m, v in zip(leaves(params), leaves(grads),
-                              leaves(state["mu"]), leaves(state["nu"])):
-            m.copy_(b1 * m + (1 - b1) * g)
-            v.copy_(b2 * v + (1 - b2) * torch.square(g))
-            mhat = m / bc1
-            vhat = v / bc2
-            p.copy_(p - lr * (mhat / (torch.sqrt(vhat) + self.eps)
-                              + self.weight_decay * p))
+        for leaf in zip(leaves(params), leaves(grads), leaves(state["mu"]),
+                        leaves(state["nu"])):
+            for p, g, m, v in _slices(*leaf):
+                m.copy_(b1 * m + (1 - b1) * g)
+                v.copy_(b2 * v + (1 - b2) * torch.square(g))
+                mhat = m / bc1
+                vhat = v / bc2
+                p.copy_(p - lr * (mhat / (torch.sqrt(vhat) + self.eps)
+                                  + self.weight_decay * p))
         return params, state
 
 

@@ -1685,6 +1685,89 @@ def test_cuda_flash_attention_bwd_plans_are_bit_identical_over_calls(
         assert all(torch.equal(a, c) for a, c in zip(first, again))
 
 
+# the query offset (row i at position q_offset + i): GQA 4/2 over T 128 at
+# Sq 64 and 40, offsets 0, 24, 64 and 88, causal with and without a
+# window of 32, at hd 64, 80 and 128; and tinyllama-1.1b's production
+# sequence shard (S 4096 over 16 ranks: Sq 256, T 4096, 32/4 heads of 64)
+# at the first and the last rank's offsets
+FLASH_OFFSET_CASES = [
+    (2, sq, 128, 4, 2, hd, o, w) for hd in (64, 80, 128) for sq in (64, 40)
+    for o in (0, 24, 64, 88) for w in (None, 32)]
+FLASH_OFFSET_CASES += [(1, 256, 4096, 32, 4, 64, 0, None),
+                       (1, 256, 4096, 32, 4, 64, 3840, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,t,h,kv,hd,q_offset,window",
+                         FLASH_OFFSET_CASES)
+@pytest.mark.parametrize("dtype,route,tol,bwd_tol",
+                         [(torch.float32, "f32", 1e-4, 1e-4),
+                          (torch.bfloat16, "mma", 1e-2, 5e-2)])
+def test_cuda_flash_attention_offset_matches_plain(cuda, b, sq, t, h, kv, hd,
+                                                   q_offset, window, dtype,
+                                                   route, tol, bwd_tol):
+    """The forward and the backward under a query offset, against their
+    plain versions at the same offset (the tolerances of the offset-free
+    tests); one launch each, on its route."""
+    q, k, v = _flash_case(b, sq, t, h, kv, hd, dtype, cuda)
+    n0, b0 = dict(tflash.ROUTE_LAUNCHES), dict(tflash.BWD_ROUTE_LAUNCHES)
+    out, lse = tflash.flash_attention(q, k, v, True, window, q_offset)
+    ref, ref_lse = tflash.flash_attention_plain(q, k, v, True, window,
+                                                q_offset)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    dout = torch.randn(q.shape, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(1)).to(
+                           dtype)
+    args = (q, k, v, ref, ref_lse, dout, True, window, q_offset)
+    got = tflash.flash_attention_bwd(*args)
+    want = tflash.flash_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert tflash.ROUTE_LAUNCHES[route] == n0[route] + 1
+    assert tflash.BWD_ROUTE_LAUNCHES[route] == b0[route] + 1
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= bwd_tol * max(r.float().abs().max().item(), 1e-30), \
+            (name, err)
+    # a key past the last row's position gets dk = dv = 0
+    last = q_offset + sq
+    if last < t:
+        assert not got[1][:, last:].any() and not got[2][:, last:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_sequence_shards_recompose(cuda, dtype):
+    """A causal call over S 1024 cut into 4 sequence shards with their
+    offsets: the shards' out, lse and dq concatenate to the unsharded
+    call's bit for bit (each row walks the same key blocks in the same
+    order), and their dk and dv sum to its within 1e-5 (f32) or 5e-2 (bf16)
+    of the largest |.|."""
+    b, s, h, kv, hd, n = 2, 1024, 8, 2, 64, 4
+    q, k, v = _flash_case(b, s, s, h, kv, hd, dtype, cuda)
+    dout = torch.randn(q.shape, device=cuda).to(dtype)
+    out, lse = tflash.flash_attention(q, k, v, True, None)
+    full = tflash.flash_attention_bwd(q, k, v, out, lse, dout, True, None)
+    rows = s // n
+    parts = []
+    for r in range(n):
+        qs = q[:, r * rows:(r + 1) * rows].contiguous()
+        o, l_ = tflash.flash_attention(qs, k, v, True, None, r * rows)
+        d = tflash.flash_attention_bwd(
+            qs, k, v, o, l_, dout[:, r * rows:(r + 1) * rows].contiguous(),
+            True, None, r * rows)
+        parts.append((o, l_, *d))
+    assert torch.equal(torch.cat([p[0] for p in parts], 1), out)
+    assert torch.equal(torch.cat([p[1] for p in parts], 2), lse)
+    assert torch.equal(torch.cat([p[2] for p in parts], 1), full[0])
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    for i, name in ((3, "dk"), (4, "dv")):
+        total = sum(p[i].float() for p in parts)
+        want = full[i - 2].float()
+        err = (total - want).abs().max().item()
+        assert err <= tol * want.abs().max().item(), name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_autograd_runs_both_kernels(cuda, dtype):

@@ -61,6 +61,12 @@ for multi in (False, True):
         dryrun.init_fake_group(0, 512 if multi else 256)
         shapes[f"{name}_{multi}"] = make(multi_pod=multi,
                                          device="meta").shape
+    dryrun.init_fake_group(3, 512 if multi else 256)
+    llm = mesh.make_production_mesh(multi_pod=multi, device="meta")
+    shapes[f"llm_{multi}"] = {"shape": list(llm.shape.items()),
+                              "coords": llm.coords,
+                              "axes": {"+".join(k): [a.size, a.index]
+                                       for k, a in llm.axes.items()}}
 torch.distributed.destroy_process_group()
 print(json.dumps({"rec": rec, "layout": layout, "shapes": shapes},
                  default=str))
@@ -145,12 +151,22 @@ def test_production_meshes(probe):
         assert tuple(got[a] for a in ("d", "x", "y", "z")) == shape, key
 
 
-def test_llm_combinations_and_the_2d_mesh_raise():
-    from repro_torch.launch import dryrun, mesh
-    for call in (lambda: dryrun.run_one("tinyllama-1.1b", "train_4k", False),
-                 lambda: mesh.make_production_mesh(multi_pod=True)):
-        with pytest.raises(NotImplementedError,
-                           match="The LLM stack beyond the dense serving"):
-            call()
+def test_llm_production_meshes(probe):
+    """The LLM production mesh on the fake backend, as rank 3: (16, 16)
+    ("data", "model") over 256 ranks and (2, 16, 16) ("pod", "data",
+    "model") over 512, row-major coordinates, one group per axis, the DP
+    axes together (two pods) and the whole mesh."""
+    from repro_torch.launch import mesh
+    assert mesh.MESH_LLM == {False: (16, 16), True: (2, 16, 16)}
     assert mesh.MESH_4D == {False: (4, 4, 4, 4), True: (8, 4, 4, 4)}
     assert mesh.SERVE_MESH == {False: (32, 2, 2, 2), True: (64, 2, 2, 2)}
+    single, multi = probe["shapes"]["llm_False"], probe["shapes"]["llm_True"]
+    assert single["shape"] == [["data", 16], ["model", 16]]
+    assert multi["shape"] == [["pod", 2], ["data", 16], ["model", 16]]
+    assert single["coords"] == {"data": 0, "model": 3}
+    assert multi["coords"] == {"pod": 0, "data": 0, "model": 3}
+    assert single["axes"] == {"data": [16, 0], "model": [16, 3],
+                              "data+model": [256, 3]}
+    assert multi["axes"] == {"pod": [2, 0], "data": [16, 0],
+                             "model": [16, 3], "data+pod": [32, 0],
+                             "data+model+pod": [512, 3]}

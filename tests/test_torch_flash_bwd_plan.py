@@ -47,10 +47,10 @@ SHAPES = [
 DTYPES = [torch.bfloat16, torch.float32]
 
 
-def _visible(b, sq, t, h, qn, kn, causal, window):
+def _visible(b, sq, t, h, qn, kn, causal, window, q_offset=0):
     """Every (batch row, q head, query block of qn, key block of kn) that
     holds at least one pair the mask allows."""
-    allow = tflash.attention_mask(sq, t, causal, window, "cpu")
+    allow = tflash.attention_mask(sq, t, causal, window, "cpu", q_offset)
     blocks = set()
     for qb in range(-(-sq // qn)):
         for kb in range(-(-t // kn)):
@@ -181,3 +181,57 @@ def test_bwd_cost_is_pinned_at_training_shapes(b, dtype, gflop, bound):
     peak = 989e12 if dtype == torch.bfloat16 else 67e12
     assert n_bytes / 3.35e12 < n_ops / peak
     assert round(n_ops / peak * 1e3, 6) == bound
+
+
+# (b, sq, t, h, kv, hd, window, q_offset), causal: as the forward's
+OFFSET_SHAPES = [
+    (1, 256, 4096, 32, 4, 64, None, 0),
+    (1, 256, 4096, 32, 4, 64, None, 1792),
+    (1, 256, 4096, 32, 4, 64, None, 3840),
+    (1, 2048, 4096, 8, 2, 64, None, 2048),
+    (2, 40, 128, 4, 2, 64, None, 24),
+    (2, 64, 128, 4, 2, 80, 32, 88),
+    (2, 100, 300, 4, 2, 128, None, 77),
+    (1, 77, 500, 4, 1, 16, 40, 300),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,sq,t,h,kv,hd,window,q_offset", OFFSET_SHAPES)
+def test_offset_plan_covers_every_visible_block_once(b, sq, t, h, kv, hd,
+                                                     window, q_offset,
+                                                     dtype):
+    """Under a query offset both kernels walk each visible block once and
+    no other; without a window the key blocks every row sees whole run one
+    a unit, the ones the diagonal crosses are paired so that no live unit
+    walks more than one query block a head more than another, and the
+    blocks past the last row's position get no unit (their dk and dv are
+    zeroed by the launch)."""
+    plan = tflash.bwd_plan(b, sq, t, h, kv, hd, dtype, True, window,
+                           q_offset)
+    dq, dkdv = tflash.bwd_steps(plan, b, sq, t, h, kv, True, window,
+                                q_offset)
+    assert len(dkdv) == plan.n_units
+    for steps, qn, kn in ((dq, tflash.BWD_TILE, plan.k_block),
+                          (dkdv, plan.q_block, tflash.BWD_TILE)):
+        flat = [s for cta in steps for s in cta]
+        assert len(flat) == len(set(flat))
+        assert set(flat) == _visible(b, sq, t, h, qn, kn, True, window,
+                                     q_offset)
+    if window is None:
+        last = q_offset + sq - 1
+        assert plan.pair_lo == min(plan.n_kb, (q_offset + 1) // 64)
+        assert plan.pair_hi == min(plan.n_kb, last // 64 + 1)
+        assert {s[3] for u in dkdv for s in u} == set(range(plan.pair_hi))
+        per_head = (h // kv) // plan.split
+        work = [len(u) / per_head for u in dkdv]
+        step = 64 // plan.q_block
+        assert max(work) - min(work) <= 2 * step, (max(work), min(work))
+    pairs = int(tflash.attention_mask(sq, t, True, window, "cpu",
+                                      q_offset).sum())
+    q = torch.empty((b, sq, h, hd), dtype=dtype, device="meta")
+    kvt = torch.empty((b, t, kv, hd), dtype=dtype, device="meta")
+    lse = torch.empty((b, h, sq), device="meta")
+    n_ops, _ = tflash.flash_attention_bwd_cost(q, kvt, kvt, q, lse, q, True,
+                                               window, q_offset)
+    assert n_ops == 10 * hd * pairs * b * h

@@ -49,10 +49,10 @@ SHAPES = [
 DTYPES = [torch.bfloat16, torch.float32]
 
 
-def _visible(b, sq, t, h, qn, kn, causal, window):
+def _visible(b, sq, t, h, qn, kn, causal, window, q_offset=0):
     """Every (batch row, q head, query block of qn, key block of kn) that
     holds at least one pair the mask allows."""
-    allow = tflash.attention_mask(sq, t, causal, window, "cpu")
+    allow = tflash.attention_mask(sq, t, causal, window, "cpu", q_offset)
     blocks = set()
     for qb in range(-(-sq // qn)):
         for kb in range(-(-t // kn)):
@@ -201,3 +201,52 @@ def test_hd_80_plan_and_the_backward_refusal():
     assert out.shape == q.shape and lse.shape == (1, 2, 64)
     dq, dk, dv = tflash.flash_attention_bwd(q, kv, kv, out, lse, out)
     assert dq.shape == q.shape and dk.shape == dv.shape == kv.shape
+
+
+# (b, sq, t, h, kv, hd, window, q_offset), causal: a sequence shard of
+# tinyllama-1.1b's S 4096 over 16 ranks (the first, a middle and the last
+# rank's offsets), the reference's q chunk of 2048 at its second chunk,
+# offsets that are no multiple of a block, a window under an offset
+OFFSET_SHAPES = [
+    (1, 256, 4096, 32, 4, 64, None, 0),
+    (1, 256, 4096, 32, 4, 64, None, 1792),
+    (1, 256, 4096, 32, 4, 64, None, 3840),
+    (1, 2048, 4096, 8, 2, 64, None, 2048),
+    (2, 40, 128, 4, 2, 64, None, 24),
+    (2, 64, 128, 4, 2, 80, 32, 88),
+    (2, 100, 300, 4, 2, 128, None, 77),
+    (1, 77, 500, 4, 1, 16, 40, 300),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,sq,t,h,kv,hd,window,q_offset", OFFSET_SHAPES)
+def test_offset_plan_walks_only_the_visible_blocks(b, sq, t, h, kv, hd,
+                                                   window, q_offset, dtype):
+    """Under a query offset each CTA walks exactly the key blocks its rows
+    can see (none past its last row's position), in order, each visible
+    block once; under a causal mask without a window the last tile still
+    comes first and no CTA is launched after a lighter one; the cost
+    counts the visible pairs alone and the K/V rows they read."""
+    plan = tflash.fwd_plan(b, sq, t, h, kv, hd, dtype, True, window)
+    ctas = tflash.fwd_steps(plan, b, sq, t, h, kv, True, window, q_offset)
+    flat = [s for cta in ctas for s in cta]
+    assert len(flat) == len(set(flat))
+    assert set(flat) == _visible(b, sq, t, h, tflash.FWD_TILE, plan.k_block,
+                                 True, window, q_offset)
+    if window is None:
+        work = [len(cta) for cta in ctas]
+        assert work == sorted(work, reverse=True)
+    pairs = int(tflash.attention_mask(sq, t, True, window, "cpu",
+                                      q_offset).sum())
+    assert tflash.visible_pairs(sq, t, True, window, q_offset) == pairs
+    q = torch.empty((b, sq, h, hd), dtype=dtype, device="meta")
+    kvt = torch.empty((b, t, kv, hd), dtype=dtype, device="meta")
+    n_ops, n_bytes = tflash.flash_attention_cost(q, kvt, kvt, True, window,
+                                                 q_offset)
+    assert n_ops == 4 * hd * pairs * b * h
+    seen = min(t, q_offset + sq) - (max(0, q_offset - window + 1)
+                                    if window else 0)
+    es = q.element_size()
+    assert n_bytes == es * (2 * b * sq * h * hd + 2 * b * seen * kv * hd) \
+        + 4 * b * h * sq

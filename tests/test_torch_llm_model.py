@@ -273,7 +273,8 @@ def test_other_families_and_paths_raise():
                        match="slot-scheduled serving supports dense/moe"):
         TT.init_slot_cache(tconfigs.get_smoke("mamba2-780m"), 2, 8, "cpu")
     q = torch.zeros((1, 4, 2, 16))
-    with pytest.raises(NotImplementedError, match="q_offset"):
-        TL.blockwise_attention(q, q, q, q_offset=2)
+    # a query offset is taken (the LLM mesh's); a negative one is refused
+    with pytest.raises(ValueError, match="q_offset"):
+        TL.blockwise_attention(q, q, q, q_offset=-2)
     with pytest.raises(ValueError, match="attn_impl"):
         TL.blockwise_attention(q, q, q, attn_impl="triton")

@@ -95,6 +95,31 @@ def test_optimizers_match_reference_over_5_steps(name, jkw, tkw):
     assert ts["step"].dtype == torch.int32
 
 
+@pytest.mark.parametrize("name,jkw,tkw", OPTIMIZERS[:2])
+def test_adamw_updates_a_large_leaf_in_slices_to_the_same_bits(
+        monkeypatch, name, jkw, tkw):
+    """A leaf above ``UPDATE_SLICE`` elements is updated a slice of its
+    flat view at a time (a remainder slice included): three steps give the
+    bits of the whole-leaf update, moments and step included."""
+    from repro_torch.optim import adamw
+    rng = np.random.default_rng(2)
+    params = _tree(rng)
+    grads = [_tree(rng, 0.7) for _ in range(3)]
+    out = []
+    for limit in (adamw.UPDATE_SLICE, 5):
+        monkeypatch.setattr(adamw, "UPDATE_SLICE", limit)
+        opt = getattr(topt, name)(**tkw)
+        tp = _to_torch(params)
+        ts = opt.init(tp)
+        for g in grads:
+            opt.update(tp, _to_torch(g), ts)
+        out.append(_flat({"p": tp, "mu": ts["mu"], "nu": ts["nu"]}))
+    assert list(adamw._slices(torch.zeros(24)))[-1][0].numel() == 4
+    assert out[0].keys() == out[1].keys()
+    for k in out[0]:
+        assert np.array_equal(out[0][k], out[1][k]), k
+
+
 def test_clip_by_global_norm_matches_reference():
     rng = np.random.default_rng(1)
     g = _tree(rng, 2.0)

@@ -123,7 +123,7 @@ def main() -> int:
                 *(x.data_ptr() for x in args6), stats.data_ptr(),
                 None if part is None else part.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), b, s, s, h, kv, hd, 1, 0, 0,
-                int(plan.pair), plan.split, float(hd ** -0.5),
+                0, plan.pair_lo, plan.pair_hi, plan.split, float(hd ** -0.5),
                 int(route == "bf16"),
                 torch.cuda.current_stream().cuda_stream), "variant")
             return dq, dk, dv

@@ -10,7 +10,8 @@ This tree's kernel ("new") runs through
 LABEL=SRC``, repeatable) has its ``repro_torch/kernels/csrc/
 flash_attention.cu`` built alone with ``nvcc``, against its own headers,
 into a library of its own under ``build/flash_fwd_other/``, and is called
-through its ``repro_flash_attention`` (the C signature the trees share) on
+through its ``repro_flash_attention`` (a tree from before the query
+offset takes the signature without ``q_offset``, every offset 0 here) on
 the same tensors. At each shape (``--shapes``: the LLM training shape (2,
 2048, 32/4 heads of 64, causal), the serving shape (1, 512, ...), hd 128
 at internlm2's 16/8 heads over 2048 tokens) it holds each kernel's out and
@@ -54,8 +55,11 @@ def build_other(src: Path) -> ctypes.CDLL:
                         "-I", str(csrc), str(csrc / "flash_attention.cu"),
                         "-o", str(so)], check=True)
     lib = ctypes.CDLL(str(so))
-    lib.repro_flash_attention.argtypes = \
-        _build.SIGNATURES["repro_flash_attention"]
+    sig = list(_build.SIGNATURES["repro_flash_attention"])
+    lib.offset = "int q_offset" in (csrc / "flash_attention.cu").read_text()
+    if not lib.offset:
+        del sig[14]
+    lib.repro_flash_attention.argtypes = sig
     lib.repro_flash_attention.restype = ctypes.c_int
     return lib
 
@@ -93,7 +97,8 @@ def main() -> int:
         lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
         _build.check(lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, sq, t, h, kv, hd, 1, 0, 0, float(hd ** -0.5),
+            lse.data_ptr(), b, sq, t, h, kv, hd, 1, 0, 0,
+            *((0,) if lib.offset else ()), float(hd ** -0.5),
             0, torch.cuda.current_stream().cuda_stream), "other flash")
         return out, lse
 
